@@ -1,0 +1,1821 @@
+"""Device executor of the port: one logical plan -> eager PyTorch on the card.
+
+Port of ``nds_tpu/engine/device_exec.py`` for the plans of the NDS-H
+power run. The reference traces each plan into one static-shape XLA
+program; this port runs the same dataflow eagerly with torch tensors on
+the executor's device (``cuda`` unless the caller asks for the CPU):
+
+- **Masked fixed-capacity dataflow.** Every relation is a set of
+  fixed-capacity tensors plus a boolean presence mask, with the
+  reference's capacities: filters AND the mask, every operator's output
+  capacity is a host-known function of its inputs', and M:N join
+  overflow is counted on the device and read once per query, at its end,
+  to retry with doubled slack exactly as the reference does.
+- **Kernels.** The planner's kernel stamps (``engine/kernels.py``) pick
+  the join, semi-join and grouped min/max machinery, and the executor
+  counts the kernel each node actually used under the reference's names
+  (``join.direct``, ``join.matmul``, ``semi.bitmask``, ``agg.segscan``
+  ...), so each query's ``__kernels`` block matches the reference's.
+  The five hand-written CUDA kernels run behind those stamps; sorts,
+  searchsorted, cumsum and gathers are torch library ops, as the
+  reference left them to XLA.
+- **Strings never reach the device.** Dictionary codes only; LIKE, IN
+  and compares against literals are evaluated on the host dictionary
+  into lookup tables the device gathers through.
+- **Decimals are scaled int64**; division and AVG go through float64.
+
+Multi-key ``lax.sort`` becomes successive stable ``torch.sort`` passes
+from the least to the most significant key, which gives the same
+permutation as one stable lexicographic sort. Gathers whose index can
+leave the array (dictionary codes of NULL rows) clamp it, since torch
+faults where ``jnp.take`` fills. Plan nodes outside this slice (windows,
+set operations, DISTINCT, staged scans, partitioned M:N joins,
+parameterized literals) raise ``DeviceExecError``: they never run on the
+CPU instead.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import hashlib
+import time
+
+import numpy as np
+import torch
+
+from nds_tpu_torch.device import resolve_device
+from nds_tpu_torch.engine import kernels as KX
+from nds_tpu_torch.engine.cpu_exec import ResultTable, like_mask
+from nds_tpu_torch.engine.types import (
+    DateType, DecimalType, DType, FloatType, IntType, StringType,
+)
+from nds_tpu_torch.io.host_table import HostTable
+from nds_tpu_torch.sql import ir
+from nds_tpu_torch.sql import plan as P
+
+I64_MAX = np.iinfo(np.int64).max
+I64_MIN = np.iinfo(np.int64).min
+
+
+class DeviceExecError(RuntimeError):
+    pass
+
+
+class DVal:
+    """One evaluated column on the device: tensor + optional validity,
+    plus host-side metadata (string dictionary; integer value bounds
+    used for join-key bit packing)."""
+
+    __slots__ = ("arr", "valid", "sdict", "lo", "hi")
+
+    def __init__(self, arr, valid=None, sdict=None, lo=None, hi=None):
+        self.arr = arr
+        self.valid = valid
+        self.sdict = sdict
+        self.lo = lo
+        self.hi = hi
+
+    def with_arrays(self, arr, valid):
+        return DVal(arr, valid, self.sdict, self.lo, self.hi)
+
+
+def _pred_sig(e) -> str:
+    """Canonical predicate signature with column bindings normalized
+    out (the key of a table's survivor-reduced scan view)."""
+    if isinstance(e, ir.ColRef):
+        return f"col:{e.name}"
+    if dataclasses.is_dataclass(e) and not isinstance(e, type):
+        parts = [type(e).__name__]
+        for f in dataclasses.fields(e):
+            v = getattr(e, f.name)
+            if isinstance(v, (list, tuple)):
+                parts.append(
+                    "[" + ",".join(_pred_sig(x) for x in v) + "]")
+            else:
+                parts.append(_pred_sig(v))
+        return "(" + " ".join(parts) + ")"
+    return repr(e)
+
+
+def _ir_children(e):
+    """Every IR node one step below e, through nested lists/tuples."""
+    for f in dataclasses.fields(e):
+        stack = [getattr(e, f.name)]
+        while stack:
+            v = stack.pop()
+            if isinstance(v, (list, tuple)):
+                stack.extend(v)
+            elif isinstance(v, ir.IR):
+                yield v
+
+
+def _touches_float(e) -> bool:
+    if isinstance(e, ir.IR):
+        if isinstance(getattr(e, "dtype", None), FloatType):
+            return True
+        if isinstance(e, ir.Arith) and e.op == "/":
+            return True
+        return any(_touches_float(c) for c in _ir_children(e))
+    return False
+
+
+_EXACT_FLOAT_NODES = (
+    ir.ColRef, ir.Lit, ir.Arith, ir.Cmp, ir.BoolOp, ir.Not, ir.Neg,
+    ir.CaseIR, ir.LikeIR, ir.InListIR, ir.IsNullIR, ir.ExtractIR,
+    ir.SubstrIR, ir.StrMapIR, ir.ConcatIR, ir.CastIR)
+
+
+def _float_exact_safe(e) -> bool:
+    """Host f64 reduction of a float-touching predicate is sound only
+    when every node evaluates bit-identically on the host and the
+    device f64 path."""
+    if isinstance(e, ir.IR):
+        if not isinstance(e, _EXACT_FLOAT_NODES):
+            return False
+        return all(_float_exact_safe(c) for c in _ir_children(e))
+    return True
+
+
+class _ReducedScan:
+    """A survivor-reduced view of one table for one scan-filter
+    signature: host row indices of the survivors plus a power-of-two
+    padded capacity."""
+
+    __slots__ = ("prefix", "table", "nrows", "capacity", "idx")
+
+    def __init__(self, prefix: str, table: str, nrows: int, idx):
+        self.prefix = prefix
+        self.table = table
+        self.nrows = nrows
+        self.idx = idx
+        c = 1
+        while c < max(nrows, 1):
+            c <<= 1
+        self.capacity = c
+
+
+class DCtx:
+    """One relation: capacity (host int), presence mask (bool tensor),
+    and columns keyed by (binding, name)."""
+
+    # set True only by a scan whose arrays are in host storage order
+    # with a prefix row mask (the presorted-build fast path)
+    pristine = False
+
+    def __init__(self, n: int, row):
+        self.n = n
+        self.row = row
+        self.cols: dict[tuple, DVal] = {}
+
+    def gather(self, idx, clear_valid=None) -> "DCtx":
+        """New ctx with every column gathered at idx (in range by
+        construction). clear_valid, if given, is ANDed into every
+        column's validity (nulls out the build side of outer joins)."""
+        out = DCtx(idx.shape[0], None)
+        for k, dv in self.cols.items():
+            arr = dv.arr.index_select(0, idx)
+            valid = (None if dv.valid is None
+                     else dv.valid.index_select(0, idx))
+            if clear_valid is not None:
+                valid = clear_valid if valid is None else (valid & clear_valid)
+            out.cols[k] = dv.with_arrays(arr, valid)
+        return out
+
+    def merge(self, other: "DCtx") -> "DCtx":
+        if self.n != other.n:
+            raise DeviceExecError("merging contexts of unequal capacity")
+        out = DCtx(self.n, self.row)
+        out.cols.update(self.cols)
+        out.cols.update(other.cols)
+        return out
+
+
+def _ok(dv: DVal, row):
+    """Row-presence AND value-validity for a column."""
+    return row if dv.valid is None else (row & dv.valid)
+
+
+def _scale_of(t: DType) -> int:
+    return t.scale if isinstance(t, DecimalType) else 0
+
+
+def _to_float(arr, t: DType, fdt):
+    if isinstance(t, DecimalType):
+        return arr.to(fdt) / (10.0 ** t.scale)
+    return arr.to(fdt)
+
+
+def _rescale(arr, from_s: int, to_s: int):
+    if from_s == to_s:
+        return arr
+    if to_s > from_s:
+        return arr.to(torch.int64) * (10 ** (to_s - from_s))
+    return torch.floor_divide(arr.to(torch.int64), 10 ** (from_s - to_s))
+
+
+def _and_valid(a, b):
+    if a is None:
+        return b
+    if b is None:
+        return a
+    return a & b
+
+
+def _ss(ks, q, side="left"):
+    """searchsorted of q into the sorted ks (one dtype for both)."""
+    if ks.dtype != q.dtype:
+        dt = torch.promote_types(ks.dtype, q.dtype)
+        ks, q = ks.to(dt), q.to(dt)
+    return torch.searchsorted(ks.contiguous(), q.contiguous(),
+                              right=(side == "right"))
+
+
+def _take_codes(table, codes):
+    """Host-built lookup table gathered at dictionary codes, clamped:
+    codes of NULL rows may be any value (``jnp.take`` fills those, torch
+    would fault)."""
+    n = table.shape[0]
+    return table.index_select(0, codes.to(torch.int64).clamp(0, n - 1))
+
+
+def _lexsort(keys, n: int, device):
+    """Stable permutation sorting rows by ``keys`` (most significant
+    first): one stable sort per key from the least significant up, the
+    same order as ``lax.sort(keys + [iota], num_keys=len(keys),
+    is_stable=True)``."""
+    perm = torch.arange(n, dtype=torch.int64, device=device)
+    for key in reversed(keys):
+        _, idx = torch.sort(key.index_select(0, perm), stable=True)
+        perm = perm.index_select(0, idx)
+    return perm
+
+
+def _epoch_days_to_civil(days):
+    """Hinnant's algorithm: epoch days -> (year, month, day), integer ops
+    only."""
+    z = days.to(torch.int64) + 719468
+    era = torch.floor_divide(z, 146097)
+    doe = z - era * 146097
+    yoe = torch.floor_divide(
+        doe - torch.floor_divide(doe, 1460) + torch.floor_divide(doe, 36524)
+        - torch.floor_divide(doe, 146096), 365)
+    y = yoe + era * 400
+    doy = doe - (365 * yoe + torch.floor_divide(yoe, 4)
+                 - torch.floor_divide(yoe, 100))
+    mp = torch.floor_divide(5 * doy + 2, 153)
+    d = doy - torch.floor_divide(153 * mp + 2, 5) + 1
+    m = mp + torch.where(mp < 10, 3, -9)
+    y = y + (m <= 2).to(torch.int64)
+    return y.to(torch.int32), m.to(torch.int32), d.to(torch.int32)
+
+
+def _narrow_key(dv: DVal):
+    """int64 sort keys whose host bounds fit int32 narrow to int32 (the
+    reference's choice; the values, and so the order, are the same)."""
+    arr = dv.arr
+    if (arr.dtype == torch.int64 and dv.lo is not None
+            and dv.hi is not None and -2**31 < dv.lo
+            and dv.hi < 2**31 - 1):
+        return arr.to(torch.int32)
+    return arr
+
+
+def _plan_bindings(node: P.Node) -> set:
+    out = set()
+    for n in P.walk_plan(node):
+        b = getattr(n, "binding", "")
+        if b:
+            out.add(b)
+    return out
+
+
+def _expr_bindings(e: ir.IR) -> set:
+    return {x.binding for x in ir.walk(e) if isinstance(x, ir.ColRef)}
+
+
+class DeviceExecutor:
+    """Executes logical plans with torch tensors on one device. One
+    instance lives for a whole session: it owns the device buffer pool
+    (columns uploaded once, the load analog) and each plan's slack."""
+
+    DEFAULT_SLACK = 2.0
+
+    def __init__(self, tables: dict[str, HostTable], device=None):
+        self.tables = tables
+        self.device = resolve_device(device)
+        self._buffers: dict[str, torch.Tensor] = {}
+        self._bounds: dict[tuple, tuple] = {}
+        self._scan_views: dict[tuple, object] = {}
+        # host-built dictionary lookup tables (LIKE/IN/compare masks,
+        # string rewrites, dictionary unions) keyed by the dictionary's identity and the
+        # operation: the reference bakes them into each compiled
+        # program once; eager execution would rebuild them per run
+        self._dict_tables: dict[tuple, tuple] = {}
+        # per-plan state keyed by id(plan); each entry pins its plan so
+        # the id cannot be recycled while the entry lives
+        self._entries: dict[int, dict] = {}
+        self.last_timings: dict = {}
+
+    # ------------------------------------------------------------------ API
+
+    MAX_ENTRIES = 256
+    MAX_RETRIES = 3
+
+    def execute(self, planned: P.PlannedQuery) -> ResultTable:
+        """Run one planned query; on M:N join overflow, retry with
+        doubled slack (the slack is kept for the plan's later runs)."""
+        if not isinstance(planned, P.PlannedQuery):
+            raise DeviceExecError(f"cannot execute {type(planned).__name__}")
+        entry = self._entries.get(id(planned))
+        if entry is None or entry["ref"] is not planned:
+            entry = {"slack": self.DEFAULT_SLACK, "ref": planned}
+            self._entries[id(planned)] = entry
+            while len(self._entries) > self.MAX_ENTRIES:
+                self._entries.pop(next(iter(self._entries)))
+        retries = 0
+        while True:
+            timings: dict = {}
+            t0 = time.perf_counter()
+            tr = _Trace(self, entry["slack"])
+            row, outs, dicts = tr.run_query(planned)
+            host = self._to_host(row, outs, tr.total_overflow())
+            t1 = time.perf_counter()
+            if host is not None:
+                break
+            if retries >= self.MAX_RETRIES:
+                raise DeviceExecError("join expansion overflow after retries")
+            retries += 1
+            entry["slack"] *= 2
+        row_h, outs_h = host
+        out = self._materialize(planned, row_h, outs_h, dicts)
+        t2 = time.perf_counter()
+        timings["execute_ms"] = (t1 - t0) * 1000
+        timings["materialize_ms"] = (t2 - t1) * 1000
+        timings["slack_retries"] = float(retries)
+        timings["__kernels"] = dict(tr.kernels)
+        self.last_timings = timings
+        return out
+
+    # capacity at or above which results compact on the device before
+    # the copy to the host (the reference's COMPACT_MIN_ROWS)
+    COMPACT_MIN_ROWS = 1 << 17
+
+    def _to_host(self, row, outs, overflow):
+        """The query's one device->host exchange: the overflow count
+        (None is returned on overflow, for the caller's retry) and the
+        result. Large results compact first: one stable sort moves valid
+        rows to the front and only a power-of-two prefix covering them
+        crosses to the host."""
+        n = row.shape[0]
+        if n >= self.COMPACT_MIN_ROWS and outs:
+            perm = torch.sort((~row).to(torch.int32), stable=True)[1]
+            cnt_h, over_h = torch.stack(
+                [row.sum(), overflow.to(torch.int64)]).cpu().tolist()
+            if over_h:
+                return None
+            C = 1
+            while C < max(cnt_h, 1):
+                C <<= 1
+            C = min(C, n)
+            perm = perm[:C]
+            row = row.index_select(0, perm)
+            outs = [(a.index_select(0, perm), v.index_select(0, perm))
+                    for a, v in outs]
+        elif int(overflow.cpu()):
+            return None
+        return (row.cpu().numpy(),
+                [(a.cpu().numpy(), v.cpu().numpy()) for a, v in outs])
+
+    DICT_TABLES_MAX = 512
+
+    def dict_table(self, key: tuple, pins: tuple, build):
+        """Memoized ``build()`` for a host dictionary operation. ``key``
+        holds the ids of the ``pins`` objects (dictionaries, plan
+        nodes); the entry pins them, so a recycled id cannot serve a
+        stale table."""
+        hit = self._dict_tables.get(key)
+        if hit is not None and all(a is b for a, b in zip(hit[0], pins)):
+            return hit[1]
+        value = build()
+        while len(self._dict_tables) >= self.DICT_TABLES_MAX:
+            self._dict_tables.pop(next(iter(self._dict_tables)))
+        self._dict_tables[key] = (tuple(pins), value)
+        return value
+
+    # ------------------------------------------------------------ buffers
+
+    def _to_device(self, arr: np.ndarray) -> torch.Tensor:
+        return torch.as_tensor(np.ascontiguousarray(arr)).to(self.device)
+
+    def buffer(self, key: str, table: str, name: str, rv=None):
+        """Device tensor of one scanned column (``key`` ends ``#v`` for
+        its validity), uploaded once and pooled."""
+        hit = self._buffers.get(key)
+        if hit is not None or key in self._buffers:
+            return hit
+        col = self.tables[table].columns[name]
+        valid = key.endswith("#v")
+        host = col.null_mask if valid else col.values
+        if host is None:
+            self._buffers[key] = None
+            return None
+        if rv is not None:
+            host = host[rv.idx]
+            pad = rv.capacity - rv.nrows
+            if pad:
+                host = np.concatenate([host, np.zeros(pad, dtype=host.dtype)])
+        t = self._to_device(host)
+        self._buffers[key] = t
+        return t
+
+    # survivor-reduced scans, as the reference: at first use the scan's
+    # filter conjunction is evaluated once on the host, and when few
+    # enough rows survive the scan reads a reduced power-of-two-capacity
+    # buffer set instead, shrinking every downstream capacity. Filters
+    # are still applied on the device.
+    REDUCE_MIN_ROWS = 1 << 14
+    REDUCE_MAX_FRAC = 0.5
+    MAX_SCAN_VIEWS = 96
+
+    def scan_view(self, node):
+        """_ReducedScan for this scan's (table, filters), or None for the
+        full-table path. Deterministic per signature; cached."""
+        t = self.tables[node.table]
+        if not node.filters or t.nrows < self.REDUCE_MIN_ROWS:
+            return None
+        sig = "&".join(sorted(_pred_sig(f) for f in node.filters))
+        ck = (node.table, sig)
+        hit = self._scan_views.get(ck)
+        if hit is not None:
+            return hit if isinstance(hit, _ReducedScan) else None
+        keep = self._host_keep_mask(node, t)
+        s = 0 if keep is None else int(keep.sum())
+        if keep is None or s > t.nrows * self.REDUCE_MAX_FRAC:
+            self._scan_views[ck] = "full"
+            return None
+        h = hashlib.md5(sig.encode()).hexdigest()[:8]
+        rv = _ReducedScan(f"{node.table}@{h}", node.table, s,
+                          np.nonzero(keep)[0])
+        while len(self._scan_views) >= self.MAX_SCAN_VIEWS:
+            old = self._scan_views.pop(next(iter(self._scan_views)))
+            if isinstance(old, _ReducedScan):
+                for k in [k for k in self._buffers
+                          if k.startswith(old.prefix + ".")]:
+                    del self._buffers[k]
+        self._scan_views[ck] = rv
+        return rv
+
+    def _host_keep_mask(self, node, t: HostTable):
+        """Vectorized host evaluation of the scan's filters via the CPU
+        evaluator. Predicates it cannot evaluate simply don't reduce.
+        None = nothing evaluable."""
+        from nds_tpu_torch.engine import cpu_exec as cx
+        ctx = cx.Context(t.nrows)
+        for name, _dt in node.output:
+            col = t.columns[name]
+            arr = col.decode() if col.is_string else col.values
+            ctx.put((node.binding, name), np.asarray(arr), col.null_mask)
+        helper = cx.CpuExecutor(self.tables)
+        keep = np.ones(t.nrows, dtype=bool)
+        handled = 0
+        for pred in node.filters:
+            # a float predicate reduces on the host only when every op
+            # is IEEE-exact on both sides
+            if _touches_float(pred) and not _float_exact_safe(pred):
+                continue
+            try:
+                m, mv = helper.eval(pred, ctx)
+            except Exception:  # noqa: BLE001 - per-predicate fallback
+                continue
+            m = np.asarray(m).astype(bool)
+            if mv is not None:
+                m = m & mv
+            keep &= m
+            handled += 1
+        return keep if handled else None
+
+    def col_is_sorted(self, table: str, name: str) -> bool:
+        """Host-cached: column is non-null and nondecreasing."""
+        ck = (table, name, "sorted")
+        if ck not in self._bounds:
+            col = self.tables[table].columns[name]
+            ok = (col.null_mask is None and not col.is_string
+                  and np.issubdtype(col.values.dtype, np.number)
+                  and (len(col.values) < 2
+                       or bool(np.all(np.diff(col.values) >= 0))))
+            self._bounds[ck] = ok
+        return self._bounds[ck]
+
+    def col_bounds(self, table: str, name: str):
+        """Host-side (min, max) of an integer-typed column."""
+        ck = (table, name)
+        if ck not in self._bounds:
+            col = self.tables[table].columns[name]
+            if col.is_string:
+                self._bounds[ck] = (0, max(len(col.dictionary) - 1, 0))
+            elif np.issubdtype(col.values.dtype, np.integer):
+                vals = col.values
+                if col.null_mask is not None:
+                    vals = vals[col.null_mask]
+                if len(vals) == 0:
+                    self._bounds[ck] = (0, 0)
+                else:
+                    self._bounds[ck] = (int(vals.min()), int(vals.max()))
+            else:
+                self._bounds[ck] = (None, None)
+        return self._bounds[ck]
+
+    # ---------------------------------------------------------- materialize
+
+    def _materialize(self, planned: P.PlannedQuery, row, outs, dicts):
+        idx = np.nonzero(row)[0]
+        arrs, valids, dtypes = [], [], []
+        for (arr, valid), (name, dt), sd in zip(
+                outs, planned.root.output, dicts):
+            a = np.asarray(arr)[idx]
+            v = np.asarray(valid)[idx]
+            if sd is not None:
+                a = sd[np.clip(a, 0, len(sd) - 1)]
+                a = np.asarray(a, dtype=object)
+            arrs.append(a)
+            valids.append(None if v.all() else v)
+            dtypes.append(dt)
+        names = planned.column_names or [n for n, _ in planned.root.output]
+        return ResultTable(names, arrs, dtypes, valids)
+
+
+class _Trace:
+    """Runs one plan eagerly. Host-side numpy work (dictionary predicate
+    tables, key bounds) happens inline; every tensor lives on the
+    executor's device."""
+
+    def __init__(self, ex: DeviceExecutor, slack: float = 2.0):
+        self.ex = ex
+        self.dev = ex.device
+        self.slack = slack
+        self.fdt = torch.float64
+        self.scalars: dict[int, tuple] = {}
+        self._cache: dict[int, DCtx] = {}
+        self._overflows: list = []
+        # which kernel each hot operator actually used, under the
+        # reference's names (the BenchReport "kernels" block)
+        self.kernels: dict[str, int] = {}
+
+    def _note(self, kernel: str) -> None:
+        self.kernels[kernel] = self.kernels.get(kernel, 0) + 1
+
+    # small constructors on the trace's device
+    def _arange(self, n: int, dtype=torch.int32):
+        return torch.arange(n, dtype=dtype, device=self.dev)
+
+    def _zeros(self, n: int, dtype):
+        return torch.zeros(n, dtype=dtype, device=self.dev)
+
+    def _ones_bool(self, n: int):
+        return torch.ones(n, dtype=torch.bool, device=self.dev)
+
+    def _host(self, arr: np.ndarray):
+        return torch.as_tensor(np.ascontiguousarray(arr)).to(self.dev)
+
+    def total_overflow(self):
+        tot = torch.zeros((), dtype=torch.int64, device=self.dev)
+        for o in self._overflows:
+            tot = tot + o.to(torch.int64)
+        return tot
+
+    def run_query(self, planned: P.PlannedQuery):
+        for i, sub in enumerate(planned.scalar_subplans):
+            ctx = self.run(sub)
+            name, dt = sub.output[0]
+            dv = ctx.cols[(sub.binding, name)]
+            pos = torch.argmax(ctx.row.to(torch.int32))
+            v = dv.arr[pos]
+            ok = ctx.row[pos]
+            if dv.valid is not None:
+                ok = ok & dv.valid[pos]
+            self.scalars[i] = (v, ok, dv.sdict, dt)
+        ctx = self.run(planned.root)
+        root = planned.root
+        outs, dicts = [], []
+        for name, _dt in root.output:
+            dv = ctx.cols[(root.binding, name)]
+            valid = dv.valid if dv.valid is not None else self._ones_bool(
+                ctx.n)
+            outs.append((dv.arr, valid))
+            dicts.append(dv.sdict)
+        return ctx.row, outs, dicts
+
+    # ----------------------------------------------------------- plan nodes
+
+    def run(self, node: P.Node) -> DCtx:
+        nid = id(node)
+        if nid in self._cache:
+            return self._cache[nid]
+        method = getattr(self, "_run_" + type(node).__name__.lower(), None)
+        if method is None:
+            raise DeviceExecError(
+                f"plan node {type(node).__name__} is not ported to the "
+                f"torch engine yet")
+        ctx = method(node)
+        # trace-scoped: the running plan pins every node
+        self._cache[nid] = ctx
+        return ctx
+
+    def _run_scan(self, node: P.Scan) -> DCtx:
+        t = self.ex.tables[node.table]
+        rv = self.ex.scan_view(node)
+        if rv is not None:
+            n, nrows, prefix = rv.capacity, rv.nrows, rv.prefix
+        else:
+            n, nrows, prefix = max(t.nrows, 1), t.nrows, node.table
+        row = self._arange(n) < nrows
+        ctx = DCtx(n, row)
+        for name, _dt in node.output:
+            col = t.columns[name]
+            key = f"{prefix}.{name}"
+            arr = self.ex.buffer(key, node.table, name, rv)
+            valid = self.ex.buffer(key + "#v", node.table, name, rv)
+            if arr.shape[0] == 0:
+                arr = torch.zeros(1, dtype=arr.dtype, device=self.dev)
+                valid = None
+            lo, hi = self.ex.col_bounds(node.table, name)
+            sdict = col.dictionary if col.is_string else None
+            ctx.cols[(node.binding, name)] = DVal(arr, valid, sdict, lo, hi)
+        for pred in node.filters:
+            ctx = self._apply_filter(ctx, pred)
+        ctx.pristine = not node.filters
+        return ctx
+
+    def _apply_filter(self, ctx: DCtx, pred: ir.IR) -> DCtx:
+        dv = self.eval(pred, ctx)
+        m = dv.arr.to(torch.bool)
+        if dv.valid is not None:
+            m = m & dv.valid
+        out = DCtx(ctx.n, ctx.row & m)
+        out.cols = ctx.cols
+        return out
+
+    def _run_derivedscan(self, node: P.DerivedScan) -> DCtx:
+        child = self.run(node.child)
+        cb = node.child.binding
+        out = DCtx(child.n, child.row)
+        for name, _dt in node.child.output:
+            out.cols[(node.binding, name)] = child.cols[(cb, name)]
+        return out
+
+    def _run_filter(self, node: P.Filter) -> DCtx:
+        return self._apply_filter(self.run(node.child), node.predicate)
+
+    def _run_project(self, node: P.Project) -> DCtx:
+        ctx = self.run(node.child)
+        out = DCtx(ctx.n, ctx.row)
+        for name, e in node.exprs:
+            dv = self.eval(e, ctx)
+            if dv.arr.dim() == 0:
+                dv = dv.with_arrays(
+                    dv.arr.expand(ctx.n),
+                    None if dv.valid is None else dv.valid.expand(ctx.n))
+            out.cols[(node.binding, name)] = dv
+        return out
+
+    # -------------------------------------------------------------- joins
+
+    def _join_key_arrays(self, lvals, rvals, lctx, rctx):
+        """Align key pairs (string dictionary union, decimal rescale),
+        then bit-pack multi-column keys into one int64 per side. Returns
+        (lkey, lok, rkey, rok, span): span is the host-known (lo, hi)
+        range of the combined key, or None when a side lacks bounds."""
+        lok = lctx.row
+        rok = rctx.row
+        if len(lvals) == 1 and lvals[0].sdict is None \
+                and rvals[0].sdict is None:
+            lv, rv = lvals[0], rvals[0]
+            lk, rk = lv.arr.to(torch.int64), rv.arr.to(torch.int64)
+            span = None
+            if (lv.lo is not None and rv.lo is not None
+                    and lv.hi is not None and rv.hi is not None):
+                span = (min(lv.lo, rv.lo), max(lv.hi, rv.hi))
+                if span[0] > -2**31 and span[1] < 2**31 - 1:
+                    lk, rk = lk.to(torch.int32), rk.to(torch.int32)
+            return lk, _ok(lv, lok), rk, _ok(rv, rok), span
+        lks, rks, widths = [], [], []
+        for lv, rv in zip(lvals, rvals):
+            la, ra, lo, hi = self._align_pair(lv, rv)
+            lok = _ok(lv, lok)
+            rok = _ok(rv, rok)
+            lks.append((la, lo, hi))
+            rks.append((ra, lo, hi))
+            widths.append(max((hi - lo).bit_length(), 1))
+        if sum(widths) > 62:
+            raise DeviceExecError(
+                f"join key too wide to pack: {widths} bits")
+        lkey = self._pack(lks, widths)
+        rkey = self._pack(rks, widths)
+        if sum(widths) <= 30:
+            lkey = lkey.to(torch.int32)
+            rkey = rkey.to(torch.int32)
+        return lkey, lok, rkey, rok, (0, (1 << sum(widths)) - 1)
+
+    @staticmethod
+    def _pack(keys, widths):
+        acc = None
+        for (arr, lo, hi), w in zip(keys, widths):
+            norm = (arr.to(torch.int64) - lo).clamp(0, hi - lo)
+            acc = norm if acc is None else ((acc << w) | norm)
+        return acc
+
+    def _dict_union(self, lsd, rsd):
+        """Memoized string-dictionary union for one (left, right)
+        dictionary pair. Returns (union, lmap, rmap), the maps on the
+        device."""
+        def build():
+            union = np.union1d(lsd.astype(str), rsd.astype(str))
+            return (union,
+                    self._host(np.searchsorted(union, lsd.astype(str))),
+                    self._host(np.searchsorted(union, rsd.astype(str))))
+        return self.ex.dict_table(("union", id(lsd), id(rsd)), (lsd, rsd),
+                                  build)
+
+    def _align_pair(self, lv: DVal, rv: DVal):
+        """Make one key pair comparable as integers; returns
+        (l_arr, r_arr, lo, hi) with host-known bounds."""
+        if lv.sdict is not None or rv.sdict is not None:
+            if lv.sdict is None or rv.sdict is None:
+                raise DeviceExecError("string vs non-string join key")
+            if lv.sdict is rv.sdict or (
+                    len(lv.sdict) == len(rv.sdict)
+                    and np.array_equal(lv.sdict, rv.sdict)):
+                hi = max(len(lv.sdict) - 1, 0)
+                return lv.arr, rv.arr, 0, hi
+            union, lmap, rmap = self._dict_union(lv.sdict, rv.sdict)
+            return (_take_codes(lmap, lv.arr), _take_codes(rmap, rv.arr),
+                    0, max(len(union) - 1, 0))
+        if (lv.lo is None or lv.hi is None or rv.lo is None
+                or rv.hi is None):
+            raise DeviceExecError(
+                "join key without host bounds (needed for packing)")
+        return lv.arr, rv.arr, min(lv.lo, rv.lo), max(lv.hi, rv.hi)
+
+    def _presorted_build(self, right: P.Node, right_keys) -> bool:
+        """True when the build side is a bare unfiltered Scan whose
+        single join key is a host-proven sorted non-null column."""
+        if not isinstance(right, P.Scan) or right.filters:
+            return False
+        if len(right_keys) != 1:
+            return False
+        k = right_keys[0]
+        if not isinstance(k, ir.ColRef) or k.binding != right.binding:
+            return False
+        return self.ex.col_is_sorted(right.table, k.name)
+
+    @staticmethod
+    def _build_lookup(key, ok):
+        """Sort build keys (invalid rows to the sentinel end)."""
+        sentinel = torch.iinfo(key.dtype).max
+        k = torch.where(ok, key, torch.full_like(key, sentinel))
+        ks, order = torch.sort(k, stable=True)
+        return ks, order
+
+    @staticmethod
+    def _probe(ks, order, pkey, pok):
+        n = ks.shape[0]
+        pos = _ss(ks, pkey).clamp(0, n - 1)
+        hit = (ks.index_select(0, pos) == pkey) & pok
+        return order.index_select(0, pos), hit
+
+    def _run_join(self, node: P.Join) -> DCtx:
+        lctx, rctx = self.run(node.left), self.run(node.right)
+        if not node.left_keys:
+            return self._cross_join(node, lctx, rctx)
+        lvals = [self.eval(k, lctx) for k in node.left_keys]
+        rvals = [self.eval(k, rctx) for k in node.right_keys]
+        lkey, lok, rkey, rok, span = self._join_key_arrays(
+            lvals, rvals, lctx, rctx)
+        if node.kind == "full":
+            return self._full_join(node, lctx, rctx, lkey, lok, rkey,
+                                   rok)
+        if node.right_unique:
+            # gather join: probe from the left, build on the unique
+            # right; infeasible kernel choices demote to the sort path
+            ridx = hit = None
+            if (node.kernel == KX.JOIN_MATMUL
+                    and rctx.n <= 4 * KX.MATMUL_MAX_BUILD):
+                ridx, hit = KX.matmul_probe_join(
+                    rkey.contiguous(), rok.contiguous(),
+                    lkey.contiguous(), lok.contiguous())
+                self._note("join.matmul")
+            elif node.kernel in (KX.JOIN_MATMUL, KX.JOIN_DIRECT):
+                dom = (None if span is None
+                       else KX.domain_of(span[0], span[1]))
+                if KX.direct_feasible(dom, rctx.n):
+                    ridx, hit = KX.direct_lookup_join(
+                        rkey.contiguous(), rok.contiguous(),
+                        lkey.contiguous(), lok.contiguous(),
+                        int(span[0]), dom)
+                    self._note("join.direct")
+            if ridx is None:
+                if (rctx.pristine
+                        and self._presorted_build(node.right,
+                                                  node.right_keys)):
+                    sentinel = torch.iinfo(rkey.dtype).max
+                    ks = torch.where(rok, rkey,
+                                     torch.full_like(rkey, sentinel))
+                    order = self._arange(rkey.shape[0], torch.int64)
+                    self._note("join.presorted")
+                else:
+                    ks, order = self._build_lookup(rkey, rok)
+                    self._note("join.sortmerge")
+                ridx, hit = self._probe(ks, order, lkey, lok)
+            if node.kind == "left":
+                out = DCtx(lctx.n, lctx.row)
+                out.cols.update(lctx.cols)
+                gathered = rctx.gather(ridx, clear_valid=hit)
+                out.cols.update(gathered.cols)
+                if node.residual is not None:
+                    resid = self.eval(node.residual, out)
+                    rk = resid.arr.to(torch.bool)
+                    if resid.valid is not None:
+                        rk = rk & resid.valid
+                    keep = hit & rk
+                    out2 = DCtx(lctx.n, lctx.row)
+                    out2.cols.update(lctx.cols)
+                    out2.cols.update(
+                        rctx.gather(ridx, clear_valid=keep).cols)
+                    return out2
+                return out
+            out = DCtx(lctx.n, lctx.row & hit)
+            out.cols.update(lctx.cols)
+            out.cols.update(rctx.gather(ridx).cols)
+            if node.residual is not None:
+                out = self._apply_filter(out, node.residual)
+            return out
+        if node.kind == "inner":
+            return self._mn_join(node, lctx, rctx, lkey, lok, rkey, rok)
+        return self._left_expanding_join(node, lctx, rctx, lkey, lok,
+                                         rkey, rok)
+
+    def _mn_join(self, node, lctx, rctx, lkey, lok, rkey, rok) -> DCtx:
+        """Generic M:N inner join: sort the left side by key, find each
+        right row's match range by two searchsorteds, expand into a
+        fixed-capacity slot array. Capacity = slack * max(|L|, |R|);
+        overflow is counted for the executor's doubled-slack retry."""
+        K = max(int(self.slack * max(lctx.n, rctx.n)), 1)
+        if (node.kernel == KX.JOIN_PARTITIONED
+                and min(lctx.n, rctx.n) >= 2 * KX.NPART):
+            raise DeviceExecError(
+                "partitioned M:N join is not ported to the torch engine "
+                "yet")
+        self._note("join.sortmerge")
+        ks, order = self._build_lookup(lkey, lok)
+        lo = _ss(ks, rkey, side="left")
+        hi = _ss(ks, rkey, side="right")
+        cnt = torch.where(rok, hi - lo, torch.zeros_like(lo)).to(
+            torch.int64)
+        offs = torch.cumsum(cnt, 0)
+        total = offs[-1]
+        slots = self._arange(K)
+        if K + 1 >= 2**31:
+            raise DeviceExecError(f"join capacity {K} exceeds int32")
+        offs32 = offs.clamp_max(K + 1).to(torch.int32)
+        ridx = _ss(offs32, slots, side="right").clamp(0, rctx.n - 1)
+        prev = torch.where(
+            ridx > 0, offs32.index_select(0, (ridx - 1).clamp_min(0)),
+            torch.zeros((), dtype=torch.int32, device=self.dev))
+        within = slots - prev
+        lpos = (lo.index_select(0, ridx) + within).clamp(0, lctx.n - 1)
+        lidx2 = order.index_select(0, lpos)
+        present = slots < torch.clamp_max(total, K)
+        self._overflows.append((total - K).clamp_min(0))
+        out = DCtx(K, present)
+        out.cols.update(lctx.gather(lidx2).cols)
+        out.cols.update(rctx.gather(ridx).cols)
+        if node.residual is not None:
+            out = self._apply_filter(out, node.residual)
+        return out
+
+    def _left_expanding_join(self, node, lctx, rctx, lkey, lok, rkey,
+                             rok) -> DCtx:
+        """Left outer with a non-unique right side (q13's customer LEFT
+        JOIN orders): probe from the right against the unique left.
+        Block A = matched right rows with the left columns gathered;
+        block B = left rows with no surviving match."""
+        self._note("join.sortmerge")
+        ks, order = self._build_lookup(lkey, lok)
+        lidx, hit = self._probe(ks, order, rkey, rok)
+        presentA = rctx.row & hit
+        if node.residual is not None:
+            combined = DCtx(rctx.n, presentA)
+            combined.cols.update(rctx.cols)
+            combined.cols.update(lctx.gather(lidx).cols)
+            resid = self.eval(node.residual, combined)
+            rk = resid.arr.to(torch.bool)
+            if resid.valid is not None:
+                rk = rk & resid.valid
+            presentA = presentA & rk
+        scat = self._zeros(lctx.n, torch.int32).scatter_reduce_(
+            0, lidx.to(torch.int64), presentA.to(torch.int32), "amax",
+            include_self=True)
+        matched = scat > 0
+        n_out = rctx.n + lctx.n
+        out = DCtx(n_out, torch.cat([presentA, lctx.row & ~matched]))
+        gatheredA = lctx.gather(lidx)
+        for k, dv in lctx.cols.items():
+            ga = gatheredA.cols[k]
+            arr = torch.cat([ga.arr, dv.arr])
+            valid = None
+            if ga.valid is not None or dv.valid is not None:
+                gav = ga.valid if ga.valid is not None else self._ones_bool(
+                    rctx.n)
+                dvv = dv.valid if dv.valid is not None else self._ones_bool(
+                    lctx.n)
+                valid = torch.cat([gav, dvv])
+            out.cols[k] = dv.with_arrays(arr, valid)
+        falses = self._zeros(lctx.n, torch.bool)
+        for k, dv in rctx.cols.items():
+            arr = torch.cat([dv.arr, self._zeros(lctx.n, dv.arr.dtype)])
+            av = dv.valid if dv.valid is not None else self._ones_bool(rctx.n)
+            out.cols[k] = dv.with_arrays(arr, torch.cat([av, falses]))
+        return out
+
+    def _full_join(self, node: P.Join, lctx, rctx, lkey, lok, rkey,
+                   rok) -> DCtx:
+        """FULL OUTER over unique keys on both sides: capacity |L|+|R|."""
+        if not node.right_unique:
+            raise DeviceExecError(
+                "FULL OUTER JOIN requires unique join keys")
+        ks, order = self._build_lookup(rkey, rok)
+        ridx, hit = self._probe(ks, order, lkey, lok)
+        ks2, order2 = self._build_lookup(lkey, lok)
+        _lidx, rhit = self._probe(ks2, order2, rkey, rok)
+        unmatched_r = rctx.row & ~rhit
+        falsev = self._zeros(rctx.n, torch.bool)
+        out = DCtx(lctx.n + rctx.n, torch.cat([lctx.row, unmatched_r]))
+        gathered = rctx.gather(ridx, clear_valid=hit)
+        for k, dv in lctx.cols.items():
+            pad = torch.zeros((rctx.n,) + tuple(dv.arr.shape[1:]),
+                              dtype=dv.arr.dtype, device=self.dev)
+            arr = torch.cat([dv.arr, pad])
+            lv = dv.valid if dv.valid is not None else self._ones_bool(
+                lctx.n)
+            out.cols[k] = dv.with_arrays(arr, torch.cat([lv, falsev]))
+        for k, dv in rctx.cols.items():
+            g = gathered.cols[k]
+            arr = torch.cat([g.arr, dv.arr])
+            gv = g.valid if g.valid is not None else hit
+            dvv = dv.valid if dv.valid is not None else self._ones_bool(
+                rctx.n)
+            out.cols[k] = dv.with_arrays(arr, torch.cat([gv, dvv]))
+        return out
+
+    def _cross_join(self, node: P.Join, lctx: DCtx, rctx: DCtx) -> DCtx:
+        if lctx.n * rctx.n > 1 << 24:
+            raise DeviceExecError(
+                f"cross join too large: {lctx.n} x {rctx.n}")
+        li = torch.repeat_interleave(self._arange(lctx.n), rctx.n)
+        ri = self._arange(rctx.n).repeat(lctx.n)
+        out = lctx.gather(li).merge(rctx.gather(ri))
+        out.row = lctx.row.index_select(0, li) & rctx.row.index_select(0, ri)
+        if node.residual is not None:
+            out = self._apply_filter(out, node.residual)
+        return out
+
+    def _run_semijoin(self, node: P.SemiJoin) -> DCtx:
+        lctx, rctx = self.run(node.left), self.run(node.right)
+        lvals = [self.eval(k, lctx) for k in node.left_keys]
+        rvals = [self.eval(k, rctx) for k in node.right_keys]
+        if not node.left_keys:
+            raise DeviceExecError("semi join without keys")
+        lkey, lok, rkey, rok, span = self._join_key_arrays(
+            lvals, rvals, lctx, rctx)
+        dom = None if span is None else KX.domain_of(span[0], span[1])
+        want_bitmask = (node.kernel == KX.SEMI_BITMASK
+                        and KX.direct_feasible(dom, rctx.n))
+        if node.residual is None:
+            if want_bitmask:
+                exists = KX.bitmask_semi(
+                    rkey.contiguous(), rok.contiguous(), lkey.contiguous(),
+                    lok.contiguous(), int(span[0]), dom)
+                self._note("semi.bitmask")
+            else:
+                ks, order = self._build_lookup(rkey, rok)
+                _idx, hit = self._probe(ks, order, lkey, lok)
+                exists = hit
+                self._note("semi.sortmerge")
+        else:
+            exists = self._exists_with_residual(
+                node, lctx, rctx, lkey, lok, rkey, rok,
+                dom if want_bitmask else None,
+                None if span is None else int(span[0]))
+        keep = (lctx.row & ~exists) if node.anti else (lctx.row & exists)
+        out = DCtx(lctx.n, keep)
+        out.cols = lctx.cols
+        return out
+
+    def _exists_with_residual(self, node, lctx, rctx, lkey, lok, rkey,
+                              rok, dom=None, key_lo=None):
+        """EXISTS with a cross-side residual of the q21 shape
+        ``r.col <> l.col``: a right row with the key and a different
+        non-NULL col exists iff the per-key [min, max] of col over the
+        right rows is not exactly [l.col, l.col]. With a dense key domain
+        the min/max tables come from ``keyed_minmax_semi``; otherwise
+        from one 2-key sort of (key, col)."""
+        e = node.residual
+        if not (isinstance(e, ir.Cmp) and e.op == "<>"):
+            raise DeviceExecError(
+                f"unsupported semi-join residual: {e!r}")
+        rbinds = _plan_bindings(node.right)
+        if _expr_bindings(e.left) <= rbinds:
+            r_ir, l_ir = e.left, e.right
+        elif _expr_bindings(e.right) <= rbinds:
+            r_ir, l_ir = e.right, e.left
+        else:
+            raise DeviceExecError("residual does not split by side")
+        lcol = self.eval(l_ir, lctx)
+        rcol = self.eval(r_ir, rctx)
+        la, ra, lo, hi = self._align_pair(lcol, rcol)
+        lok2 = _ok(lcol, lok)
+        rok2 = _ok(rcol, rok)
+        rcol_n = ra
+        lcol_n = la
+        if (rkey.dtype == torch.int32 and -2**31 < lo
+                and hi < 2**31 - 1):
+            rcol_n = ra.to(torch.int32)
+            lcol_n = la.to(torch.int32)
+        if dom is not None and not rcol_n.dtype.is_floating_point \
+                and rcol_n.dtype != torch.bool:
+            self._note("semi.minmax")
+            return lok2 & KX.keyed_minmax_semi(
+                rkey.contiguous(), rok2.contiguous(), rcol_n.contiguous(),
+                lkey.contiguous(), lok2.contiguous(), lcol_n.contiguous(),
+                key_lo, dom)
+        self._note("semi.sortmerge")
+        k_sent = torch.iinfo(rkey.dtype).max
+        rkey_s = torch.where(rok2, rkey, torch.full_like(rkey, k_sent))
+        perm = _lexsort([rkey_s, rcol_n], rkey_s.shape[0], self.dev)
+        sk = rkey_s.index_select(0, perm)
+        sc = rcol_n.index_select(0, perm)
+        pos_l = _ss(sk, lkey, side="left")
+        pos_r = _ss(sk, lkey, side="right")
+        n = sk.shape[0]
+        cmin = sc.index_select(0, pos_l.clamp(0, n - 1))
+        cmax = sc.index_select(0, (pos_r - 1).clamp(0, n - 1))
+        has_key = pos_r > pos_l
+        differs = (cmin != lcol_n) | (cmax != lcol_n)
+        return lok & lok2 & has_key & differs
+
+    # --------------------------------------------------------- aggregation
+
+    def _run_aggregate(self, node: P.Aggregate) -> DCtx:
+        ctx = self.run(node.child)
+        b = node.binding
+        # each aggregate's argument is evaluated once and shared by the
+        # aggregate and its bounds (the reference re-traces it; XLA
+        # deduplicates, eager execution would not)
+        args = [None if spec.arg is None else self.eval(spec.arg, ctx)
+                for _, spec in node.aggs]
+        if not node.group_keys:
+            out = DCtx(1, self._ones_bool(1))
+            for (name, spec), dv in zip(node.aggs, args):
+                arr, valid, sdict = self._agg_global(spec, ctx, dv)
+                lo, hi = self._agg_bounds(spec, ctx, dv)
+                out.cols[(b, name)] = DVal(arr, valid, sdict, lo, hi)
+            return out
+        keyvals = [self.eval(e, ctx) for _, e in node.group_keys]
+        perm, gid, present_s, ngroups = self._group_ids(ctx, keyvals)
+        G = self._group_capacity(ctx.n, keyvals)
+        gid = gid.clamp_max(G - 1)
+        out = DCtx(G, self._arange(G) < ngroups)
+        # first sorted position per group (n for empty groups)
+        starts2 = _ss(gid, self._arange(G, gid.dtype))
+        starts = starts2.clamp(0, ctx.n - 1)
+        for (kname, _kexpr), kv in zip(node.group_keys, keyvals):
+            arr_s = kv.arr.index_select(0, perm)
+            arr_g = arr_s.index_select(0, starts)
+            valid_g = None
+            if kv.valid is not None:
+                valid_g = kv.valid.index_select(0, perm).index_select(
+                    0, starts)
+            out.cols[(b, kname)] = kv.with_arrays(arr_g, valid_g)
+        for (name, spec), dv in zip(node.aggs, args):
+            arr, valid, sdict = self._agg_grouped(
+                spec, ctx, dv, perm, gid, present_s, G, starts2,
+                kernel=node.kernel)
+            lo, hi = self._agg_bounds(spec, ctx, dv)
+            out.cols[(b, name)] = DVal(arr, valid, sdict, lo, hi)
+        return out
+
+    @staticmethod
+    def _seg_sum(data, starts2, G):
+        """Per-segment sum over the sorted row space via inclusive-cumsum
+        differences (starts2[g] = first sorted row of group g, n for
+        empty groups; rows outside any group carry 0). The cumsum keeps
+        the data's dtype, as the reference's does."""
+        n = data.shape[0]
+        csum = torch.cumsum(data, 0, dtype=data.dtype)
+        nxt = torch.cat([starts2[1:],
+                         torch.full((1,), n, dtype=starts2.dtype,
+                                    device=starts2.device)])
+        end = (nxt - 1).clamp(0, n - 1)
+        hi = csum.index_select(0, end)
+        lo = torch.where(starts2 > 0,
+                         csum.index_select(0, (starts2 - 1).clamp(0, n - 1)),
+                         torch.zeros((), dtype=csum.dtype,
+                                     device=csum.device))
+        return hi - lo
+
+    @staticmethod
+    def _agg_bounds(spec: P.AggSpec, ctx: DCtx, dv):
+        """Host-known value bounds of an aggregate output."""
+        if spec.func == "count":
+            return 0, ctx.n
+        if dv is None or dv.lo is None or dv.hi is None:
+            return None, None
+        if spec.func in ("min", "max"):
+            return dv.lo, dv.hi
+        if spec.func == "sum" and not isinstance(spec.dtype, FloatType):
+            return min(0, dv.lo) * ctx.n, max(0, dv.hi) * ctx.n
+        return None, None
+
+    @staticmethod
+    def _group_capacity(n: int, keyvals) -> int:
+        """Static bound on distinct groups: min(rows, product of key
+        domains)."""
+        prod = 1
+        for kv in keyvals:
+            if kv.sdict is not None:
+                dom = max(len(kv.sdict), 1)
+            elif kv.lo is not None and kv.hi is not None:
+                dom = max(int(kv.hi) - int(kv.lo) + 1, 1)
+            else:
+                return n
+            if kv.valid is not None:
+                dom += 1  # a NULL key forms one extra group
+            prod *= dom
+            if prod >= n:
+                return n
+        return max(min(prod, n), 1)
+
+    def _group_ids(self, ctx: DCtx, keyvals):
+        """Stable sort rows by (presence, key validity+values...);
+        returns (perm, gid int32 per sorted row, presence per sorted row,
+        ngroups). Present rows sort to the front."""
+        n = ctx.n
+        ops = [(~ctx.row).to(torch.int32)]
+        for kv in keyvals:
+            if kv.valid is not None:
+                ops.append((~kv.valid).to(torch.int32))
+            arr = _narrow_key(kv)
+            ops.append(torch.where(_ok(kv, ctx.row), arr,
+                                   torch.zeros((), dtype=arr.dtype,
+                                               device=self.dev)))
+        perm = _lexsort(ops, n, self.dev)
+        present_s = ctx.row.index_select(0, perm)
+        diff = self._zeros(n, torch.bool)
+        diff[0] = True
+        for o in ops[1:]:
+            o = o.index_select(0, perm)
+            diff[1:] |= o[1:] != o[:-1]
+        first_s = present_s & diff
+        gid = torch.cumsum(first_s.to(torch.int32), 0,
+                           dtype=torch.int32) - 1
+        gid = gid.clamp(0, n - 1)
+        ngroups = first_s.sum()
+        return perm, gid, present_s, ngroups
+
+    def _agg_global(self, spec: P.AggSpec, ctx: DCtx, dv):
+        if spec.func == "count":
+            if dv is None:
+                cnt = ctx.row.sum()
+                return (cnt.reshape(1).to(torch.int64),
+                        self._ones_bool(1), None)
+            w = _ok(dv, ctx.row)
+            if spec.distinct:
+                # sentinel-free distinct: validity is its own sort key
+                arr = _narrow_key(dv)
+                iv = (~w).to(torch.int32)
+                perm = _lexsort([iv, arr], arr.shape[0], self.dev)
+                iv_s = iv.index_select(0, perm)
+                v_s = arr.index_select(0, perm)
+                w_s = iv_s == 0
+                newv = torch.cat([self._ones_bool(1), v_s[1:] != v_s[:-1]])
+                cnt = (newv & w_s).sum()
+            else:
+                cnt = w.sum()
+            return (cnt.reshape(1).to(torch.int64), self._ones_bool(1),
+                    None)
+        w = _ok(dv, ctx.row)
+        cnt = w.sum()
+        valid = (cnt > 0).reshape(1)
+        zero_f = torch.zeros((), dtype=self.fdt, device=self.dev)
+        if spec.func == "sum":
+            if isinstance(spec.dtype, FloatType):
+                s = torch.where(w, dv.arr.to(self.fdt), zero_f).sum()
+            else:
+                s = torch.where(w, dv.arr.to(torch.int64),
+                                torch.zeros((), dtype=torch.int64,
+                                            device=self.dev)).sum()
+            return s.reshape(1), valid, None
+        if spec.func == "avg":
+            f = _to_float(dv.arr, spec.arg.dtype, self.fdt)
+            s = torch.where(w, f, zero_f).sum()
+            return (s / cnt.clamp_min(1)).reshape(1), valid, None
+        if spec.func in ("min", "max"):
+            if dv.arr.dtype.is_floating_point:
+                fill = float("inf") if spec.func == "min" else float("-inf")
+                masked = torch.where(w, dv.arr, torch.full_like(dv.arr, fill))
+            else:
+                fill = I64_MAX if spec.func == "min" else I64_MIN
+                a64 = dv.arr.to(torch.int64)
+                masked = torch.where(w, a64, torch.full_like(a64, fill))
+            red = masked.min() if spec.func == "min" else masked.max()
+            return red.reshape(1), valid, dv.sdict
+        if spec.func in ("stddev_samp", "stddev"):
+            f = _to_float(dv.arr, spec.arg.dtype, self.fdt)
+            s1 = torch.where(w, f, zero_f).sum()
+            s2 = torch.where(w, f * f, zero_f).sum()
+            c = cnt.to(self.fdt)
+            var = (s2 - s1 * s1 / c.clamp_min(1)) / (c - 1).clamp_min(1)
+            sd = torch.sqrt(var.clamp_min(0.0))
+            nan = torch.full_like(sd, float("nan"))
+            return torch.where(cnt > 1, sd, nan).reshape(1), valid, None
+        raise DeviceExecError(spec.func)
+
+    def _agg_grouped(self, spec: P.AggSpec, ctx: DCtx, dv, perm, gid,
+                     present_s, G, starts2, kernel: str = ""):
+        if spec.func == "count" and spec.distinct:
+            return self._count_distinct_grouped(ctx, dv, perm, gid, G)
+        if dv is None:  # count(*)
+            cnt = self._seg_sum(present_s.to(torch.int32), starts2,
+                                G).to(torch.int64)
+            return cnt, None, None
+        arr_s = dv.arr.index_select(0, perm)
+        w = present_s
+        if dv.valid is not None:
+            w = w & dv.valid.index_select(0, perm)
+        cnt = self._seg_sum(w.to(torch.int32), starts2, G).to(torch.int64)
+        if spec.func == "count":
+            return cnt, None, None
+        valid = cnt > 0
+        zero_f = torch.zeros((), dtype=self.fdt, device=self.dev)
+        if spec.func == "sum":
+            if isinstance(spec.dtype, FloatType):
+                data = torch.where(w, arr_s.to(self.fdt), zero_f)
+            else:
+                data = torch.where(w, arr_s.to(torch.int64),
+                                   torch.zeros((), dtype=torch.int64,
+                                               device=self.dev))
+            return self._seg_sum(data, starts2, G), valid, None
+        if spec.func == "avg":
+            f = _to_float(arr_s, spec.arg.dtype, self.fdt)
+            s = self._seg_sum(torch.where(w, f, zero_f), starts2, G)
+            return s / cnt.clamp_min(1).to(self.fdt), valid, None
+        if spec.func in ("min", "max"):
+            isf = arr_s.dtype.is_floating_point
+            if isf:
+                fill = float("inf") if spec.func == "min" else float("-inf")
+                data = torch.where(w, arr_s, torch.full_like(arr_s, fill))
+            else:
+                # int32 when host bounds allow, as the reference
+                arr_i = arr_s.to(torch.int64)
+                if (dv.lo is not None and dv.hi is not None
+                        and -2**31 < dv.lo and dv.hi < 2**31 - 1):
+                    arr_i = arr_s.to(torch.int32)
+                info = torch.iinfo(arr_i.dtype)
+                fill = info.max if spec.func == "min" else info.min
+                data = torch.where(w, arr_i, torch.full_like(arr_i, fill))
+            if kernel == KX.AGG_SEGSCAN:
+                red = KX.seg_reduce_at_ends(spec.func, data.contiguous(),
+                                            gid.contiguous(),
+                                            starts2.contiguous())
+                self._note("agg.segscan")
+            else:
+                red = torch.full((G,), fill, dtype=data.dtype,
+                                 device=self.dev).scatter_reduce_(
+                    0, gid.to(torch.int64), data,
+                    "amin" if spec.func == "min" else "amax",
+                    include_self=True)
+                self._note("agg.scatter")
+            if not isf and not isinstance(spec.dtype,
+                                          (FloatType, DecimalType)):
+                red = red.to(arr_s.dtype)
+            elif not isf:
+                red = red.to(torch.int64)
+            return red, valid, dv.sdict
+        if spec.func in ("stddev_samp", "stddev"):
+            f = _to_float(arr_s, spec.arg.dtype, self.fdt)
+            s1 = self._seg_sum(torch.where(w, f, zero_f), starts2, G)
+            s2 = self._seg_sum(torch.where(w, f * f, zero_f), starts2, G)
+            c = cnt.to(self.fdt)
+            var = (s2 - s1 * s1 / c.clamp_min(1)) / (c - 1).clamp_min(1)
+            sd = torch.sqrt(var.clamp_min(0.0))
+            return (torch.where(cnt > 1, sd, torch.full_like(sd, float("nan"))),
+                    valid, None)
+        raise DeviceExecError(spec.func)
+
+    def _count_distinct_grouped(self, ctx, dv, perm, gid, G):
+        """Re-sort by (presence, gid, value validity, value); count first
+        occurrences of (gid, value) among valid rows."""
+        n = ctx.n
+        val = _narrow_key(dv)
+        if val.dtype not in (torch.int32, torch.int64):
+            val = dv.arr.to(torch.int64)
+        w0 = _ok(dv, ctx.row)
+        # group id per original row: scatter sorted gid back through perm
+        gid_orig = torch.empty_like(gid)
+        gid_orig[perm] = gid
+        keys = [(~ctx.row).to(torch.int32), gid_orig, (~w0).to(torch.int32),
+                torch.where(w0, val, torch.zeros((), dtype=val.dtype,
+                                                 device=self.dev))]
+        perm2 = _lexsort(keys, n, self.dev)
+        g2 = gid_orig.index_select(0, perm2)
+        v2 = keys[3].index_select(0, perm2)
+        w2 = w0.index_select(0, perm2)
+        newpair = torch.cat([self._ones_bool(1),
+                             (g2[1:] != g2[:-1]) | (v2[1:] != v2[:-1])])
+        flag = w2 & newpair
+        starts2 = _ss(g2, self._arange(G, g2.dtype))
+        cnt = self._seg_sum(flag.to(torch.int32), starts2, G).to(torch.int64)
+        return cnt, None, None
+
+    # ------------------------------------------------------- sort and misc
+
+    def _run_sort(self, node: P.Sort) -> DCtx:
+        ctx = self.run(node.child)
+        keys = [(~ctx.row).to(torch.int32)]
+        for e, asc, nulls_first in node.keys:
+            dv = self.eval(e, ctx)
+            if dv.valid is not None:
+                rank = dv.valid if nulls_first else ~dv.valid
+                keys.append(rank.to(torch.int32))
+            arr = _narrow_key(dv)
+            if arr.dtype == torch.bool:
+                arr = arr.to(torch.int32)
+            key = arr if asc else -arr
+            if dv.valid is not None:
+                key = torch.where(dv.valid, key,
+                                  torch.zeros((), dtype=key.dtype,
+                                              device=self.dev))
+            keys.append(key)
+        perm = _lexsort(keys, ctx.n, self.dev)
+        out = ctx.gather(perm)
+        out.row = ctx.row.index_select(0, perm)
+        return out
+
+    def _compact(self, ctx: DCtx) -> DCtx:
+        """Stable-sort present rows to the front (before Limit when the
+        child did not already order them)."""
+        perm = torch.sort((~ctx.row).to(torch.int32), stable=True)[1]
+        out = ctx.gather(perm)
+        out.row = ctx.row.index_select(0, perm)
+        return out
+
+    def _run_limit(self, node: P.Limit) -> DCtx:
+        ctx = self.run(node.child)
+        if not isinstance(node.child, P.Sort):
+            ctx = self._compact(ctx)
+        cap = min(node.count, ctx.n)
+        out = DCtx(cap, ctx.row[:cap])
+        for k, dv in ctx.cols.items():
+            out.cols[k] = dv.with_arrays(
+                dv.arr[:cap], None if dv.valid is None else dv.valid[:cap])
+        return out
+
+    # ---------------------------------------------------------- expressions
+
+    def eval(self, e: ir.IR, ctx: DCtx) -> DVal:
+        if isinstance(e, ir.ColRef):
+            return ctx.cols[(e.binding, e.name)]
+        if isinstance(e, ir.Lit):
+            return self._eval_lit(e, ctx)
+        if isinstance(e, ir.ScalarRef):
+            v, ok, sdict, _dt = self.scalars[e.plan_id]
+            return DVal(v.expand(ctx.n), ok.expand(ctx.n), sdict)
+        if isinstance(e, ir.Arith):
+            return self._eval_arith(e, ctx)
+        if isinstance(e, ir.Cmp):
+            return self._eval_cmp(e, ctx)
+        if isinstance(e, ir.BoolOp):
+            vals = [self.eval(a, ctx) for a in e.args]
+            out = vals[0].arr.to(torch.bool)
+            valid = vals[0].valid
+            for dv in vals[1:]:
+                if e.op == "and":
+                    out = out & dv.arr.to(torch.bool)
+                else:
+                    out = out | dv.arr.to(torch.bool)
+                valid = _and_valid(valid, dv.valid)
+            return DVal(out, valid)
+        if isinstance(e, ir.Not):
+            dv = self.eval(e.operand, ctx)
+            return DVal(~dv.arr.to(torch.bool), dv.valid)
+        if isinstance(e, ir.Neg):
+            dv = self.eval(e.operand, ctx)
+            lo = None if dv.hi is None else -dv.hi
+            hi = None if dv.lo is None else -dv.lo
+            return DVal(-dv.arr, dv.valid, None, lo, hi)
+        if isinstance(e, ir.CaseIR):
+            return self._eval_case(e, ctx)
+        if isinstance(e, ir.LikeIR):
+            dv = self.eval(e.operand, ctx)
+            if dv.sdict is None:
+                raise DeviceExecError("LIKE over non-string")
+            sd = dv.sdict
+
+            def build():
+                table = like_mask(sd, e.pattern)
+                return self._host(~table if e.negated else table)
+            table = self.ex.dict_table(
+                ("like", id(sd), e.pattern, e.negated), (sd,), build)
+            return DVal(_take_codes(table, dv.arr), dv.valid)
+        if isinstance(e, ir.InListIR):
+            return self._eval_inlist(e, ctx)
+        if isinstance(e, ir.IsNullIR):
+            dv = self.eval(e.operand, ctx)
+            if dv.valid is None:
+                isnull = self._zeros(ctx.n, torch.bool)
+            else:
+                isnull = ~dv.valid
+            return DVal(~isnull if e.negated else isnull, None)
+        if isinstance(e, ir.ExtractIR):
+            dv = self.eval(e.operand, ctx)
+            y, m, d = _epoch_days_to_civil(dv.arr)
+            if e.part == "year":
+                return DVal(y, dv.valid, None, 1970, 2199)
+            if e.part == "month":
+                return DVal(m, dv.valid, None, 1, 12)
+            if e.part == "day":
+                return DVal(d, dv.valid, None, 1, 31)
+            raise DeviceExecError(f"extract {e.part}")
+        if isinstance(e, ir.StrMapIR):
+            dv = self.eval(e.operand, ctx)
+            f = str.upper if e.op == "upper" else str.lower
+            return self._rewrite_dict(dv, f, ("strmap", e.op))
+        if isinstance(e, ir.ConcatIR):
+            dv = self.eval(e.operand, ctx)
+            return self._rewrite_dict(dv, lambda s: e.prefix + s + e.suffix,
+                                      ("concat", e.prefix, e.suffix))
+        if isinstance(e, ir.SubstrIR):
+            return self._eval_substr(e, ctx)
+        if isinstance(e, ir.CastIR):
+            return self._eval_cast(e, ctx)
+        raise DeviceExecError(
+            f"cannot eval {type(e).__name__} on the torch engine")
+
+    def _eval_lit(self, e: ir.Lit, ctx: DCtx) -> DVal:
+        n = ctx.n
+        if isinstance(e.dtype, StringType):
+            # string literals only appear inside comparisons, which bind
+            # them against a dictionary
+            sd = self.ex.dict_table(
+                ("lit", id(e)), (e,),
+                lambda: np.array(["" if e.value is None else e.value],
+                                 dtype=object))
+            return DVal(self._zeros(n, torch.int32),
+                        self._zeros(n, torch.bool) if e.value is None
+                        else None, sd, 0, 0)
+        v = e.value
+        if v is None:
+            if isinstance(e.dtype, FloatType):
+                return DVal(self._zeros(n, self.fdt),
+                            self._zeros(n, torch.bool))
+            dt = torch.int32 if isinstance(e.dtype, DateType) else torch.int64
+            return DVal(self._zeros(n, dt), self._zeros(n, torch.bool),
+                        None, 0, 0)
+        if isinstance(e.dtype, FloatType):
+            return DVal(torch.full((n,), float(v), dtype=self.fdt,
+                                   device=self.dev), None)
+        iv = int(v)
+        dtype = torch.int64
+        if isinstance(e.dtype, IntType) and e.dtype.bits <= 32 \
+                and -2**31 <= iv < 2**31:
+            dtype = torch.int32
+        if isinstance(e.dtype, DateType):
+            dtype = torch.int32
+        return DVal(torch.full((n,), iv, dtype=dtype, device=self.dev),
+                    None, None, iv, iv)
+
+    def _eval_arith(self, e: ir.Arith, ctx: DCtx) -> DVal:
+        l = self.eval(e.left, ctx)  # noqa: E741
+        r = self.eval(e.right, ctx)
+        valid = _and_valid(l.valid, r.valid)
+        lt, rt = e.left.dtype, e.right.dtype
+        if isinstance(e.dtype, DateType):
+            return DVal(l.arr + r.arr, valid)
+        if e.op == "/":
+            la = _to_float(l.arr, lt, self.fdt)
+            ra = _to_float(r.arr, rt, self.fdt)
+            return DVal(la / ra, valid)
+        if isinstance(e.dtype, FloatType):
+            return DVal(_apply(e.op, _to_float(l.arr, lt, self.fdt),
+                               _to_float(r.arr, rt, self.fdt)), valid)
+        if isinstance(e.dtype, DecimalType):
+            if e.op == "*":
+                return DVal(l.arr.to(torch.int64) * r.arr.to(torch.int64),
+                            valid)
+            s = e.dtype.scale
+            la = _rescale(l.arr, _scale_of(lt), s)
+            ra = _rescale(r.arr, _scale_of(rt), s)
+            return DVal(_apply(e.op, la, ra), valid)
+        out = _apply(e.op, l.arr, r.arr)
+        lo = hi = None
+        if (l.lo is not None and r.lo is not None
+                and l.hi is not None and r.hi is not None):
+            if e.op == "+":
+                lo, hi = l.lo + r.lo, l.hi + r.hi
+            elif e.op == "-":
+                lo, hi = l.lo - r.hi, l.hi - r.lo
+            elif e.op == "*":
+                cands = [l.lo * r.lo, l.lo * r.hi, l.hi * r.lo, l.hi * r.hi]
+                lo, hi = min(cands), max(cands)
+        return DVal(out, valid, None, lo, hi)
+
+    def _eval_cmp(self, e: ir.Cmp, ctx: DCtx) -> DVal:
+        lt, rt = e.left.dtype, e.right.dtype
+        if isinstance(lt, StringType) or isinstance(rt, StringType):
+            return self._string_cmp(e, ctx)
+        l = self.eval(e.left, ctx)  # noqa: E741
+        r = self.eval(e.right, ctx)
+        valid = _and_valid(l.valid, r.valid)
+        la, ra = l.arr, r.arr
+        if isinstance(lt, DecimalType) or isinstance(rt, DecimalType):
+            if isinstance(lt, FloatType) or isinstance(rt, FloatType):
+                la, ra = (_to_float(la, lt, self.fdt),
+                          _to_float(ra, rt, self.fdt))
+            else:
+                s = max(_scale_of(lt), _scale_of(rt))
+                la = _rescale(la.to(torch.int64), _scale_of(lt), s)
+                ra = _rescale(ra.to(torch.int64), _scale_of(rt), s)
+        elif isinstance(lt, FloatType) or isinstance(rt, FloatType):
+            la, ra = (_to_float(la, lt, self.fdt),
+                      _to_float(ra, rt, self.fdt))
+        return DVal(_cmp(e.op, la, ra), valid)
+
+    def _string_cmp(self, e: ir.Cmp, ctx: DCtx) -> DVal:
+        lit, col_ir, flipped = None, None, False
+        if isinstance(e.right, ir.Lit):
+            lit, col_ir = e.right.value, e.left
+        elif isinstance(e.left, ir.Lit):
+            lit, col_ir, flipped = e.left.value, e.right, True
+        if lit is not None:
+            dv = self.eval(col_ir, ctx)
+            if dv.sdict is None:
+                raise DeviceExecError("string compare on non-dict column")
+            sd = dv.sdict
+            op = e.op
+            if flipped:
+                op = {"<": ">", "<=": ">=", ">": "<", ">=": "<="}.get(op, op)
+            table = self.ex.dict_table(
+                ("cmp", id(sd), op, str(lit)), (sd,),
+                lambda: self._host(_np_cmp(op, sd.astype(str), str(lit))))
+            return DVal(_take_codes(table, dv.arr), dv.valid)
+        l = self.eval(e.left, ctx)  # noqa: E741
+        r = self.eval(e.right, ctx)
+        valid = _and_valid(l.valid, r.valid)
+        la, ra, _sd = self._union_dict(l, r)
+        return DVal(_cmp(e.op, la, ra), valid)
+
+    def _union_dict(self, lv: DVal, rv: DVal):
+        if lv.sdict is None or rv.sdict is None:
+            raise DeviceExecError("union of string and non-string column")
+        if lv.sdict is rv.sdict or (
+                len(lv.sdict) == len(rv.sdict)
+                and np.array_equal(lv.sdict, rv.sdict)):
+            return lv.arr, rv.arr, lv.sdict
+        union, lmap, rmap = self._dict_union(lv.sdict, rv.sdict)
+        return (_take_codes(lmap, lv.arr), _take_codes(rmap, rv.arr),
+                union.astype(object))
+
+    def _eval_case(self, e: ir.CaseIR, ctx: DCtx) -> DVal:
+        if isinstance(e.dtype, StringType):
+            return self._eval_case_string(e, ctx)
+        conds, vals, branch_valids = [], [], []
+        for c, v in e.whens:
+            cdv = self.eval(c, ctx)
+            cm = cdv.arr.to(torch.bool)
+            if cdv.valid is not None:
+                cm = cm & cdv.valid
+            vdv = self.eval(v, ctx)
+            conds.append(cm)
+            vals.append(self._coerce(vdv, v.dtype, e.dtype))
+            branch_valids.append(vdv.valid)
+        if e.else_ is not None:
+            edv = self.eval(e.else_, ctx)
+            default = self._coerce(edv, e.else_.dtype, e.dtype)
+            valid = edv.valid
+        else:
+            if isinstance(e.dtype, FloatType):
+                default = self._zeros(ctx.n, self.fdt)
+            else:
+                default = self._zeros(ctx.n, torch.int64)
+            valid = self._zeros(ctx.n, torch.bool)  # no branch -> NULL
+        out = default
+        # the result's validity is the selected branch's validity
+        need_valid = valid is not None or any(
+            bv is not None for bv in branch_valids)
+        if need_valid and valid is None:
+            valid = self._ones_bool(ctx.n)
+        for c, v, bv in zip(reversed(conds), reversed(vals),
+                            reversed(branch_valids)):
+            out = torch.where(c, v, out)
+            if need_valid:
+                bvv = bv if bv is not None else self._ones_bool(ctx.n)
+                valid = torch.where(c, bvv, valid)
+        return DVal(out, valid)
+
+    def _eval_case_string(self, e: ir.CaseIR, ctx: DCtx) -> DVal:
+        """String-valued CASE: union the branch dictionaries on the
+        host, remap every branch's codes, then a where-chain over codes."""
+        branches = []
+        for c, v in e.whens:
+            cdv = self.eval(c, ctx)
+            cm = cdv.arr.to(torch.bool)
+            if cdv.valid is not None:
+                cm = cm & cdv.valid
+            branches.append((cm, self.eval(v, ctx)))
+        else_dv = (self.eval(e.else_, ctx) if e.else_ is not None
+                   else DVal(self._zeros(ctx.n, torch.int32),
+                             self._zeros(ctx.n, torch.bool),
+                             self.ex.dict_table(
+                                 ("case-null", id(e)), (e,),
+                                 lambda: np.array([""], dtype=object))))
+        dvals = [dv for _, dv in branches] + [else_dv]
+        for dv in dvals:
+            if dv.sdict is None:
+                raise DeviceExecError(
+                    "string CASE branch without dictionary")
+        sds = tuple(dv.sdict for dv in dvals)
+
+        def build():
+            union = np.array(sorted(set().union(
+                *[set(sd.astype(str)) for sd in sds])), dtype=object)
+            return union, [self._host(np.searchsorted(
+                union.astype(str), sd.astype(str)).astype(np.int32))
+                for sd in sds]
+        union, tables = self.ex.dict_table(
+            ("case",) + tuple(id(sd) for sd in sds), sds, build)
+        remapped = []
+        for dv, table in zip(dvals, tables):
+            arr = _take_codes(table, dv.arr)
+            if arr.dim() == 0:
+                arr = arr.expand(ctx.n)
+            remapped.append(arr)
+        out = remapped[-1]
+        valid = (else_dv.valid if else_dv.valid is not None
+                 else self._ones_bool(ctx.n))
+        for (cm, dv), arr in zip(reversed(branches),
+                                 reversed(remapped[:-1])):
+            out = torch.where(cm, arr, out)
+            bv = (dv.valid if dv.valid is not None
+                  else self._ones_bool(ctx.n))
+            valid = torch.where(cm, bv, valid)
+        return DVal(out, valid, union, 0, max(len(union) - 1, 0))
+
+    def _coerce(self, dv: DVal, src: DType, dst: DType):
+        if repr(src) == repr(dst):
+            return dv.arr
+        if isinstance(dst, FloatType):
+            return _to_float(dv.arr, src, self.fdt)
+        if isinstance(dst, DecimalType):
+            return _rescale(dv.arr.to(torch.int64), _scale_of(src),
+                            dst.scale)
+        return dv.arr
+
+    def _eval_inlist(self, e: ir.InListIR, ctx: DCtx) -> DVal:
+        dv = self.eval(e.operand, ctx)
+        if dv.sdict is not None:
+            sd = dv.sdict
+            want = tuple(str(v) for v in e.values)
+
+            def build():
+                table = np.isin(sd.astype(str), np.array(want))
+                return self._host(~table if e.negated else table)
+            table = self.ex.dict_table(("in", id(sd), want, e.negated),
+                                       (sd,), build)
+            return DVal(_take_codes(table, dv.arr), dv.valid)
+        vals = e.values
+        if isinstance(e.operand.dtype, DecimalType):
+            s = e.operand.dtype.scale
+            vals = [int(round(float(x) * 10 ** s)) for x in vals]
+        m = self._zeros(ctx.n, torch.bool)
+        for v in vals:
+            m = m | (dv.arr == v)
+        return DVal(~m if e.negated else m, dv.valid)
+
+    def _rewrite_dict(self, dv: DVal, fn, key: tuple) -> DVal:
+        """Apply a per-entry string transform to a dictionary-encoded
+        value: codes stay on the device; the host dictionary is
+        rewritten, deduplicated, re-sorted, and codes remapped. The
+        (new dictionary, remap) pair is memoized per (dictionary, key),
+        so later runs see the same dictionary object."""
+        if dv.sdict is None:
+            raise DeviceExecError("string transform over non-string")
+        sd = dv.sdict
+
+        def build():
+            newvals = np.array([fn(s) for s in sd.astype(str)],
+                               dtype=object)
+            uniq, inverse = np.unique(newvals.astype(str),
+                                      return_inverse=True)
+            return uniq.astype(object), self._host(inverse.astype(np.int32))
+        uniq, table = self.ex.dict_table(("rewrite", id(sd)) + key, (sd,),
+                                         build)
+        return DVal(_take_codes(table, dv.arr), dv.valid, uniq, 0,
+                    max(len(uniq) - 1, 0))
+
+    def _eval_substr(self, e: ir.SubstrIR, ctx: DCtx) -> DVal:
+        dv = self.eval(e.operand, ctx)
+        lo = e.start - 1
+        hi = None if e.length is None else lo + e.length
+        return self._rewrite_dict(dv, lambda s: s[lo:hi],
+                                  ("substr", lo, hi))
+
+    def _eval_cast(self, e: ir.CastIR, ctx: DCtx) -> DVal:
+        dv = self.eval(e.operand, ctx)
+        src = e.operand.dtype
+        if isinstance(e.dtype, FloatType):
+            return DVal(_to_float(dv.arr, src, self.fdt), dv.valid)
+        if isinstance(e.dtype, IntType):
+            if isinstance(src, DecimalType):
+                return DVal(torch.floor_divide(dv.arr, 10 ** src.scale).to(
+                    torch.int64), dv.valid)
+            return DVal(dv.arr.to(torch.int64), dv.valid, None,
+                        dv.lo, dv.hi)
+        if isinstance(e.dtype, DecimalType):
+            s = e.dtype.scale
+            if isinstance(src, DecimalType):
+                return DVal(_rescale(dv.arr, src.scale, s), dv.valid)
+            if isinstance(src, IntType):
+                return DVal(dv.arr.to(torch.int64) * 10 ** s, dv.valid)
+            return DVal(torch.round(dv.arr * 10 ** s).to(torch.int64),
+                        dv.valid)
+        raise DeviceExecError(f"cast to {e.dtype}")
+
+
+def _apply(op, l, r):  # noqa: E741
+    if op == "+":
+        return l + r
+    if op == "-":
+        return l - r
+    if op == "*":
+        return l * r
+    if op == "%":
+        return torch.remainder(l, r)
+    raise DeviceExecError(op)
+
+
+def _cmp(op, l, r):  # noqa: E741
+    if op == "=":
+        return l == r
+    if op == "<>":
+        return l != r
+    if op == "<":
+        return l < r
+    if op == "<=":
+        return l <= r
+    if op == ">":
+        return l > r
+    if op == ">=":
+        return l >= r
+    raise DeviceExecError(op)
+
+
+def _np_cmp(op, vals, lit):
+    if op == "=":
+        return vals == lit
+    if op == "<>":
+        return vals != lit
+    if op == "<":
+        return vals < lit
+    if op == "<=":
+        return vals <= lit
+    if op == ">":
+        return vals > lit
+    if op == ">=":
+        return vals >= lit
+    raise DeviceExecError(op)
+
+
+def make_device_factory(precision: str = "f64", device=None):
+    """Session executor factory that keeps ONE DeviceExecutor per table
+    registry, preserving its device buffers across queries (the
+    load-once, query-many lifecycle of a power run). ``device=None`` is
+    the card (``cuda``) and raises where there is none; the CPU must be
+    asked for (``device="cpu"``). Floats compute in float64, which
+    matches the CPU oracle; the reference's f32/bf16 precisions are not
+    ported yet."""
+    if precision != "f64":
+        raise ValueError(f"engine.precision {precision!r} is not ported "
+                         f"to the torch engine; only 'f64' is")
+    dev = resolve_device(device)
+    holder: dict = {}
+
+    def factory(tables):
+        ex = holder.get("ex")
+        if ex is None or ex.tables is not tables:
+            ex = DeviceExecutor(tables, dev)
+            holder["ex"] = ex
+        return ex
+
+    factory.invalidate = holder.clear
+    factory.device = dev
+    return factory

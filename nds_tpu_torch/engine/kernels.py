@@ -1,0 +1,519 @@
+"""Relational kernels of the port, and the planner's kernel-selection pass.
+
+Port of ``nds_tpu/engine/kernels.py``. The selection half (``annotate``,
+the thresholds, ``domain_of``, ``direct_feasible``) is copied verbatim,
+so both packages stamp the same kernel on every plan node. The kernel
+half replaces the JAX formulations with hand-written CUDA C++ for Hopper
+(``nds_tpu_torch/csrc``):
+
+=====================  ===================================  ======================
+wrapper                replaces (nds_tpu/engine/kernels.py)  source
+=====================  ===================================  ======================
+direct_lookup_join     ``direct_lookup_join`` (K1)           csrc/dense_domain.cu
+matmul_probe_join      ``matmul_probe_join`` (K2)            csrc/small_build_probe.cu
+bitmask_semi           ``bitmask_semi`` (K3)                 csrc/dense_domain.cu
+keyed_minmax_semi      ``keyed_minmax_semi`` (K4)            csrc/dense_domain.cu
+seg_reduce_at_ends     ``seg_scan`` + ``seg_reduce_at_ends``  csrc/seg_scan.cu
+                       (K5)
+=====================  ===================================  ======================
+
+Each wrapper dispatches on the device of its tensors: on a CUDA tensor
+it launches its kernel (or raises), on a CPU tensor it runs its plain
+PyTorch version ``<name>_plain``, which mirrors the JAX function step by
+step and is what the CPU tests compare with the reference. There is no
+fallback from the kernel to the plain version. Each wrapper counts its
+kernel launches in ``LAUNCHES[<wrapper>]`` (``reset_launches`` zeroes
+them), so a run can show that it went through the kernels.
+
+All five are bound by bytes on the card: the source files say how many,
+and what their design does about it.
+"""
+
+from __future__ import annotations
+
+import os
+
+import torch
+
+from nds_tpu_torch.sql import plan as P
+
+# ------------------------------------------------------------ selection
+
+# Join kernels (Join.kernel). "" = unannotated: legacy trace heuristics.
+JOIN_SORT = "sortmerge"
+JOIN_DIRECT = "direct"
+JOIN_MATMUL = "matmul"
+JOIN_PARTITIONED = "partitioned"
+JOIN_KERNELS = ("", JOIN_SORT, JOIN_DIRECT, JOIN_MATMUL,
+                JOIN_PARTITIONED)
+
+# SemiJoin kernels
+SEMI_SORT = "sortmerge"
+SEMI_BITMASK = "bitmask"
+SEMI_KERNELS = ("", SEMI_SORT, SEMI_BITMASK)
+
+# Aggregate kernels
+AGG_SEGSCAN = "segscan"
+AGG_SCATTER = "scatter"
+AGG_KERNELS = ("", AGG_SEGSCAN, AGG_SCATTER)
+
+# builds at or below this many estimated rows probe via one-hot matmul
+# (the equality matrix is (probe x build); 64 keeps it a thin MXU tile
+# even against multi-million-row probes)
+MATMUL_MAX_BUILD = 64
+# largest dense direct-address table the trace will materialize
+# (entries, not bytes: int32 -> 32 MiB at the cap)
+DIRECT_MAX_DOMAIN = 1 << 23
+# the dense table may be at most this many times larger than the build
+# capacity — beyond it the scatter/gather wins are eaten by the
+# table's own HBM traffic (surrogate keys are near-dense, ratio ~1-4)
+DIRECT_DOMAIN_FACTOR = 16
+# both sides of an M:N join must estimate at least this many rows for
+# radix partitioning to beat one flat sort
+PARTITION_MIN_ROWS = 1 << 16
+# radix partition count (power of two; per-partition sort depth drops
+# by log2(NPART) and all NPART sorts run as ONE batched lax.sort)
+NPART = 8
+
+ENV_FLAG = "NDS_TPU_KERNELS"
+
+
+def kernels_enabled() -> bool:
+    """Kill switch: NDS_TPU_KERNELS=0 leaves every plan unannotated so
+    the legacy sort-based paths serve everything (A/B runs, ndsperf's
+    "old" lane)."""
+    return os.environ.get(ENV_FLAG, "1") not in ("0", "off")
+
+
+# scan-filter selectivity guess per conjunct for the row estimator —
+# only drives kernel thresholds, never correctness (the trace
+# re-validates feasibility against real bounds at compile time)
+_FILTER_SEL = 0.4
+
+
+def _est_rows(node: P.Node, sizes: dict, memo: dict) -> float:
+    """Planning-time row estimate per node, from the catalog's relative
+    size statistics (the estimate_plan source the scheduler cost model
+    already uses). Deterministic; coarse is fine — thresholds are
+    order-of-magnitude decisions."""
+    nid = id(node)
+    if nid in memo:
+        return memo[nid]
+    memo[nid] = 1.0  # cycle guard
+    if isinstance(node, P.Scan):
+        rows = float(sizes.get(node.table, 1000.0))
+        rows *= _FILTER_SEL ** min(len(node.filters), 3)
+    elif isinstance(node, P.Join):
+        lr = _est_rows(node.left, sizes, memo)
+        rr = _est_rows(node.right, sizes, memo)
+        rows = lr if node.right_unique else max(lr, rr) * 2.0
+        if node.kind in ("left", "full"):
+            rows = lr + rr if node.kind == "full" else max(lr, rows)
+    elif isinstance(node, P.SemiJoin):
+        rows = _est_rows(node.left, sizes, memo)
+    elif isinstance(node, P.SetOp):
+        rows = (_est_rows(node.left, sizes, memo)
+                + _est_rows(node.right, sizes, memo))
+    elif isinstance(node, P.Aggregate):
+        rows = _est_rows(node.child, sizes, memo)
+    elif isinstance(node, P.Limit):
+        rows = float(min(node.count,
+                         _est_rows(node.child, sizes, memo)))
+    elif isinstance(node, P.Filter):
+        rows = _est_rows(node.child, sizes, memo) * _FILTER_SEL
+    else:
+        child = getattr(node, "child", None)
+        rows = (_est_rows(child, sizes, memo)
+                if isinstance(child, P.Node) else 1000.0)
+    rows = max(rows, 1.0)
+    memo[nid] = rows
+    return rows
+
+
+def select_join_kernel(left_rows: float, right_rows: float,
+                       right_unique: bool, kind: str) -> str:
+    """The selection rule for one Join node (README documents it):
+    unique builds go matmul (tiny) or direct (everything else — the
+    trace demotes to sortmerge when bounds/domain disqualify); M:N
+    inner joins go partitioned when both sides are large enough to
+    amortize the radix scatter."""
+    if right_unique:
+        if right_rows <= MATMUL_MAX_BUILD:
+            return JOIN_MATMUL
+        return JOIN_DIRECT
+    if (kind == "inner"
+            and min(left_rows, right_rows) >= PARTITION_MIN_ROWS):
+        return JOIN_PARTITIONED
+    return JOIN_SORT
+
+
+def annotate(planned, catalog=None) -> None:
+    """Stamp a kernel choice on every Join/SemiJoin/Aggregate of a
+    planned statement (in place; nodes already carrying an explicit
+    choice are left alone). Called by the planner at the end of
+    ``plan_statement``; a disabled env flag leaves plans untouched."""
+    if not kernels_enabled():
+        return
+    if not isinstance(planned, P.PlannedQuery):
+        return
+    sizes = dict(getattr(catalog, "sizes", None) or {})
+    memo: dict = {}
+    for root in [planned.root, *planned.scalar_subplans]:
+        if not isinstance(root, P.Node):
+            continue
+        for node in P.walk_plan(root):
+            if isinstance(node, P.Join) and not node.kernel:
+                node.kernel = select_join_kernel(
+                    _est_rows(node.left, sizes, memo),
+                    _est_rows(node.right, sizes, memo),
+                    node.right_unique, node.kind)
+            elif isinstance(node, P.SemiJoin) and not node.kernel:
+                node.kernel = SEMI_BITMASK
+            elif isinstance(node, P.Aggregate) and not node.kernel:
+                node.kernel = AGG_SEGSCAN
+
+
+def domain_of(lo, hi) -> "int | None":
+    """Dense-table entry count for host key bounds, or None when the
+    bounds are unusable (unknown, or too wide to enumerate)."""
+    if lo is None or hi is None:
+        return None
+    dom = int(hi) - int(lo) + 1
+    if dom < 1 or dom > DIRECT_MAX_DOMAIN:
+        return None
+    return dom
+
+
+def direct_feasible(dom: "int | None", build_capacity: int) -> bool:
+    """Whether a dense direct-address table of ``dom`` entries is worth
+    building for a ``build_capacity``-slot build side (trace-time
+    check; a False here demotes the node to the sort path and the
+    demotion is visible in the per-query kernel counts)."""
+    if dom is None:
+        return False
+    return dom <= max(build_capacity, 1) * DIRECT_DOMAIN_FACTOR
+
+
+
+# ------------------------------------------------------------ plumbing
+
+def _launch_device(*tensors) -> bool:
+    """True to launch the CUDA kernel, False for the plain version: the
+    plain version is taken only because the tensors lie on the CPU."""
+    devs = {t.device for t in tensors}
+    if len(devs) != 1:
+        raise ValueError(f"kernel inputs on several devices: {devs}")
+    dev = devs.pop()
+    if dev.type == "cpu":
+        return False
+    if dev.type != "cuda":
+        raise ValueError(f"no kernel for device {dev}")
+    return True
+
+
+def _require(t: torch.Tensor, name: str, dtypes, n: "int | None" = None):
+    if t.dtype not in dtypes:
+        raise TypeError(f"{name}: dtype {t.dtype} not in {dtypes}")
+    if t.dim() != 1:
+        raise ValueError(f"{name}: expected 1-D, got shape {tuple(t.shape)}")
+    if n is not None and t.shape[0] != n:
+        raise ValueError(f"{name}: length {t.shape[0]} != {n}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: not contiguous")
+
+
+_KEY_DTYPES = (torch.int32, torch.int64)
+
+
+def _keys_of(bkey, bok, pkey, pok) -> int:
+    """Checks a (build, probe) key pair; returns 1 for int64 keys."""
+    _require(bkey, "bkey", _KEY_DTYPES)
+    _require(pkey, "pkey", (bkey.dtype,))
+    _require(bok, "bok", (torch.bool,), bkey.shape[0])
+    _require(pok, "pok", (torch.bool,), pkey.shape[0])
+    return int(bkey.dtype == torch.int64)
+
+
+def _domain_args(lo: int, dom: int) -> tuple:
+    if not 1 <= dom <= DIRECT_MAX_DOMAIN:
+        raise ValueError(f"domain {dom} outside [1, {DIRECT_MAX_DOMAIN}]")
+    return int(lo), int(dom)
+
+
+def _ptr(t: torch.Tensor) -> int:
+    return t.data_ptr()
+
+
+def _lib(name: str):
+    from nds_tpu_torch.engine import cuda_build
+    return cuda_build, cuda_build.library(name)
+
+
+# kernel launches per wrapper, counted where each wrapper launches its
+# kernel and nowhere else (the plain versions count nothing)
+LAUNCHES: dict[str, int] = {}
+
+
+def _counted(fn):
+    LAUNCHES[fn.__name__] = 0
+    return fn
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def launch_counts() -> dict:
+    return dict(LAUNCHES)
+
+
+# -------------------------------------------------------- join kernels
+
+def direct_lookup_join_plain(bkey, bok, pkey, pok, lo: int, dom: int):
+    """Plain version of ``direct_lookup_join``: scatter each valid build
+    row's index at ``key - lo`` (invalid rows and keys outside the
+    domain go to an extra slot past the table, the JAX version's
+    dropped index), then one clamped gather."""
+    dev = bkey.device
+    n_build = bkey.shape[0]
+    slots = bkey.to(torch.int64) - lo
+    keep = bok & (slots >= 0) & (slots < dom)
+    idx = torch.where(keep, slots, torch.full_like(slots, dom))
+    tbl = torch.full((dom + 1,), -1, dtype=torch.int32, device=dev)
+    tbl.scatter_(0, idx, torch.arange(n_build, dtype=torch.int32,
+                                      device=dev))
+    tbl = tbl[:dom]
+    pos = pkey.to(torch.int64) - lo
+    inb = (pos >= 0) & (pos < dom)
+    ridx = tbl[pos.clamp(0, dom - 1)]
+    hit = pok & inb & (ridx >= 0)
+    return ridx.clamp_min(0), hit
+
+
+@_counted
+def direct_lookup_join(bkey, bok, pkey, pok, lo: int, dom: int):
+    """Unique-build equi-join through a dense table of ``dom`` int32
+    slots over keys ``[lo, lo + dom)``. Returns ``(ridx int32, hit
+    bool)`` per probe row, ``ridx`` clamped to >= 0 (the JAX contract:
+    a valid row index wherever ``hit`` is False)."""
+    if not _launch_device(bkey, bok, pkey, pok):
+        return direct_lookup_join_plain(bkey, bok, pkey, pok, lo, dom)
+    key64 = _keys_of(bkey, bok, pkey, pok)
+    lo, dom = _domain_args(lo, dom)
+    cb, lib = _lib("dense_domain")
+    np_ = pkey.shape[0]
+    tbl = torch.empty(dom, dtype=torch.int32, device=pkey.device)
+    ridx = torch.empty(np_, dtype=torch.int32, device=pkey.device)
+    hit = torch.empty(np_, dtype=torch.bool, device=pkey.device)
+    err = lib.nds_direct_lookup_join(
+        _ptr(bkey), _ptr(bok), bkey.shape[0], _ptr(pkey), _ptr(pok), np_,
+        key64, lo, dom, _ptr(tbl), _ptr(ridx), _ptr(hit),
+        cb.stream_handle())
+    cb.check(err, "direct_lookup_join")
+    LAUNCHES["direct_lookup_join"] += 1
+    return ridx, hit
+
+
+def matmul_probe_join_plain(bkey, bok, pkey, pok):
+    """Plain version of ``matmul_probe_join``: the (probe x build)
+    one-hot equality matrix contracted in float32 against the build
+    iota and against ones."""
+    dev = bkey.device
+    n_build = bkey.shape[0]
+    eq = (pkey[:, None] == bkey[None, :]) & bok[None, :]
+    eqf = eq.to(torch.float32)
+    iota = torch.arange(n_build, dtype=torch.float32, device=dev)
+    ridx = torch.matmul(eqf, iota).to(torch.int32)
+    cnt = torch.matmul(eqf, torch.ones(n_build, dtype=torch.float32,
+                                       device=dev))
+    hit = pok & (cnt > 0)
+    return ridx.clamp(0, n_build - 1), hit
+
+
+@_counted
+def matmul_probe_join(bkey, bok, pkey, pok):
+    """Unique-build equi-join for builds of at most 256 rows: the sum of
+    the matching build indices (clamped to ``[0, n_build)``) and whether
+    any matched, as the JAX version's f32 products give them."""
+    if not _launch_device(bkey, bok, pkey, pok):
+        return matmul_probe_join_plain(bkey, bok, pkey, pok)
+    key64 = _keys_of(bkey, bok, pkey, pok)
+    cb, lib = _lib("small_build_probe")
+    nb = bkey.shape[0]
+    if not 1 <= nb <= lib.nds_small_build_max():
+        raise ValueError(f"matmul_probe_join: build of {nb} rows outside "
+                         f"[1, {lib.nds_small_build_max()}]")
+    np_ = pkey.shape[0]
+    ridx = torch.empty(np_, dtype=torch.int32, device=pkey.device)
+    hit = torch.empty(np_, dtype=torch.bool, device=pkey.device)
+    err = lib.nds_matmul_probe_join(
+        _ptr(bkey), _ptr(bok), nb, _ptr(pkey), _ptr(pok), np_, key64,
+        _ptr(ridx), _ptr(hit), cb.stream_handle())
+    cb.check(err, "matmul_probe_join")
+    LAUNCHES["matmul_probe_join"] += 1
+    return ridx, hit
+
+
+def bitmask_semi_plain(bkey, bok, pkey, pok, lo: int, dom: int):
+    """Plain version of ``bitmask_semi``: a dense membership table."""
+    dev = bkey.device
+    slots = bkey.to(torch.int64) - lo
+    keep = bok & (slots >= 0) & (slots < dom)
+    idx = torch.where(keep, slots, torch.full_like(slots, dom))
+    bm = torch.zeros(dom + 1, dtype=torch.bool, device=dev)
+    bm[idx] = True
+    bm = bm[:dom]
+    pos = pkey.to(torch.int64) - lo
+    inb = (pos >= 0) & (pos < dom)
+    return pok & inb & bm[pos.clamp(0, dom - 1)]
+
+
+@_counted
+def bitmask_semi(bkey, bok, pkey, pok, lo: int, dom: int):
+    """EXISTS membership per probe row through a dense table over keys
+    ``[lo, lo + dom)`` (the caller negates for NOT EXISTS)."""
+    if not _launch_device(bkey, bok, pkey, pok):
+        return bitmask_semi_plain(bkey, bok, pkey, pok, lo, dom)
+    key64 = _keys_of(bkey, bok, pkey, pok)
+    lo, dom = _domain_args(lo, dom)
+    cb, lib = _lib("dense_domain")
+    np_ = pkey.shape[0]
+    bm = torch.empty(dom, dtype=torch.uint8, device=pkey.device)
+    out = torch.empty(np_, dtype=torch.bool, device=pkey.device)
+    err = lib.nds_bitmask_semi(
+        _ptr(bkey), _ptr(bok), bkey.shape[0], _ptr(pkey), _ptr(pok), np_,
+        key64, lo, dom, _ptr(bm), _ptr(out), cb.stream_handle())
+    cb.check(err, "bitmask_semi")
+    LAUNCHES["bitmask_semi"] += 1
+    return out
+
+
+def keyed_minmax_semi_plain(bkey, bok, bval, pkey, pok, pval, lo: int,
+                            dom: int):
+    """Plain version of ``keyed_minmax_semi``: per-key min, max and
+    presence tables by masked ``scatter_reduce_``, then three gathers."""
+    dev = bkey.device
+    slots = bkey.to(torch.int64) - lo
+    keep = bok & (slots >= 0) & (slots < dom)
+    idx = torch.where(keep, slots, torch.full_like(slots, dom))
+    info = torch.iinfo(bval.dtype)
+    mn = torch.full((dom + 1,), info.max, dtype=bval.dtype, device=dev)
+    mn.scatter_reduce_(0, idx, bval, "amin", include_self=True)
+    mx = torch.full((dom + 1,), info.min, dtype=bval.dtype, device=dev)
+    mx.scatter_reduce_(0, idx, bval, "amax", include_self=True)
+    present = torch.zeros(dom + 1, dtype=torch.bool, device=dev)
+    present[idx] = True
+    pos = pkey.to(torch.int64) - lo
+    inb = (pos >= 0) & (pos < dom)
+    at = pos.clamp(0, dom - 1)
+    has_key = pok & inb & present[at]
+    differs = (mn[at] != pval) | (mx[at] != pval)
+    return has_key & differs
+
+
+@_counted
+def keyed_minmax_semi(bkey, bok, bval, pkey, pok, pval, lo: int,
+                      dom: int):
+    """EXISTS with the q21 ``<>`` residual: a build row with this key
+    and a different value exists iff the key is present and its
+    [min, max] of build values is not exactly [pval, pval]."""
+    if not _launch_device(bkey, bok, bval, pkey, pok, pval):
+        return keyed_minmax_semi_plain(bkey, bok, bval, pkey, pok, pval,
+                                       lo, dom)
+    key64 = _keys_of(bkey, bok, pkey, pok)
+    _require(bval, "bval", _KEY_DTYPES, bkey.shape[0])
+    _require(pval, "pval", (bval.dtype,), pkey.shape[0])
+    lo, dom = _domain_args(lo, dom)
+    cb, lib = _lib("dense_domain")
+    dev = pkey.device
+    np_ = pkey.shape[0]
+    mn = torch.empty(dom, dtype=bval.dtype, device=dev)
+    mx = torch.empty(dom, dtype=bval.dtype, device=dev)
+    present = torch.empty(dom, dtype=torch.uint8, device=dev)
+    out = torch.empty(np_, dtype=torch.bool, device=dev)
+    err = lib.nds_keyed_minmax_semi(
+        _ptr(bkey), _ptr(bok), _ptr(bval), bkey.shape[0], _ptr(pkey),
+        _ptr(pok), _ptr(pval), np_, key64, int(bval.dtype == torch.int64),
+        lo, dom, _ptr(mn), _ptr(mx), _ptr(present), _ptr(out),
+        cb.stream_handle())
+    cb.check(err, "keyed_minmax_semi")
+    LAUNCHES["keyed_minmax_semi"] += 1
+    return out
+
+
+# ------------------------------------------------- aggregation kernels
+
+_OPS = {"min": torch.minimum, "max": torch.maximum}
+
+
+def seg_scan_plain(op: str, vals, flags):
+    """Segmented inclusive scan restarting ``op`` at every True flag:
+    the (value, reset-flag) combiner of the JAX version, as a
+    Hillis-Steele scan (log2(n) doubling steps)."""
+    f_op = _OPS[op]
+    v, f = vals, flags
+    n = v.shape[0]
+    d = 1
+    while d < n:
+        nv = torch.where(f[d:], v[d:], f_op(v[:-d], v[d:]))
+        nf = f[d:] | f[:-d]
+        v = torch.cat([v[:d], nv])
+        f = torch.cat([f[:d], nf])
+        d *= 2
+    return v
+
+
+def seg_reduce_at_ends_plain(op: str, data, gid, starts2):
+    """Plain version of ``seg_reduce_at_ends``: the segmented scan over
+    sorted group ids, read at each group's last row (``starts2`` holds
+    each group's first sorted row, n past the last group)."""
+    n = data.shape[0]
+    first = torch.cat([torch.ones(1, dtype=torch.bool, device=gid.device),
+                       gid[1:] != gid[:-1]])
+    run = seg_scan_plain(op, data, first)
+    nxt = torch.cat([starts2[1:],
+                     torch.full((1,), n, dtype=starts2.dtype,
+                                device=starts2.device)])
+    end = (nxt - 1).clamp(0, n - 1)
+    return run[end]
+
+
+_SCAN_VTYPES = {torch.int32: 0, torch.int64: 1, torch.float32: 2,
+                torch.float64: 3}
+
+
+@_counted
+def seg_reduce_at_ends(op: str, data, gid, starts2):
+    """Grouped min or max (``op`` is "min" or "max") over rows sorted
+    by group id, with no scatter: a segmented scan read at segment
+    ends. Rows outside any group must carry the op's identity."""
+    if op not in _OPS:
+        raise ValueError(f"seg_reduce_at_ends: op {op!r}")
+    if not _launch_device(data, gid, starts2):
+        return seg_reduce_at_ends_plain(op, data, gid, starts2)
+    n = data.shape[0]
+    _require(data, "data", tuple(_SCAN_VTYPES))
+    _require(gid, "gid", (torch.int32,), n)
+    _require(starts2, "starts2", _KEY_DTYPES)
+    G = starts2.shape[0]
+    if n < 1 or G < 1:
+        raise ValueError(f"seg_reduce_at_ends: n={n}, G={G}")
+    cb, lib = _lib("seg_scan")
+    tile = lib.nds_seg_scan_tile()
+    ntiles = -(-n // tile)
+    dev = data.device
+    run = torch.empty(n, dtype=data.dtype, device=dev)
+    fl = torch.empty(n, dtype=torch.uint8, device=dev)
+    tile_v = torch.empty(ntiles, dtype=data.dtype, device=dev)
+    tile_f = torch.empty(ntiles, dtype=torch.uint8, device=dev)
+    carry = torch.empty(ntiles, dtype=data.dtype, device=dev)
+    out = torch.empty(G, dtype=data.dtype, device=dev)
+    err = lib.nds_seg_reduce_at_ends(
+        _ptr(data), _SCAN_VTYPES[data.dtype], int(op == "max"), _ptr(gid),
+        n, _ptr(starts2), int(starts2.dtype == torch.int64), G, _ptr(run),
+        _ptr(fl), _ptr(tile_v), _ptr(tile_f), _ptr(carry), _ptr(out),
+        cb.stream_handle())
+    cb.check(err, "seg_reduce_at_ends")
+    LAUNCHES["seg_reduce_at_ends"] += 1
+    return out
