@@ -1,35 +1,48 @@
 #!/usr/bin/env python3
-"""Chip smoke of the PyTorch/CUDA port: the NDS-H power run on one card.
+"""Chip smoke of the PyTorch/CUDA port: the NDS-H and NDS power runs on one card.
 
-    python3 chip_smoke.py [--sf 1.0] [--out chiprun_out/smoke.json]
+    python3 chip_smoke.py [--sf 1.0] [--sf-ds 1.0] [--out results/smoke.json]
 
 Drives ``nds_tpu_torch`` (never ``jax``, never ``nds_tpu``) on the card:
 
 1. prints the card (``nvidia-smi`` name and power limit) and the torch and
    CUDA versions; exits 2 without a CUDA device;
-2. builds the five CUDA C++ kernels from ``nds_tpu_torch/csrc`` with
-   ``nvcc`` (one process per source, all at once);
-3. generates NDS-H data at ``--sf`` (default SF1, ``bench.py``'s scale)
-   with the port's generator and registers it in
-   ``Session.for_nds_h(make_device_factory())`` on ``cuda`` and in the
-   CPU oracle's session;
-4. kernel phase: every kernel against its plain PyTorch version on the
-   card, on the inputs the main path handed it in an untimed pass of the
-   22 queries (captured at each kernel's largest call) and at the SF1
-   shapes of the main path's joins built from the real columns (probe
-   6,001,215 rows; builds of 1,500,000, 200,000, 25 and 256 rows; the
-   segmented scan over 6,001,215 rows at several group counts). Results
-   must be exactly equal. Each line gives the kernel's time (CUDA events,
-   median after warm-up), the plain version's, the bytes it must move, the
-   least time the card could take for them (``bound_ms``) and, where one
-   PyTorch call computes the same thing, that call's time;
-5. main path: launch counts set to 0, the 22 queries run once more and
-   timed, the counts read; then one more pass under ``torch.profiler``
-   gives the card's busy time per query and the kernels that hold it
-   longest; every result is checked against the CPU oracle by the
-   validator's rules, and every kernel's launch count required above 0;
-6. prints the kernels line, the card line, and as the last line
+2. generates both legs' data with the port's generators, then forks the
+   pool of CPU oracle workers (one per core, at most 8), before the card
+   is touched: the workers inherit the tables and run only numpy;
+3. builds the CUDA C++ kernels from ``nds_tpu_torch/csrc`` with ``nvcc``
+   (one process per source, all at once);
+4. NDS-H leg at ``--sf`` (default SF1, ``bench.py``'s scale):
+   ``Session.for_nds_h(make_device_factory())`` on ``cuda``;
+   an untimed pass of the 22 queries captures each kernel's largest call;
+   every kernel runs against its plain PyTorch version on those inputs
+   and at the main path's join shapes built from the real columns
+   (probe 6,001,215 rows at SF1; builds of 1,500,000, 200,000, 25 and 256
+   rows; the segmented scan at several group counts); launch counts set to
+   0, the 22 queries timed, the counts read; a pass under
+   ``torch.profiler`` for the card's busy time; every result checked
+   against the CPU oracle by the validator's rules, in the worker pool;
+5. NDS leg at ``--sf-ds`` (default SF1, ``bench.py``'s ``BENCH_NDS_SF``):
+   the same phases over the 103 statements of the NDS power run
+   (``Session.for_nds``), with the validator's two carve-outs (q65 on its
+   row count, q78's column 3 at rel tol 0.01001);
+6. window path: whole-partition MIN/MAX and a running SUM under the
+   default RANGE frame over ``store_sales`` at the NDS leg's scale (no NDS
+   statement takes either form: the only path to
+   ``part_reduce_broadcast``), kernels checked, timed with counts read,
+   results checked against the oracle;
+7. prints the kernels line (one entry per kernel wrapper: launches summed
+   over the three timed runs, each kernel's numbers from the path that
+   runs it), the card line, and as the last line
    ``{"ok": true, "device": {...}}``.
+
+Kernel checks: integer and min/max outputs must equal the plain version's
+exactly; a float sum (the segmented scan's "sum" on float values) within
+|got - plain| <= 1e-9 * max(1, |plain|), since the two add in other
+orders. Each check gives the kernel's time (CUDA events, median of 7 after
+2 warm-ups), the plain version's, the bytes it must move, the least time
+the card could take for them (``bound_ms``) and, where one PyTorch call
+computes the same thing, that call's time.
 
 Any failed phase raises: the exit code is then non-zero and no result
 line is printed. ``--device cpu`` rehearses the script on the CPU, where
@@ -40,6 +53,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import multiprocessing
 import os
 import statistics
 import subprocess
@@ -61,6 +75,41 @@ KERNELS = {
                           "nds_tpu/engine/kernels.py:285"),
     "seg_reduce_at_ends": ("nds_tpu_torch/csrc/seg_scan.cu",
                            "nds_tpu/engine/kernels.py:420,438"),
+    "partitioned_mn_join": ("nds_tpu_torch/csrc/partitioned_join.cu",
+                            "nds_tpu/engine/kernels.py:349,321,310"),
+    "seg_scan": ("nds_tpu_torch/csrc/seg_scan.cu",
+                 "nds_tpu/engine/kernels.py:420"),
+    "part_reduce_broadcast": ("nds_tpu_torch/csrc/seg_scan.cu",
+                              "nds_tpu/engine/kernels.py:456"),
+    "last_of_group": ("nds_tpu_torch/csrc/seg_scan.cu",
+                      "nds_tpu/engine/kernels.py:466"),
+}
+# the kernels each timed run must have launched
+H_REQUIRED = ("direct_lookup_join", "matmul_probe_join", "bitmask_semi",
+              "keyed_minmax_semi", "seg_reduce_at_ends")
+DS_REQUIRED = ("partitioned_mn_join", "seg_scan", "last_of_group")
+WINDOW_REQUIRED = ("part_reduce_broadcast", "last_of_group")
+# the path whose largest call gives each kernel's numbers in the line
+LINE_PATH = {**{n: "nds_h" for n in H_REQUIRED},
+             "partitioned_mn_join": "nds", "seg_scan": "nds",
+             "last_of_group": "nds", "part_reduce_broadcast": "window"}
+# float sums add in other orders in the kernel and its plain version
+FLOAT_SUM_RTOL = 1e-9
+
+# the window path: no NDS statement takes a whole-partition MIN/MAX or a
+# running aggregate under the default RANGE frame; each is wrapped in an
+# outer aggregate so that the result is small and deterministic
+WINDOW_SQL = {
+    "partition_minmax": (
+        "select ss_store_sk, count(*) cnt, sum(pmn) smn, sum(pmx) smx "
+        "from (select ss_store_sk, min(ss_net_paid) over (partition by "
+        "ss_item_sk) pmn, max(ss_net_paid) over (partition by ss_item_sk) "
+        "pmx from store_sales) w group by ss_store_sk order by ss_store_sk"),
+    "running_sum_range": (
+        "select ss_store_sk, count(*) cnt, sum(rq) srq, max(rq) mrq "
+        "from (select ss_store_sk, sum(ss_quantity) over (partition by "
+        "ss_item_sk order by ss_sold_date_sk) rq from store_sales) w "
+        "group by ss_store_sk order by ss_store_sk"),
 }
 
 
@@ -143,6 +192,14 @@ def max_abs_err(got, exp) -> float:
     return err
 
 
+def within_float_sum_tol(got, exp) -> bool:
+    """|got - exp| <= FLOAT_SUM_RTOL * max(1, |exp|) everywhere."""
+    import torch
+    d = (got.to(torch.float64) - exp.to(torch.float64)).abs()
+    lim = FLOAT_SUM_RTOL * exp.to(torch.float64).abs().clamp_min(1.0)
+    return bool((d <= lim).all())
+
+
 def work_of(name: str, args, out) -> tuple:
     """(bytes the function must move, operations it does): each input
     read once, each output written once; the operations are one per
@@ -154,6 +211,9 @@ def work_of(name: str, args, out) -> tuple:
     ops = rows
     if name == "matmul_probe_join":
         ops = args[2].numel() * args[0].numel()
+    if name == "partitioned_mn_join":
+        # one step per input row and per output slot
+        ops = rows + out[0].numel()
     return moved, ops
 
 
@@ -176,6 +236,11 @@ def library_call(name: str, args):
         return lambda: out.scatter_reduce_(
             0, idx, data, "amin" if op == "min" else "amax",
             include_self=False)
+    if name == "seg_scan" and args[0] == "sum":
+        # the unsegmented running sum: the same function where no row
+        # resets
+        vals = args[1]
+        return lambda: torch.cumsum(vals, 0)
     if name == "keyed_minmax_semi":
         bkey, bok, bval, _pk, _po, _pv, lo, dom = args
         idx = torch.where(bok, bkey.to(torch.int64) - lo,
@@ -189,19 +254,27 @@ def library_call(name: str, args):
 def check_kernel(KX, name: str, args, label: str, dev) -> dict:
     """Kernel vs its plain version on the same inputs: exact equality
     required; times and bound of this call."""
+    import torch
     fn = getattr(KX, name)
     plain = getattr(KX, name + "_plain")
     got = fn(*args)
+    t0 = time.perf_counter()
     exp = plain(*args)
     if dev.type == "cuda":
-        import torch
         torch.cuda.synchronize()
+    plain_first_s = time.perf_counter() - t0
     err = max_abs_err(got, exp)
-    if err != 0.0:
+    float_sum = (name == "seg_scan" and args[0] == "sum"
+                 and got.dtype.is_floating_point)
+    if err != 0.0 and not (float_sum and within_float_sum_tol(got, exp)):
         raise SmokeError(f"{name} [{label}] differs from its plain "
                          f"version: max_abs_err={err}")
     ms = time_ms(lambda: fn(*args), dev)
-    plain_ms = time_ms(lambda: plain(*args), dev, reps=3, warm=1)
+    # a plain version that takes seconds is timed once more, not four
+    # times
+    slow = plain_first_s > 1.0
+    plain_ms = time_ms(lambda: plain(*args), dev, reps=1 if slow else 3,
+                       warm=0 if slow else 1)
     lib = library_call(name, args)
     library_ms = time_ms(lib, dev) if lib is not None else None
     moved, ops = work_of(name, args, got)
@@ -218,13 +291,33 @@ def check_kernel(KX, name: str, args, label: str, dev) -> dict:
 
 # ------------------------------------------------------------------ data
 
-def make_tables(sf: float) -> dict:
-    from nds_tpu_torch.datagen import tpch
+def make_tables(suite: str, sf: float) -> dict:
+    """The port's generator for one suite ("nds_h" or "nds")."""
     from nds_tpu_torch.io.host_table import from_arrays
-    from nds_tpu_torch.nds_h.schema import get_schemas
+    if suite == "nds_h":
+        from nds_tpu_torch.datagen import tpch as gen
+        from nds_tpu_torch.nds_h.schema import get_schemas
+    else:
+        from nds_tpu_torch.datagen import tpcds as gen
+        from nds_tpu_torch.nds.schema import get_schemas
     schemas = get_schemas()
-    return {t: from_arrays(t, schemas[t], tpch.gen_table(t, sf))
+    return {t: from_arrays(t, schemas[t], gen.gen_table(t, sf))
             for t in schemas}
+
+
+def suite_units(suite: str) -> list:
+    """[(unit name, [statement, ...]), ...] of one power run."""
+    if suite == "nds_h":
+        from nds_tpu_torch.nds_h import streams
+        return [(str(qn), streams.statements(qn)) for qn in range(1, 23)]
+    from nds_tpu_torch.nds import streams
+    return streams.power_units()
+
+
+def suite_session(suite: str, factory=None):
+    from nds_tpu_torch.engine.session import Session
+    return (Session.for_nds_h(factory) if suite == "nds_h"
+            else Session.for_nds(factory))
 
 
 def sf1_shape_cases(tables: dict, dev) -> list:
@@ -327,7 +420,7 @@ def run_query(session, stmts):
 
 
 class Recorder:
-    """Wraps the kernel wrappers during the untimed pass to keep, per
+    """Wraps the kernel wrappers during an untimed pass to keep, per
     kernel, a copy of the inputs of its largest call."""
 
     def __init__(self, KX):
@@ -357,49 +450,52 @@ class Recorder:
         return wrapper
 
 
-def profile_pass(dsess, qids, dev, per_query) -> dict:
-    """One more pass of the 22 queries under torch.profiler. Each query
-    ends in its device->host copy, so the device work a query launched
-    runs inside its host range: per query, the time the card spent in
-    kernels and copies that started in that range. The busy share is
-    that device time over the timed pass's wall clock (the profiler
-    slows the host, not the card); the kernels that hold the card
-    longest are listed by name."""
+def profile_pass(dsess, units, dev, per_unit, label) -> dict:
+    """One more pass of the units under torch.profiler. Each unit ends in
+    its device->host copy, so the device work a unit launched runs inside
+    its host range: per unit, the time the card spent in kernels and
+    copies that started in that range. The busy share is that device time
+    over the timed pass's wall clock (the profiler slows the host, not the
+    card); the kernels that hold the card longest are listed by name."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
-    from nds_tpu_torch.nds_h import streams
     acts = [ProfilerActivity.CPU]
     if dev.type == "cuda":
         acts.append(ProfilerActivity.CUDA)
     with profile(activities=acts) as prof:
-        for qn in qids:
-            with record_function(f"query{qn}"):
-                run_query(dsess, streams.statements(qn))
+        for name, stmts in units:
+            with record_function(f"unit:{name}"):
+                run_query(dsess, stmts)
         if dev.type == "cuda":
             torch.cuda.synchronize()
 
     ranges, work = {}, []
     for ev in prof.events():
         on_dev = ev.device_type == DeviceType.CUDA
-        name = ev.name
-        if name.startswith("query") and name[5:].isdigit():
+        if ev.name.startswith("unit:"):
             if not on_dev:
-                ranges[int(name[5:])] = (ev.time_range.start,
-                                         ev.time_range.end)
+                ranges[ev.name[5:]] = (ev.time_range.start,
+                                       ev.time_range.end)
             continue
         if on_dev:
             work.append((ev.time_range.start,
-                         ev.time_range.elapsed_us() / 1000, name))
-    by_query = {qn: sum(ms for t, ms, _ in work if s <= t < e)
-                for qn, (s, e) in ranges.items()}
+                         ev.time_range.elapsed_us() / 1000, ev.name))
+    work.sort()
+    starts = [t for t, _ms, _n in work]
+    by_unit = {}
+    import bisect
+    for name, (s0, e0) in ranges.items():
+        lo, hi = bisect.bisect_left(starts, s0), bisect.bisect_left(starts,
+                                                                    e0)
+        by_unit[name] = sum(ms for _t, ms, _n in work[lo:hi])
     by_name: dict = {}
     for _t, ms, name in work:
         tot, cnt = by_name.get(name, (0.0, 0))
         by_name[name] = (tot + ms, cnt + 1)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]
-    device_ms = sum(by_query.values())
-    wall_ms = sum(per_query[q]["wall_ms"] for q in qids)
+    device_ms = sum(by_unit.values())
+    wall_ms = sum(per_unit[n]["wall_ms"] for n, _ in units)
     out = {"device_ms": device_ms, "timed_wall_ms": wall_ms,
            "profiled_wall_ms": sum((e - s) / 1000
                                    for s, e in ranges.values()),
@@ -407,15 +503,241 @@ def profile_pass(dsess, qids, dev, per_query) -> dict:
            "device_launches": len(work),
            "top_device_kernels": [{"kernel": k[:160], "ms": ms, "count": c}
                                   for k, (ms, c) in top]}
-    for qn in qids:
-        per_query[qn]["profiled_device_ms"] = by_query.get(qn)
-    log(json.dumps({"phase": "profile", **out}))
+    for name, _ in units:
+        per_unit[name]["profiled_device_ms"] = by_unit.get(name)
+    log(json.dumps({"phase": f"{label} profile", **out}))
     return out
+
+
+# the tables of both legs, set before the oracle workers are forked:
+# the workers inherit them and never touch the card
+_ORACLE_TABLES: dict = {}
+# one CPU oracle process per core, at most 8 (a one-card machine has 8)
+ORACLE_WORKERS = min(8, os.cpu_count() or 1)
+# a worker's CPU oracle session per suite, made at its first task
+_ORACLE_SESSIONS: dict = {}
+
+
+def _oracle_unit(task: tuple) -> tuple:
+    """In a forked worker: run one unit on the CPU oracle and compare
+    with the card's result frame."""
+    from nds_tpu_torch.nds.validate import unit_differs
+    from nds_tpu_torch.utils.validate_core import frames_equal
+    suite, name, stmts, got, rules = task
+    sess = _ORACLE_SESSIONS.get(suite)
+    if sess is None:
+        sess = suite_session(suite)
+        for t in _ORACLE_TABLES[suite].values():
+            sess.register_table(t)
+        _ORACLE_SESSIONS[suite] = sess
+    t0 = time.perf_counter()
+    try:
+        exp = run_query(sess, stmts).to_pandas()
+    except Exception as exc:  # noqa: BLE001 - reported as a mismatch
+        return name, f"oracle failed: {type(exc).__name__}: {exc}", None
+    ms = (time.perf_counter() - t0) * 1000
+    why = (unit_differs(got, exp, name) if rules == "nds"
+           else frames_equal(got, exp))
+    if why is None and rules == "window" and not len(exp):
+        why = "no rows"
+    return name, why, ms
+
+
+def oracle_check(pool, suite, units, results, per_unit,
+                 rules: str) -> tuple:
+    """Every unit's card result against the port's CPU oracle, in the
+    worker pool, under the rules of "nds_h", "nds" (the validator's
+    carve-outs) or "window" (plain rules, and rows required). Returns
+    (mismatches, seconds)."""
+    t0 = time.perf_counter()
+    tasks = [(suite, name, stmts, results[name].to_pandas(), rules)
+             for name, stmts in units]
+    bad = []
+    for name, why, ms in pool.imap_unordered(_oracle_unit, tasks):
+        per_unit[name]["cpu_oracle_ms"] = ms
+        per_unit[name]["match"] = why is None
+        if why is not None:
+            bad.append(f"{suite} {name}: {why}")
+    return bad, time.perf_counter() - t0
+
+
+def timed_pass(dsess, ex, units, dev) -> tuple:
+    """Each unit once, timed on the host clock to its synchronize."""
+    import torch
+    per_unit, results = {}, {}
+    for name, stmts in units:
+        t0 = time.perf_counter()
+        res = run_query(dsess, stmts)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1000
+        results[name] = res
+        lt = ex.last_timings
+        per_unit[name] = {"wall_ms": ms,
+                          "execute_ms": lt.get("execute_ms"),
+                          "materialize_ms": lt.get("materialize_ms"),
+                          "slack_retries": lt.get("slack_retries"),
+                          "staged_programs": lt.get("staged_programs"),
+                          "kernels": lt.get("__kernels"),
+                          "rows": res.nrows}
+    return per_unit, results
+
+
+def kernel_checks(KX, rec, label, dev) -> dict:
+    """Each kernel the untimed pass called, against its plain version on
+    its largest captured call."""
+    out = {}
+    for name in KERNELS:
+        if name in rec.largest:
+            out[name] = check_kernel(KX, name, rec.largest[name][1],
+                                     f"{label} main path", dev)
+    return out
+
+
+def run_leg(suite, KX, factory_of, dev, pool, record) -> tuple:
+    """One power run on the card over the suite's generated tables: the
+    untimed pass with its captured kernel calls, the kernel checks, the
+    timed pass with launch counts read, the profiled pass and the oracle
+    check."""
+    import torch
+    tables = _ORACLE_TABLES[suite]
+    factory = factory_of()
+    dsess = suite_session(suite, factory)
+    for t in tables.values():
+        dsess.register_table(t)
+    units = suite_units(suite)
+
+    # untimed pass: uploads, host-side planning, captured kernel inputs;
+    # each unit's time and peak device memory logged as it ends
+    t0 = time.perf_counter()
+    warm_peaks = {}
+    with Recorder(KX) as rec:
+        for name, stmts in units:
+            t1 = time.perf_counter()
+            if dev.type == "cuda":
+                torch.cuda.reset_peak_memory_stats()
+            run_query(dsess, stmts)
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+                warm_peaks[name] = torch.cuda.max_memory_allocated()
+            log(f"warm {suite} {name} {time.perf_counter() - t1:.2f}s "
+                f"peak {warm_peaks.get(name, 0) / 2**30:.2f} GiB")
+    warm_s = time.perf_counter() - t0
+    log(json.dumps({"phase": f"{suite} warm pass", "seconds": warm_s,
+                    "kernel_calls": rec.calls}))
+    main_cases = kernel_checks(KX, rec, suite, dev)
+    checks = list(main_cases.values())
+    called = [n for n, c in rec.calls.items() if c > 0]
+    del rec
+    if suite == "nds_h":
+        for name, kargs, label in sf1_shape_cases(tables, dev):
+            checks.append(check_kernel(KX, name, kargs, label, dev))
+
+    # the timed run: counts at 0, every unit once, counts read
+    ex = factory(dsess.tables)
+    KX.reset_launches()
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    per_unit, results = timed_pass(dsess, ex, units, dev)
+    launches = KX.launch_counts()
+    power_ms = sum(u["wall_ms"] for u in per_unit.values())
+    peak = torch.cuda.max_memory_allocated() if dev.type == "cuda" else None
+    profile = profile_pass(dsess, units, dev, per_unit, suite)
+
+    bad, oracle_s = oracle_check(pool, suite, units, results, per_unit,
+                                 rules=suite)
+    for name, _ in units:
+        log(json.dumps({"suite": suite, "unit": name, **per_unit[name]}))
+    leg = {"warm_pass_s": warm_s,
+           "power_total_ms": power_ms, "launches": launches,
+           "peak_device_bytes": peak, "oracle_s": oracle_s,
+           "profile": profile, "kernel_checks": checks,
+           "per_unit": per_unit, "called_in_warm_pass": called,
+           "warm_peak_device_bytes": warm_peaks,
+           "mismatches": bad}
+    record[suite] = leg
+    log(json.dumps({"phase": f"{suite} main path",
+                    "units": len(units), "power_total_ms": power_ms,
+                    "launches": launches, "peak_device_bytes": peak,
+                    "oracle_s": oracle_s, "mismatches": len(bad)}))
+    if bad:
+        raise SmokeError("results differ from the CPU oracle: "
+                         + "; ".join(bad))
+    required = set(called) | set(H_REQUIRED if suite == "nds_h"
+                                 else DS_REQUIRED)
+    missing = sorted(n for n in required if launches.get(n, 0) <= 0)
+    if missing:
+        raise SmokeError(f"the timed {suite} run launched no {missing}")
+    leg["main_cases"] = main_cases
+    return leg, dsess
+
+
+def run_window_path(KX, dsess, dev, pool, record) -> dict:
+    """The window forms no NDS statement takes, over the NDS leg's
+    store_sales on the card session: kernels checked on the captured
+    calls, a timed run with counts read, results against the oracle."""
+    units = [(name, [sql]) for name, sql in WINDOW_SQL.items()]
+    with Recorder(KX) as rec:
+        for _name, stmts in units:
+            run_query(dsess, stmts)
+    main_cases = kernel_checks(KX, rec, "window", dev)
+    del rec
+    ex = dsess._executor_factory(dsess.tables)
+    KX.reset_launches()
+    per_unit, results = timed_pass(dsess, ex, units, dev)
+    launches = KX.launch_counts()
+    bad, _s = oracle_check(pool, "nds", units, results, per_unit,
+                           rules="window")
+    for name, _ in units:
+        per_unit[name]["result"] = results[name].to_pandas().to_dict(
+            orient="list")
+        log(json.dumps({"suite": "window", "unit": name, **{
+            k: v for k, v in per_unit[name].items() if k != "result"}}))
+    out = {"launches": launches, "per_unit": per_unit,
+           "kernel_checks": list(main_cases.values()), "mismatches": bad}
+    record["window"] = out
+    log(json.dumps({"phase": "window path", "launches": launches,
+                    "mismatches": len(bad)}))
+    if bad:
+        raise SmokeError("; ".join(bad))
+    missing = [n for n in WINDOW_REQUIRED if launches.get(n, 0) <= 0]
+    if missing:
+        raise SmokeError(f"the window path launched no {missing}")
+    out["main_cases"] = main_cases
+    return out
+
+
+def kernels_line(paths: dict) -> list:
+    """One entry per kernel wrapper: launches summed over the timed runs
+    of the paths (each read between its own reset and its end), the
+    numbers of its largest call on the path that runs it, the largest
+    error over every check of it."""
+    line = []
+    for name, (source, replaces) in KERNELS.items():
+        r = paths[LINE_PATH[name]]["main_cases"].get(name)
+        if r is None:
+            raise SmokeError(f"no check of {name} on the "
+                             f"{LINE_PATH[name]} path")
+        errs = [c["max_abs_err"] for p in paths.values()
+                for c in p["kernel_checks"] if c["kernel"] == name]
+        line.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces,
+            "launches": sum(p["launches"].get(name, 0)
+                            for p in paths.values()),
+            "max_abs_err": max(errs),
+            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"]})
+    return line
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--sf", type=float, default=1.0)
+    ap.add_argument("--sf", type=float, default=1.0,
+                    help="NDS-H scale factor")
+    ap.add_argument("--sf-ds", type=float, default=1.0,
+                    help="NDS scale factor")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--out", default=None,
                     help="also write the full record here as JSON")
@@ -437,136 +759,58 @@ def main() -> int:
     from nds_tpu_torch.engine import cuda_build
     from nds_tpu_torch.engine import kernels as KX
     from nds_tpu_torch.engine.device_exec import make_device_factory
-    from nds_tpu_torch.engine.session import Session
-    from nds_tpu_torch.nds_h import streams
-    from nds_tpu_torch.utils.validate_core import frames_equal
+
+    def factory_of():
+        return make_device_factory(device=None if dev.type == "cuda"
+                                   else args.device)
 
     record = {"card": card, "torch": torch.__version__,
-              "cuda": torch.version.cuda, "sf": args.sf}
+              "cuda": torch.version.cuda, "sf": args.sf,
+              "sf_ds": args.sf_ds}
     t_start = time.perf_counter()
-    if dev.type == "cuda":
+    # both legs' data first, then the oracle workers, forked before the
+    # card is touched: they inherit the tables and only run numpy
+    for suite, sf in (("nds_h", args.sf), ("nds", args.sf_ds)):
         t0 = time.perf_counter()
-        built = cuda_build.build_all()
-        for name in cuda_build.SIGNATURES:
-            cuda_build.library(name)
-        record["build_s"] = time.perf_counter() - t0
-        log(json.dumps({"phase": "build", "seconds": record["build_s"],
-                        "built": built}))
-
-    t0 = time.perf_counter()
-    tables = make_tables(args.sf)
-    record["datagen_s"] = time.perf_counter() - t0
-    log(json.dumps({"phase": "datagen", "sf": args.sf,
-                    "seconds": record["datagen_s"],
-                    "rows": {t: tables[t].nrows for t in tables}}))
-
-    factory = make_device_factory(device=None if dev.type == "cuda"
-                                  else args.device)
-    dsess = Session.for_nds_h(factory)
-    csess = Session.for_nds_h()
-    for t in tables.values():
-        dsess.register_table(t)
-        csess.register_table(t)
-    qids = list(range(1, 23))
-
-    # untimed pass: uploads, host-side planning, captured kernel inputs
-    t0 = time.perf_counter()
-    with Recorder(KX) as rec:
-        for qn in qids:
-            run_query(dsess, streams.statements(qn))
-    if dev.type == "cuda":
-        torch.cuda.synchronize()
-    record["warm_pass_s"] = time.perf_counter() - t0
-    log(json.dumps({"phase": "warm pass", "seconds": record["warm_pass_s"],
-                    "kernel_calls": rec.calls}))
-
-    # kernel phase: captured main-path inputs, then the SF1 join shapes
-    main_cases = {}
-    checks = []
-    for name in KERNELS:
-        if name not in rec.largest:
-            raise SmokeError(f"the main path never called {name}")
-        r = check_kernel(KX, name, rec.largest[name][1], "main path", dev)
-        main_cases[name] = r
-        checks.append(r)
-    del rec
-    for name, kargs, label in sf1_shape_cases(tables, dev):
-        checks.append(check_kernel(KX, name, kargs, label, dev))
-    record["kernel_checks"] = checks
-
-    # main path: counts at 0, the 22 queries timed, then read
-    KX.reset_launches()
-    if dev.type == "cuda":
-        torch.cuda.reset_peak_memory_stats()
-    per_query = {}
-    results = {}
-    ex = factory(dsess.tables)
-    for qn in qids:
-        t0 = time.perf_counter()
-        res = run_query(dsess, streams.statements(qn))
+        tables = make_tables(suite, sf)
+        _ORACLE_TABLES[suite] = tables
+        record[f"{suite}_datagen_s"] = time.perf_counter() - t0
+        log(json.dumps({"phase": f"{suite} datagen", "sf": sf,
+                        "seconds": record[f"{suite}_datagen_s"],
+                        "rows": {t: tables[t].nrows for t in tables}}))
+    pool = multiprocessing.get_context("fork").Pool(ORACLE_WORKERS)
+    try:
         if dev.type == "cuda":
-            torch.cuda.synchronize()
-        ms = (time.perf_counter() - t0) * 1000
-        results[qn] = res
-        lt = ex.last_timings
-        per_query[qn] = {"wall_ms": ms,
-                         "execute_ms": lt.get("execute_ms"),
-                         "materialize_ms": lt.get("materialize_ms"),
-                         "slack_retries": lt.get("slack_retries"),
-                         "kernels": lt.get("__kernels"),
-                         "rows": len(res.to_pandas())}
-    launches = KX.launch_counts()
-    power_ms = sum(q["wall_ms"] for q in per_query.values())
-    record["launches"] = launches
-    record["power_total_ms"] = power_ms
-    if dev.type == "cuda":
-        record["peak_device_bytes"] = torch.cuda.max_memory_allocated()
-
-    record["profile"] = profile_pass(dsess, qids, dev, per_query)
-
-    # oracle check
-    t0 = time.perf_counter()
-    bad = []
-    for qn in qids:
-        t1 = time.perf_counter()
-        exp = run_query(csess, streams.statements(qn))
-        per_query[qn]["cpu_oracle_ms"] = (time.perf_counter() - t1) * 1000
-        why = frames_equal(results[qn].to_pandas(), exp.to_pandas())
-        per_query[qn]["match"] = why is None
-        if why is not None:
-            bad.append(f"q{qn}: {why}")
-        log(json.dumps({"query": qn, **per_query[qn]}))
-    record["oracle_s"] = time.perf_counter() - t0
-    record["per_query"] = per_query
-    log(json.dumps({"phase": "main path", "sf": args.sf,
-                    "power_total_ms": power_ms, "launches": launches,
-                    "peak_device_bytes": record.get("peak_device_bytes"),
-                    "oracle_s": record["oracle_s"],
-                    "total_s": time.perf_counter() - t_start}))
-    if args.out:
-        os.makedirs(os.path.dirname(os.path.abspath(args.out)),
-                    exist_ok=True)
-        with open(args.out, "w") as f:
-            json.dump(record, f, indent=1, default=str)
-    if bad:
-        raise SmokeError("results differ from the CPU oracle: "
-                         + "; ".join(bad))
-    missing = [n for n in KERNELS if launches.get(n, 0) <= 0]
-    if missing:
-        raise SmokeError(f"the timed main path launched no {missing}")
-
-    kernels_line = []
-    for name, (source, replaces) in KERNELS.items():
-        r = main_cases[name]
-        kernels_line.append({
-            "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches[name],
-            "max_abs_err": max(c["max_abs_err"] for c in checks
-                               if c["kernel"] == name),
-            "ms": r["ms"], "plain_ms": r["plain_ms"],
-            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            "library_ms": r["library_ms"]})
-    print(json.dumps({"kernels": kernels_line}))
+            t0 = time.perf_counter()
+            built = cuda_build.build_all()
+            for name in cuda_build.SIGNATURES:
+                cuda_build.library(name)
+            record["build_s"] = time.perf_counter() - t0
+            log(json.dumps({"phase": "build", "seconds": record["build_s"],
+                            "built": built}))
+        paths = {}
+        paths["nds_h"], dsess = run_leg("nds_h", KX, factory_of, dev, pool,
+                                        record)
+        del dsess
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        paths["nds"], dsess = run_leg("nds", KX, factory_of, dev, pool,
+                                      record)
+        paths["window"] = run_window_path(KX, dsess, dev, pool, record)
+        line = kernels_line(paths)
+        record["kernels"] = line
+        pool.close()
+    finally:
+        pool.terminate()
+        pool.join()
+        record["total_s"] = time.perf_counter() - t_start
+        if args.out:
+            os.makedirs(os.path.dirname(os.path.abspath(args.out)),
+                        exist_ok=True)
+            with open(args.out, "w") as f:
+                json.dump(record, f, indent=1, default=str)
+    log(json.dumps({"phase": "done", "total_s": record["total_s"]}))
+    print(json.dumps({"kernels": line}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,13 +1,12 @@
-// Segmented min/max scan read at group ends (K5).
+// Segmented scans (K5 and K7).
 //
 // Replaces nds_tpu/engine/kernels.py `seg_scan` (a (value, reset-flag)
-// associative scan) and `seg_reduce_at_ends` (that scan gathered at each
-// group's last sorted row). Segments start where the sorted group id changes
-// (and at row 0). The output has one slot per entry of `starts2` (the first
-// sorted row of each group, n past the last group): slot g reads the scan at
-// clamp(starts2[g+1] - 1, 0, n - 1), with n standing in for starts2[G], so a
-// padding slot past the last group reads the scan at row n - 1, exactly as
-// the JAX version does.
+// associative scan with op +, min or max), `seg_reduce_at_ends` (that scan
+// gathered at each group's last sorted row, K5), `part_reduce_broadcast` (the
+// scan read at each row's partition end, K7) and `last_of_group` (a reversed
+// running min of the next change position, K7). One scan implementation
+// serves all of them, and the prefix of match counts inside
+// partitioned_join.cu's M:N join (K6) too.
 //
 // Three passes, a true segmented scan whose carry crosses blocks:
 //   1. scan_tiles: each block scans one tile of 1024 rows (4 per thread) in
@@ -16,23 +15,35 @@
 //      row", and the tile's aggregate (value, any-flag).
 //   2. scan_carries: one block scans the tile aggregates, giving the global
 //      scan value at the end of every tile.
-//   3. gather_ends: each output slot reads its end row; if no segment started
-//      in that row's tile before it, the previous tile's carry is combined in.
+//   3. a finishing pass folds the previous tile's carry into every row read
+//      where no segment started in its tile before it: per row in place
+//      (seg_scan), at each row's partition end (part_reduce_broadcast), at
+//      each group's end (seg_reduce_at_ends), or per row in reverse order with
+//      the final minus-one and clip (last_of_group).
 // The combiner is (a, b) -> (b.flag ? b.v : op(a.v, b.v), a.flag | b.flag).
-// min/max on floats propagate NaN, as jnp.minimum/maximum do.
+// min/max on floats propagate NaN, as jnp.minimum/maximum do. An integer sum
+// wraps in two's complement, as the JAX scan's does; int32 counts stay int32.
+// A float sum associates in the tile order above, not in
+// lax.associative_scan's, so float sums agree to rounding, not bit for bit.
 //
-// What bounds it on an H100: bytes. At n = 6,001,215 with int64 values the
-// function must read 6.0M x (8 + 4) bytes and write G values; the passes also
-// write and re-read the n-row scan (values + one flag byte) once, so this
-// simple version moves about twice the bytes it must. The reads and writes of
-// passes 1 and 3 are coalesced; pass 2 touches only n / 1024 entries.
+// Where the segment flags come from: K5 compares neighbouring group ids, the
+// window scans read a bool flag per row, K6's prefix restarts every `seg_len`
+// rows, and last_of_group has none (one segment, scanned from the end, over
+// the values "next change position" computed from the change flags).
 //
-// The entry point launches on the given stream, allocates nothing (the caller
-// passes run, flags, tile aggregates and carries as scratch) and returns
-// cudaGetLastError().
+// What bounds it on an H100: bytes. The function must read n values and n
+// flags and write n values (or G for K5); the passes also write and re-read
+// the n-row tile scan and one flag byte per row, so this simple version moves
+// about twice the bytes it must. The reads and writes of passes 1 and 3 are
+// coalesced except the gathers at pend, which follow the sorted partition
+// ends and so hit few distinct lines; pass 2 touches only n / 1024 entries.
+//
+// The entry points launch on the given stream, allocate nothing (the caller
+// passes every output and scratch buffer) and return cudaGetLastError().
 
 #include <cstdint>
 #include <cuda_runtime.h>
+#include <type_traits>
 
 namespace {
 
@@ -41,6 +52,8 @@ constexpr int kItems = 4;
 constexpr int kTile = kThreads * kItems;
 constexpr int kCarryThreads = 1024;
 
+enum { kSum = 0, kMin = 1, kMax = 2 };
+
 template <typename V>
 __device__ __forceinline__ bool is_nan(V) { return false; }
 template <>
@@ -48,23 +61,31 @@ __device__ __forceinline__ bool is_nan<float>(float v) { return v != v; }
 template <>
 __device__ __forceinline__ bool is_nan<double>(double v) { return v != v; }
 
-template <typename V, bool IsMax>
+template <typename V, int OP>
 __device__ __forceinline__ V op(V a, V b) {
+  if (OP == kSum) {
+    if constexpr (std::is_integral<V>::value) {
+      using U = typename std::make_unsigned<V>::type;
+      return static_cast<V>(static_cast<U>(a) + static_cast<U>(b));
+    } else {
+      return a + b;
+    }
+  }
   if (is_nan(a)) return a;
   if (is_nan(b)) return b;
-  if (IsMax) return b > a ? b : a;
+  if (OP == kMax) return b > a ? b : a;
   return b < a ? b : a;
 }
 
-template <typename V, bool IsMax>
+template <typename V, int OP>
 __device__ __forceinline__ void combine(V av, bool af, V& bv, bool& bf) {
   // (a, b) -> b in place
-  if (!bf) bv = op<V, IsMax>(av, bv);
+  if (!bf) bv = op<V, OP>(av, bv);
   bf = bf || af;
 }
 
 // inclusive segmented scan of (v, f) over the threads of one block
-template <typename V, bool IsMax, int N>
+template <typename V, int OP, int N>
 __device__ void block_scan(V& v, bool& f, V* sv, bool* sf) {
   const int t = threadIdx.x;
   sv[t] = v;
@@ -80,7 +101,7 @@ __device__ void block_scan(V& v, bool& f, V* sv, bool* sf) {
     }
     __syncthreads();
     if (has) {
-      combine<V, IsMax>(pv, pf, v, f);
+      combine<V, OP>(pv, pf, v, f);
       sv[t] = v;
       sf[t] = f;
     }
@@ -88,11 +109,48 @@ __device__ void block_scan(V& v, bool& f, V* sv, bool* sf) {
   }
 }
 
-template <typename V, bool IsMax>
-__global__ void scan_tiles(const V* __restrict__ data,
-                           const int32_t* __restrict__ gid, long long n,
-                           V* __restrict__ run, uint8_t* __restrict__ fl,
-                           V* __restrict__ tile_v, uint8_t* __restrict__ tile_f) {
+// ---- sources of (value, reset flag) per scanned row
+
+// K5: values, a segment at every change of the sorted group id
+template <typename V>
+struct GidSource {
+  const V* data;
+  const int32_t* gid;
+  __device__ void load(long long i, V& v, bool& f) const {
+    v = data[i];
+    f = (i == 0) || (gid[i] != gid[i - 1]);
+  }
+};
+
+// windows: values and one bool flag per row; with no flags, a segment
+// every seg_len rows (K6's per-partition prefix)
+template <typename V>
+struct FlagSource {
+  const V* data;
+  const uint8_t* flags;
+  long long seg_len;
+  __device__ void load(long long i, V& v, bool& f) const {
+    v = data[i];
+    f = flags != nullptr ? flags[i] != 0 : (i % seg_len) == 0;
+  }
+};
+
+// last_of_group: scanned row k is row i = n - 1 - k, whose value is the
+// position of the next change after it (n where there is none)
+struct NextChangeSource {
+  const uint8_t* change;
+  long long n;
+  __device__ void load(long long k, int32_t& v, bool& f) const {
+    const long long i = n - 1 - k;
+    v = static_cast<int32_t>((i + 1 < n && change[i + 1]) ? i + 1 : n);
+    f = false;
+  }
+};
+
+template <typename V, int OP, typename Src>
+__global__ void scan_tiles(Src src, long long n, V* __restrict__ run,
+                           uint8_t* __restrict__ fl, V* __restrict__ tile_v,
+                           uint8_t* __restrict__ tile_f) {
   __shared__ V sv[kThreads];
   __shared__ bool sf[kThreads];
   const long long base = blockIdx.x * (long long)kTile + threadIdx.x * kItems;
@@ -101,24 +159,23 @@ __global__ void scan_tiles(const V* __restrict__ data,
   for (int k = 0; k < kItems; ++k) {
     const long long i = base + k;
     if (i < n) {
-      v[k] = data[i];
-      f[k] = (i == 0) || (gid[i] != gid[i - 1]);
+      src.load(i, v[k], f[k]);
     } else {
       // past the end: a fresh segment that no written row reads
-      v[k] = data[n - 1];
+      src.load(n - 1, v[k], f[k]);
       f[k] = true;
     }
-    if (k > 0) combine<V, IsMax>(v[k - 1], f[k - 1], v[k], f[k]);
+    if (k > 0) combine<V, OP>(v[k - 1], f[k - 1], v[k], f[k]);
   }
   // exclusive prefix over the threads before this one
   V tv = v[kItems - 1];
   bool tf = f[kItems - 1];
-  block_scan<V, IsMax, kThreads>(tv, tf, sv, sf);
+  block_scan<V, OP, kThreads>(tv, tf, sv, sf);
   const int t = threadIdx.x;
   if (t > 0) {
     const V pv = sv[t - 1];
     const bool pf = sf[t - 1];
-    for (int k = 0; k < kItems; ++k) combine<V, IsMax>(pv, pf, v[k], f[k]);
+    for (int k = 0; k < kItems; ++k) combine<V, OP>(pv, pf, v[k], f[k]);
   }
   for (int k = 0; k < kItems; ++k) {
     const long long i = base + k;
@@ -134,7 +191,7 @@ __global__ void scan_tiles(const V* __restrict__ data,
 }
 
 // one block: carry[b] = global inclusive scan value at the end of tile b
-template <typename V, bool IsMax>
+template <typename V, int OP>
 __global__ void scan_carries(const V* __restrict__ tile_v,
                              const uint8_t* __restrict__ tile_f,
                              long long ntiles, V* __restrict__ carry) {
@@ -152,20 +209,20 @@ __global__ void scan_carries(const V* __restrict__ tile_v,
   for (long long b = b0; b < b1; ++b) {
     V bv = tile_v[b];
     bool bf = tile_f[b] != 0;
-    if (b > b0) combine<V, IsMax>(acc, af, bv, bf);
+    if (b > b0) combine<V, OP>(acc, af, bv, bf);
     acc = bv;
     af = bf;
   }
   V tv = acc;
   bool tf = af;
-  block_scan<V, IsMax, kCarryThreads>(tv, tf, sv, sf);
+  block_scan<V, OP, kCarryThreads>(tv, tf, sv, sf);
   bool have = t > 0;
   V pv = have ? sv[t - 1] : acc;
   bool pf = have ? sf[t - 1] : false;
   for (long long b = b0; b < b1; ++b) {
     V bv = tile_v[b];
     bool bf = tile_f[b] != 0;
-    if (have) combine<V, IsMax>(pv, pf, bv, bf);
+    if (have) combine<V, OP>(pv, pf, bv, bf);
     carry[b] = bv;
     pv = bv;
     pf = bf;
@@ -173,7 +230,49 @@ __global__ void scan_carries(const V* __restrict__ tile_v,
   }
 }
 
-template <typename V, bool IsMax, typename S>
+// the global scan value at scanned row e
+template <typename V, int OP>
+__device__ __forceinline__ V scan_at(const V* __restrict__ run,
+                                     const uint8_t* __restrict__ fl,
+                                     const V* __restrict__ carry, long long e) {
+  V v = run[e];
+  const long long b = e / kTile;
+  if (b > 0 && !fl[e]) v = op<V, OP>(carry[b - 1], v);
+  return v;
+}
+
+unsigned grid_for(long long m) {
+  long long g = (m + kThreads - 1) / kThreads;
+  if (g < 1) g = 1;
+  if (g > 65535LL * 32) g = 65535LL * 32;
+  return static_cast<unsigned>(g);
+}
+
+template <typename V, int OP>
+__global__ void finish_rows(V* __restrict__ run, const uint8_t* __restrict__ fl,
+                            const V* __restrict__ carry, long long n) {
+  for (long long k = blockIdx.x * (long long)blockDim.x + threadIdx.x; k < n;
+       k += (long long)gridDim.x * blockDim.x) {
+    const long long b = k / kTile;
+    if (b > 0 && !fl[k]) run[k] = op<V, OP>(carry[b - 1], run[k]);
+  }
+}
+
+template <typename V, int OP, typename S>
+__global__ void gather_at(const V* __restrict__ run,
+                          const uint8_t* __restrict__ fl,
+                          const V* __restrict__ carry,
+                          const S* __restrict__ at, long long n,
+                          V* __restrict__ out) {
+  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < n;
+       i += (long long)gridDim.x * blockDim.x) {
+    long long e = static_cast<long long>(at[i]);
+    e = e < 0 ? 0 : (e > n - 1 ? n - 1 : e);
+    out[i] = scan_at<V, OP>(run, fl, carry, e);
+  }
+}
+
+template <typename V, int OP, typename S>
 __global__ void gather_ends(const V* __restrict__ run,
                             const uint8_t* __restrict__ fl,
                             const V* __restrict__ carry,
@@ -184,51 +283,121 @@ __global__ void gather_ends(const V* __restrict__ run,
     long long nxt = g + 1 < G ? static_cast<long long>(starts2[g + 1]) : n;
     long long e = nxt - 1;
     e = e < 0 ? 0 : (e > n - 1 ? n - 1 : e);
-    V v = run[e];
-    const long long b = e / kTile;
-    if (b > 0 && !fl[e]) v = op<V, IsMax>(carry[b - 1], v);
-    out[g] = v;
+    out[g] = scan_at<V, OP>(run, fl, carry, e);
   }
 }
 
-template <typename V, bool IsMax>
-int run_t(const void* data, const void* gid, long long n, const void* starts2,
-          int starts64, long long G, void* run, void* fl, void* tile_v,
-          void* tile_f, void* carry, void* out, cudaStream_t s) {
+// last_of_group: row i = n - 1 - k gets clip(scan[k] - 1, 0, n - 1)
+__global__ void finish_last_of_group(const int32_t* __restrict__ run,
+                                     const uint8_t* __restrict__ fl,
+                                     const int32_t* __restrict__ carry,
+                                     long long n, int32_t* __restrict__ out) {
+  for (long long k = blockIdx.x * (long long)blockDim.x + threadIdx.x; k < n;
+       k += (long long)gridDim.x * blockDim.x) {
+    long long v = static_cast<long long>(scan_at<int32_t, kMin>(run, fl, carry, k)) - 1;
+    v = v < 0 ? 0 : (v > n - 1 ? n - 1 : v);
+    out[n - 1 - k] = static_cast<int32_t>(v);
+  }
+}
+
+// passes 1 and 2
+template <typename V, int OP, typename Src>
+void scan_passes(const Src& src, long long n, V* run, uint8_t* fl, V* tile_v,
+                 uint8_t* tile_f, V* carry, cudaStream_t s) {
   const long long ntiles = (n + kTile - 1) / kTile;
-  scan_tiles<V, IsMax><<<static_cast<unsigned>(ntiles), kThreads, 0, s>>>(
-      static_cast<const V*>(data), static_cast<const int32_t*>(gid), n,
-      static_cast<V*>(run), static_cast<uint8_t*>(fl), static_cast<V*>(tile_v),
-      static_cast<uint8_t*>(tile_f));
-  scan_carries<V, IsMax><<<1, kCarryThreads, 0, s>>>(
-      static_cast<const V*>(tile_v), static_cast<const uint8_t*>(tile_f),
-      ntiles, static_cast<V*>(carry));
-  long long gb = (G + kThreads - 1) / kThreads;
-  if (gb < 1) gb = 1;
-  if (gb > 65535LL * 32) gb = 65535LL * 32;
-  if (starts64)
-    gather_ends<V, IsMax, int64_t><<<static_cast<unsigned>(gb), kThreads, 0, s>>>(
-        static_cast<const V*>(run), static_cast<const uint8_t*>(fl),
-        static_cast<const V*>(carry), static_cast<const int64_t*>(starts2), G,
-        n, static_cast<V*>(out));
-  else
-    gather_ends<V, IsMax, int32_t><<<static_cast<unsigned>(gb), kThreads, 0, s>>>(
-        static_cast<const V*>(run), static_cast<const uint8_t*>(fl),
-        static_cast<const V*>(carry), static_cast<const int32_t*>(starts2), G,
-        n, static_cast<V*>(out));
-  return static_cast<int>(cudaGetLastError());
+  scan_tiles<V, OP, Src><<<static_cast<unsigned>(ntiles), kThreads, 0, s>>>(
+      src, n, run, fl, tile_v, tile_f);
+  scan_carries<V, OP><<<1, kCarryThreads, 0, s>>>(tile_v, tile_f, ntiles,
+                                                  carry);
+}
+
+// ---- entry bodies, one per (value type, op)
+
+struct Args {
+  const void* data;
+  const void* gid;      // K5
+  const void* flags;    // windows (nullptr: seg_len)
+  long long seg_len;
+  long long n;
+  const void* at;       // K5 starts2 / part_reduce_broadcast pend
+  int at64;
+  long long G;          // K5 groups
+  void* run;
+  void* fl;
+  void* tile_v;
+  void* tile_f;
+  void* carry;
+  void* out;
+};
+
+enum Mode { kEnds = 0, kRows = 1, kAtPend = 2 };
+
+template <typename V, int OP>
+void run_mode(int mode, const Args& a, cudaStream_t s) {
+  V* run = static_cast<V*>(a.run);
+  uint8_t* fl = static_cast<uint8_t*>(a.fl);
+  V* tile_v = static_cast<V*>(a.tile_v);
+  uint8_t* tile_f = static_cast<uint8_t*>(a.tile_f);
+  V* carry = static_cast<V*>(a.carry);
+  V* out = static_cast<V*>(a.out);
+  if (mode == kEnds) {
+    GidSource<V> src{static_cast<const V*>(a.data),
+                     static_cast<const int32_t*>(a.gid)};
+    scan_passes<V, OP>(src, a.n, run, fl, tile_v, tile_f, carry, s);
+    if (a.at64)
+      gather_ends<V, OP, int64_t><<<grid_for(a.G), kThreads, 0, s>>>(
+          run, fl, carry, static_cast<const int64_t*>(a.at), a.G, a.n, out);
+    else
+      gather_ends<V, OP, int32_t><<<grid_for(a.G), kThreads, 0, s>>>(
+          run, fl, carry, static_cast<const int32_t*>(a.at), a.G, a.n, out);
+    return;
+  }
+  FlagSource<V> src{static_cast<const V*>(a.data),
+                    static_cast<const uint8_t*>(a.flags), a.seg_len};
+  scan_passes<V, OP>(src, a.n, run, fl, tile_v, tile_f, carry, s);
+  if (mode == kRows) {
+    finish_rows<V, OP><<<grid_for(a.n), kThreads, 0, s>>>(run, fl, carry, a.n);
+  } else if (a.at64) {
+    gather_at<V, OP, int64_t><<<grid_for(a.n), kThreads, 0, s>>>(
+        run, fl, carry, static_cast<const int64_t*>(a.at), a.n, out);
+  } else {
+    gather_at<V, OP, int32_t><<<grid_for(a.n), kThreads, 0, s>>>(
+        run, fl, carry, static_cast<const int32_t*>(a.at), a.n, out);
+  }
 }
 
 template <typename V>
-int dispatch_op(int is_max, const void* data, const void* gid, long long n,
-                const void* starts2, int starts64, long long G, void* run,
-                void* fl, void* tile_v, void* tile_f, void* carry, void* out,
-                cudaStream_t s) {
-  if (is_max)
-    return run_t<V, true>(data, gid, n, starts2, starts64, G, run, fl, tile_v,
-                          tile_f, carry, out, s);
-  return run_t<V, false>(data, gid, n, starts2, starts64, G, run, fl, tile_v,
-                         tile_f, carry, out, s);
+int dispatch_op(int opc, int mode, const Args& a, cudaStream_t s) {
+  switch (opc) {
+    case kSum:
+      run_mode<V, kSum>(mode, a, s);
+      break;
+    case kMin:
+      run_mode<V, kMin>(mode, a, s);
+      break;
+    case kMax:
+      run_mode<V, kMax>(mode, a, s);
+      break;
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+int dispatch(int vtype, int opc, int mode, const Args& a, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (vtype) {
+    case 0:
+      return dispatch_op<int32_t>(opc, mode, a, s);
+    case 1:
+      return dispatch_op<int64_t>(opc, mode, a, s);
+    case 2:
+      return dispatch_op<float>(opc, mode, a, s);
+    case 3:
+      return dispatch_op<double>(opc, mode, a, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace
@@ -247,23 +416,54 @@ int nds_seg_reduce_at_ends(const void* data, int vtype, int is_max,
                            void* tile_v, void* tile_f, void* carry, void* out,
                            void* stream) {
   if (n < 1 || G < 1) return static_cast<int>(cudaErrorInvalidValue);
+  Args a{data, gid, nullptr, 0, n, starts2, starts64, G,
+         run, fl, tile_v, tile_f, carry, out};
+  return dispatch(vtype, is_max ? kMax : kMin, kEnds, a, stream);
+}
+
+// K7 seg_scan, per row. op: 0 sum, 1 min, 2 max. flags: bool[n], or null
+// for a reset every seg_len rows. out: V[n] (also the tile scan); fl
+// uint8[n] and the tile buffers are scratch as above. n >= 1.
+int nds_seg_scan(const void* data, int vtype, int opc, const void* flags,
+                 long long seg_len, long long n, void* out, void* fl,
+                 void* tile_v, void* tile_f, void* carry, void* stream) {
+  if (n < 1 || (flags == nullptr && seg_len < 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  Args a{data, nullptr, flags, seg_len, n, nullptr, 0, 0,
+         out, fl, tile_v, tile_f, carry, out};
+  return dispatch(vtype, opc, kRows, a, stream);
+}
+
+// K7 part_reduce_broadcast: out[i] = scan at pend[i] (int32 or int64 [n]).
+// part_start: bool[n]. Scratch: run V[n], fl uint8[n], tile buffers.
+int nds_part_reduce_broadcast(const void* data, int vtype, int opc,
+                              const void* part_start, long long n,
+                              const void* pend, int pend64, void* out,
+                              void* run, void* fl, void* tile_v, void* tile_f,
+                              void* carry, void* stream) {
+  if (n < 1) return static_cast<int>(cudaErrorInvalidValue);
+  Args a{data, nullptr, part_start, 0, n, pend, pend64, 0,
+         run, fl, tile_v, tile_f, carry, out};
+  return dispatch(vtype, opc, kAtPend, a, stream);
+}
+
+// K7 last_of_group: change bool[n] -> out int32[n]. Scratch: run int32[n],
+// fl uint8[n], tile_v int32[ntiles], tile_f uint8[ntiles], carry
+// int32[ntiles]. 1 <= n < 2^31 - 1.
+int nds_last_of_group(const void* change, long long n, void* out, void* run,
+                      void* fl, void* tile_v, void* tile_f, void* carry,
+                      void* stream) {
+  if (n < 1 || n >= 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (vtype) {
-    case 0:
-      return dispatch_op<int32_t>(is_max, data, gid, n, starts2, starts64, G,
-                                  run, fl, tile_v, tile_f, carry, out, s);
-    case 1:
-      return dispatch_op<int64_t>(is_max, data, gid, n, starts2, starts64, G,
-                                  run, fl, tile_v, tile_f, carry, out, s);
-    case 2:
-      return dispatch_op<float>(is_max, data, gid, n, starts2, starts64, G,
-                                run, fl, tile_v, tile_f, carry, out, s);
-    case 3:
-      return dispatch_op<double>(is_max, data, gid, n, starts2, starts64, G,
-                                 run, fl, tile_v, tile_f, carry, out, s);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  NextChangeSource src{static_cast<const uint8_t*>(change), n};
+  int32_t* r = static_cast<int32_t*>(run);
+  uint8_t* f = static_cast<uint8_t*>(fl);
+  int32_t* c = static_cast<int32_t*>(carry);
+  scan_passes<int32_t, kMin>(src, n, r, f, static_cast<int32_t*>(tile_v),
+                             static_cast<uint8_t*>(tile_f), c, s);
+  finish_last_of_group<<<grid_for(n), kThreads, 0, s>>>(
+      r, f, c, n, static_cast<int32_t*>(out));
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // extern "C"

@@ -54,6 +54,18 @@ SIGNATURES = {
         "nds_seg_scan_tile": [],
         "nds_seg_reduce_at_ends": [_P, _I, _I, _P, _LL, _P, _I, _LL, _P, _P,
                                    _P, _P, _P, _P, _P],
+        "nds_seg_scan": [_P, _I, _I, _P, _LL, _LL, _P, _P, _P, _P, _P, _P],
+        "nds_part_reduce_broadcast": [_P, _I, _I, _P, _LL, _P, _I, _P, _P,
+                                      _P, _P, _P, _P, _P],
+        "nds_last_of_group": [_P, _LL, _P, _P, _P, _P, _P, _P, _P],
+    },
+    "partitioned_join": {
+        "nds_pj_tile": [],
+        "nds_pj_partition": [_P, _P, _LL, _I, _I, _I, _LL, _P, _P, _P, _P,
+                             _P, _I, _P],
+        "nds_pj_ranges": [_P, _I, _LL, _P, _P, _LL, _I, _P, _P, _P],
+        "nds_pj_expand": [_P, _P, _P, _P, _I, _LL, _LL, _LL, _P, _P, _P, _P,
+                          _P, _P],
     },
 }
 
@@ -126,7 +138,8 @@ def build_all() -> dict[str, float]:
 
 def library(name: str) -> ctypes.CDLL:
     """The loaded library of one source (``dense_domain``,
-    ``small_build_probe``, ``seg_scan``), built first if needed."""
+    ``small_build_probe``, ``seg_scan``, ``partitioned_join``), built
+    first if needed."""
     lib = _LIBS.get(name)
     if lib is not None:
         return lib

@@ -1,7 +1,7 @@
 """Device executor of the port: one logical plan -> eager PyTorch on the card.
 
 Port of ``nds_tpu/engine/device_exec.py`` for the plans of the NDS-H
-power run. The reference traces each plan into one static-shape XLA
+and NDS (TPC-DS) power runs. The reference traces each plan into one static-shape XLA
 program; this port runs the same dataflow eagerly with torch tensors on
 the executor's device (``cuda`` unless the caller asks for the CPU):
 
@@ -16,9 +16,21 @@ the executor's device (``cuda`` unless the caller asks for the CPU):
   counts the kernel each node actually used under the reference's names
   (``join.direct``, ``join.matmul``, ``semi.bitmask``, ``agg.segscan``
   ...), so each query's ``__kernels`` block matches the reference's.
-  The five hand-written CUDA kernels run behind those stamps; sorts,
-  searchsorted, cumsum and gathers are torch library ops, as the
-  reference left them to XLA.
+  The hand-written CUDA kernels run behind those stamps (the radix
+  partitioned M:N join among them) and under the window functions'
+  running and whole-partition aggregates; sorts, searchsorted, cumsum
+  and gathers are torch library ops, as the reference left them to XLA.
+- **Windows, set operations, DISTINCT** follow the reference: one
+  multi-key sort into partition-major order per window column, with
+  rank from running maxima, whole-partition sums from cumsum
+  differences and running or whole-partition min/max from the
+  segmented scan kernels; UNION concatenates and deduplicates by the
+  group-id sort, INTERSECT/EXCEPT probe packed whole-row keys.
+- **Staging.** Plans heavier than ``STAGE_WEIGHT`` nodes split at the
+  reference's cuts (``engine/staging.py``) into sub-plans whose results
+  become host temp tables. Eager torch compiles nothing, so the split
+  buys no compile time here; it is kept so that the staged statements
+  run with the reference's capacities, retries and kernel blocks.
 - **Strings never reach the device.** Dictionary codes only; LIKE, IN
   and compares against literals are evaluated on the host dictionary
   into lookup tables the device gathers through.
@@ -28,10 +40,9 @@ Multi-key ``lax.sort`` becomes successive stable ``torch.sort`` passes
 from the least to the most significant key, which gives the same
 permutation as one stable lexicographic sort. Gathers whose index can
 leave the array (dictionary codes of NULL rows) clamp it, since torch
-faults where ``jnp.take`` fills. Plan nodes outside this slice (windows,
-set operations, DISTINCT, staged scans, partitioned M:N joins,
-parameterized literals) raise ``DeviceExecError``: they never run on the
-CPU instead.
+faults where ``jnp.take`` fills. What is not ported yet (parameterized
+literals, the reduced float precisions) raises ``DeviceExecError``: it
+never runs on the CPU instead.
 """
 
 from __future__ import annotations
@@ -45,6 +56,7 @@ import torch
 
 from nds_tpu_torch.device import resolve_device
 from nds_tpu_torch.engine import kernels as KX
+from nds_tpu_torch.engine import staging
 from nds_tpu_torch.engine.cpu_exec import ResultTable, like_mask
 from nds_tpu_torch.engine.types import (
     DateType, DecimalType, DType, FloatType, IntType, StringType,
@@ -64,19 +76,79 @@ class DeviceExecError(RuntimeError):
 class DVal:
     """One evaluated column on the device: tensor + optional validity,
     plus host-side metadata (string dictionary; integer value bounds
-    used for join-key bit packing)."""
+    used for join-key bit packing).
 
-    __slots__ = ("arr", "valid", "sdict", "lo", "hi")
+    A column gathered through a join's, sort's or limit's row indices is
+    lazy: it keeps its concrete source column and the indices (composed
+    through later gathers, with the validity mask they clear), and
+    gathers at first use. Eager execution would otherwise materialize
+    every column of every join at the join's capacity, where the
+    reference's compiled program drops the columns nothing reads."""
+
+    __slots__ = ("_arr", "_valid", "sdict", "lo", "hi", "_src", "_idx",
+                 "_clear")
 
     def __init__(self, arr, valid=None, sdict=None, lo=None, hi=None):
-        self.arr = arr
-        self.valid = valid
+        self._arr = arr
+        self._valid = valid
         self.sdict = sdict
         self.lo = lo
         self.hi = hi
+        self._src = self._idx = self._clear = None
+
+    @property
+    def arr(self):
+        if self._src is not None:
+            self._materialize()
+        return self._arr
+
+    @property
+    def valid(self):
+        if self._src is not None:
+            self._materialize()
+        return self._valid
+
+    def _materialize(self) -> None:
+        src, idx, clear = self._src, self._idx, self._clear
+        self._arr = src.arr.index_select(0, idx)
+        valid = None if src.valid is None else src.valid.index_select(0,
+                                                                      idx)
+        self._valid = _and_valid(valid, clear)
+        self._src = self._idx = self._clear = None
 
     def with_arrays(self, arr, valid):
         return DVal(arr, valid, self.sdict, self.lo, self.hi)
+
+    def gather(self, idx, clear=None, memo: "dict | None" = None):
+        """This column at rows ``idx`` (in range by construction), its
+        validity ANDed with ``clear``; lazy. ``memo`` shares one
+        composition of the indices among the columns of one context."""
+        if self._src is None:
+            base, bidx, bclear = self, idx, clear
+        else:
+            key = (id(self._idx), id(self._clear))
+            hit = None if memo is None else memo.get(key)
+            if hit is None:
+                c0 = (None if self._clear is None
+                      else self._clear.index_select(0, idx))
+                hit = (self._idx.index_select(0, idx), _and_valid(c0, clear))
+                if memo is not None:
+                    memo[key] = hit
+            base, (bidx, bclear) = self._src, hit
+        out = DVal(None, None, self.sdict, self.lo, self.hi)
+        out._src, out._idx, out._clear = base, bidx, bclear
+        return out
+
+    def head(self, cap: int):
+        """The first ``cap`` rows, without gathering the rest."""
+        if self._src is None:
+            return self.with_arrays(
+                self._arr[:cap],
+                None if self._valid is None else self._valid[:cap])
+        out = DVal(None, None, self.sdict, self.lo, self.hi)
+        out._src, out._idx = self._src, self._idx[:cap]
+        out._clear = None if self._clear is None else self._clear[:cap]
+        return out
 
 
 def _pred_sig(e) -> str:
@@ -169,16 +241,13 @@ class DCtx:
 
     def gather(self, idx, clear_valid=None) -> "DCtx":
         """New ctx with every column gathered at idx (in range by
-        construction). clear_valid, if given, is ANDed into every
-        column's validity (nulls out the build side of outer joins)."""
+        construction), lazily (``DVal.gather``). clear_valid, if given,
+        is ANDed into every column's validity (nulls out the build side
+        of outer joins)."""
         out = DCtx(idx.shape[0], None)
+        memo: dict = {}
         for k, dv in self.cols.items():
-            arr = dv.arr.index_select(0, idx)
-            valid = (None if dv.valid is None
-                     else dv.valid.index_select(0, idx))
-            if clear_valid is not None:
-                valid = clear_valid if valid is None else (valid & clear_valid)
-            out.cols[k] = dv.with_arrays(arr, valid)
+            out.cols[k] = dv.gather(idx, clear_valid, memo)
         return out
 
     def merge(self, other: "DCtx") -> "DCtx":
@@ -211,6 +280,18 @@ def _rescale(arr, from_s: int, to_s: int):
     if to_s > from_s:
         return arr.to(torch.int64) * (10 ** (to_s - from_s))
     return torch.floor_divide(arr.to(torch.int64), 10 ** (from_s - to_s))
+
+
+def _merge_stage_bill(timings: dict, bill: dict) -> None:
+    """Fold the staged sub-plans' timings and kernel counts into the
+    main plan's, so ``last_timings`` bills the whole statement."""
+    for k, v in bill.items():
+        if k == "__kernels":
+            kacc = timings.setdefault("__kernels", {})
+            for kn, cnt in v.items():
+                kacc[kn] = kacc.get(kn, 0) + cnt
+        else:
+            timings[k] = timings.get(k, 0.0) + v
 
 
 def _and_valid(a, b):
@@ -311,27 +392,44 @@ class DeviceExecutor:
         # operation: the reference bakes them into each compiled
         # program once; eager execution would rebuild them per run
         self._dict_tables: dict[tuple, tuple] = {}
-        # per-plan state keyed by id(plan); each entry pins its plan so
-        # the id cannot be recycled while the entry lives
-        self._entries: dict[int, dict] = {}
+        # per-plan state keyed by id(plan) (or a staged sub-plan's key);
+        # each entry pins its plan so the id cannot be recycled while
+        # the entry lives
+        self._entries: dict[object, dict] = {}
         self.last_timings: dict = {}
+        # host-staged plan splitting (engine/staging.py): key -> the
+        # once-computed (orig_planned, [(sub_planned, temp_name), ...],
+        # main_planned); orig_planned pins the caller's plan object
+        self._stage_plans: dict[object, tuple] = {}
+        self._stage_fps: dict[str, str] = {}  # temp -> content md5
 
     # ------------------------------------------------------------------ API
 
     MAX_ENTRIES = 256
     MAX_RETRIES = 3
 
-    def execute(self, planned: P.PlannedQuery) -> ResultTable:
+    # plans whose deduplicated node count exceeds this split into
+    # sub-plans with host-staged intermediates: the reference's default
+    # (``NDS_TPU_STAGE``)
+    STAGE_WEIGHT = 56
+
+    def execute(self, planned: P.PlannedQuery,
+                key: object = None) -> ResultTable:
         """Run one planned query; on M:N join overflow, retry with
-        doubled slack (the slack is kept for the plan's later runs)."""
+        doubled slack (the slack is kept for the plan's later runs).
+        ``key`` names the plan's state (its id by default; staged
+        sub-plans run under ``(key, "__stage__", i)``)."""
         if not isinstance(planned, P.PlannedQuery):
             raise DeviceExecError(f"cannot execute {type(planned).__name__}")
-        entry = self._entries.get(id(planned))
+        key = id(planned) if key is None else key
+        entry = self._entries.get(key)
         if entry is None or entry["ref"] is not planned:
+            if entry is not None:
+                self._evict_query_state(key)
             entry = {"slack": self.DEFAULT_SLACK, "ref": planned}
-            self._entries[id(planned)] = entry
-            while len(self._entries) > self.MAX_ENTRIES:
-                self._entries.pop(next(iter(self._entries)))
+            self._entries[key] = entry
+            self._bound_entries(key)
+        planned, stage_bill = self._staged_effective(planned, key)
         retries = 0
         while True:
             timings: dict = {}
@@ -353,8 +451,120 @@ class DeviceExecutor:
         timings["materialize_ms"] = (t2 - t1) * 1000
         timings["slack_retries"] = float(retries)
         timings["__kernels"] = dict(tr.kernels)
+        _merge_stage_bill(timings, stage_bill)
         self.last_timings = timings
         return out
+
+    @staticmethod
+    def _is_stage_key(k: object) -> bool:
+        return isinstance(k, tuple) and len(k) == 3 and k[1] == "__stage__"
+
+    def _stage_key_derives_from(self, k: object, base: object) -> bool:
+        """True when k is a (recursive) staged sub-plan key rooted at
+        base."""
+        while self._is_stage_key(k):
+            k = k[0]
+            if k == base:
+                return True
+        return False
+
+    def _bound_entries(self, active: object) -> None:
+        """FIFO-evict plan entries past MAX_ENTRIES, with their staged
+        state; never the entry being run, nor staged sub-plan entries
+        (those go with their base key)."""
+        while len(self._entries) > self.MAX_ENTRIES:
+            victim = next((k for k in self._entries
+                           if k != active and not self._is_stage_key(k)),
+                          None)
+            if victim is None:
+                return
+            self._evict_query_state(victim)
+
+    def _evict_query_state(self, key: object) -> None:
+        """Drop the entry of ``key`` and every staged sub-plan entry
+        derived from it, unregistering the split's temp tables."""
+        for d in (self._stage_plans, self._entries):
+            for k in [key] + [k for k in d
+                              if self._stage_key_derives_from(k, key)]:
+                old = d.pop(k, None)
+                if d is self._stage_plans and old is not None:
+                    for _sub, temp in old[1]:
+                        self._unregister_staged(temp)
+
+    # ------------------------------------------------------------ staging
+
+    def _staged_effective(self, planned: P.PlannedQuery, key):
+        """(plan to run, the sub-plans' bill) for ``planned``: itself
+        below STAGE_WEIGHT, else its staged main plan, after running
+        every sub-plan (each run pays for its sub-plans) and registering
+        their results as temp tables. The split is computed once per
+        key, with the reference's cuts and temp names; the bill sums the
+        sub-plans' timings and kernel counts."""
+        # execute() evicts a key's split when the key's plan changes
+        plans = self._stage_plans.get(key)
+        if plans is None:
+            subs, main = [], planned
+            base_digest = None
+            while staging.plan_weight(main) > self.STAGE_WEIGHT:
+                cut = staging.choose_cut(main)
+                if cut is None:
+                    break
+                if base_digest is None:
+                    base_digest = staging.plan_digest(planned)
+                temp = staging.stage_temp_name(base_digest, len(subs))
+                sub, main = staging.build_stage(main, cut, temp)
+                subs.append((sub, temp))
+            plans = (planned, subs, main)
+            self._stage_plans[key] = plans
+        _orig, subs, main = plans
+        agg: dict = {}
+        for i, (sub, temp) in enumerate(subs):
+            # recursive: an oversized sub-plan splits again here
+            rt = self.execute(sub, key=(key, "__stage__", i))
+            _merge_stage_bill(agg, {
+                k: v for k, v in self.last_timings.items()
+                if k in ("execute_ms", "materialize_ms", "slack_retries",
+                         "__kernels")})
+            self._register_staged(temp, staging.result_to_host_table(
+                temp, rt))
+        if subs:
+            agg["staged_programs"] = len(subs)
+        return main, agg
+
+    def _register_staged(self, temp: str, table: HostTable) -> None:
+        """(Re-)register a staged temp table, dropping its device
+        buffers, bounds and scan views when the content changed; an
+        unchanged result keeps the registered table and its buffers."""
+        h = hashlib.md5()
+        for name in sorted(table.columns):
+            arr = np.ascontiguousarray(table.columns[name].values)
+            h.update(name.encode())
+            h.update(str(arr.shape).encode())
+            h.update(arr)
+        fp = h.hexdigest()
+        if self._stage_fps.get(temp) == fp:
+            return
+        self._stage_fps[temp] = fp
+        self.tables[temp] = table
+        self._drop_table_state(temp)
+
+    def _unregister_staged(self, temp: str) -> None:
+        self.tables.pop(temp, None)
+        self._stage_fps.pop(temp, None)
+        self._drop_table_state(temp)
+
+    def _drop_table_state(self, table: str) -> None:
+        """Free one table's device buffers (its reduced scan views'
+        too), host bounds and scan views."""
+        prefixes = [table + "."]
+        for ck in [ck for ck in self._scan_views if ck[0] == table]:
+            old = self._scan_views.pop(ck)
+            if isinstance(old, _ReducedScan):
+                prefixes.append(old.prefix + ".")
+        for k in [k for k in self._buffers if k.startswith(tuple(prefixes))]:
+            del self._buffers[k]
+        for k in [k for k in self._bounds if k[0] == table]:
+            del self._bounds[k]
 
     # capacity at or above which results compact on the device before
     # the copy to the host (the reference's COMPACT_MIN_ROWS)
@@ -435,7 +645,14 @@ class DeviceExecutor:
     # are still applied on the device.
     REDUCE_MIN_ROWS = 1 << 14
     REDUCE_MAX_FRAC = 0.5
-    MAX_SCAN_VIEWS = 96
+    # The reference bounds its views at 96: it consults them when it
+    # traces a program, and the compiled program keeps running after an
+    # eviction. Eager execution consults them on every run, so the bound
+    # must hold a whole power run's scan signatures (the NDS run has
+    # more than 96), or each pass re-filters the evicted tables on the
+    # host and uploads them again. Which view a signature gets does not
+    # depend on the bound, so the kernel choices do not either.
+    MAX_SCAN_VIEWS = 256
 
     def scan_view(self, node):
         """_ReducedScan for this scan's (table, filters), or None for the
@@ -663,6 +880,18 @@ class _Trace:
             out.cols[(node.binding, name)] = child.cols[(cb, name)]
         return out
 
+    def _run_stagedscan(self, node: P.StagedScan) -> DCtx:
+        """Host-staged intermediate (engine/staging.py): scan the temp
+        table, then restore each column's original (binding, name)
+        address so the ancestors' expressions resolve unchanged."""
+        inner = self.run(node.child)
+        sb = node.child.binding
+        out = DCtx(inner.n, inner.row)
+        for b, name, mangled, _dt in node.cols:
+            out.cols[(b, name)] = inner.cols[(sb, mangled)]
+        out.pristine = inner.pristine
+        return out
+
     def _run_filter(self, node: P.Filter) -> DCtx:
         return self._apply_filter(self.run(node.child), node.predicate)
 
@@ -862,9 +1091,21 @@ class _Trace:
         K = max(int(self.slack * max(lctx.n, rctx.n)), 1)
         if (node.kernel == KX.JOIN_PARTITIONED
                 and min(lctx.n, rctx.n) >= 2 * KX.NPART):
-            raise DeviceExecError(
-                "partitioned M:N join is not ported to the torch engine "
-                "yet")
+            # radix-partitioned join (K6): part_slack rides the
+            # executor's overflow retry, which grows partition and
+            # output capacity together
+            part_slack = max(2.0, self.slack)
+            lidx2, ridx, present, over = KX.partitioned_mn_join(
+                lkey.contiguous(), lok.contiguous(), rkey.contiguous(),
+                rok.contiguous(), K, part_slack)
+            self._overflows.append(over)
+            self._note("join.partitioned")
+            out = DCtx(int(lidx2.shape[0]), present)
+            out.cols.update(lctx.gather(lidx2).cols)
+            out.cols.update(rctx.gather(ridx).cols)
+            if node.residual is not None:
+                out = self._apply_filter(out, node.residual)
+            return out
         self._note("join.sortmerge")
         ks, order = self._build_lookup(lkey, lok)
         lo = _ss(ks, rkey, side="left")
@@ -1337,6 +1578,288 @@ class _Trace:
         cnt = self._seg_sum(flag.to(torch.int32), starts2, G).to(torch.int64)
         return cnt, None, None
 
+    # ------------------------------------------------------------- windows
+
+    def _run_window(self, node: P.Window) -> DCtx:
+        """Sort-based window evaluation: per window column one multi-key
+        sort into partition-major/order-minor space, then running maxima,
+        cumsum differences and segmented scans, scattered back through
+        the permutation."""
+        ctx = self.run(node.child)
+        out = DCtx(ctx.n, ctx.row)
+        out.cols.update(ctx.cols)
+        for name, spec in node.specs:
+            out.cols[(node.binding, name)] = self._window_col(spec, ctx)
+        return out
+
+    @staticmethod
+    def _changes(o):
+        """True at row 0 and wherever the sorted key changes."""
+        return torch.cat([torch.ones(1, dtype=torch.bool, device=o.device),
+                          o[1:] != o[:-1]])
+
+    def _window_col(self, spec: P.WindowSpec, ctx: DCtx) -> DVal:
+        n = ctx.n
+        iota = self._arange(n)
+        zero_i = torch.zeros((), dtype=torch.int32, device=self.dev)
+        ops = [(~ctx.row).to(torch.int32)]
+        part_ops = []
+        for p in spec.partition:
+            dv = self.eval(p, ctx)
+            if dv.valid is not None:
+                ops.append((~dv.valid).to(torch.int32))
+                part_ops.append(len(ops) - 1)
+            arr = _narrow_key(dv)
+            ops.append(torch.where(_ok(dv, ctx.row), arr,
+                                   torch.zeros((), dtype=arr.dtype,
+                                               device=self.dev)))
+            part_ops.append(len(ops) - 1)
+        order_ops = []
+        for e, asc, nulls_first in spec.order:
+            dv = self.eval(e, ctx)
+            if dv.valid is not None:
+                rank = dv.valid if nulls_first else ~dv.valid
+                ops.append(rank.to(torch.int32))
+                order_ops.append(len(ops) - 1)
+            arr = _narrow_key(dv)
+            if arr.dtype == torch.bool:
+                arr = arr.to(torch.int32)
+            key = arr if asc else -arr
+            if dv.valid is not None:
+                key = torch.where(dv.valid, key,
+                                  torch.zeros((), dtype=key.dtype,
+                                              device=self.dev))
+            ops.append(key)
+            order_ops.append(len(ops) - 1)
+        perm = _lexsort(ops, n, self.dev)
+        sorted_ops = {i: ops[i].index_select(0, perm)
+                      for i in part_ops + order_ops}
+        present_s = ctx.row.index_select(0, perm)
+        part_start = self._zeros(n, torch.bool)
+        part_start[0] = True
+        for i in part_ops:
+            part_start = part_start | self._changes(sorted_ops[i])
+        start_pos = torch.cummax(torch.where(part_start, iota, zero_i),
+                                 0).values
+
+        def scatter(res_sorted, valid_sorted=None, lo=None, hi=None):
+            # perm is a permutation: every slot is written once
+            arr = torch.zeros_like(res_sorted).index_copy_(0, perm,
+                                                           res_sorted)
+            valid = None
+            if valid_sorted is not None:
+                valid = torch.zeros_like(valid_sorted).index_copy_(
+                    0, perm, valid_sorted)
+            return DVal(arr, valid, None, lo, hi)
+
+        def order_change():
+            change = part_start
+            for i in order_ops:
+                change = change | self._changes(sorted_ops[i])
+            return change
+
+        if spec.func in ("rank", "dense_rank", "row_number"):
+            if spec.func == "row_number":
+                return scatter((iota - start_pos + 1).to(torch.int64),
+                               lo=1, hi=n)
+            change = order_change()
+            if spec.func == "dense_rank":
+                c = torch.cumsum(change.to(torch.int64), 0)
+                cstart = torch.cummax(
+                    torch.where(part_start, c, torch.zeros_like(c)),
+                    0).values
+                return scatter(c - cstart + 1, lo=1, hi=n)
+            lastchg = torch.cummax(torch.where(change, iota, zero_i),
+                                   0).values
+            return scatter((lastchg - start_pos + 1).to(torch.int64),
+                           lo=1, hi=n)
+
+        # aggregate windows
+        if spec.arg is not None:
+            dv = self.eval(spec.arg, ctx)
+            w = _ok(dv, ctx.row).index_select(0, perm)
+            vals = dv.arr.index_select(0, perm)
+        else:  # count(*)
+            w = present_s
+            vals = torch.ones(n, dtype=torch.int64, device=self.dev)
+        running = bool(spec.order)
+        is_f = isinstance(spec.dtype, FloatType)
+        if spec.func == "avg":
+            vals = _to_float(vals, spec.arg.dtype, self.fdt)
+        elif is_f:
+            vals = vals.to(self.fdt)
+        else:
+            vals = vals.to(torch.int64)
+        # per-row partition end: the last row of its partition, the
+        # reference's reversed running minimum of the next partition start
+        pend = KX.last_of_group(part_start, n)
+
+        def part_total(data):
+            # the partition's sum as inclusive-cumsum differences at its
+            # bounding rows (the cumsum keeps the data's dtype)
+            csum = torch.cumsum(data, 0, dtype=data.dtype)
+            hi = csum.index_select(0, pend)
+            lo = torch.where(start_pos > 0,
+                             csum.index_select(0, (start_pos - 1).clamp(
+                                 0, n - 1)),
+                             torch.zeros((), dtype=csum.dtype,
+                                         device=self.dev))
+            return hi - lo
+
+        if spec.func == "count":
+            src = w.to(torch.int32)
+            res = (KX.seg_scan("sum", src, part_start) if running
+                   else part_total(src))
+            return self._window_range_fix(
+                spec, scatter, res.to(torch.int64), None, order_change,
+                running)
+        cnt_src = w.to(torch.int32)
+        cnt = (KX.seg_scan("sum", cnt_src, part_start) if running
+               else part_total(cnt_src))
+        valid = cnt > 0
+        if spec.func in ("sum", "avg"):
+            data = torch.where(w, vals, torch.zeros((), dtype=vals.dtype,
+                                                    device=self.dev))
+            res = (KX.seg_scan("sum", data, part_start) if running
+                   else part_total(data))
+            if spec.func == "avg":
+                res = res.to(self.fdt) / cnt.clamp_min(1).to(self.fdt)
+        elif spec.func in ("min", "max"):
+            if vals.dtype.is_floating_point:
+                fill = float("inf") if spec.func == "min" else float("-inf")
+            else:
+                fill = I64_MAX if spec.func == "min" else I64_MIN
+            data = torch.where(w, vals, torch.full_like(vals, fill))
+            if running:
+                res = KX.seg_scan(spec.func, data, part_start)
+            else:
+                # whole-partition min/max: the segmented scan read at the
+                # partition's last row, broadcast to every row
+                res = KX.part_reduce_broadcast(spec.func, data, part_start,
+                                               pend)
+        else:
+            raise DeviceExecError(f"window func {spec.func}")
+        return self._window_range_fix(spec, scatter, res, valid,
+                                      order_change, running)
+
+    @staticmethod
+    def _window_range_fix(spec, scatter, res, valid, order_change,
+                          running):
+        """SQL's default frame with ORDER BY is RANGE .. CURRENT ROW:
+        peer (order-key-tied) rows share the value at the peer group's
+        last row. A ROWS frame keeps the per-row running value."""
+        if running and spec.frame is None:
+            n = res.shape[0]
+            last = KX.last_of_group(order_change(), n)
+            res = res.index_select(0, last)
+            if valid is not None:
+                valid = valid.index_select(0, last)
+        return scatter(res, valid)
+
+    # ------------------------------------------------ distinct and set ops
+
+    def _distinct_ctx(self, ctx: DCtx, keyvals, output, b: str) -> DCtx:
+        """One row per distinct key tuple: the group-id sort, read at
+        each group's first sorted row."""
+        perm, gid, _present_s, ngroups = self._group_ids(ctx, keyvals)
+        G = ctx.n
+        starts = _ss(gid, self._arange(G, gid.dtype)).clamp(0, ctx.n - 1)
+        out = DCtx(G, self._arange(G) < ngroups)
+        for (name, _dt), kv in zip(output, keyvals):
+            arr_g = kv.arr.index_select(0, perm).index_select(0, starts)
+            valid_g = None
+            if kv.valid is not None:
+                valid_g = kv.valid.index_select(0, perm).index_select(
+                    0, starts)
+            out.cols[(b, name)] = kv.with_arrays(arr_g, valid_g)
+        return out
+
+    def _run_distinct(self, node: P.Distinct) -> DCtx:
+        ctx = self.run(node.child)
+        b = node.binding
+        keyvals = [ctx.cols[(b, name)] for name, _ in node.output]
+        return self._distinct_ctx(ctx, keyvals, node.output, b)
+
+    def _run_setop(self, node: P.SetOp) -> DCtx:
+        lctx, rctx = self.run(node.left), self.run(node.right)
+        lb, rb = node.left.binding, node.right.binding
+        if node.kind.startswith("union"):
+            out = DCtx(lctx.n + rctx.n, torch.cat([lctx.row, rctx.row]))
+            for (lname, _), (rname, _) in zip(node.left.output,
+                                              node.right.output):
+                lv = lctx.cols[(lb, lname)]
+                rv = rctx.cols[(rb, rname)]
+                la, ra = lv.arr, rv.arr
+                sdict = lv.sdict
+                if lv.sdict is not None or rv.sdict is not None:
+                    la, ra, sdict = self._union_dict(lv, rv)
+                if la.dtype != ra.dtype:
+                    tgt = torch.promote_types(la.dtype, ra.dtype)
+                    la, ra = la.to(tgt), ra.to(tgt)
+                valid = None
+                if lv.valid is not None or rv.valid is not None:
+                    lvv = (lv.valid if lv.valid is not None
+                           else self._ones_bool(lctx.n))
+                    rvv = (rv.valid if rv.valid is not None
+                           else self._ones_bool(rctx.n))
+                    valid = torch.cat([lvv, rvv])
+                out.cols[(lb, lname)] = DVal(
+                    torch.cat([la, ra]), valid, sdict,
+                    None if (lv.lo is None or rv.lo is None)
+                    else min(lv.lo, rv.lo),
+                    None if (lv.hi is None or rv.hi is None)
+                    else max(lv.hi, rv.hi))
+            if node.kind == "union":
+                keyvals = [out.cols[(lb, name)]
+                           for name, _ in node.left.output]
+                return self._distinct_ctx(out, keyvals, node.left.output,
+                                          lb)
+            return out
+        # INTERSECT / EXCEPT: whole-row membership against the right
+        # side. Rows pack into one int64 (pair-aligned per column, plus a
+        # validity bit so NULLs compare equal, the SQL set-op rule); the
+        # probe is a sorted-membership check. A Distinct above
+        # (planner-inserted) gives the set semantics.
+        lvals = [lctx.cols[(lb, name)] for name, _ in node.left.output]
+        rvals = [rctx.cols[(rb, name)] for name, _ in node.right.output]
+        lkey = self._zeros(lctx.n, torch.int64)
+        rkey = self._zeros(rctx.n, torch.int64)
+        total_w = 0
+        for lv, rv in zip(lvals, rvals):
+            la, ra, lo, hi = self._align_pair(lv, rv)
+            w = max((hi - lo).bit_length(), 1)
+            ln = (la.to(torch.int64) - lo).clamp(0, hi - lo)
+            rn = (ra.to(torch.int64) - lo).clamp(0, hi - lo)
+            if lv.valid is not None or rv.valid is not None:
+                lval = (lv.valid if lv.valid is not None
+                        else self._ones_bool(lctx.n))
+                rval = (rv.valid if rv.valid is not None
+                        else self._ones_bool(rctx.n))
+                ln = (torch.where(lval, ln, torch.zeros_like(ln))
+                      | (lval.to(torch.int64) << w))
+                rn = (torch.where(rval, rn, torch.zeros_like(rn))
+                      | (rval.to(torch.int64) << w))
+                w += 1
+            total_w += w
+            if total_w > 62:
+                raise DeviceExecError(
+                    f"set-op row too wide to pack ({total_w} bits)")
+            lkey = (lkey << w) | ln
+            rkey = (rkey << w) | rn
+        sent = I64_MAX
+        if total_w <= 30:
+            lkey = lkey.to(torch.int32)
+            rkey = rkey.to(torch.int32)
+            sent = 2**31 - 1
+        ks = torch.sort(torch.where(rctx.row, rkey,
+                                    torch.full_like(rkey, sent)))[0]
+        pos = _ss(ks, lkey).clamp(0, rctx.n - 1)
+        hit = ks.index_select(0, pos) == lkey
+        keep = hit if node.kind == "intersect" else ~hit
+        out = DCtx(lctx.n, lctx.row & keep)
+        out.cols = lctx.cols
+        return out
+
     # ------------------------------------------------------- sort and misc
 
     def _run_sort(self, node: P.Sort) -> DCtx:
@@ -1376,8 +1899,7 @@ class _Trace:
         cap = min(node.count, ctx.n)
         out = DCtx(cap, ctx.row[:cap])
         for k, dv in ctx.cols.items():
-            out.cols[k] = dv.with_arrays(
-                dv.arr[:cap], None if dv.valid is None else dv.valid[:cap])
+            out.cols[k] = dv.head(cap)
         return out
 
     # ---------------------------------------------------------- expressions

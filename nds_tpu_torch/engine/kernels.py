@@ -15,6 +15,11 @@ bitmask_semi           ``bitmask_semi`` (K3)                 csrc/dense_domain.c
 keyed_minmax_semi      ``keyed_minmax_semi`` (K4)            csrc/dense_domain.cu
 seg_reduce_at_ends     ``seg_scan`` + ``seg_reduce_at_ends``  csrc/seg_scan.cu
                        (K5)
+partitioned_mn_join    ``partitioned_mn_join`` +             csrc/partitioned_join.cu
+                       ``_radix_scatter`` + ``_pids`` (K6)   (+ csrc/seg_scan.cu)
+seg_scan               ``seg_scan``, per row (K7)            csrc/seg_scan.cu
+part_reduce_broadcast  ``part_reduce_broadcast`` (K7)        csrc/seg_scan.cu
+last_of_group          ``last_of_group`` (K7)                csrc/seg_scan.cu
 =====================  ===================================  ======================
 
 Each wrapper dispatches on the device of its tensors: on a CUDA tensor
@@ -25,8 +30,12 @@ fallback from the kernel to the plain version. Each wrapper counts its
 kernel launches in ``LAUNCHES[<wrapper>]`` (``reset_launches`` zeroes
 them), so a run can show that it went through the kernels.
 
-All five are bound by bytes on the card: the source files say how many,
-and what their design does about it.
+All nine are bound by bytes on the card: the source files say how many,
+and what their design does about it. One library call sits inside a
+kernel: ``partitioned_mn_join`` sorts its (partitions x capacity) build
+block with one batched ``torch.sort``, the step the JAX version hands to
+XLA's library sort (``lax.sort``); everything the JAX version computes
+with its own arithmetic is CUDA C++.
 """
 
 from __future__ import annotations
@@ -444,13 +453,17 @@ def keyed_minmax_semi(bkey, bok, bval, pkey, pok, pval, lo: int,
 
 # ------------------------------------------------- aggregation kernels
 
-_OPS = {"min": torch.minimum, "max": torch.maximum}
+_OPS = {"sum": torch.add, "min": torch.minimum, "max": torch.maximum}
+# op codes of the C entry points
+_OP_CODES = {"sum": 0, "min": 1, "max": 2}
 
 
 def seg_scan_plain(op: str, vals, flags):
-    """Segmented inclusive scan restarting ``op`` at every True flag:
-    the (value, reset-flag) combiner of the JAX version, as a
-    Hillis-Steele scan (log2(n) doubling steps)."""
+    """Segmented inclusive scan restarting ``op`` ("sum", "min" or
+    "max") at every True flag: the (value, reset-flag) combiner of the
+    JAX version, as a Hillis-Steele scan (log2(n) doubling steps). The
+    values keep their dtype: an int32 sum stays int32 and wraps, as the
+    JAX scan's does."""
     f_op = _OPS[op]
     v, f = vals, flags
     n = v.shape[0]
@@ -488,7 +501,7 @@ def seg_reduce_at_ends(op: str, data, gid, starts2):
     """Grouped min or max (``op`` is "min" or "max") over rows sorted
     by group id, with no scatter: a segmented scan read at segment
     ends. Rows outside any group must carry the op's identity."""
-    if op not in _OPS:
+    if op not in ("min", "max"):
         raise ValueError(f"seg_reduce_at_ends: op {op!r}")
     if not _launch_device(data, gid, starts2):
         return seg_reduce_at_ends_plain(op, data, gid, starts2)
@@ -517,3 +530,306 @@ def seg_reduce_at_ends(op: str, data, gid, starts2):
     cb.check(err, "seg_reduce_at_ends")
     LAUNCHES["seg_reduce_at_ends"] += 1
     return out
+
+
+def _scan_scratch(lib, n: int, dtype, dev) -> tuple:
+    """Per-tile aggregates and carries of the three-pass scan."""
+    ntiles = -(-n // lib.nds_seg_scan_tile())
+    return (torch.empty(ntiles, dtype=dtype, device=dev),
+            torch.empty(ntiles, dtype=torch.uint8, device=dev),
+            torch.empty(ntiles, dtype=dtype, device=dev))
+
+
+def _check_scan(op: str, vals, flags, name: str) -> int:
+    if op not in _OP_CODES:
+        raise ValueError(f"{name}: op {op!r}")
+    n = vals.shape[0]
+    _require(vals, "vals", tuple(_SCAN_VTYPES))
+    _require(flags, "flags", (torch.bool,), n)
+    if n < 1:
+        raise ValueError(f"{name}: n={n}")
+    return n
+
+
+@_counted
+def seg_scan(op: str, vals, flags):
+    """Per-row segmented inclusive scan of ``vals`` with ``op`` ("sum",
+    "min" or "max"), restarting at every True ``flags`` row: running
+    window aggregates (count, sum, min, max under a ROWS frame). The
+    output keeps the values' dtype (int32 counts stay int32)."""
+    if not _launch_device(vals, flags):
+        if op not in _OPS:
+            raise ValueError(f"seg_scan: op {op!r}")
+        return seg_scan_plain(op, vals, flags)
+    n = _check_scan(op, vals, flags, "seg_scan")
+    cb, lib = _lib("seg_scan")
+    dev = vals.device
+    out = torch.empty(n, dtype=vals.dtype, device=dev)
+    fl = torch.empty(n, dtype=torch.uint8, device=dev)
+    tile_v, tile_f, carry = _scan_scratch(lib, n, vals.dtype, dev)
+    err = lib.nds_seg_scan(
+        _ptr(vals), _SCAN_VTYPES[vals.dtype], _OP_CODES[op], _ptr(flags), 0,
+        n, _ptr(out), _ptr(fl), _ptr(tile_v), _ptr(tile_f), _ptr(carry),
+        cb.stream_handle())
+    cb.check(err, "seg_scan")
+    LAUNCHES["seg_scan"] += 1
+    return out
+
+
+def part_reduce_broadcast_plain(op: str, data, part_start, pend):
+    """Plain version of ``part_reduce_broadcast``: the segmented scan
+    read at each row's partition end."""
+    run = seg_scan_plain(op, data, part_start)
+    return run.index_select(0, pend.to(torch.int64))
+
+
+@_counted
+def part_reduce_broadcast(op: str, data, part_start, pend):
+    """Whole-partition ``op`` ("min" or "max"; "sum" works too) per
+    row: the segmented scan restarting at ``part_start``, read at each
+    row's partition end ``pend`` (already per row, in ``[0, n)``)."""
+    if not _launch_device(data, part_start, pend):
+        if op not in _OPS:
+            raise ValueError(f"part_reduce_broadcast: op {op!r}")
+        return part_reduce_broadcast_plain(op, data, part_start, pend)
+    n = _check_scan(op, data, part_start, "part_reduce_broadcast")
+    _require(pend, "pend", _KEY_DTYPES, n)
+    cb, lib = _lib("seg_scan")
+    dev = data.device
+    run = torch.empty(n, dtype=data.dtype, device=dev)
+    fl = torch.empty(n, dtype=torch.uint8, device=dev)
+    out = torch.empty(n, dtype=data.dtype, device=dev)
+    tile_v, tile_f, carry = _scan_scratch(lib, n, data.dtype, dev)
+    err = lib.nds_part_reduce_broadcast(
+        _ptr(data), _SCAN_VTYPES[data.dtype], _OP_CODES[op],
+        _ptr(part_start), n, _ptr(pend), int(pend.dtype == torch.int64),
+        _ptr(out), _ptr(run), _ptr(fl), _ptr(tile_v), _ptr(tile_f),
+        _ptr(carry), cb.stream_handle())
+    cb.check(err, "part_reduce_broadcast")
+    LAUNCHES["part_reduce_broadcast"] += 1
+    return out
+
+
+def last_of_group_plain(change, n: int):
+    """Plain version of ``last_of_group``: the reversed running minimum
+    of the next change position, as flip, ``cummin``, flip."""
+    iota = torch.arange(n, dtype=torch.int32, device=change.device)
+    chg_at = torch.where(change, iota, torch.full_like(iota, n))
+    future = torch.cat([chg_at[1:], torch.full((1,), n, dtype=torch.int32,
+                                                device=change.device)])
+    nxt = torch.flip(torch.cummin(torch.flip(future, [0]), 0).values, [0])
+    return (nxt - 1).clamp(0, n - 1)
+
+
+@_counted
+def last_of_group(change, n: int):
+    """int32 index of the last row of each row's group, for sorted group
+    ``change`` flags (True at each group's first row): the reversed
+    running minimum of the next change position, minus one."""
+    if not _launch_device(change):
+        return last_of_group_plain(change, n)
+    _require(change, "change", (torch.bool,), n)
+    if not 1 <= n < 2**31 - 1:
+        raise ValueError(f"last_of_group: n={n}")
+    cb, lib = _lib("seg_scan")
+    dev = change.device
+    run = torch.empty(n, dtype=torch.int32, device=dev)
+    fl = torch.empty(n, dtype=torch.uint8, device=dev)
+    out = torch.empty(n, dtype=torch.int32, device=dev)
+    tile_v, tile_f, carry = _scan_scratch(lib, n, torch.int32, dev)
+    err = lib.nds_last_of_group(
+        _ptr(change), n, _ptr(out), _ptr(run), _ptr(fl), _ptr(tile_v),
+        _ptr(tile_f), _ptr(carry), cb.stream_handle())
+    cb.check(err, "last_of_group")
+    LAUNCHES["last_of_group"] += 1
+    return out
+
+
+# ------------------------------------------------ partitioned M:N join
+
+_KNUTH = 2654435761
+
+
+def _part_caps(nl: int, nr: int, part_slack: float, nparts: int) -> tuple:
+    """(lcap, rcap): per-partition capacities, as the JAX version
+    computes them."""
+    return (max(-(-int(nl * part_slack) // nparts), 1),
+            max(-(-int(nr * part_slack) // nparts), 1))
+
+
+def _pids_plain(key, log2r: int):
+    """Partition id from the key's low 32 bits by the Knuth
+    multiplicative hash, ``(uint32(key) * 2654435761) >> (32 - log2r)``.
+    The 32x32-bit product is taken modulo 2^32 in two 16-bit halves, so
+    no int64 product overflows."""
+    if log2r == 0:
+        return torch.zeros(key.shape, dtype=torch.int32, device=key.device)
+    u = key.to(torch.int64) & 0xFFFFFFFF
+    prod = ((u & 0xFFFF) * _KNUTH
+            + ((((u >> 16) * _KNUTH) & 0xFFFF) << 16)) & 0xFFFFFFFF
+    return (prod >> (32 - log2r)).to(torch.int32)
+
+
+def _radix_scatter_plain(key, ok, nparts: int, cap: int, log2r: int):
+    """Plain version of the JAX ``_radix_scatter``: (keys, gidx, occ)
+    blocks of shape (nparts, cap) and the count of rows dropped because
+    their partition overflowed ``cap``. Each valid row's slot is its
+    stable rank in its partition (a cumsum over the one-hot); dropped
+    rows go to an extra slot past the blocks."""
+    dev = key.device
+    n = key.shape[0]
+    pid = _pids_plain(key, log2r)
+    oh = ((pid[:, None] == torch.arange(nparts, dtype=torch.int32,
+                                        device=dev)[None, :])
+          & ok[:, None])
+    ohi = oh.to(torch.int32)
+    rank = torch.cumsum(ohi, 0, dtype=torch.int32).gather(
+        1, pid[:, None].to(torch.int64))[:, 0] - 1
+    counts = ohi.sum(0)
+    okc = ok & (rank < cap)
+    dest = torch.where(okc, pid.to(torch.int64) * cap + rank,
+                       torch.full((n,), nparts * cap, dtype=torch.int64,
+                                  device=dev))
+    size = nparts * cap + 1
+    sent = torch.iinfo(key.dtype).max
+    keys = torch.full((size,), sent, dtype=key.dtype, device=dev)
+    keys.scatter_(0, dest, key)
+    gidx = torch.zeros(size, dtype=torch.int32, device=dev)
+    gidx.scatter_(0, dest, torch.arange(n, dtype=torch.int32, device=dev))
+    occ = torch.zeros(size, dtype=torch.bool, device=dev)
+    occ.scatter_(0, dest, torch.ones(n, dtype=torch.bool, device=dev))
+    over = (counts - cap).clamp_min(0).sum().to(torch.int64)
+    return (keys[:-1].reshape(nparts, cap), gidx[:-1].reshape(nparts, cap),
+            occ[:-1].reshape(nparts, cap), over)
+
+
+def partitioned_mn_join_plain(lkey, lok, rkey, rok, out_capacity: int,
+                              part_slack: float, nparts: int = NPART):
+    """Plain version of ``partitioned_mn_join``, step by step as the JAX
+    function: radix scatter of both sides, a batched stable sort of the
+    build block, searchsorted match ranges, an int64 count prefix per
+    partition, and the expansion into ``nparts * ceil(K / nparts)``
+    output slots."""
+    dev = lkey.device
+    log2r = max(nparts.bit_length() - 1, 0)
+    lcap, rcap = _part_caps(lkey.shape[0], rkey.shape[0], part_slack,
+                            nparts)
+    lk_p, lg_p, _lok_p, lover = _radix_scatter_plain(lkey, lok, nparts,
+                                                     lcap, log2r)
+    rk_p, rg_p, rok_p, rover = _radix_scatter_plain(rkey, rok, nparts,
+                                                    rcap, log2r)
+    ks, order = torch.sort(lk_p, dim=1, stable=True)
+    gs = lg_p.gather(1, order)
+    lo_i = torch.searchsorted(ks, rk_p)
+    hi_i = torch.searchsorted(ks, rk_p, right=True)
+    cnt = torch.where(rok_p, hi_i - lo_i, torch.zeros_like(lo_i))
+    offs = torch.cumsum(cnt, 1, dtype=torch.int64)
+    total = offs[:, -1]
+    kp = max(-(-out_capacity // nparts), 1)
+    slots = torch.arange(kp, dtype=torch.int32, device=dev)
+    offsc = offs.clamp_max(kp + 1).to(torch.int32)
+    rloc = torch.searchsorted(offsc, slots.expand(nparts, kp).contiguous(),
+                              right=True).clamp(0, rcap - 1)
+    prev = torch.where(rloc > 0,
+                       offsc.gather(1, (rloc - 1).clamp_min(0)).to(
+                           torch.int64),
+                       torch.zeros((), dtype=torch.int64, device=dev))
+    within = slots[None, :].to(torch.int64) - prev
+    lpos = (lo_i.gather(1, rloc) + within).clamp(0, lcap - 1)
+    lidx = gs.gather(1, lpos)
+    ridx = rg_p.gather(1, rloc)
+    present = slots[None, :] < total.clamp_max(kp)[:, None]
+    overflow = (total - kp).clamp_min(0).sum() + lover + rover
+    return (lidx.reshape(-1), ridx.reshape(-1), present.reshape(-1),
+            overflow)
+
+
+def _radix_partition(lib, cb, key, ok, nparts: int, cap: int, log2r: int,
+                     over, side: int):
+    """One side's (nparts, cap) key, row-index and occupancy blocks,
+    written by the partition kernels of ``partitioned_join.cu``; the
+    side's dropped-row count lands in ``over[side]``."""
+    dev = key.device
+    n = key.shape[0]
+    tile = lib.nds_pj_tile()
+    nblocks = max(-(-n // tile), 1)
+    keys = torch.empty((nparts, cap), dtype=key.dtype, device=dev)
+    gidx = torch.empty((nparts, cap), dtype=torch.int32, device=dev)
+    occ = torch.empty((nparts, cap), dtype=torch.bool, device=dev)
+    block_cnt = torch.empty((nblocks, nparts), dtype=torch.int32,
+                            device=dev)
+    err = lib.nds_pj_partition(
+        _ptr(key), _ptr(ok), n, int(key.dtype == torch.int64), nparts,
+        log2r, cap, _ptr(keys), _ptr(gidx), _ptr(occ), _ptr(block_cnt),
+        _ptr(over), side, cb.stream_handle())
+    cb.check(err, "partitioned_mn_join (partition)")
+    return keys, gidx, occ
+
+
+@_counted
+def partitioned_mn_join(lkey, lok, rkey, rok, out_capacity: int,
+                        part_slack: float, nparts: int = NPART):
+    """Radix-partitioned M:N expanding inner join. Both sides scatter
+    into ``nparts`` hash partitions of capacity ``ceil(n * part_slack /
+    nparts)``; the build block sorts per partition, each probe slot
+    finds its match range, and the matches expand into ``nparts *
+    ceil(out_capacity / nparts)`` slots. Returns ``(lidx int32, ridx
+    int32, present bool, overflow int64)``; ``overflow`` counts rows
+    dropped by a full partition and matches past a partition's output
+    capacity, for the executor's doubled-slack retry."""
+    if not _launch_device(lkey, lok, rkey, rok):
+        return partitioned_mn_join_plain(lkey, lok, rkey, rok,
+                                         out_capacity, part_slack, nparts)
+    _keys_of(lkey, lok, rkey, rok)
+    if nparts < 1 or nparts & (nparts - 1) or nparts > 32:
+        raise ValueError(f"partitioned_mn_join: nparts={nparts}")
+    nl, nr = lkey.shape[0], rkey.shape[0]
+    if nl < 1 or nr < 1:
+        raise ValueError(f"partitioned_mn_join: sides of {nl} and {nr} "
+                         f"rows")
+    log2r = max(nparts.bit_length() - 1, 0)
+    lcap, rcap = _part_caps(nl, nr, part_slack, nparts)
+    kp = max(-(-out_capacity // nparts), 1)
+    if max(nparts * lcap, nparts * rcap, kp + 1) >= 2**31:
+        raise ValueError("partitioned_mn_join: capacities exceed int32")
+    cb, lib = _lib("partitioned_join")
+    _cs, scan = _lib("seg_scan")
+    dev = lkey.device
+    over = torch.empty(2, dtype=torch.int64, device=dev)
+    lk_p, lg_p, _ = _radix_partition(lib, cb, lkey, lok, nparts, lcap,
+                                     log2r, over, 0)
+    rk_p, rg_p, rok_p = _radix_partition(lib, cb, rkey, rok, nparts,
+                                         rcap, log2r, over, 1)
+    # the one library call: the batched stable sort of the build block
+    # (the JAX version's lax.sort)
+    ks, order = torch.sort(lk_p, dim=1, stable=True)
+    gs = lg_p.gather(1, order)
+    lo_i = torch.empty((nparts, rcap), dtype=torch.int32, device=dev)
+    cnt = torch.empty((nparts, rcap), dtype=torch.int64, device=dev)
+    err = lib.nds_pj_ranges(
+        _ptr(ks), int(lkey.dtype == torch.int64), lcap, _ptr(rk_p),
+        _ptr(rok_p), rcap, nparts, _ptr(lo_i), _ptr(cnt),
+        cb.stream_handle())
+    cb.check(err, "partitioned_mn_join (ranges)")
+    # per-partition int64 prefix of the match counts: the segmented scan
+    # kernel, restarting every rcap slots
+    m = nparts * rcap
+    offs = torch.empty(m, dtype=torch.int64, device=dev)
+    fl = torch.empty(m, dtype=torch.uint8, device=dev)
+    tile_v, tile_f, carry = _scan_scratch(scan, m, torch.int64, dev)
+    err = scan.nds_seg_scan(
+        _ptr(cnt), _SCAN_VTYPES[torch.int64], _OP_CODES["sum"], None, rcap,
+        m, _ptr(offs), _ptr(fl), _ptr(tile_v), _ptr(tile_f), _ptr(carry),
+        cb.stream_handle())
+    cb.check(err, "partitioned_mn_join (prefix)")
+    lidx = torch.empty(nparts * kp, dtype=torch.int32, device=dev)
+    ridx = torch.empty(nparts * kp, dtype=torch.int32, device=dev)
+    present = torch.empty(nparts * kp, dtype=torch.bool, device=dev)
+    overflow = torch.empty((), dtype=torch.int64, device=dev)
+    err = lib.nds_pj_expand(
+        _ptr(offs), _ptr(lo_i), _ptr(gs), _ptr(rg_p), nparts, lcap, rcap,
+        kp, _ptr(over), _ptr(lidx), _ptr(ridx), _ptr(present),
+        _ptr(overflow), cb.stream_handle())
+    cb.check(err, "partitioned_mn_join (expand)")
+    LAUNCHES["partitioned_mn_join"] += 1
+    return lidx, ridx, present, overflow

@@ -2,8 +2,8 @@
 
 Port copy of ``nds_tpu/engine/session.py`` with the later slices' hooks
 trimmed: no fault points, no tracer spans, no plan verification, no DML
-(``engine.dml``), no literal parameterization (``sql.params``) and no
-NDS (TPC-DS) catalog yet. What stays behaves as the reference does: the
+(``engine.dml``) and no literal parameterization (``sql.params``).
+What stays behaves as the reference does: the
 table registry, session views (q15), the (SQL text, views) plan cache
 and the executor factory that picks the backend (CPU oracle or the
 device engine).
@@ -46,6 +46,21 @@ class Session:
     def for_nds_h(cls, executor_factory=None) -> "Session":
         from nds_tpu_torch.nds_h.schema import PRIMARY_KEYS, get_schemas
         cat = CatalogInfo(get_schemas(), PRIMARY_KEYS, dict(TPCH_SIZES))
+        return cls(cat, executor_factory)
+
+    @classmethod
+    def for_nds(cls, executor_factory=None,
+                use_decimal: bool = True) -> "Session":
+        """The NDS (TPC-DS) catalog: the 24 source tables, their primary
+        keys and the dsdgen row-count model for join ordering. The
+        reference's ``include_maintenance`` (the refresh staging tables)
+        waits for the maintenance slice, and ``parameterize`` (literal
+        parameterization) for the serving slice."""
+        from nds_tpu_torch.nds.schema import (
+            PRIMARY_KEYS, SIZES, get_schemas,
+        )
+        cat = CatalogInfo(get_schemas(use_decimal), dict(PRIMARY_KEYS),
+                          dict(SIZES))
         return cls(cat, executor_factory)
 
     def register_table(self, table: HostTable) -> None:

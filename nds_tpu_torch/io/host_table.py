@@ -119,17 +119,20 @@ def from_arrays(name: str, schema: Schema, arrays: dict[str, np.ndarray]) -> Hos
     return HostTable(name, schema, cols)
 
 
-def from_reference(table) -> HostTable:
+def from_reference(table, schemas: "dict | None" = None) -> HostTable:
     """The port's HostTable for a table of the JAX package, taken
     duck-typed (``.name``; per column ``.values``, ``.dictionary``,
     ``.null_mask``) so that the port never imports that package. The
-    schema is the port's own NDS-H schema for the table's name; column
-    names and dtypes must agree with it. The numpy arrays are shared,
-    not copied: both engines then read bit-identical data."""
-    from nds_tpu_torch.nds_h.schema import get_schemas
-    schema = get_schemas().get(table.name)
+    schema is the port's own for the table's name, from ``schemas``
+    (the port's NDS-H schemas by default); column names and dtypes must
+    agree with it. The numpy arrays are shared, not copied: both engines
+    then read bit-identical data."""
+    if schemas is None:
+        from nds_tpu_torch.nds_h.schema import get_schemas
+        schemas = get_schemas()
+    schema = schemas.get(table.name)
     if schema is None:
-        raise ValueError(f"no NDS-H schema for table {table.name!r}")
+        raise ValueError(f"no port schema for table {table.name!r}")
     names = [f.name for f in schema]
     if list(table.columns) != names:
         raise ValueError(f"{table.name}: columns {list(table.columns)} "

@@ -1,0 +1,13 @@
+select i_item_id, i_item_desc, i_category, i_class, i_current_price,
+       sum(cs_ext_sales_price) as itemrevenue,
+       sum(cs_ext_sales_price) * 100 /
+         sum(sum(cs_ext_sales_price)) over (partition by i_class)
+         as revenueratio
+from catalog_sales, item, date_dim
+where cs_item_sk = i_item_sk
+  and i_category in ('{cat1}', '{cat2}', '{cat3}')
+  and cs_sold_date_sk = d_date_sk
+  and d_date between date '{date}' and date '{date}' + interval 30 days
+group by i_item_id, i_item_desc, i_category, i_class, i_current_price
+order by i_category, i_class, i_item_id, i_item_desc, revenueratio
+limit 100

@@ -50,16 +50,20 @@ def col_equal(a: pd.Series, b: pd.Series, epsilon: float,
 
 
 def frames_equal(df1: pd.DataFrame, df2: pd.DataFrame,
-                 epsilon: float = 0.00001) -> "str | None":
+                 epsilon: float = 0.00001,
+                 column_rel_tol: "dict | None" = None) -> "str | None":
     """None when two result frames match under the validator's rules
     (row count, column count, canonical sort, per-column compare), else
-    a one-line reason."""
+    a one-line reason. ``column_rel_tol`` maps a positional column to a
+    relaxed tolerance, as the reference's ``compare_results`` takes it
+    per (query, column)."""
     if len(df1) != len(df2):
         return f"row count {len(df1)} vs {len(df2)}"
     if df1.shape[1] != df2.shape[1]:
         return f"column count {df1.shape[1]} vs {df2.shape[1]}"
     df1, df2 = canon_sort(df1), canon_sort(df2)
     for i in range(df1.shape[1]):
-        if not col_equal(df1.iloc[:, i], df2.iloc[:, i], epsilon):
+        rel = (column_rel_tol or {}).get(i)
+        if not col_equal(df1.iloc[:, i], df2.iloc[:, i], epsilon, rel):
             return f"column {i} ({df1.columns[i]}) differs"
     return None
