@@ -31,18 +31,35 @@ Drives ``nds_tpu_torch`` (never ``jax``, never ``nds_tpu``) on the card:
    statement takes either form: the only path to
    ``part_reduce_broadcast``), kernels checked, timed with counts read,
    results checked against the oracle;
-7. prints the kernels line (one entry per kernel wrapper: launches summed
-   over the three timed runs, each kernel's numbers from the path that
-   runs it), the card line, and as the last line
+7. columnar phase, after the raw executors are released: both legs again
+   under ``columnar.set_mode("auto")`` (the compressed columnar store),
+   each through a fresh executor, with the same untimed, timed and
+   profiled passes; every result checked against the oracle frames the
+   raw legs' checks kept, every unit's kernel block against the mode-off
+   run's; the decode kernels (``bitpack_decode``, ``unpack_mask``,
+   ``rle_decode``) checked at their largest captured calls (K1-K7 repeat
+   the raw legs' calls, checked there) and over a
+   sweep of every bit width at 6,001,215 rows; their launches required
+   in the timed passes (a forced-``rle`` NDS-H pass where ``auto`` picks
+   no RLE); power totals, busy shares, peak memory, ``bytes_scanned``,
+   compression ratios and the executors' resident buffer bytes printed
+   beside the mode-off legs', and each leg's power total timed in turns
+   (mode off, auto, auto, mode off; the last two through fresh
+   executors);
+8. prints the kernels line (one entry per kernel wrapper: launches summed
+   over the timed runs, each kernel's numbers from the path that runs
+   it), the card line, and as the last line
    ``{"ok": true, "device": {...}}``.
 
-Kernel checks: integer and min/max outputs must equal the plain version's
-exactly; a float sum (the segmented scan's "sum" on float values) within
-|got - plain| <= 1e-9 * max(1, |plain|), since the two add in other
-orders. Each check gives the kernel's time (CUDA events, median of 7 after
-2 warm-ups), the plain version's, the bytes it must move, the least time
-the card could take for them (``bound_ms``) and, where one PyTorch call
-computes the same thing, that call's time.
+Kernel checks: integer, bool and min/max outputs must equal the plain
+version's exactly; a float sum (the segmented scan's "sum" on float
+values) within |got - plain| <= 1e-9 * max(1, |plain|), since the two add
+in other orders. Each check gives the kernel's time (CUDA events, median
+of 7 after 2 warm-ups), the host's time for one call of the wrapper up to
+its return (``host_ms``), the plain version's time, the bytes it must
+move, the least time the card could take for them (``bound_ms``) and,
+where one PyTorch call computes the same thing, that call's time. Each
+profiled pass also lists the operators that take the most host time.
 
 Any failed phase raises: the exit code is then non-zero and no result
 line is printed. ``--device cpu`` rehearses the script on the CPU, where
@@ -83,16 +100,29 @@ KERNELS = {
                               "nds_tpu/engine/kernels.py:456"),
     "last_of_group": ("nds_tpu_torch/csrc/seg_scan.cu",
                       "nds_tpu/engine/kernels.py:466"),
+    "bitpack_decode": ("nds_tpu_torch/csrc/columnar_decode.cu",
+                       "nds_tpu/columnar/device.py:21,41"),
+    "unpack_mask": ("nds_tpu_torch/csrc/columnar_decode.cu",
+                    "nds_tpu/columnar/device.py:31"),
+    "rle_decode": ("nds_tpu_torch/csrc/columnar_decode.cu",
+                   "nds_tpu/columnar/device.py:52"),
 }
 # the kernels each timed run must have launched
 H_REQUIRED = ("direct_lookup_join", "matmul_probe_join", "bitmask_semi",
               "keyed_minmax_semi", "seg_reduce_at_ends")
 DS_REQUIRED = ("partitioned_mn_join", "seg_scan", "last_of_group")
 WINDOW_REQUIRED = ("part_reduce_broadcast", "last_of_group")
+# the columnar decode kernels (K8, K9): the timed passes under "auto"
+# must launch all three between them, the NDS pass the mask unpack
+DECODE_KERNELS = ("bitpack_decode", "unpack_mask", "rle_decode")
+COLUMNAR_DS_REQUIRED = ("unpack_mask",)
 # the path whose largest call gives each kernel's numbers in the line
+# (the decode kernels: the columnar path with their largest call)
 LINE_PATH = {**{n: "nds_h" for n in H_REQUIRED},
              "partitioned_mn_join": "nds", "seg_scan": "nds",
              "last_of_group": "nds", "part_reduce_broadcast": "window"}
+# the bit-width sweep of the decode kernels: TPC-H's SF1 lineitem count
+SWEEP_ROWS = 6_001_215
 # float sums add in other orders in the kernel and its plain version
 FLOAT_SUM_RTOL = 1e-9
 
@@ -158,6 +188,23 @@ def time_ms(fn, dev, reps: int = 7, warm: int = 2) -> float:
     return statistics.median(times)
 
 
+def host_call_ms(fn, dev, reps: int = 7) -> float:
+    """Median host time of one call up to its return, the card drained
+    before each: what the wrapper costs the host (checks, allocation,
+    the launch), apart from the kernel's own time."""
+    import torch
+    times = []
+    for _ in range(reps):
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1000)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    return statistics.median(times)
+
+
 def _tensors(x):
     import torch
     if isinstance(x, torch.Tensor):
@@ -214,6 +261,9 @@ def work_of(name: str, args, out) -> tuple:
     if name == "partitioned_mn_join":
         # one step per input row and per output slot
         ops = rows + out[0].numel()
+    if name in DECODE_KERNELS:
+        # a few integer operations per output row
+        ops = out.numel()
     return moved, ops
 
 
@@ -270,6 +320,7 @@ def check_kernel(KX, name: str, args, label: str, dev) -> dict:
         raise SmokeError(f"{name} [{label}] differs from its plain "
                          f"version: max_abs_err={err}")
     ms = time_ms(lambda: fn(*args), dev)
+    host_ms = host_call_ms(lambda: fn(*args), dev)
     # a plain version that takes seconds is timed once more, not four
     # times
     slow = plain_first_s > 1.0
@@ -282,7 +333,9 @@ def check_kernel(KX, name: str, args, label: str, dev) -> dict:
     shapes = [list(a.shape) + [str(a.dtype).replace("torch.", "")]
               for a in args if hasattr(a, "shape")]
     rec = {"kernel": name, "case": label, "shapes": shapes,
-           "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+           "size": call_size(name, args),
+           "max_abs_err": err, "ms": ms, "host_ms": host_ms,
+           "plain_ms": plain_ms,
            "library_ms": library_ms, "bytes": moved, "ops": ops,
            "bound_ms": bound_ms, "bound_by": bound_by}
     log(json.dumps(rec))
@@ -408,6 +461,49 @@ def sf1_shape_cases(tables: dict, dev) -> list:
     return cases
 
 
+def decode_sweep_cases(dev) -> list:
+    """(kernel, args, label) of the decode kernels over SWEEP_ROWS rows:
+    every bit width into int32 (bias added in int32) and into int64 (bias
+    added in int64) from random words, the mask unpack, and RLE at about
+    four rows a run over the whole column and over a padded view."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(11)
+    n = SWEEP_ROWS
+
+    def dt(a):
+        return torch.as_tensor(np.ascontiguousarray(a)).to(dev)
+
+    def words(count):
+        return dt(rng.integers(-2**31, 2**31, count,
+                               dtype=np.int64).astype(np.int32))
+
+    cases = []
+    for bits in (1, 2, 4, 8, 16, 32):
+        w = words(n if bits == 32 else -(-n // (32 // bits)))
+        cases.append(("bitpack_decode", (w, n, bits, -12345, torch.int32),
+                      f"n={n} bits={bits} int32, int32 bias"))
+        cases.append(("bitpack_decode",
+                      (w, n, bits, -(2**40) - 3, torch.int64),
+                      f"n={n} bits={bits} int64, int64 bias"))
+    cases.append(("unpack_mask", (words(-(-n // 32)), n), f"n={n} mask"))
+    steps = rng.random(n) < 0.25
+    steps[0] = False
+    vals = np.cumsum(steps).astype(np.int64) * 3 - 7
+    starts = np.concatenate(
+        [[0], np.nonzero(vals[1:] != vals[:-1])[0] + 1]).astype(np.int32)
+    cases.append(("rle_decode", (dt(vals[starts]), dt(starts), n),
+                  f"n={n} runs={len(starts)} int64"))
+    # a padded view: the runs of the first three quarters of the rows,
+    # decoded to a power-of-two capacity past the column's end
+    k = int(np.searchsorted(starts, n * 3 // 4))
+    cap = 1 << (n - 1).bit_length()
+    cases.append(("rle_decode", (dt(vals[starts[:k]].astype(np.int32)),
+                                 dt(starts[:k]), cap),
+                  f"padded n={cap} live={n * 3 // 4} runs={k} int32"))
+    return cases
+
+
 # ------------------------------------------------------------- main path
 
 def run_query(session, stmts):
@@ -417,6 +513,14 @@ def run_query(session, stmts):
         if r is not None:
             result = r
     return result
+
+
+def call_size(name: str, args) -> int:
+    """How large one kernel call is: its input elements, or for a decode
+    the rows it writes."""
+    if name in DECODE_KERNELS:
+        return int(args[2] if name == "rle_decode" else args[1])
+    return sum(a.numel() for a in args if hasattr(a, "numel"))
 
 
 class Recorder:
@@ -441,7 +545,7 @@ class Recorder:
     def _wrap(self, name, fn):
         def wrapper(*args):
             self.calls[name] += 1
-            size = sum(a.numel() for a in args if hasattr(a, "numel"))
+            size = call_size(name, args)
             cur = self.largest.get(name)
             if cur is None or size > cur[0]:
                 self.largest[name] = (size, tuple(
@@ -494,6 +598,9 @@ def profile_pass(dsess, units, dev, per_unit, label) -> dict:
         tot, cnt = by_name.get(name, (0.0, 0))
         by_name[name] = (tot + ms, cnt + 1)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]
+    # where the host spends its time: operators by their own CPU time
+    host_ops = sorted(prof.key_averages(),
+                      key=lambda e: -e.self_cpu_time_total)[:12]
     device_ms = sum(by_unit.values())
     wall_ms = sum(per_unit[n]["wall_ms"] for n, _ in units)
     out = {"device_ms": device_ms, "timed_wall_ms": wall_ms,
@@ -502,7 +609,10 @@ def profile_pass(dsess, units, dev, per_unit, label) -> dict:
            "device_busy_share": device_ms / wall_ms if wall_ms else None,
            "device_launches": len(work),
            "top_device_kernels": [{"kernel": k[:160], "ms": ms, "count": c}
-                                  for k, (ms, c) in top]}
+                                  for k, (ms, c) in top],
+           "top_host_ops": [{"op": e.key[:120],
+                             "self_cpu_ms": e.self_cpu_time_total / 1000,
+                             "count": e.count} for e in host_ops]}
     for name, _ in units:
         per_unit[name]["profiled_device_ms"] = by_unit.get(name)
     log(json.dumps({"phase": f"{label} profile", **out}))
@@ -520,9 +630,8 @@ _ORACLE_SESSIONS: dict = {}
 
 def _oracle_unit(task: tuple) -> tuple:
     """In a forked worker: run one unit on the CPU oracle and compare
-    with the card's result frame."""
-    from nds_tpu_torch.nds.validate import unit_differs
-    from nds_tpu_torch.utils.validate_core import frames_equal
+    with the card's result frame; the oracle's frame goes back too, for
+    the columnar legs."""
     suite, name, stmts, got, rules = task
     sess = _ORACLE_SESSIONS.get(suite)
     if sess is None:
@@ -534,13 +643,28 @@ def _oracle_unit(task: tuple) -> tuple:
     try:
         exp = run_query(sess, stmts).to_pandas()
     except Exception as exc:  # noqa: BLE001 - reported as a mismatch
-        return name, f"oracle failed: {type(exc).__name__}: {exc}", None
+        return name, f"oracle failed: {type(exc).__name__}: {exc}", None, \
+            None
     ms = (time.perf_counter() - t0) * 1000
+    return name, unit_mismatch(got, exp, name, rules), ms, exp
+
+
+def unit_mismatch(got, exp, name: str, rules: str):
+    """None when the card's frame matches the oracle's under the rules
+    of "nds_h", "nds" (the validator's carve-outs) or "window" (plain
+    rules, and rows required); else why not."""
+    from nds_tpu_torch.nds.validate import unit_differs
+    from nds_tpu_torch.utils.validate_core import frames_equal
     why = (unit_differs(got, exp, name) if rules == "nds"
            else frames_equal(got, exp))
     if why is None and rules == "window" and not len(exp):
         why = "no rows"
-    return name, why, ms
+    return why
+
+
+# the oracle's frame per (suite, unit), from the raw legs' checks: the
+# columnar legs run the same statements over the same tables
+ORACLE_ANSWERS: dict = {}
 
 
 def oracle_check(pool, suite, units, results, per_unit,
@@ -553,12 +677,36 @@ def oracle_check(pool, suite, units, results, per_unit,
     tasks = [(suite, name, stmts, results[name].to_pandas(), rules)
              for name, stmts in units]
     bad = []
-    for name, why, ms in pool.imap_unordered(_oracle_unit, tasks):
+    for name, why, ms, exp in pool.imap_unordered(_oracle_unit, tasks):
         per_unit[name]["cpu_oracle_ms"] = ms
+        per_unit[name]["match"] = why is None
+        if exp is not None:
+            ORACLE_ANSWERS[(suite, name)] = exp
+        if why is not None:
+            bad.append(f"{suite} {name}: {why}")
+    return bad, time.perf_counter() - t0
+
+
+def answers_check(suite, units, results, per_unit, rules: str) -> tuple:
+    """Every unit's card result against the oracle's frame that the raw
+    leg's check kept for the same tables and statement. Returns
+    (mismatches, seconds)."""
+    t0 = time.perf_counter()
+    bad = []
+    for name, _stmts in units:
+        exp = ORACLE_ANSWERS.get((suite, name))
+        why = ("no oracle answer kept" if exp is None else
+               unit_mismatch(results[name].to_pandas(), exp, name, rules))
         per_unit[name]["match"] = why is None
         if why is not None:
             bad.append(f"{suite} {name}: {why}")
     return bad, time.perf_counter() - t0
+
+
+def gc_collections() -> list:
+    """The garbage collector's collections so far, per generation."""
+    import gc
+    return [g["collections"] for g in gc.get_stats()]
 
 
 def timed_pass(dsess, ex, units, dev) -> tuple:
@@ -579,27 +727,40 @@ def timed_pass(dsess, ex, units, dev) -> tuple:
                           "slack_retries": lt.get("slack_retries"),
                           "staged_programs": lt.get("staged_programs"),
                           "kernels": lt.get("__kernels"),
+                          "bytes_scanned": lt.get("bytes_scanned"),
+                          "bytes_scanned_raw": lt.get("bytes_scanned_raw"),
+                          "compression_ratio": lt.get("compression_ratio"),
                           "rows": res.nrows}
     return per_unit, results
 
 
-def kernel_checks(KX, rec, label, dev) -> dict:
-    """Each kernel the untimed pass called, against its plain version on
-    its largest captured call."""
+def kernel_checks(KX, rec, label, dev, only=KERNELS) -> dict:
+    """Each kernel of ``only`` the untimed pass called, against its plain
+    version on its largest captured call."""
     out = {}
-    for name in KERNELS:
+    for name in only:
         if name in rec.largest:
             out[name] = check_kernel(KX, name, rec.largest[name][1],
                                      f"{label} main path", dev)
     return out
 
 
-def run_leg(suite, KX, factory_of, dev, pool, record) -> tuple:
+def resident_bytes(ex) -> int:
+    """Bytes of the executor's pooled scan buffers on the card."""
+    return sum(t.numel() * t.element_size() for t in ex._buffers.values())
+
+
+def run_leg(suite, KX, factory_of, dev, pool, record, path=None,
+            raw=None) -> tuple:
     """One power run on the card over the suite's generated tables: the
     untimed pass with its captured kernel calls, the kernel checks, the
     timed pass with launch counts read, the profiled pass and the oracle
-    check."""
+    check. ``path`` names the run in the record (the suite by default);
+    a columnar run passes the mode-off run of the same suite as ``raw``:
+    its results are checked against the oracle frames that run's check
+    kept, and each unit's kernel block must equal that run's."""
     import torch
+    path = path or suite
     tables = _ORACLE_TABLES[suite]
     factory = factory_of()
     dsess = suite_session(suite, factory)
@@ -620,16 +781,19 @@ def run_leg(suite, KX, factory_of, dev, pool, record) -> tuple:
             if dev.type == "cuda":
                 torch.cuda.synchronize()
                 warm_peaks[name] = torch.cuda.max_memory_allocated()
-            log(f"warm {suite} {name} {time.perf_counter() - t1:.2f}s "
+            log(f"warm {path} {name} {time.perf_counter() - t1:.2f}s "
                 f"peak {warm_peaks.get(name, 0) / 2**30:.2f} GiB")
     warm_s = time.perf_counter() - t0
-    log(json.dumps({"phase": f"{suite} warm pass", "seconds": warm_s,
+    log(json.dumps({"phase": f"{path} warm pass", "seconds": warm_s,
                     "kernel_calls": rec.calls}))
-    main_cases = kernel_checks(KX, rec, suite, dev)
+    # a columnar run makes the raw run's K1-K7 calls on the same inputs
+    # (the decode is exact), checked there: here only the decodes
+    main_cases = kernel_checks(KX, rec, path, dev,
+                               KERNELS if raw is None else DECODE_KERNELS)
     checks = list(main_cases.values())
     called = [n for n, c in rec.calls.items() if c > 0]
     del rec
-    if suite == "nds_h":
+    if suite == "nds_h" and raw is None:
         for name, kargs, label in sf1_shape_cases(tables, dev):
             checks.append(check_kernel(KX, name, kargs, label, dev))
 
@@ -638,27 +802,47 @@ def run_leg(suite, KX, factory_of, dev, pool, record) -> tuple:
     KX.reset_launches()
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats()
+    gc0 = gc_collections()
     per_unit, results = timed_pass(dsess, ex, units, dev)
     launches = KX.launch_counts()
+    gcs = [b - a for a, b in zip(gc0, gc_collections())]
     power_ms = sum(u["wall_ms"] for u in per_unit.values())
     peak = torch.cuda.max_memory_allocated() if dev.type == "cuda" else None
-    profile = profile_pass(dsess, units, dev, per_unit, suite)
+    resident = resident_bytes(ex)
+    profile = profile_pass(dsess, units, dev, per_unit, path)
 
-    bad, oracle_s = oracle_check(pool, suite, units, results, per_unit,
-                                 rules=suite)
+    if raw is None:
+        bad, oracle_s = oracle_check(pool, suite, units, results, per_unit,
+                                     rules=suite)
+    else:
+        bad, oracle_s = answers_check(suite, units, results, per_unit,
+                                      rules=suite)
+        for name, _ in units:
+            if per_unit[name]["kernels"] != raw["per_unit"][name]["kernels"]:
+                bad.append(f"{path} {name}: kernel block "
+                           f"{per_unit[name]['kernels']} != mode off "
+                           f"{raw['per_unit'][name]['kernels']}")
     for name, _ in units:
-        log(json.dumps({"suite": suite, "unit": name, **per_unit[name]}))
+        log(json.dumps({"suite": path, "unit": name, **per_unit[name]}))
+    scanned = sum(u["bytes_scanned"] or 0 for u in per_unit.values())
+    scanned_raw = sum(u["bytes_scanned_raw"] or u["bytes_scanned"] or 0
+                      for u in per_unit.values())
     leg = {"warm_pass_s": warm_s,
            "power_total_ms": power_ms, "launches": launches,
            "peak_device_bytes": peak, "oracle_s": oracle_s,
+           "resident_buffer_bytes": resident, "gc_collections": gcs,
+           "bytes_scanned": scanned, "bytes_scanned_raw": scanned_raw,
+           "compression_ratio": scanned_raw / scanned if scanned else None,
            "profile": profile, "kernel_checks": checks,
            "per_unit": per_unit, "called_in_warm_pass": called,
            "warm_peak_device_bytes": warm_peaks,
            "mismatches": bad}
-    record[suite] = leg
-    log(json.dumps({"phase": f"{suite} main path",
+    record[path] = leg
+    log(json.dumps({"phase": f"{path} main path",
                     "units": len(units), "power_total_ms": power_ms,
                     "launches": launches, "peak_device_bytes": peak,
+                    "resident_buffer_bytes": resident,
+                    "bytes_scanned": scanned,
                     "oracle_s": oracle_s, "mismatches": len(bad)}))
     if bad:
         raise SmokeError("results differ from the CPU oracle: "
@@ -667,7 +851,7 @@ def run_leg(suite, KX, factory_of, dev, pool, record) -> tuple:
                                  else DS_REQUIRED)
     missing = sorted(n for n in required if launches.get(n, 0) <= 0)
     if missing:
-        raise SmokeError(f"the timed {suite} run launched no {missing}")
+        raise SmokeError(f"the timed {path} run launched no {missing}")
     leg["main_cases"] = main_cases
     return leg, dsess
 
@@ -707,6 +891,118 @@ def run_window_path(KX, dsess, dev, pool, record) -> dict:
     return out
 
 
+def release(dev) -> None:
+    """Free what the executors a leg dropped held on the card."""
+    import gc
+    import torch
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def power_pass(suite, factory_of, dev, mode: str) -> dict:
+    """A fresh executor of the suite under columnar ``mode``: one
+    untimed pass, then the timed pass; its power total and the garbage
+    collections during it."""
+    from nds_tpu_torch import columnar
+    columnar.set_mode(mode)
+    try:
+        factory = factory_of()
+        dsess = suite_session(suite, factory)
+        for t in _ORACLE_TABLES[suite].values():
+            dsess.register_table(t)
+        units = suite_units(suite)
+        for _name, stmts in units:
+            run_query(dsess, stmts)
+        gc0 = gc_collections()
+        per_unit, _results = timed_pass(dsess, factory(dsess.tables), units,
+                                        dev)
+        out = {"mode": mode, "power_total_ms": sum(
+            u["wall_ms"] for u in per_unit.values()),
+            "gc_collections": [b - a for a, b in zip(gc0,
+                                                     gc_collections())]}
+    finally:
+        columnar.set_mode(None)
+    del dsess, factory
+    release(dev)
+    log(json.dumps({"phase": f"{suite} power pass", **out}))
+    return out
+
+
+def run_columnar(KX, factory_of, dev, pool, record, paths) -> None:
+    """The columnar phase: both legs under ``columnar.set_mode("auto")``
+    through fresh executors, each checked against the raw legs' oracle
+    frames and kernel blocks; the decode kernels checked at their
+    largest captured calls and over the bit-width sweep; launches of
+    ``bitpack_decode`` and ``rle_decode`` required in the timed passes
+    and of ``unpack_mask`` in the NDS pass (a forced-``rle`` NDS-H pass
+    is added where ``auto`` picks no RLE on either leg)."""
+    from nds_tpu_torch import columnar
+    t0 = time.perf_counter()
+    legs = [("nds_h", "columnar_nds_h"), ("nds", "columnar_nds")]
+    columnar.set_mode("auto")
+    try:
+        for suite, path in legs:
+            paths[path], dsess = run_leg(suite, KX, factory_of, dev, pool,
+                                         record, path=path,
+                                         raw=paths[suite])
+            del dsess
+            release(dev)
+        if not any(paths[p]["launches"].get("rle_decode", 0)
+                   for _s, p in legs):
+            log("auto picked no RLE on either leg: a forced-rle NDS-H pass")
+            columnar.set_mode("rle")
+            legs.append(("nds_h", "columnar_rle_nds_h"))
+            paths["columnar_rle_nds_h"], dsess = run_leg(
+                "nds_h", KX, factory_of, dev, pool, record,
+                path="columnar_rle_nds_h", raw=paths["nds_h"])
+            del dsess
+            release(dev)
+    finally:
+        columnar.set_mode(None)
+    # the power totals in turns on this card: mode off (the raw leg),
+    # auto (the columnar leg), then auto and mode off once more
+    turns = {suite: [paths[suite]["power_total_ms"],
+                     paths[path]["power_total_ms"]]
+             + [power_pass(suite, factory_of, dev, m)["power_total_ms"]
+                for m in ("auto", "off")]
+             for suite, path in legs[:2]}
+    sweep = [check_kernel(KX, name, kargs, label, dev)
+             for name, kargs, label in decode_sweep_cases(dev)]
+    paths["decode_sweep"] = {"launches": {}, "kernel_checks": sweep,
+                             "main_cases": {}}
+    launched = {n: sum(paths[p]["launches"].get(n, 0) for _s, p in legs)
+                for n in DECODE_KERNELS}
+    missing = [n for n in ("bitpack_decode", "rle_decode")
+               if not launched[n]]
+    missing += [n for n in COLUMNAR_DS_REQUIRED
+                if not paths["columnar_nds"]["launches"].get(n, 0)]
+    summary = {"phase": "columnar", "seconds": time.perf_counter() - t0,
+               "decode_launches": launched}
+    for suite, path in legs:
+        on, off = paths[path], paths[suite]
+        summary[path] = {
+            "power_total_ms": on["power_total_ms"],
+            "power_total_ms_mode_off": off["power_total_ms"],
+            "power_total_ms_turns_off_auto_auto_off": turns.get(suite),
+            "gc_collections": on["gc_collections"],
+            "gc_collections_mode_off": off["gc_collections"],
+            "device_busy_share": on["profile"]["device_busy_share"],
+            "device_busy_share_mode_off": off["profile"]["device_busy_share"],
+            "peak_device_bytes": on["peak_device_bytes"],
+            "peak_device_bytes_mode_off": off["peak_device_bytes"],
+            "bytes_scanned": on["bytes_scanned"],
+            "bytes_scanned_mode_off": off["bytes_scanned"],
+            "bytes_scanned_raw": on["bytes_scanned_raw"],
+            "compression_ratio": on["compression_ratio"],
+            "resident_buffer_bytes": on["resident_buffer_bytes"],
+            "resident_buffer_bytes_mode_off": off["resident_buffer_bytes"]}
+    record["columnar"] = summary
+    log(json.dumps(summary))
+    if missing:
+        raise SmokeError(f"the timed columnar runs launched no {missing}")
+
+
 def kernels_line(paths: dict) -> list:
     """One entry per kernel wrapper: launches summed over the timed runs
     of the paths (each read between its own reset and its end), the
@@ -714,10 +1010,18 @@ def kernels_line(paths: dict) -> list:
     error over every check of it."""
     line = []
     for name, (source, replaces) in KERNELS.items():
-        r = paths[LINE_PATH[name]]["main_cases"].get(name)
+        if name in LINE_PATH:
+            where = LINE_PATH[name]
+            r = paths[where]["main_cases"].get(name)
+        else:
+            # the columnar path that made the kernel's largest call
+            found = [(p["main_cases"][name]["size"], key)
+                     for key, p in paths.items()
+                     if name in p.get("main_cases", {})]
+            where = max(found)[1] if found else "columnar"
+            r = paths[where]["main_cases"][name] if found else None
         if r is None:
-            raise SmokeError(f"no check of {name} on the "
-                             f"{LINE_PATH[name]} path")
+            raise SmokeError(f"no check of {name} on the {where} path")
         errs = [c["max_abs_err"] for p in paths.values()
                 for c in p["kernel_checks"] if c["kernel"] == name]
         line.append({
@@ -797,6 +1101,11 @@ def main() -> int:
         paths["nds"], dsess = run_leg("nds", KX, factory_of, dev, pool,
                                       record)
         paths["window"] = run_window_path(KX, dsess, dev, pool, record)
+        # the raw executors go before the columnar legs start, so that
+        # raw and encoded buffers are never resident together
+        del dsess
+        release(dev)
+        run_columnar(KX, factory_of, dev, pool, record, paths)
         line = kernels_line(paths)
         record["kernels"] = line
         pool.close()

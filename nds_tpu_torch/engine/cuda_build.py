@@ -67,6 +67,10 @@ SIGNATURES = {
         "nds_pj_expand": [_P, _P, _P, _P, _I, _LL, _LL, _LL, _P, _P, _P, _P,
                           _P, _P],
     },
+    "columnar_decode": {
+        "nds_bitpack_decode": [_P, _LL, _I, _LL, _I, _I, _P, _P],
+        "nds_rle_decode": [_P, _P, _I, _LL, _I, _P, _P],
+    },
 }
 
 
@@ -138,8 +142,8 @@ def build_all() -> dict[str, float]:
 
 def library(name: str) -> ctypes.CDLL:
     """The loaded library of one source (``dense_domain``,
-    ``small_build_probe``, ``seg_scan``, ``partitioned_join``), built
-    first if needed."""
+    ``small_build_probe``, ``seg_scan``, ``partitioned_join``,
+    ``columnar_decode``), built first if needed."""
     lib = _LIBS.get(name)
     if lib is not None:
         return lib

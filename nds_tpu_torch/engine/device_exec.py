@@ -31,6 +31,15 @@ the executor's device (``cuda`` unless the caller asks for the CPU):
   become host temp tables. Eager torch compiles nothing, so the split
   buys no compile time here; it is kept so that the staged statements
   run with the reference's capacities, retries and kernel blocks.
+- **Compressed columnar store.** Under an active ``columnar`` mode
+  (``NDS_TPU_COLUMNAR`` or ``columnar.set_mode``; off by default) each
+  scanned column uploads as its encoded buffer set (bit-packed words,
+  RLE runs and starts, a packed mask), re-planned on the live rows of a
+  survivor-reduced view, and decodes lazily where the run first reads
+  it (``DVal.encoded``, the CUDA kernels of ``columnar_decode.cu``).
+  ``bytes_scanned`` sums the buffers a query reads, encoded or not, as
+  the reference does; an active mode adds ``bytes_scanned_raw`` and
+  ``compression_ratio``.
 - **Strings never reach the device.** Dictionary codes only; LIKE, IN
   and compares against literals are evaluated on the host dictionary
   into lookup tables the device gathers through.
@@ -54,6 +63,8 @@ import time
 import numpy as np
 import torch
 
+from nds_tpu_torch import columnar
+from nds_tpu_torch.columnar import device as columnar_dev
 from nds_tpu_torch.device import resolve_device
 from nds_tpu_torch.engine import kernels as KX
 from nds_tpu_torch.engine import staging
@@ -83,10 +94,14 @@ class DVal:
     through later gathers, with the validity mask they clear), and
     gathers at first use. Eager execution would otherwise materialize
     every column of every join at the join's capacity, where the
-    reference's compiled program drops the columns nothing reads."""
+    reference's compiled program drops the columns nothing reads.
+
+    A scan column of an encoded upload (``nds_tpu_torch/columnar/``) is
+    lazy too (``DVal.encoded``): its values and its packed mask decode
+    apart, each at its first use in the run."""
 
     __slots__ = ("_arr", "_valid", "sdict", "lo", "hi", "_src", "_idx",
-                 "_clear")
+                 "_clear", "_enc_arr", "_enc_valid")
 
     def __init__(self, arr, valid=None, sdict=None, lo=None, hi=None):
         self._arr = arr
@@ -95,15 +110,33 @@ class DVal:
         self.lo = lo
         self.hi = hi
         self._src = self._idx = self._clear = None
+        self._enc_arr = self._enc_valid = None
+
+    @classmethod
+    def encoded(cls, spec, bufs: dict, key: str, sdict=None, lo=None,
+                hi=None) -> "DVal":
+        """The scan column uploaded as the encoded buffer set ``bufs``
+        under ``key``, decoded at first use."""
+        out = cls(None, None, sdict, lo, hi)
+        out._enc_arr = (spec, bufs, key)
+        if key + "#v" in bufs:
+            out._enc_valid = (spec, bufs, key)
+        return out
 
     @property
     def arr(self):
+        if self._enc_arr is not None:
+            self._arr = columnar_dev.decode_values(*self._enc_arr)
+            self._enc_arr = None
         if self._src is not None:
             self._materialize()
         return self._arr
 
     @property
     def valid(self):
+        if self._enc_valid is not None:
+            self._valid = columnar_dev.decode_validity(*self._enc_valid)
+            self._enc_valid = None
         if self._src is not None:
             self._materialize()
         return self._valid
@@ -142,9 +175,9 @@ class DVal:
     def head(self, cap: int):
         """The first ``cap`` rows, without gathering the rest."""
         if self._src is None:
+            valid = self.valid
             return self.with_arrays(
-                self._arr[:cap],
-                None if self._valid is None else self._valid[:cap])
+                self.arr[:cap], None if valid is None else valid[:cap])
         out = DVal(None, None, self.sdict, self.lo, self.hi)
         out._src, out._idx = self._src, self._idx[:cap]
         out._clear = None if self._clear is None else self._clear[:cap]
@@ -294,6 +327,20 @@ def _merge_stage_bill(timings: dict, bill: dict) -> None:
             timings[k] = timings.get(k, 0.0) + v
 
 
+def _memo(store: dict, cap: int, key: tuple, pins: tuple, build):
+    """``build()`` memoized in ``store`` under ``key``, FIFO-bounded to
+    ``cap`` entries. The entry pins the ``pins`` objects whose ids are in
+    ``key``, so a recycled id cannot serve a stale value."""
+    hit = store.get(key)
+    if hit is not None and all(a is b for a, b in zip(hit[0], pins)):
+        return hit[1]
+    value = build()
+    while store and len(store) >= cap:
+        store.pop(next(iter(store)))
+    store[key] = (tuple(pins), value)
+    return value
+
+
 def _and_valid(a, b):
     if a is None:
         return b
@@ -385,13 +432,26 @@ class DeviceExecutor:
         self.tables = tables
         self.device = resolve_device(device)
         self._buffers: dict[str, torch.Tensor] = {}
+        # columnar encoding state (nds_tpu_torch/columnar/): buffer key
+        # -> EncSpec of every ENCODED upload (the scan decodes by it),
+        # and the raw host bytes that buffer set replaces (the
+        # compression_ratio numerator). Both live and die with the
+        # corresponding _buffers entries (_drop_col_buffers)
+        self._enc_specs: dict[str, object] = {}
+        self._raw_nbytes: dict[str, float] = {}
+        # tables that upload raw even under an active mode (the
+        # reference's chunk-swapped tables; none in the port yet)
+        self._no_encode: set = set()
         self._bounds: dict[tuple, tuple] = {}
         self._scan_views: dict[tuple, object] = {}
         # host-built dictionary lookup tables (LIKE/IN/compare masks,
-        # string rewrites, dictionary unions) keyed by the dictionary's identity and the
+        # string rewrites) keyed by the dictionary's identity and the
         # operation: the reference bakes them into each compiled
         # program once; eager execution would rebuild them per run
         self._dict_tables: dict[tuple, tuple] = {}
+        # memoized string-dictionary unions, bounded apart by
+        # ``columnar.dict_union_cap()`` as the reference bounds its own
+        self._union_cache: dict[tuple, tuple] = {}
         # per-plan state keyed by id(plan) (or a staged sub-plan's key);
         # each entry pins its plan so the id cannot be recycled while
         # the entry lives
@@ -434,6 +494,14 @@ class DeviceExecutor:
         while True:
             timings: dict = {}
             t0 = time.perf_counter()
+            # bytes the query reads from its device-resident scan
+            # buffers (encoded ones under an active mode), uploading
+            # what is not resident yet, as the reference does at dispatch
+            bufs = self._collect_buffers(planned)
+            timings["bytes_scanned"] = float(
+                sum(t.numel() * t.element_size() for t in bufs.values()))
+            self._attach_compression(timings, bufs)
+            del bufs
             tr = _Trace(self, entry["slack"])
             row, outs, dicts = tr.run_query(planned)
             host = self._to_host(row, outs, tr.total_overflow())
@@ -451,7 +519,13 @@ class DeviceExecutor:
         timings["materialize_ms"] = (t2 - t1) * 1000
         timings["slack_retries"] = float(retries)
         timings["__kernels"] = dict(tr.kernels)
-        _merge_stage_bill(timings, stage_bill)
+        if stage_bill:
+            _merge_stage_bill(timings, stage_bill)
+            bs = timings.get("bytes_scanned", 0.0)
+            if bs and timings.get("bytes_scanned_raw"):
+                # whole-statement ratio: the sub-plans' raw bytes count
+                timings["compression_ratio"] = round(
+                    timings["bytes_scanned_raw"] / bs, 4)
         self.last_timings = timings
         return out
 
@@ -524,6 +598,7 @@ class DeviceExecutor:
             _merge_stage_bill(agg, {
                 k: v for k, v in self.last_timings.items()
                 if k in ("execute_ms", "materialize_ms", "slack_retries",
+                         "bytes_scanned", "bytes_scanned_raw",
                          "__kernels")})
             self._register_staged(temp, staging.result_to_host_table(
                 temp, rt))
@@ -555,16 +630,43 @@ class DeviceExecutor:
 
     def _drop_table_state(self, table: str) -> None:
         """Free one table's device buffers (its reduced scan views'
-        too), host bounds and scan views."""
-        prefixes = [table + "."]
+        too) with their encoding specs, host bounds and scan views."""
+        self._drop_col_buffers(table + ".")
         for ck in [ck for ck in self._scan_views if ck[0] == table]:
             old = self._scan_views.pop(ck)
             if isinstance(old, _ReducedScan):
-                prefixes.append(old.prefix + ".")
-        for k in [k for k in self._buffers if k.startswith(tuple(prefixes))]:
-            del self._buffers[k]
+                self._drop_col_buffers(old.prefix + ".")
         for k in [k for k in self._bounds if k[0] == table]:
             del self._bounds[k]
+
+    def _drop_col_buffers(self, prefix: str) -> None:
+        """Free every device buffer under a key prefix together with its
+        encoding bookkeeping: a stale EncSpec outliving its buffer would
+        mis-decode whatever uploads again under the same key."""
+        for d in (self._buffers, self._enc_specs, self._raw_nbytes):
+            for k in [k for k in d if k.startswith(prefix)]:
+                del d[k]
+
+    def _attach_compression(self, timings: dict, bufs: dict) -> None:
+        """Under an active columnar mode, the raw bytes the query's scan
+        buffers replace (``bytes_scanned_raw``) and ``compression_ratio``
+        over ``bytes_scanned``; nothing with the mode off, so those
+        summaries stay as they were."""
+        if not columnar.enabled():
+            return
+        raw = 0.0
+        for k, t in bufs.items():
+            base = k[:-2] if k.endswith(("#v", "#x")) else k
+            if base in self._enc_specs:
+                if k == base:
+                    raw += self._raw_nbytes.get(
+                        base, float(t.numel() * t.element_size()))
+            else:
+                raw += float(t.numel() * t.element_size())
+        timings["bytes_scanned_raw"] = raw
+        if timings.get("bytes_scanned") and raw:
+            timings["compression_ratio"] = round(
+                raw / timings["bytes_scanned"], 4)
 
     # capacity at or above which results compact on the device before
     # the copy to the host (the reference's COMPACT_MIN_ROWS)
@@ -603,40 +705,106 @@ class DeviceExecutor:
         holds the ids of the ``pins`` objects (dictionaries, plan
         nodes); the entry pins them, so a recycled id cannot serve a
         stale table."""
-        hit = self._dict_tables.get(key)
-        if hit is not None and all(a is b for a, b in zip(hit[0], pins)):
-            return hit[1]
-        value = build()
-        while len(self._dict_tables) >= self.DICT_TABLES_MAX:
-            self._dict_tables.pop(next(iter(self._dict_tables)))
-        self._dict_tables[key] = (tuple(pins), value)
-        return value
+        return _memo(self._dict_tables, self.DICT_TABLES_MAX, key, pins,
+                     build)
+
+    def dict_union(self, lsd, rsd, build):
+        """Memoized ``build()`` of the union of two string dictionaries,
+        bounded by ``columnar.dict_union_cap()``
+        (``NDS_TPU_DICT_UNION_CAP``, default 256), the reference's bound
+        on its union memo."""
+        return _memo(self._union_cache, columnar.dict_union_cap(),
+                     (id(lsd), id(rsd)), (lsd, rsd), build)
 
     # ------------------------------------------------------------ buffers
 
     def _to_device(self, arr: np.ndarray) -> torch.Tensor:
         return torch.as_tensor(np.ascontiguousarray(arr)).to(self.device)
 
-    def buffer(self, key: str, table: str, name: str, rv=None):
-        """Device tensor of one scanned column (``key`` ends ``#v`` for
-        its validity), uploaded once and pooled."""
-        hit = self._buffers.get(key)
-        if hit is not None or key in self._buffers:
-            return hit
+    def scan_buffers(self, table: str, name: str, rv=None) -> tuple:
+        """``(key, {buffer key: tensor})`` of one scanned column: its
+        whole buffer set (``key``, ``key#v``, and ``key#x`` for RLE run
+        starts), uploaded once and pooled. Under an active columnar mode
+        the set is the encoded one and ``_enc_specs[key]`` says how to
+        decode it."""
+        if rv is None:
+            key = f"{table}.{name}"
+            if key not in self._buffers:
+                self._upload(key, table, name)
+        else:
+            key = f"{rv.prefix}.{name}"
+            if key not in self._buffers:
+                self._upload_reduced(key, rv, name)
+        return key, {key + sfx: self._buffers[key + sfx]
+                     for sfx in ("", "#v", "#x")
+                     if key + sfx in self._buffers}
+
+    def _encoding_on(self, table: str) -> bool:
+        return columnar.enabled() and table not in self._no_encode
+
+    def _place(self, key: str, spec, host: dict, raw: int) -> None:
+        """Pool one column's host buffer set (suffix -> array) under
+        ``key``, with its spec and raw byte count when it is encoded."""
+        for sfx, arr in host.items():
+            self._buffers[key + sfx] = self._to_device(arr)
+        if spec is not None:
+            self._enc_specs[key] = spec
+            self._raw_nbytes[key] = float(raw)
+
+    def _upload(self, key: str, table: str, name: str) -> None:
+        """A full-table column (the reference's ``_pool_upload``):
+        encoded per its memoized ``column_spec`` under an active mode."""
         col = self.tables[table].columns[name]
-        valid = key.endswith("#v")
-        host = col.null_mask if valid else col.values
-        if host is None:
-            self._buffers[key] = None
-            return None
-        if rv is not None:
-            host = host[rv.idx]
-            pad = rv.capacity - rv.nrows
-            if pad:
-                host = np.concatenate([host, np.zeros(pad, dtype=host.dtype)])
-        t = self._to_device(host)
-        self._buffers[key] = t
-        return t
+        spec = (columnar.column_spec(col) if self._encoding_on(table)
+                else None)
+        if spec is not None:
+            host = columnar.encode_column(spec, col)
+        else:
+            host = {"": col.values}
+            if col.null_mask is not None:
+                host["#v"] = col.null_mask
+        self._place(key, spec, host,
+                    columnar.raw_nbytes(col.values, col.null_mask))
+
+    def _upload_reduced(self, key: str, rv, name: str) -> None:
+        """A survivor-reduced view's column (the reference's
+        ``_upload_reduced``): the survivors padded to the view's
+        capacity, the encoding re-planned on the live rows
+        (``plan_padded``, so the pad's zeros do not drag the bounds or
+        the run count); the spec evicts with the view's buffers."""
+        col = self.tables[rv.table].columns[name]
+        vals = col.values[rv.idx]
+        nulls = None if col.null_mask is None else col.null_mask[rv.idx]
+        pad = rv.capacity - rv.nrows
+        if pad:
+            vals = np.concatenate([vals, np.zeros(pad, dtype=vals.dtype)])
+            if nulls is not None:
+                nulls = np.concatenate([nulls, np.zeros(pad, dtype=bool)])
+        spec = (columnar.plan_padded(vals, nulls, rv.nrows,
+                                     is_string=col.is_string)
+                if self._encoding_on(rv.table) else None)
+        if spec is not None:
+            host = columnar.encode_values(spec, vals, nulls,
+                                          nrows=rv.nrows)
+        else:
+            host = {"": vals}
+            if nulls is not None:
+                host["#v"] = nulls
+        self._place(key, spec, host, columnar.raw_nbytes(vals, nulls))
+
+    def _collect_buffers(self, planned: P.PlannedQuery) -> dict:
+        """{buffer key: tensor} of every scan of the plan and its scalar
+        sub-plans (the reference's ``_collect_buffers``): what the query
+        reads, and what ``bytes_scanned`` sums."""
+        bufs: dict = {}
+        for root in [planned.root, *planned.scalar_subplans]:
+            for node in P.walk_plan(root):
+                if isinstance(node, P.Scan):
+                    rv = self.scan_view(node)
+                    for name, _dt in node.output:
+                        bufs.update(self.scan_buffers(node.table, name,
+                                                      rv)[1])
+        return bufs
 
     # survivor-reduced scans, as the reference: at first use the scan's
     # filter conjunction is evaluated once on the host, and when few
@@ -676,9 +844,7 @@ class DeviceExecutor:
         while len(self._scan_views) >= self.MAX_SCAN_VIEWS:
             old = self._scan_views.pop(next(iter(self._scan_views)))
             if isinstance(old, _ReducedScan):
-                for k in [k for k in self._buffers
-                          if k.startswith(old.prefix + ".")]:
-                    del self._buffers[k]
+                self._drop_col_buffers(old.prefix + ".")
         self._scan_views[ck] = rv
         return rv
 
@@ -842,22 +1008,29 @@ class _Trace:
         t = self.ex.tables[node.table]
         rv = self.ex.scan_view(node)
         if rv is not None:
-            n, nrows, prefix = rv.capacity, rv.nrows, rv.prefix
+            n, nrows = rv.capacity, rv.nrows
         else:
-            n, nrows, prefix = max(t.nrows, 1), t.nrows, node.table
+            n, nrows = max(t.nrows, 1), t.nrows
         row = self._arange(n) < nrows
         ctx = DCtx(n, row)
         for name, _dt in node.output:
             col = t.columns[name]
-            key = f"{prefix}.{name}"
-            arr = self.ex.buffer(key, node.table, name, rv)
-            valid = self.ex.buffer(key + "#v", node.table, name, rv)
-            if arr.shape[0] == 0:
-                arr = torch.zeros(1, dtype=arr.dtype, device=self.dev)
-                valid = None
+            key, bufs = self.ex.scan_buffers(node.table, name, rv)
             lo, hi = self.ex.col_bounds(node.table, name)
             sdict = col.dictionary if col.is_string else None
-            ctx.cols[(node.binding, name)] = DVal(arr, valid, sdict, lo, hi)
+            spec = self.ex._enc_specs.get(key)
+            if spec is not None:
+                # encoded upload: decoded where the run first reads it
+                # (a spec covers at least MIN_ROWS rows, never an empty
+                # column)
+                dv = DVal.encoded(spec, bufs, key, sdict, lo, hi)
+            else:
+                arr, valid = bufs[key], bufs.get(key + "#v")
+                if arr.shape[0] == 0:
+                    arr = torch.zeros(1, dtype=arr.dtype, device=self.dev)
+                    valid = None
+                dv = DVal(arr, valid, sdict, lo, hi)
+            ctx.cols[(node.binding, name)] = dv
         for pred in node.filters:
             ctx = self._apply_filter(ctx, pred)
         ctx.pristine = not node.filters
@@ -962,8 +1135,7 @@ class _Trace:
             return (union,
                     self._host(np.searchsorted(union, lsd.astype(str))),
                     self._host(np.searchsorted(union, rsd.astype(str))))
-        return self.ex.dict_table(("union", id(lsd), id(rsd)), (lsd, rsd),
-                                  build)
+        return self.ex.dict_union(lsd, rsd, build)
 
     def _align_pair(self, lv: DVal, rv: DVal):
         """Make one key pair comparable as integers; returns

@@ -20,6 +20,13 @@ partitioned_mn_join    ``partitioned_mn_join`` +             csrc/partitioned_jo
 seg_scan               ``seg_scan``, per row (K7)            csrc/seg_scan.cu
 part_reduce_broadcast  ``part_reduce_broadcast`` (K7)        csrc/seg_scan.cu
 last_of_group          ``last_of_group`` (K7)                csrc/seg_scan.cu
+bitpack_decode         ``nds_tpu/columnar/device.py``        csrc/columnar_decode.cu
+                       ``_unpack_words`` + bitpack
+                       ``decode`` (K8)
+unpack_mask            ``columnar/device.py`` ``unpack_mask``  csrc/columnar_decode.cu
+                       (K8, one bit per row)
+rle_decode             ``columnar/device.py`` RLE ``decode``  csrc/columnar_decode.cu
+                       (K9)
 =====================  ===================================  ======================
 
 Each wrapper dispatches on the device of its tensors: on a CUDA tensor
@@ -30,7 +37,7 @@ fallback from the kernel to the plain version. Each wrapper counts its
 kernel launches in ``LAUNCHES[<wrapper>]`` (``reset_launches`` zeroes
 them), so a run can show that it went through the kernels.
 
-All nine are bound by bytes on the card: the source files say how many,
+All twelve are bound by bytes on the card: the source files say how many,
 and what their design does about it. One library call sits inside a
 kernel: ``partitioned_mn_join`` sorts its (partitions x capacity) build
 block with one batched ``torch.sort``, the step the JAX version hands to
@@ -833,3 +840,134 @@ def partitioned_mn_join(lkey, lok, rkey, rok, out_capacity: int,
     cb.check(err, "partitioned_mn_join (expand)")
     LAUNCHES["partitioned_mn_join"] += 1
     return lidx, ridx, present, overflow
+
+
+# ------------------------------------------------- columnar store decode
+
+# payload widths of the bit-packed encoding (columnar/encodings.py)
+_PACK_BITS = (1, 2, 4, 8, 16, 32)
+_DECODE_OUT = {torch.int32: 0, torch.int64: 1, torch.bool: 2}
+
+
+def _bias_fits_int32(lo: int, bits: int) -> bool:
+    """The reference's test for its native-width decode path: the bias
+    and the bias plus 2^bits both fit int32."""
+    return -2**31 < lo and lo + (1 << bits) < 2**31
+
+
+def _unpack_words_plain(words, n: int, bits: int):
+    """Gather + shift + mask of ``n`` fields of ``bits`` bits from int32
+    words, low field first, in int32 arithmetic (the arithmetic shift's
+    sign bits are masked off), as ``columnar/device.py``'s
+    ``_unpack_words``."""
+    per = 32 // bits
+    idx = torch.arange(n, dtype=torch.int32, device=words.device)
+    w = words.index_select(0, torch.div(idx, per,
+                                        rounding_mode="floor").to(torch.int64))
+    return (w >> ((idx % per) * bits)) & ((1 << bits) - 1)
+
+
+def bitpack_decode_plain(words, n: int, bits: int, lo: int, dtype):
+    """Plain version of the bitpack branch of ``decode``: a widen plus
+    the bias for ``bits = 32``, else the unpacked field plus the bias,
+    in int32 where the bias allows and in int64 otherwise, cast to
+    ``dtype``."""
+    if bits >= 32:
+        return (words.to(torch.int64) + lo).to(dtype)
+    field = _unpack_words_plain(words, n, bits)
+    if _bias_fits_int32(lo, bits):
+        return (field + lo).to(dtype)
+    return (field.to(torch.int64) + lo).to(dtype)
+
+
+def _bitpack_launch(name: str, words, n: int, bits: int, lo: int, dtype):
+    """One launch of the decode kernel of ``columnar_decode.cu`` into a
+    new tensor of ``n`` rows of ``dtype``."""
+    _require(words, "words", (torch.int32,))
+    if bits not in _PACK_BITS:
+        raise ValueError(f"bit width {bits} not in {_PACK_BITS}")
+    need = n if bits == 32 else -(-n // (32 // bits))
+    if n < 0 or words.shape[0] < need:
+        raise ValueError(f"{words.shape[0]} words hold fewer than {n} "
+                         f"fields of {bits} bits")
+    if dtype not in _DECODE_OUT:
+        raise TypeError(f"{name}: output dtype {dtype} not in "
+                        f"{tuple(_DECODE_OUT)}")
+    out = torch.empty(n, dtype=dtype, device=words.device)
+    if n == 0:
+        return out
+    wide = int(bits >= 32 or not _bias_fits_int32(lo, bits))
+    cb, lib = _lib("columnar_decode")
+    err = lib.nds_bitpack_decode(
+        _ptr(words), n, bits.bit_length() - 1, int(lo), wide,
+        _DECODE_OUT[dtype], _ptr(out), cb.stream_handle())
+    cb.check(err, name)
+    LAUNCHES[name] += 1
+    return out
+
+
+@_counted
+def bitpack_decode(words, n: int, bits: int, lo: int, dtype):
+    """``n`` values of ``dtype`` (int32 or int64) from the bit-packed
+    int32 ``words`` of one column: the field of each row plus the bias
+    ``lo``, exactly as the reference's ``decode`` gives them."""
+    if not _launch_device(words):
+        return bitpack_decode_plain(words, n, bits, lo, dtype)
+    if dtype == torch.bool:
+        raise TypeError("bitpack_decode: a bool output is unpack_mask's")
+    return _bitpack_launch("bitpack_decode", words, n, bits, lo, dtype)
+
+
+def unpack_mask_plain(words, n: int):
+    """Plain version of ``unpack_mask``: the 1-bit fields as bools."""
+    return _unpack_words_plain(words, n, 1).to(torch.bool)
+
+
+@_counted
+def unpack_mask(words, n: int):
+    """The validity mask of ``n`` rows packed at one bit per row, low
+    bit first: the bitpack decode kernel at ``bits = 1`` with a bool
+    output."""
+    if not _launch_device(words):
+        return unpack_mask_plain(words, n)
+    return _bitpack_launch("unpack_mask", words, n, 1, 0, torch.bool)
+
+
+def rle_decode_plain(values, starts, n: int):
+    """Plain version of the RLE branch of ``decode``: a 1 added at each
+    run start (a start at or past ``n`` is dropped, as the JAX scatter
+    drops it), an int32 cumsum minus one for the run ids, then a gather
+    of the run values. The last run id carries over a padded tail."""
+    dev = values.device
+    st = starts.to(torch.int64)
+    st = torch.where((st >= 0) & (st < n), st,
+                     torch.full_like(st, n))
+    ids = torch.zeros(n + 1, dtype=torch.int32, device=dev).index_add_(
+        0, st, torch.ones(st.shape[0], dtype=torch.int32, device=dev))[:n]
+    seg = torch.cumsum(ids, 0, dtype=torch.int32) - 1
+    return values.index_select(0, seg.to(torch.int64))
+
+
+@_counted
+def rle_decode(values, starts, n: int):
+    """``n`` rows from run-length encoded ``values`` (int32 or int64)
+    and their int32 run ``starts`` (strictly increasing from 0): each
+    row takes the value of the last run starting at or before it, the
+    last run reaching ``n``."""
+    if not _launch_device(values, starts):
+        return rle_decode_plain(values, starts, n)
+    _require(values, "values", _KEY_DTYPES)
+    runs = values.shape[0]
+    _require(starts, "starts", (torch.int32,), runs)
+    if not 1 <= runs < 2**31 or n < 0:
+        raise ValueError(f"rle_decode: {runs} runs into {n} rows")
+    out = torch.empty(n, dtype=values.dtype, device=values.device)
+    if n == 0:
+        return out
+    cb, lib = _lib("columnar_decode")
+    err = lib.nds_rle_decode(
+        _ptr(values), _ptr(starts), runs, n,
+        int(values.dtype == torch.int64), _ptr(out), cb.stream_handle())
+    cb.check(err, "rle_decode")
+    LAUNCHES["rle_decode"] += 1
+    return out
