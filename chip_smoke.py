@@ -22,6 +22,22 @@ Drives ``nds_tpu_torch`` (never ``jax``, never ``nds_tpu``) on the card:
    0, the 22 queries timed, the counts read; a pass under
    ``torch.profiler`` for the card's busy time; every result checked
    against the CPU oracle by the validator's rules, in the worker pool;
+   the executor's library steps (L1-L3: the compactor sort, the
+   multi-key sort, segment sums, the sort-merge build and probe) counted
+   and their largest calls timed, here and on the NDS leg;
+4b. distributed phase: a world of one rank over NCCL
+   (``parallel.mesh.make_mesh(1)``) and ``make_distributed_factory`` over
+   it: the NDS-H leg again at ``--sf``, its kernels (the exchange's
+   ``exchange_pack`` among them) checked on their largest calls and its
+   results against the oracle frames the raw leg kept; ``exchange_pack``
+   over SF1 ``l_orderkey`` (a tenth of the rows dead) laid out over 2, 4
+   and 8 ranks and over the two stages of a 2 x 2 mesh, at slack 2 and
+   0.8, exact against its plain version on every rank, the buckets
+   transposed in this process as the all-to-all moves them and every
+   valid row found once at the rank its key hashes to; then the NDS leg
+   through the distributed factory at the smaller of ``--sf-ds`` and
+   ``SF_DS_DIST`` (a cut of depth, see there), every kernel checked on
+   its largest call there, results against the CPU oracle;
 5. NDS leg at ``--sf-ds`` (default SF1, ``bench.py``'s ``BENCH_NDS_SF``):
    the same phases over the 103 statements of the NDS power run
    (``Session.for_nds``), with the validator's two carve-outs (q65 on its
@@ -69,6 +85,7 @@ the wrappers take their plain versions and the launch check fails.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import multiprocessing
 import os
@@ -106,6 +123,8 @@ KERNELS = {
                     "nds_tpu/columnar/device.py:31"),
     "rle_decode": ("nds_tpu_torch/csrc/columnar_decode.cu",
                    "nds_tpu/columnar/device.py:52"),
+    "exchange_pack": ("nds_tpu_torch/csrc/exchange.cu",
+                      "nds_tpu/parallel/exchange.py:51,61,74,157"),
 }
 # the kernels each timed run must have launched
 H_REQUIRED = ("direct_lookup_join", "matmul_probe_join", "bitmask_semi",
@@ -116,15 +135,31 @@ WINDOW_REQUIRED = ("part_reduce_broadcast", "last_of_group")
 # must launch all three between them, the NDS pass the mask unpack
 DECODE_KERNELS = ("bitpack_decode", "unpack_mask", "rle_decode")
 COLUMNAR_DS_REQUIRED = ("unpack_mask",)
+# the distributed legs (a world of one over NCCL) must launch the
+# exchange's pack kernel
+DIST_REQUIRED = ("exchange_pack",)
+# the exchange sweep: SF1 lineitem's l_orderkey over 2, 4 and 8 ranks and
+# the two stages of a 2 x 2 mesh, at a slack that fits and one that
+# overflows (a tenth of the rows dead)
+EXCHANGE_DESTS = (2, 4, 8)
+EXCHANGE_SLACKS = (2.0, 0.8)
+EXCHANGE_DEAD = 0.1
 # the path whose largest call gives each kernel's numbers in the line
 # (the decode kernels: the columnar path with their largest call)
 LINE_PATH = {**{n: "nds_h" for n in H_REQUIRED},
              "partitioned_mn_join": "nds", "seg_scan": "nds",
-             "last_of_group": "nds", "part_reduce_broadcast": "window"}
+             "last_of_group": "nds", "part_reduce_broadcast": "window",
+             "exchange_pack": "dist_nds_h"}
 # the bit-width sweep of the decode kernels: TPC-H's SF1 lineitem count
 SWEEP_ROWS = 6_001_215
 # float sums add in other orders in the kernel and its plain version
 FLOAT_SUM_RTOL = 1e-9
+# the distributed NDS leg's largest scale, a cut of depth: each exchange
+# of two sharded sides doubles a side's capacity (the reference's
+# static-shape contract), so the leg's memory and time grow faster than
+# the single-device leg's (on an H100, q67 peaks near 42 GiB at SF0.2 and
+# the leg takes about 100 s, a sixth of the whole smoke)
+SF_DS_DIST = 0.2
 
 # the window path: no NDS statement takes a whole-partition MIN/MAX or a
 # running aggregate under the default RANGE frame; each is wrapped in an
@@ -252,7 +287,7 @@ def work_of(name: str, args, out) -> tuple:
     read once, each output written once; the operations are one per
     row handled, and one compare per (probe row, build row) pair for
     the small-build probe."""
-    tens = [a for a in args if hasattr(a, "numel")]
+    tens = _tensors(list(args))
     moved = nbytes(tens) + nbytes(out)
     rows = sum(a.numel() for a in tens)
     ops = rows
@@ -264,6 +299,9 @@ def work_of(name: str, args, out) -> tuple:
     if name in DECODE_KERNELS:
         # a few integer operations per output row
         ops = out.numel()
+    if name == "exchange_pack":
+        # a hash, a rank and a copy per row, a store per output slot
+        ops = rows + sum(t.numel() for t in _tensors(out))
     return moved, ops
 
 
@@ -301,12 +339,14 @@ def library_call(name: str, args):
     return None
 
 
-def check_kernel(KX, name: str, args, label: str, dev) -> dict:
+def check_kernel(KX, name: str, args, label: str, dev,
+                 kwargs=None) -> dict:
     """Kernel vs its plain version on the same inputs: exact equality
     required; times and bound of this call."""
     import torch
-    fn = getattr(KX, name)
-    plain = getattr(KX, name + "_plain")
+    kwargs = kwargs or {}
+    fn = functools.partial(getattr(KX, name), **kwargs)
+    plain = functools.partial(getattr(KX, name + "_plain"), **kwargs)
     got = fn(*args)
     t0 = time.perf_counter()
     exp = plain(*args)
@@ -328,12 +368,12 @@ def check_kernel(KX, name: str, args, label: str, dev) -> dict:
                        warm=0 if slow else 1)
     lib = library_call(name, args)
     library_ms = time_ms(lib, dev) if lib is not None else None
-    moved, ops = work_of(name, args, got)
+    moved, ops = work_of(name, list(args) + list(kwargs.values()), got)
     bound_ms, bound_by = bound(moved, ops)
     shapes = [list(a.shape) + [str(a.dtype).replace("torch.", "")]
-              for a in args if hasattr(a, "shape")]
+              for a in _tensors(list(args) + list(kwargs.values()))]
     rec = {"kernel": name, "case": label, "shapes": shapes,
-           "size": call_size(name, args),
+           "size": call_size(name, args, kwargs),
            "max_abs_err": err, "ms": ms, "host_ms": host_ms,
            "plain_ms": plain_ms,
            "library_ms": library_ms, "bytes": moved, "ops": ops,
@@ -515,43 +555,114 @@ def run_query(session, stmts):
     return result
 
 
-def call_size(name: str, args) -> int:
+def call_size(name: str, args, kwargs=None) -> int:
     """How large one kernel call is: its input elements, or for a decode
     the rows it writes."""
     if name in DECODE_KERNELS:
         return int(args[2] if name == "rle_decode" else args[1])
-    return sum(a.numel() for a in args if hasattr(a, "numel"))
+    return sum(a.numel() for a in _tensors(list(args)
+                                           + list((kwargs or {}).values())))
+
+
+def _cloned(x):
+    if hasattr(x, "clone"):
+        return x.clone()
+    if isinstance(x, (list, tuple)):
+        return type(x)(_cloned(y) for y in x)
+    if isinstance(x, dict):
+        return {k: _cloned(v) for k, v in x.items()}
+    return x
 
 
 class Recorder:
-    """Wraps the kernel wrappers during an untimed pass to keep, per
-    kernel, a copy of the inputs of its largest call."""
+    """Wraps functions during an untimed pass: per name, its calls and a
+    copy of the inputs of its largest call. ``targets`` maps a name to
+    the (owner, attribute) of the function to wrap; a call's size is
+    ``call_size``."""
 
-    def __init__(self, KX):
-        self.KX = KX
-        self.orig = {n: getattr(KX, n) for n in KERNELS}
+    def __init__(self, targets: dict):
+        self.targets = targets
+        self.calls: dict = {n: 0 for n in targets}
         self.largest: dict = {}
-        self.calls: dict = {n: 0 for n in KERNELS}
+        self.saved: dict = {}
 
     def __enter__(self):
-        for name, fn in self.orig.items():
-            setattr(self.KX, name, self._wrap(name, fn))
+        for name, (owner, attr) in self.targets.items():
+            raw = owner.__dict__[attr]
+            self.saved[name] = raw
+            static = isinstance(raw, staticmethod)
+            fn = self._wrap(name, raw.__func__ if static else raw)
+            setattr(owner, attr, staticmethod(fn) if static else fn)
         return self
 
     def __exit__(self, *exc):
-        for name, fn in self.orig.items():
-            setattr(self.KX, name, fn)
+        for name, (owner, attr) in self.targets.items():
+            setattr(owner, attr, self.saved[name])
+
+    def function(self, name):
+        raw = self.saved[name]
+        return raw.__func__ if isinstance(raw, staticmethod) else raw
 
     def _wrap(self, name, fn):
-        def wrapper(*args):
+        def wrapper(*args, **kwargs):
             self.calls[name] += 1
-            size = call_size(name, args)
+            size = call_size(name, args, kwargs)
             cur = self.largest.get(name)
             if cur is None or size > cur[0]:
-                self.largest[name] = (size, tuple(
-                    a.clone() if hasattr(a, "clone") else a for a in args))
-            return fn(*args)
+                self.largest[name] = (size, _cloned(args), _cloned(kwargs))
+            return fn(*args, **kwargs)
         return wrapper
+
+
+def kernel_targets(KX) -> dict:
+    """The kernel wrappers, for a ``Recorder``."""
+    return {n: (KX, n) for n in KERNELS}
+
+
+# the executor's library steps, L1-L3 of PERF.md's kernel table: torch
+# ops, not hand kernels. The raw legs count each pure step's calls in
+# their untimed pass (the plans fix them: the timed pass makes the same)
+# and time its largest call
+LIBRARY_STEPS = {
+    # name: (row, owner of the function, attribute)
+    "compact_perm": ("L1", "module", "_compact_perm"),
+    "lexsort": ("L2, L3", "module", "_lexsort"),
+    "seg_sum": ("L2", "trace", "_seg_sum"),
+    "build_lookup": ("L3", "trace", "_build_lookup"),
+    "probe": ("L3", "trace", "_probe"),
+}
+
+
+def library_targets() -> dict:
+    """The executor's library steps, for a ``Recorder``."""
+    from nds_tpu_torch.engine import device_exec as dx
+    owners = {"module": dx, "trace": dx._Trace}
+    return {name: (owners[where], attr)
+            for name, (_row, where, attr) in LIBRARY_STEPS.items()}
+
+
+def library_step_checks(lib: Recorder, label: str, dev) -> list:
+    """Each library step's largest call timed on the card (CUDA events,
+    median of 7), with the bytes it must move and their bound."""
+    out = []
+    for name, (row, _where, _attr) in LIBRARY_STEPS.items():
+        if name not in lib.largest:
+            continue
+        args = lib.largest[name][1]
+        fn = lib.function(name)
+        res = fn(*args)
+        moved = nbytes(list(args)) + nbytes(res)
+        bound_ms, bound_by = bound(moved, sum(
+            t.numel() for t in _tensors(list(args))))
+        rec = {"step": name, "row": row, "path": label,
+               "calls": lib.calls[name],
+               "shapes": [list(t.shape) + [str(t.dtype).replace("torch.", "")]
+                          for t in _tensors(list(args))],
+               "library_ms": time_ms(lambda: fn(*args), dev),
+               "bytes": moved, "bound_ms": bound_ms, "bound_by": bound_by}
+        log(json.dumps(rec))
+        out.append(rec)
+    return out
 
 
 def profile_pass(dsess, units, dev, per_unit, label) -> dict:
@@ -740,8 +851,9 @@ def kernel_checks(KX, rec, label, dev, only=KERNELS) -> dict:
     out = {}
     for name in only:
         if name in rec.largest:
-            out[name] = check_kernel(KX, name, rec.largest[name][1],
-                                     f"{label} main path", dev)
+            _size, args, kwargs = rec.largest[name]
+            out[name] = check_kernel(KX, name, args, f"{label} main path",
+                                     dev, kwargs)
     return out
 
 
@@ -750,15 +862,27 @@ def resident_bytes(ex) -> int:
     return sum(t.numel() * t.element_size() for t in ex._buffers.values())
 
 
+def rules_of(suite: str) -> str:
+    """The validator rules of a suite's results ("nds_dist" is NDS)."""
+    return "nds_h" if suite == "nds_h" else "nds"
+
+
 def run_leg(suite, KX, factory_of, dev, pool, record, path=None,
-            raw=None) -> tuple:
+            raw=None, check_names=None, required=None,
+            same_kernels=True) -> tuple:
     """One power run on the card over the suite's generated tables: the
     untimed pass with its captured kernel calls, the kernel checks, the
     timed pass with launch counts read, the profiled pass and the oracle
     check. ``path`` names the run in the record (the suite by default);
-    a columnar run passes the mode-off run of the same suite as ``raw``:
-    its results are checked against the oracle frames that run's check
-    kept, and each unit's kernel block must equal that run's."""
+    a run of the same statements over the same tables as an earlier one
+    (a columnar run, a distributed run) passes that run as ``raw``: its
+    results are checked against the oracle frames that run's check kept,
+    and, with ``same_kernels``, each unit's kernel block must equal that
+    run's. ``check_names`` lists the kernels held against their plain
+    versions on their largest captured calls (every kernel, or the decodes
+    when ``raw`` is given); the timed pass must launch every kernel the
+    untimed pass called and those of ``required`` (the suite's own set by
+    default)."""
     import torch
     path = path or suite
     tables = _ORACLE_TABLES[suite]
@@ -772,7 +896,8 @@ def run_leg(suite, KX, factory_of, dev, pool, record, path=None,
     # each unit's time and peak device memory logged as it ends
     t0 = time.perf_counter()
     warm_peaks = {}
-    with Recorder(KX) as rec:
+    with Recorder(kernel_targets(KX)) as rec, \
+            Recorder(library_targets()) as lib:
         for name, stmts in units:
             t1 = time.perf_counter()
             if dev.type == "cuda":
@@ -788,14 +913,21 @@ def run_leg(suite, KX, factory_of, dev, pool, record, path=None,
                     "kernel_calls": rec.calls}))
     # a columnar run makes the raw run's K1-K7 calls on the same inputs
     # (the decode is exact), checked there: here only the decodes
-    main_cases = kernel_checks(KX, rec, path, dev,
-                               KERNELS if raw is None else DECODE_KERNELS)
+    if check_names is None:
+        check_names = KERNELS if raw is None else DECODE_KERNELS
+    main_cases = kernel_checks(KX, rec, path, dev, check_names)
     checks = list(main_cases.values())
     called = [n for n, c in rec.calls.items() if c > 0]
     del rec
+    # the library steps (L1-L3) on the single-device legs
+    library_steps = (library_step_checks(lib, path, dev)
+                     if path in ("nds_h", "nds") else [])
+    del lib
     if suite == "nds_h" and raw is None:
         for name, kargs, label in sf1_shape_cases(tables, dev):
             checks.append(check_kernel(KX, name, kargs, label, dev))
+
+    checks_s = time.perf_counter() - t0 - warm_s
 
     # the timed run: counts at 0, every unit once, counts read
     ex = factory(dsess.tables)
@@ -809,15 +941,19 @@ def run_leg(suite, KX, factory_of, dev, pool, record, path=None,
     power_ms = sum(u["wall_ms"] for u in per_unit.values())
     peak = torch.cuda.max_memory_allocated() if dev.type == "cuda" else None
     resident = resident_bytes(ex)
+    t1 = time.perf_counter()
     profile = profile_pass(dsess, units, dev, per_unit, path)
+    profile_s = time.perf_counter() - t1
 
     if raw is None:
         bad, oracle_s = oracle_check(pool, suite, units, results, per_unit,
-                                     rules=suite)
+                                     rules=rules_of(suite))
     else:
         bad, oracle_s = answers_check(suite, units, results, per_unit,
-                                      rules=suite)
+                                      rules=rules_of(suite))
         for name, _ in units:
+            if not same_kernels:
+                break
             if per_unit[name]["kernels"] != raw["per_unit"][name]["kernels"]:
                 bad.append(f"{path} {name}: kernel block "
                            f"{per_unit[name]['kernels']} != mode off "
@@ -827,7 +963,8 @@ def run_leg(suite, KX, factory_of, dev, pool, record, path=None,
     scanned = sum(u["bytes_scanned"] or 0 for u in per_unit.values())
     scanned_raw = sum(u["bytes_scanned_raw"] or u["bytes_scanned"] or 0
                       for u in per_unit.values())
-    leg = {"warm_pass_s": warm_s,
+    leg = {"warm_pass_s": warm_s, "checks_s": checks_s,
+           "profile_s": profile_s, "leg_s": time.perf_counter() - t0,
            "power_total_ms": power_ms, "launches": launches,
            "peak_device_bytes": peak, "oracle_s": oracle_s,
            "resident_buffer_bytes": resident, "gc_collections": gcs,
@@ -835,6 +972,7 @@ def run_leg(suite, KX, factory_of, dev, pool, record, path=None,
            "compression_ratio": scanned_raw / scanned if scanned else None,
            "profile": profile, "kernel_checks": checks,
            "per_unit": per_unit, "called_in_warm_pass": called,
+           "library_steps": library_steps,
            "warm_peak_device_bytes": warm_peaks,
            "mismatches": bad}
     record[path] = leg
@@ -847,8 +985,9 @@ def run_leg(suite, KX, factory_of, dev, pool, record, path=None,
     if bad:
         raise SmokeError("results differ from the CPU oracle: "
                          + "; ".join(bad))
-    required = set(called) | set(H_REQUIRED if suite == "nds_h"
-                                 else DS_REQUIRED)
+    if required is None:
+        required = H_REQUIRED if suite == "nds_h" else DS_REQUIRED
+    required = set(called) | set(required)
     missing = sorted(n for n in required if launches.get(n, 0) <= 0)
     if missing:
         raise SmokeError(f"the timed {path} run launched no {missing}")
@@ -861,7 +1000,7 @@ def run_window_path(KX, dsess, dev, pool, record) -> dict:
     store_sales on the card session: kernels checked on the captured
     calls, a timed run with counts read, results against the oracle."""
     units = [(name, [sql]) for name, sql in WINDOW_SQL.items()]
-    with Recorder(KX) as rec:
+    with Recorder(kernel_targets(KX)) as rec:
         for _name, stmts in units:
             run_query(dsess, stmts)
     main_cases = kernel_checks(KX, rec, "window", dev)
@@ -1003,6 +1142,190 @@ def run_columnar(KX, factory_of, dev, pool, record, paths) -> None:
         raise SmokeError(f"the timed columnar runs launched no {missing}")
 
 
+# ---------------------------------------------------- distributed phase
+
+def _received(packs: list, j: int):
+    """Rank ``j``'s receive buffers of one all-to-all among the ranks
+    whose send packs are ``packs`` (in rank order): chunk ``j`` of every
+    sender's buffers, in sender order."""
+    import torch
+    size = len(packs)
+    bufs = [torch.cat([pk[0][p].reshape(size, -1)[j] for pk in packs])
+            for p in range(len(packs[0][0]))]
+    ok = torch.cat([pk[1].reshape(size, -1)[j] for pk in packs])
+    return bufs, ok
+
+
+def _delivered(KX, received: list, rank_of, ok_all, modulus: int,
+               div: int, world: int, lost: int, label: str) -> dict:
+    """Every valid row arrives once (or was counted as dropped), at the
+    rank its key hashes to. Payload 0 is the global row id, payload 1
+    the key."""
+    import torch
+    ids = []
+    for j, (bufs, ok) in enumerate(received):
+        rid, key = bufs[0][ok], bufs[1][ok]
+        dest = KX._exchange_dest_plain(key, None, world, modulus, div)
+        if not bool((dest == rank_of(j)).all()):
+            raise SmokeError(f"exchange {label}: rank {j} received rows "
+                             f"of another rank's keys")
+        ids.append(rid)
+    ids = torch.cat(ids)
+    n_ok = int(ok_all.sum())
+    if ids.numel() != n_ok - lost:
+        raise SmokeError(f"exchange {label}: {ids.numel()} rows arrived, "
+                         f"{n_ok} valid, {lost} dropped")
+    if torch.unique(ids).numel() != ids.numel():
+        raise SmokeError(f"exchange {label}: a row arrived twice")
+    if not bool(ok_all.index_select(0, ids).all()):
+        raise SmokeError(f"exchange {label}: a dead row arrived")
+    return {"case": label, "arrived": ids.numel(), "valid": n_ok,
+            "dropped": lost}
+
+
+def exchange_sweep(KX, tables: dict, dev) -> tuple:
+    """``exchange_pack`` over SF1 lineitem's ``l_orderkey`` (a tenth of
+    the rows dead), laid out over 2, 4 and 8 ranks as the executor
+    shards it, and over the two stages of a 2 x 2 mesh, at a slack that
+    fits and one that overflows. Every rank's pack must equal the plain
+    version's exactly (the first rank's call timed); the buckets,
+    transposed in this process as the all-to-all moves them, must
+    deliver every valid row once (or count it dropped), each at the
+    rank its key hashes to. Returns (checks, deliveries)."""
+    import numpy as np
+    import torch
+    from nds_tpu_torch.parallel.dist_exec import shard_of
+    li = tables["lineitem"]
+    key = li.columns["l_orderkey"].values
+    n = len(key)
+    rng = np.random.default_rng(31)
+    ok = rng.random(n) >= EXCHANGE_DEAD
+    cols = [np.arange(n, dtype=np.int64), key,
+            li.columns["l_linenumber"].values,
+            li.columns["l_extendedprice"].values.astype(np.float64) / 100,
+            rng.random(n) < 0.5]
+    ok_all = torch.as_tensor(ok).to(dev)
+    checks, deliveries = [], []
+
+    def shards(world):
+        return [([torch.as_tensor(shard_of(c, r, world)).to(dev)
+                  for c in cols],
+                 torch.as_tensor(shard_of(ok, r, world)).to(dev))
+                for r in range(world)]
+
+    def pack(pays, okr, n_dev, bucket, label, timed, **route):
+        args = (pays, okr, n_dev, bucket)
+        if timed:
+            checks.append(check_kernel(KX, "exchange_pack", args, label, dev,
+                                       route))
+        got = KX.exchange_pack(*args, **route)
+        exp = KX.exchange_pack_plain(*args, **route)
+        err = max_abs_err(got, exp)
+        if err != 0.0:
+            raise SmokeError(f"exchange_pack [{label}] differs from its "
+                             f"plain version: max_abs_err={err}")
+        return got
+
+    for world in EXCHANGE_DESTS:
+        parts = shards(world)
+        local = parts[0][1].shape[0]
+        for slack in EXCHANGE_SLACKS:
+            bucket = max(1, int(-(-local * slack // world)))
+            label = f"{n} rows over {world} ranks, slack {slack}"
+            packs = [pack(p, o, world, bucket, f"{label}, rank {r}", r == 0,
+                          key=p[1])
+                     for r, (p, o) in enumerate(parts)]
+            lost = sum(int(pk[2]) for pk in packs)
+            if (slack < 1) != (lost > 0):
+                raise SmokeError(f"exchange {label}: {lost} rows dropped")
+            deliveries.append(_delivered(
+                KX, [_received(packs, j) for j in range(world)],
+                lambda j: j, ok_all, world, 1, world, lost, label))
+    # a 2 x 2 mesh: rank r = (host r // 2, lane r % 2)
+    H = L = 2
+    parts = shards(H * L)
+    local = parts[0][1].shape[0]
+    for slack in EXCHANGE_SLACKS:
+        bucket = max(1, int(-(-local * slack // H)))
+        label = f"{n} rows over 2 x 2 ranks, slack {slack}"
+        stage1 = [pack(p, o, H, bucket, f"{label}, stage 1, rank {r}",
+                       r == 0, key=p[1], modulus=H * L, div=L)
+                  for r, (p, o) in enumerate(parts)]
+        # stage 1 moves along the host axis: ranks of one lane
+        got1 = [_received([stage1[h * L + r % L] for h in range(H)], r // L)
+                for r in range(H * L)]
+        bucket2 = max(1, int(-(-local * slack // L)))
+        stage2 = [pack(b, o, L, bucket2, f"{label}, stage 2, rank {r}",
+                       r == 0, key=b[1], modulus=H * L)
+                  for r, (b, o) in enumerate(got1)]
+        got2 = [_received([stage2[(r // L) * L + ln] for ln in range(L)],
+                          r % L) for r in range(H * L)]
+        lost = sum(int(pk[2]) for pk in stage1 + stage2)
+        if (slack < 1) != (lost > 0):
+            raise SmokeError(f"exchange {label}: {lost} rows dropped")
+        deliveries.append(_delivered(KX, got2, lambda j: j, ok_all, H * L,
+                                     1, H * L, lost, label))
+    for d in deliveries:
+        log(json.dumps({"phase": "exchange delivery", **d}))
+    return checks, deliveries
+
+
+def run_distributed(KX, dev, pool, record, paths) -> None:
+    """The distributed phase: a world of one rank (NCCL on the card)
+    and ``make_distributed_factory`` over it. The NDS-H leg at the raw
+    leg's scale, its results checked against the oracle frames the raw
+    leg kept and its kernels (the exchange's pack among them) against
+    their plain versions on their largest calls; the exchange sweep; the
+    NDS leg at its cut scale, every kernel checked on its largest call
+    there and the results against the CPU oracle."""
+    import torch.distributed as dist
+    from nds_tpu_torch.parallel.dist_exec import make_distributed_factory
+    from nds_tpu_torch.parallel.mesh import make_mesh
+    t0 = time.perf_counter()
+    device = None if dev.type == "cuda" else "cpu"
+    mesh = make_mesh(1, device=device)
+    world = {"backend": dist.get_backend(), "ranks": mesh.size,
+             "rank": mesh.rank}
+    log(json.dumps({"phase": "distributed world", **world}))
+
+    def factory_of():
+        return make_distributed_factory(mesh=mesh, device=device)
+
+    paths["dist_nds_h"], dsess = run_leg(
+        "nds_h", KX, factory_of, dev, pool, record, path="dist_nds_h",
+        raw=paths["nds_h"], check_names=KERNELS, required=DIST_REQUIRED,
+        same_kernels=False)
+    del dsess
+    release(dev)
+    t1 = time.perf_counter()
+    checks, deliveries = exchange_sweep(KX, _ORACLE_TABLES["nds_h"], dev)
+    paths["exchange_sweep"] = {"launches": {}, "kernel_checks": checks,
+                               "main_cases": {}}
+    record["exchange_sweep"] = {"seconds": time.perf_counter() - t1,
+                                "kernel_checks": checks,
+                                "deliveries": deliveries}
+    paths["dist_nds"], dsess = run_leg(
+        "nds_dist", KX, factory_of, dev, pool, record, path="dist_nds",
+        check_names=KERNELS, required=DIST_REQUIRED)
+    del dsess
+    release(dev)
+    summary = {"phase": "distributed", "world": world,
+               "seconds": time.perf_counter() - t0}
+    for path, single in (("dist_nds_h", "nds_h"), ("dist_nds", None)):
+        leg = paths[path]
+        summary[path] = {
+            "power_total_ms": leg["power_total_ms"],
+            "power_total_ms_single_device": (
+                paths[single]["power_total_ms"] if single else None),
+            "device_busy_share": leg["profile"]["device_busy_share"],
+            "peak_device_bytes": leg["peak_device_bytes"],
+            "exchange_launches": leg["launches"].get("exchange_pack", 0),
+            "slack_retries": sum(u["slack_retries"] or 0
+                                 for u in leg["per_unit"].values())}
+    record["distributed"] = summary
+    log(json.dumps(summary))
+
+
 def kernels_line(paths: dict) -> list:
     """One entry per kernel wrapper: launches summed over the timed runs
     of the paths (each read between its own reset and its end), the
@@ -1068,13 +1391,15 @@ def main() -> int:
         return make_device_factory(device=None if dev.type == "cuda"
                                    else args.device)
 
+    sf_ds_dist = min(args.sf_ds, SF_DS_DIST)
     record = {"card": card, "torch": torch.__version__,
               "cuda": torch.version.cuda, "sf": args.sf,
-              "sf_ds": args.sf_ds}
+              "sf_ds": args.sf_ds, "sf_ds_dist": sf_ds_dist}
     t_start = time.perf_counter()
     # both legs' data first, then the oracle workers, forked before the
     # card is touched: they inherit the tables and only run numpy
-    for suite, sf in (("nds_h", args.sf), ("nds", args.sf_ds)):
+    for suite, sf in (("nds_h", args.sf), ("nds", args.sf_ds),
+                      ("nds_dist", sf_ds_dist)):
         t0 = time.perf_counter()
         tables = make_tables(suite, sf)
         _ORACLE_TABLES[suite] = tables
@@ -1096,8 +1421,8 @@ def main() -> int:
         paths["nds_h"], dsess = run_leg("nds_h", KX, factory_of, dev, pool,
                                         record)
         del dsess
-        if dev.type == "cuda":
-            torch.cuda.empty_cache()
+        release(dev)
+        run_distributed(KX, dev, pool, record, paths)
         paths["nds"], dsess = run_leg("nds", KX, factory_of, dev, pool,
                                       record)
         paths["window"] = run_window_path(KX, dsess, dev, pool, record)
@@ -1112,6 +1437,9 @@ def main() -> int:
     finally:
         pool.terminate()
         pool.join()
+        import torch.distributed as dist
+        if dist.is_initialized():
+            dist.destroy_process_group()
         record["total_s"] = time.perf_counter() - t_start
         if args.out:
             os.makedirs(os.path.dirname(os.path.abspath(args.out)),

@@ -71,6 +71,12 @@ SIGNATURES = {
         "nds_bitpack_decode": [_P, _LL, _I, _LL, _I, _I, _P, _P],
         "nds_rle_decode": [_P, _P, _I, _LL, _I, _P, _P],
     },
+    "exchange": {
+        "nds_exchange_tile": [],
+        "nds_exchange_max_dest": [],
+        "nds_exchange_pack": [_P, _P, _I, _P, _LL, _LL, _LL, _I, _LL, _I,
+                              _P, _P, _P, _P, _P, _P, _P, _P],
+    },
 }
 
 
@@ -143,7 +149,7 @@ def build_all() -> dict[str, float]:
 def library(name: str) -> ctypes.CDLL:
     """The loaded library of one source (``dense_domain``,
     ``small_build_probe``, ``seg_scan``, ``partitioned_join``,
-    ``columnar_decode``), built first if needed."""
+    ``columnar_decode``, ``exchange``), built first if needed."""
     lib = _LIBS.get(name)
     if lib is not None:
         return lib

@@ -361,9 +361,19 @@ def _ss(ks, q, side="left"):
 def _take_codes(table, codes):
     """Host-built lookup table gathered at dictionary codes, clamped:
     codes of NULL rows may be any value (``jnp.take`` fills those, torch
-    would fault)."""
+    would fault). An empty table (the map of an empty dictionary, whose
+    column holds no value) gives zeros, where ``jnp.take`` raises."""
     n = table.shape[0]
+    if n == 0:
+        return torch.zeros(codes.shape, dtype=table.dtype,
+                           device=codes.device)
     return table.index_select(0, codes.to(torch.int64).clamp(0, n - 1))
+
+
+def _compact_perm(row):
+    """The stable permutation that moves present rows to the front (the
+    reference's compactor sort)."""
+    return torch.sort((~row).to(torch.int32), stable=True)[1]
 
 
 def _lexsort(keys, n: int, device):
@@ -431,6 +441,9 @@ class DeviceExecutor:
     def __init__(self, tables: dict[str, HostTable], device=None):
         self.tables = tables
         self.device = resolve_device(device)
+        # the slack a plan's first run takes (each plan keeps its own,
+        # doubled on overflow)
+        self.slack = self.DEFAULT_SLACK
         self._buffers: dict[str, torch.Tensor] = {}
         # columnar encoding state (nds_tpu_torch/columnar/): buffer key
         # -> EncSpec of every ENCODED upload (the scan decodes by it),
@@ -486,7 +499,7 @@ class DeviceExecutor:
         if entry is None or entry["ref"] is not planned:
             if entry is not None:
                 self._evict_query_state(key)
-            entry = {"slack": self.DEFAULT_SLACK, "ref": planned}
+            entry = {"slack": self.slack, "ref": planned}
             self._entries[key] = entry
             self._bound_entries(key)
         planned, stage_bill = self._staged_effective(planned, key)
@@ -502,7 +515,7 @@ class DeviceExecutor:
                 sum(t.numel() * t.element_size() for t in bufs.values()))
             self._attach_compression(timings, bufs)
             del bufs
-            tr = _Trace(self, entry["slack"])
+            tr = self._trace(entry["slack"])
             row, outs, dicts = tr.run_query(planned)
             host = self._to_host(row, outs, tr.total_overflow())
             t1 = time.perf_counter()
@@ -528,6 +541,9 @@ class DeviceExecutor:
                     timings["bytes_scanned_raw"] / bs, 4)
         self.last_timings = timings
         return out
+
+    def _trace(self, slack: float) -> "_Trace":
+        return _Trace(self, slack)
 
     @staticmethod
     def _is_stage_key(k: object) -> bool:
@@ -680,7 +696,7 @@ class DeviceExecutor:
         crosses to the host."""
         n = row.shape[0]
         if n >= self.COMPACT_MIN_ROWS and outs:
-            perm = torch.sort((~row).to(torch.int32), stable=True)[1]
+            perm = _compact_perm(row)
             cnt_h, over_h = torch.stack(
                 [row.sum(), overflow.to(torch.int64)]).cpu().tolist()
             if over_h:
@@ -966,9 +982,14 @@ class _Trace:
             tot = tot + o.to(torch.int64)
         return tot
 
+    def result_ctx(self, node: P.Node) -> DCtx:
+        """The context of a scalar subplan or of the root, as the query
+        reads its result."""
+        return self.run(node)
+
     def run_query(self, planned: P.PlannedQuery):
         for i, sub in enumerate(planned.scalar_subplans):
-            ctx = self.run(sub)
+            ctx = self.result_ctx(sub)
             name, dt = sub.output[0]
             dv = ctx.cols[(sub.binding, name)]
             pos = torch.argmax(ctx.row.to(torch.int32))
@@ -977,7 +998,7 @@ class _Trace:
             if dv.valid is not None:
                 ok = ok & dv.valid[pos]
             self.scalars[i] = (v, ok, dv.sdict, dt)
-        ctx = self.run(planned.root)
+        ctx = self.result_ctx(planned.root)
         root = planned.root
         outs, dicts = [], []
         for name, _dt in root.output:
@@ -990,6 +1011,12 @@ class _Trace:
 
     # ----------------------------------------------------------- plan nodes
 
+    def stash(self, node: P.Node, ctx: DCtx) -> None:
+        """The one write point of the node-result cache. Trace-scoped:
+        the running plan pins every node, so no id can recycle while its
+        entry lives."""
+        self._cache[id(node)] = ctx
+
     def run(self, node: P.Node) -> DCtx:
         nid = id(node)
         if nid in self._cache:
@@ -1000,8 +1027,7 @@ class _Trace:
                 f"plan node {type(node).__name__} is not ported to the "
                 f"torch engine yet")
         ctx = method(node)
-        # trace-scoped: the running plan pins every node
-        self._cache[nid] = ctx
+        self.stash(node, ctx)
         return ctx
 
     def _run_scan(self, node: P.Scan) -> DCtx:
@@ -2059,7 +2085,7 @@ class _Trace:
     def _compact(self, ctx: DCtx) -> DCtx:
         """Stable-sort present rows to the front (before Limit when the
         child did not already order them)."""
-        perm = torch.sort((~ctx.row).to(torch.int32), stable=True)[1]
+        perm = _compact_perm(ctx.row)
         out = ctx.gather(perm)
         out.row = ctx.row.index_select(0, perm)
         return out

@@ -27,6 +27,9 @@ unpack_mask            ``columnar/device.py`` ``unpack_mask``  csrc/columnar_dec
                        (K8, one bit per row)
 rle_decode             ``columnar/device.py`` RLE ``decode``  csrc/columnar_decode.cu
                        (K9)
+exchange_pack          ``nds_tpu/parallel/exchange.py``      csrc/exchange.cu
+                       ``_mix64`` + ``exchange_by_dest``
+                       before its ``all_to_all`` (L5)
 =====================  ===================================  ======================
 
 Each wrapper dispatches on the device of its tensors: on a CUDA tensor
@@ -37,7 +40,7 @@ fallback from the kernel to the plain version. Each wrapper counts its
 kernel launches in ``LAUNCHES[<wrapper>]`` (``reset_launches`` zeroes
 them), so a run can show that it went through the kernels.
 
-All twelve are bound by bytes on the card: the source files say how many,
+All thirteen are bound by bytes on the card: the source files say how many,
 and what their design does about it. One library call sits inside a
 kernel: ``partitioned_mn_join`` sorts its (partitions x capacity) build
 block with one batched ``torch.sort``, the step the JAX version hands to
@@ -47,6 +50,7 @@ with its own arithmetic is CUDA C++.
 
 from __future__ import annotations
 
+import ctypes
 import os
 
 import torch
@@ -971,3 +975,142 @@ def rle_decode(values, starts, n: int):
     cb.check(err, "rle_decode")
     LAUNCHES["rle_decode"] += 1
     return out
+
+
+# ------------------------------------------- hash-partition exchange pack
+
+# splitmix64's multipliers as the int64 values of their bits: torch's
+# int64 product wraps modulo 2^64 as the uint64 one does
+_MIX1 = 0xBF58476D1CE4E5B9 - (1 << 64)
+_MIX2 = 0x94D049BB133111EB - (1 << 64)
+
+
+def _srl(x, k: int):
+    """Logical right shift of the uint64 bits held in int64 ``x``."""
+    return (x >> k) & ((1 << (64 - k)) - 1)
+
+
+def mix64_plain(key):
+    """splitmix64's finalizer of ``int64(key)`` as uint64 bits, held in an
+    int64 tensor (the JAX version's ``_mix64``)."""
+    x = key.to(torch.int64)
+    x = (x ^ _srl(x, 30)) * _MIX1
+    x = (x ^ _srl(x, 27)) * _MIX2
+    return x ^ _srl(x, 31)
+
+
+def _umod_plain(x, m: int):
+    """``x % m`` of the uint64 bits held in int64 ``x``, exact for any
+    ``0 < m < 2^31``: the 32-bit halves are reduced apart, so no signed
+    ``%`` sees a value at or above 2^63."""
+    hi, lo = _srl(x, 32), x & 0xFFFFFFFF
+    return ((hi % m) * ((1 << 32) % m) + lo) % m
+
+
+def _exchange_dest_plain(key, dest, n_dev: int, modulus: int, div: int):
+    if dest is not None:
+        return dest.to(torch.int32)
+    g = _umod_plain(mix64_plain(key), modulus)
+    return (torch.div(g, div, rounding_mode="floor") % n_dev).to(torch.int32)
+
+
+def exchange_pack_plain(payloads, ok, n_dev: int, bucket: int, key=None,
+                        dest=None, modulus: "int | None" = None,
+                        div: int = 1):
+    """Plain version of ``exchange_pack``, step by step as the JAX
+    ``exchange_by_dest`` (with the destination of ``exchange`` or of an
+    ``exchange_hierarchical`` stage): dead rows to the sentinel dest
+    ``n_dev``, a stable sort of (dest, iota), the destination starts by
+    searchsorted, ranks, the overflow count, and a scatter of each sorted
+    payload into a zero buffer with one trash slot past its end."""
+    dev = ok.device
+    n = ok.shape[0]
+    d = _exchange_dest_plain(key, dest, n_dev,
+                             n_dev if modulus is None else modulus, div)
+    d = torch.where(ok, d, torch.full_like(d, n_dev))
+    iota = torch.arange(n, dtype=torch.int64, device=dev)
+    dest_s, order = torch.sort(d, stable=True)
+    ok_s = ok.index_select(0, order)
+    bounds = torch.searchsorted(
+        dest_s, torch.arange(n_dev + 1, dtype=torch.int32, device=dev))
+    first_of_dest = bounds[:-1]
+    rank = iota - first_of_dest.index_select(
+        0, dest_s.clamp(0, n_dev - 1).to(torch.int64))
+    overflow = (ok_s & (rank >= bucket)).sum().to(torch.int64)
+    keep = ok_s & (rank < bucket)
+    trash = n_dev * bucket
+    slot = torch.where(keep, dest_s.to(torch.int64) * bucket
+                       + rank.clamp(0, bucket - 1),
+                       torch.full_like(rank, trash))
+
+    def scatter(vals_sorted):
+        buf = torch.zeros(trash + 1, dtype=vals_sorted.dtype, device=dev)
+        return buf.scatter_(0, slot, vals_sorted)[:-1]
+
+    send_ok = scatter(keep)
+    outs = [scatter(a.index_select(0, order)) for a in payloads]
+    return outs, send_ok, overflow
+
+
+_PAY_SIZES = (1, 2, 4, 8)
+
+
+@_counted
+def exchange_pack(payloads, ok, n_dev: int, bucket: int, key=None,
+                  dest=None, modulus: "int | None" = None, div: int = 1):
+    """Pack the send buffers of one hash-partition exchange: each row
+    that is ``ok`` goes to destination ``d`` in ``[0, n_dev)``, either
+    ``dest[i]`` or ``(splitmix64(key[i]) % modulus // div) % n_dev``
+    (``modulus`` defaults to ``n_dev``), at slot ``d * bucket + rank``,
+    ``rank`` its stable rank among the live rows bound for ``d``; rows
+    of rank ``>= bucket`` are dropped and counted. Returns ``(buffers,
+    send_ok, overflow)``: one ``(n_dev * bucket)`` buffer per payload
+    (zero where no row landed), the bool ``send_ok`` of the same length,
+    and the dropped rows as an int64 scalar."""
+    if (key is None) == (dest is None):
+        raise ValueError("exchange_pack: give exactly one of key and dest")
+    route = key if dest is None else dest
+    if not _launch_device(ok, route, *payloads):
+        return exchange_pack_plain(payloads, ok, n_dev, bucket, key, dest,
+                                   modulus, div)
+    n = ok.shape[0]
+    _require(ok, "ok", (torch.bool,))
+    if dest is not None:
+        _require(dest, "dest", (torch.int32,), n)
+        mode = 0
+    else:
+        _require(key, "key", _KEY_DTYPES, n)
+        mode = 2 if key.dtype == torch.int64 else 1
+    modulus = n_dev if modulus is None else int(modulus)
+    cb, lib = _lib("exchange")
+    if not 1 <= n_dev <= lib.nds_exchange_max_dest():
+        raise ValueError(f"exchange_pack: n_dev={n_dev}")
+    if bucket < 1 or n_dev * bucket >= 2**31 or n >= 2**31:
+        raise ValueError(f"exchange_pack: {n} rows, bucket {bucket}")
+    if modulus < 1 or div < 1:
+        raise ValueError(f"exchange_pack: modulus {modulus}, div {div}")
+    for p in payloads:
+        _require(p, "payload", (p.dtype,), n)
+        if p.element_size() not in _PAY_SIZES:
+            raise TypeError(f"exchange_pack: payload dtype {p.dtype}")
+    dev = ok.device
+    m = n_dev * bucket
+    outs = [torch.empty(m, dtype=p.dtype, device=dev) for p in payloads]
+    send_ok = torch.empty(m, dtype=torch.bool, device=dev)
+    nblocks = max(-(-n // lib.nds_exchange_tile()), 1)
+    block_cnt = torch.empty(nblocks * n_dev, dtype=torch.int32, device=dev)
+    fill_from = torch.empty(n_dev, dtype=torch.int64, device=dev)
+    overflow = torch.empty((), dtype=torch.int64, device=dev)
+    k = len(payloads)
+    src = (ctypes.c_void_p * max(k, 1))(*[_ptr(p) for p in payloads])
+    dst = (ctypes.c_void_p * max(k, 1))(*[_ptr(o) for o in outs])
+    sizes = (ctypes.c_int * max(k, 1))(*[p.element_size() for p in payloads])
+    err = lib.nds_exchange_pack(
+        _ptr(key) if dest is None else None,
+        _ptr(dest) if dest is not None else None, mode, _ptr(ok), n,
+        modulus, int(div), n_dev, bucket, k, src, dst, sizes,
+        _ptr(send_ok), _ptr(block_cnt), _ptr(fill_from), _ptr(overflow),
+        cb.stream_handle())
+    cb.check(err, "exchange_pack")
+    LAUNCHES["exchange_pack"] += 1
+    return outs, send_ok, overflow

@@ -216,5 +216,5 @@ def test_cpu_tensors_take_the_plain_versions_and_count_no_launch():
         "direct_lookup_join", "matmul_probe_join", "bitmask_semi",
         "keyed_minmax_semi", "seg_reduce_at_ends", "partitioned_mn_join",
         "seg_scan", "part_reduce_broadcast", "last_of_group",
-        "bitpack_decode", "unpack_mask", "rle_decode"}
+        "bitpack_decode", "unpack_mask", "rle_decode", "exchange_pack"}
     assert all(v == 0 for v in KX.launch_counts().values())

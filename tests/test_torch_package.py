@@ -7,6 +7,10 @@
   CUDA device ``make_device_factory()`` raises, and the kernel loader
   raises instead of handing back the plain versions. A kernel wrapper
   given tensors on a device that is neither the CPU nor CUDA raises.
+- The distributed entry points (``nds_tpu_torch/parallel/``) default to
+  the card too: without one, ``make_distributed_factory()`` and
+  ``make_mesh()`` raise ``NoCudaDevice`` before any world starts, and a
+  mesh of more than one rank needs a world that was initialized.
 - Integer arithmetic on scaled decimals floors like the reference's on
   negative values (``//`` in rescales and casts, ``%``).
 """
@@ -85,6 +89,31 @@ def test_default_device_is_the_card_and_raises_without_one(monkeypatch):
     with pytest.raises(NoCudaDevice):
         resolve_device("cuda")
     assert make_device_factory(device="cpu").device == torch.device("cpu")
+
+
+def test_parallel_modules_are_part_of_the_port():
+    mods = _port_modules()
+    for m in ("mesh", "multihost", "exchange", "dist_exec"):
+        assert f"nds_tpu_torch.parallel.{m}" in mods
+
+
+def test_distributed_entry_points_raise_without_a_card(monkeypatch):
+    import torch.distributed as dist
+
+    from nds_tpu_torch.device import NoCudaDevice
+    from nds_tpu_torch.parallel.dist_exec import make_distributed_factory
+    from nds_tpu_torch.parallel.mesh import make_mesh
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    started = dist.is_initialized()
+    with pytest.raises(NoCudaDevice):
+        make_distributed_factory()
+    if not started:
+        with pytest.raises(NoCudaDevice):
+            make_mesh()
+        # a world of several ranks is never started here
+        with pytest.raises(ValueError):
+            make_mesh(4, device="cpu")
+    assert dist.is_initialized() == started
 
 
 def test_kernel_loader_raises_without_cuda(monkeypatch):
