@@ -2,6 +2,7 @@
 """Chip smoke of the PyTorch/CUDA port: the NDS-H and NDS power runs on one card.
 
     python3 chip_smoke.py [--sf 1.0] [--sf-ds 1.0] [--out results/smoke.json]
+                          [--k6-parent DIR]
 
 Drives ``nds_tpu_torch`` (never ``jax``, never ``nds_tpu``) on the card:
 
@@ -41,7 +42,14 @@ Drives ``nds_tpu_torch`` (never ``jax``, never ``nds_tpu``) on the card:
 5. NDS leg at ``--sf-ds`` (default SF1, ``bench.py``'s ``BENCH_NDS_SF``):
    the same phases over the 103 statements of the NDS power run
    (``Session.for_nds``), with the validator's two carve-outs (q65 on its
-   row count, q78's column 3 at rel tol 0.01001);
+   row count, q78's column 3 at rel tol 0.01001); K6's time per step at
+   its largest call (``k6_breakdown``; with ``--k6-parent DIR``, first
+   the same for the design of another checkout of this repo, unpacked at
+   DIR, on the same inputs, its result held to the kernel's), and K6,
+   the scans and their build sort held to their plain versions on
+   adversarial inputs of up to 10M rows (``nds_adversarial_cases``) and
+   right after an int64 scan whose values read as the sort's count words
+   (``lookback_layout_cases``);
 6. window path: whole-partition MIN/MAX and a running SUM under the
    default RANGE frame over ``store_sales`` at the NDS leg's scale (no NDS
    statement takes either form: the only path to
@@ -70,12 +78,19 @@ Drives ``nds_tpu_torch`` (never ``jax``, never ``nds_tpu``) on the card:
 Kernel checks: integer, bool and min/max outputs must equal the plain
 version's exactly; a float sum (the segmented scan's "sum" on float
 values) within |got - plain| <= 1e-9 * max(1, |plain|), since the two add
-in other orders. Each check gives the kernel's time (CUDA events, median
-of 7 after 2 warm-ups), the host's time for one call of the wrapper up to
-its return (``host_ms``), the plain version's time, the bytes it must
-move, the least time the card could take for them (``bound_ms``) and,
-where one PyTorch call computes the same thing, that call's time. Each
-profiled pass also lists the operators that take the most host time.
+in other orders. Each check gives the kernel's time per call (``ms``:
+CUDA events around the call with the card idle at the start event, so
+the host's part of the call up to its last launch is in it; median of 7
+after 2 warm-ups), its device time (``device_ms``: the same while a spin
+kernel holds the card, so the host's part is hidden), the host's time
+for one call of the wrapper up to its return (``host_ms``), the plain
+version's time, the bytes it must move, the least time the card could
+take for them (``bound_ms``) and, where one PyTorch call computes the
+same thing, that call's time by both methods (``library_ms``,
+``library_device_ms``). Each
+profiled pass also lists the operators that take the most host time,
+and sums the device time of cub's radix sorts and of each of the port's
+own kernels.
 
 Any failed phase raises: the exit code is then non-zero and no result
 line is printed. ``--device cpu`` rehearses the script on the CPU, where
@@ -111,6 +126,8 @@ KERNELS = {
                            "nds_tpu/engine/kernels.py:420,438"),
     "partitioned_mn_join": ("nds_tpu_torch/csrc/partitioned_join.cu",
                             "nds_tpu/engine/kernels.py:349,321,310"),
+    "partition_sort": ("nds_tpu_torch/csrc/partitioned_join.cu",
+                       "nds_tpu/engine/kernels.py:377"),
     "seg_scan": ("nds_tpu_torch/csrc/seg_scan.cu",
                  "nds_tpu/engine/kernels.py:420"),
     "part_reduce_broadcast": ("nds_tpu_torch/csrc/seg_scan.cu",
@@ -129,7 +146,8 @@ KERNELS = {
 # the kernels each timed run must have launched
 H_REQUIRED = ("direct_lookup_join", "matmul_probe_join", "bitmask_semi",
               "keyed_minmax_semi", "seg_reduce_at_ends")
-DS_REQUIRED = ("partitioned_mn_join", "seg_scan", "last_of_group")
+DS_REQUIRED = ("partitioned_mn_join", "partition_sort", "seg_scan",
+               "last_of_group")
 WINDOW_REQUIRED = ("part_reduce_broadcast", "last_of_group")
 # the columnar decode kernels (K8, K9): the timed passes under "auto"
 # must launch all three between them, the NDS pass the mask unpack
@@ -147,7 +165,8 @@ EXCHANGE_DEAD = 0.1
 # the path whose largest call gives each kernel's numbers in the line
 # (the decode kernels: the columnar path with their largest call)
 LINE_PATH = {**{n: "nds_h" for n in H_REQUIRED},
-             "partitioned_mn_join": "nds", "seg_scan": "nds",
+             "partitioned_mn_join": "nds", "partition_sort": "nds",
+             "seg_scan": "nds",
              "last_of_group": "nds", "part_reduce_broadcast": "window",
              "exchange_pack": "dist_nds_h"}
 # the bit-width sweep of the decode kernels: TPC-H's SF1 lineitem count
@@ -200,9 +219,21 @@ def nvidia_smi() -> str:
 
 # ------------------------------------------------------------ measuring
 
-def time_ms(fn, dev, reps: int = 7, warm: int = 2) -> float:
-    """Median time of one call: CUDA events on the card (each run ends
-    in its event's synchronize), the host clock on the CPU."""
+# cycles of the spin kernel that keeps the card busy while the host
+# enqueues a timed call (about 2 ms on an H100)
+SPIN_CYCLES = 4_000_000
+
+
+def time_ms(fn, dev, reps: int = 7, warm: int = 2,
+            spin: bool = False) -> float:
+    """Median time of one call: on the card, CUDA events around the
+    call, the card idle at the start event, so the time takes in the
+    host's part of the call up to its last launch (each run ends in its
+    event's synchronize). With ``spin``, a spin kernel
+    (``torch.cuda._sleep``) is enqueued before the start event, so that
+    the host's part of the call (checks, allocation, the launches)
+    overlaps the spin and the events time the device's work alone. The
+    host clock on the CPU."""
     import torch
     for _ in range(warm):
         fn()
@@ -211,6 +242,8 @@ def time_ms(fn, dev, reps: int = 7, warm: int = 2) -> float:
         if dev.type == "cuda":
             s = torch.cuda.Event(enable_timing=True)
             e = torch.cuda.Event(enable_timing=True)
+            if spin:
+                torch.cuda._sleep(SPIN_CYCLES)
             s.record()
             fn()
             e.record()
@@ -296,6 +329,14 @@ def work_of(name: str, args, out) -> tuple:
     if name == "partitioned_mn_join":
         # one step per input row and per output slot
         ops = rows + out[0].numel()
+    if name == "partition_sort":
+        # the occupied (key, row) pairs read once, the sorted blocks
+        # written once
+        keys, gidx, counts = tens
+        occupied = int(counts.sum())
+        moved = (occupied * (keys.element_size() + gidx.element_size())
+                 + nbytes(counts) + nbytes(out))
+        ops = occupied
     if name in DECODE_KERNELS:
         # a few integer operations per output row
         ops = out.numel()
@@ -329,6 +370,19 @@ def library_call(name: str, args):
         # resets
         vals = args[1]
         return lambda: torch.cumsum(vals, 0)
+    if name == "partition_sort":
+        # the batched stable sort of the whole block, its unoccupied
+        # slots set to (iinfo.max, 0) beforehand, and the row ids gathered
+        keys, gidx, counts = args
+        tail = (torch.arange(keys.shape[1], device=keys.device)[None, :]
+                >= counts[:, None])
+        kb = keys.masked_fill(tail, torch.iinfo(keys.dtype).max)
+        gb = gidx.masked_fill(tail, 0)
+
+        def sort_gather():
+            ks, order = torch.sort(kb, dim=1, stable=True)
+            return ks, gb.gather(1, order)
+        return sort_gather
     if name == "keyed_minmax_semi":
         bkey, bok, bval, _pk, _po, _pv, lo, dom = args
         idx = torch.where(bok, bkey.to(torch.int64) - lo,
@@ -360,26 +414,265 @@ def check_kernel(KX, name: str, args, label: str, dev,
         raise SmokeError(f"{name} [{label}] differs from its plain "
                          f"version: max_abs_err={err}")
     ms = time_ms(lambda: fn(*args), dev)
+    device_ms = time_ms(lambda: fn(*args), dev, spin=True)
     host_ms = host_call_ms(lambda: fn(*args), dev)
-    # a plain version that takes seconds is timed once more, not four
-    # times
-    slow = plain_first_s > 1.0
-    plain_ms = time_ms(lambda: plain(*args), dev, reps=1 if slow else 3,
-                       warm=0 if slow else 1)
+    # a plain version that takes seconds keeps the time of its first
+    # call, to its synchronize, rather than running again
+    plain_ms = (plain_first_s * 1000 if plain_first_s > 1.0 else
+                time_ms(lambda: plain(*args), dev, reps=3, warm=1))
     lib = library_call(name, args)
     library_ms = time_ms(lib, dev) if lib is not None else None
+    library_device_ms = (time_ms(lib, dev, spin=True) if lib is not None
+                         else None)
     moved, ops = work_of(name, list(args) + list(kwargs.values()), got)
     bound_ms, bound_by = bound(moved, ops)
     shapes = [list(a.shape) + [str(a.dtype).replace("torch.", "")]
               for a in _tensors(list(args) + list(kwargs.values()))]
     rec = {"kernel": name, "case": label, "shapes": shapes,
            "size": call_size(name, args, kwargs),
-           "max_abs_err": err, "ms": ms, "host_ms": host_ms,
+           "max_abs_err": err, "ms": ms, "device_ms": device_ms,
+           "host_ms": host_ms,
            "plain_ms": plain_ms,
-           "library_ms": library_ms, "bytes": moved, "ops": ops,
+           "library_ms": library_ms,
+           "library_device_ms": library_device_ms,
+           "bytes": moved, "ops": ops,
            "bound_ms": bound_ms, "bound_by": bound_by}
     log(json.dumps(rec))
     return rec
+
+
+def k6_breakdown(steps, args, dev, reps: int = 5, warm: int = 1,
+                 label: str = "kernel") -> dict:
+    """K6's time per step at one call: ``steps(*args)`` is a generator
+    that yields each step's name right after it enqueues the step
+    (``kernels.partitioned_mn_join_steps``, or ``parent_k6_steps``), and
+    a CUDA event recorded there closes the step. The start event is
+    recorded with the card idle, so the total is the call's time as
+    ``ms`` takes it. Median over ``reps`` calls after ``warm``, each
+    ending in a synchronize."""
+    import torch
+    runs = []
+    for i in range(warm + reps):
+        marks = []
+        start = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for name in steps(*args):
+            e = torch.cuda.Event(enable_timing=True)
+            e.record()
+            marks.append((name, e))
+        torch.cuda.synchronize()
+        if i < warm:
+            continue
+        step, prev = {}, start
+        for name, e in marks:
+            step[name] = step.get(name, 0.0) + prev.elapsed_time(e)
+            prev = e
+        step["total"] = start.elapsed_time(prev)
+        runs.append(step)
+    out = {name: statistics.median(r[name] for r in runs)
+           for name in runs[0]}
+    log(json.dumps({"phase": f"K6 step breakdown ({label})",
+                    "size": call_size("partitioned_mn_join", args),
+                    "steps_ms": out}))
+    return out
+
+
+def load_parent_build(root: str):
+    """The ``cuda_build`` module of another checkout of this repo,
+    unpacked at ``root`` (``git archive <commit> | tar -x -C root``),
+    loaded under a name of its own: it builds that checkout's sources
+    into that checkout's ``.build/``."""
+    import importlib.util
+    path = os.path.join(root, "nds_tpu_torch", "engine", "cuda_build.py")
+    spec = importlib.util.spec_from_file_location("k6_parent_cuda_build",
+                                                  path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def parent_k6_steps(pcb, lkey, lok, rkey, rok, out_capacity: int,
+                    part_slack: float, nparts: int = 8):
+    """K6 as the checkout before the single-pass redesign ran it, step by
+    step on that checkout's kernels (``pcb``: its ``cuda_build``): the
+    partition (fill, histogram, one-block offsets, scatter) of each side,
+    ``torch.sort`` of the whole build block and the gather of its row
+    ids, the ranges, the three-pass scan's prefix and the expansion by
+    binary search; the launches and arguments of that wrapper. Yields
+    each step's name after enqueuing it; returns the join's result."""
+    import torch
+    lib = pcb.library("partitioned_join")
+    scan = pcb.library("seg_scan")
+    stream = pcb.stream_handle()
+    dev = lkey.device
+    key64 = int(lkey.dtype == torch.int64)
+    log2r = nparts.bit_length() - 1
+    lcap = max(-(-int(lkey.shape[0] * part_slack) // nparts), 1)
+    rcap = max(-(-int(rkey.shape[0] * part_slack) // nparts), 1)
+    kp = max(-(-out_capacity // nparts), 1)
+    over = torch.empty(2, dtype=torch.int64, device=dev)
+
+    def empty(shape, dtype):
+        return torch.empty(shape, dtype=dtype, device=dev)
+
+    def partition(key, ok, cap, side):
+        n = key.shape[0]
+        keys, gidx = empty((nparts, cap), key.dtype), empty((nparts, cap),
+                                                            torch.int32)
+        occ = empty((nparts, cap), torch.bool)
+        blocks = empty((max(-(-n // lib.nds_pj_tile()), 1), nparts),
+                       torch.int32)
+        pcb.check(lib.nds_pj_partition(
+            key.data_ptr(), ok.data_ptr(), n, key64, nparts, log2r, cap,
+            keys.data_ptr(), gidx.data_ptr(), occ.data_ptr(),
+            blocks.data_ptr(), over.data_ptr(), side, stream),
+            "parent partition")
+        return keys, gidx, occ
+
+    lk_p, lg_p, _ = partition(lkey, lok, lcap, 0)
+    yield "partition_left"
+    rk_p, rg_p, rok_p = partition(rkey, rok, rcap, 1)
+    yield "partition_right"
+    ks, order = torch.sort(lk_p, dim=1, stable=True)
+    gs = lg_p.gather(1, order)
+    yield "build_sort"
+    lo_i, cnt = empty((nparts, rcap), torch.int32), empty((nparts, rcap),
+                                                          torch.int64)
+    pcb.check(lib.nds_pj_ranges(
+        ks.data_ptr(), key64, lcap, rk_p.data_ptr(), rok_p.data_ptr(), rcap,
+        nparts, lo_i.data_ptr(), cnt.data_ptr(), stream), "parent ranges")
+    yield "ranges"
+    m = nparts * rcap
+    ntiles = -(-m // scan.nds_seg_scan_tile())
+    offs, fl = empty(m, torch.int64), empty(m, torch.uint8)
+    tv, tf, carry = (empty(ntiles, torch.int64), empty(ntiles, torch.uint8),
+                     empty(ntiles, torch.int64))
+    # value type 1 (int64), op 0 (sum), restarting every rcap rows
+    pcb.check(scan.nds_seg_scan(
+        cnt.data_ptr(), 1, 0, None, rcap, m, offs.data_ptr(), fl.data_ptr(),
+        tv.data_ptr(), tf.data_ptr(), carry.data_ptr(), stream),
+        "parent prefix")
+    yield "prefix"
+    lidx, ridx = empty(nparts * kp, torch.int32), empty(nparts * kp,
+                                                        torch.int32)
+    present, overflow = empty(nparts * kp, torch.bool), empty((),
+                                                              torch.int64)
+    pcb.check(lib.nds_pj_expand(
+        offs.data_ptr(), lo_i.data_ptr(), gs.data_ptr(), rg_p.data_ptr(),
+        nparts, lcap, rcap, kp, over.data_ptr(), lidx.data_ptr(),
+        ridx.data_ptr(), present.data_ptr(), overflow.data_ptr(), stream),
+        "parent expand")
+    yield "expand"
+    return lidx, ridx, present, overflow
+
+
+def run_steps(steps):
+    """Runs a step generator to its end; returns what it returns."""
+    while True:
+        try:
+            next(steps)
+        except StopIteration as done:
+            return done.value
+
+
+def k6_breakdowns(KX, args, dev, parent_root) -> dict:
+    """K6's step breakdown of the kernel and, with ``parent_root``, of
+    the parent checkout's design first, on the same inputs in this call
+    (parent, kernel, kernel, parent); the parent's result must equal the
+    kernel's."""
+    import torch
+    out = {}
+    if parent_root is None:
+        out["kernel"] = k6_breakdown(KX.partitioned_mn_join_steps, args,
+                                     dev)
+        return out
+    pcb = load_parent_build(parent_root)
+    pcb.build_all()
+    parent = functools.partial(parent_k6_steps, pcb)
+    got = run_steps(parent(*args))
+    exp = KX.partitioned_mn_join(*args)
+    torch.cuda.synchronize()
+    err = max_abs_err(got, exp)
+    if err != 0.0:
+        raise SmokeError(f"the parent checkout's K6 differs from the "
+                         f"kernel's: max_abs_err={err}")
+    del got, exp
+    order = [("parent", parent), ("kernel", KX.partitioned_mn_join_steps),
+             ("kernel", KX.partitioned_mn_join_steps), ("parent", parent)]
+    halves: dict = {}
+    for label, steps in order:
+        halves.setdefault(label, []).append(
+            k6_breakdown(steps, args, dev, reps=3, label=label))
+    for label, (a, b) in halves.items():
+        out[label] = {k: (a[k] + b[k]) / 2 for k in a}
+    out["order"] = [label for label, _ in order]
+    return out
+
+
+def lookback_layout_cases(KX, dev) -> list:
+    """(kernel, args, label, scan) cases for the look-back scratch: each
+    runs right after ``scan``, an int64 segmented sum whose every row
+    resets, so that its tiles' stored values are the rows' values, here
+    count words (lookback.cuh) of the epochs that the next partition and
+    sort launches take. The scan's state and the count words must live
+    in words that do not overlap, so a stale word is only ever read in
+    the layout it was written in."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(29)
+
+    def dt(a):
+        return torch.as_tensor(np.ascontiguousarray(a)).to(dev)
+
+    probe = torch.zeros(1, device=dev)
+    key = (probe.device, torch.cuda.current_stream().cuda_stream, "count")
+    nxt = KX._LOOKBACK.get(key, (None, None, 1))[2]
+    n = 1 << 21
+    ep = nxt + np.arange(n) % 16
+    kind = 1 + np.arange(n) % 2
+    words = ((ep.astype(np.int64) << 34) | (kind.astype(np.int64) << 32)
+             | rng.integers(1, 1 << 20, n))
+    scan_args = ("sum", dt(words), dt(np.ones(n, bool)))
+    nparts, cap = 8, 3_000_000
+    counts = rng.integers(cap // 2, cap + 1, nparts).astype(np.int32)
+    sort_args = (dt(rng.integers(-(1 << 40), 1 << 40, (nparts, cap))),
+                 dt(rng.integers(0, 1 << 30, (nparts, cap),
+                                 dtype=np.int64).astype(np.int32)),
+                 dt(counts))
+    nl, nr = 4_000_000, 2_000_000
+    pool = rng.integers(-(1 << 40), 1 << 40, 1_000_000)
+    k6_args = (dt(rng.choice(pool, nl)), dt(rng.random(nl) < 0.9),
+               dt(rng.choice(pool, nr)), dt(rng.random(nr) < 0.9),
+               8_000_000, 2.0)
+    return [("partition_sort", sort_args,
+             f"8 x {cap} int64 after an int64 scan of count words",
+             scan_args),
+            ("partitioned_mn_join", k6_args,
+             f"{nl} x {nr} int64 after an int64 scan of count words",
+             scan_args)]
+
+
+def check_lookback_layouts(KX, dev) -> list:
+    """Runs ``lookback_layout_cases``: the scan, then the kernel held to
+    its plain version; then the scan's and the count words' buffers on
+    this stream must not overlap."""
+    import torch
+    checks = []
+    for name, args, label, scan_args in lookback_layout_cases(KX, dev):
+        KX.seg_scan(*scan_args)
+        checks.append(check_kernel(KX, name, args, label, dev))
+    stream = torch.cuda.current_stream().cuda_stream
+    spans = {}
+    for (d, st, layout), (buf, _c, _e) in KX._LOOKBACK.items():
+        if st == stream:
+            spans.setdefault(layout, []).append(
+                (buf.data_ptr(), buf.data_ptr() + buf.numel() * 8))
+    for a0, a1 in spans.get("scan", []):
+        for b0, b1 in spans.get("count", []):
+            if a0 < b1 and b0 < a1:
+                raise SmokeError("the scan state and the count words of "
+                                 "the look-back share words")
+    return checks
 
 
 # ------------------------------------------------------------------ data
@@ -498,6 +791,82 @@ def sf1_shape_cases(tables: dict, dev) -> list:
         cases.append(("seg_reduce_at_ends",
                       (op, data, dt(gid), dt(starts2, torch.int64)),
                       f"n={n_li} G={G} {str(vdtype)[6:]} {op}"))
+    return cases
+
+
+def nds_adversarial_cases(dev) -> list:
+    """(kernel, args, label) beside the NDS leg's own calls, at up to
+    about 10M rows so that each plain version stays near 2 s: K6 with
+    valid keys equal to iinfo(int32).max on both sides (they also match
+    every unoccupied build slot), with every row hashed into one
+    partition, and over int64 keys spread wider than 2^32 (every digit of
+    the sort moves); the scans over one segment of all rows, segments
+    that span many tiles, and lengths that are no multiple of a tile."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(23)
+
+    def dt(a):
+        return torch.as_tensor(np.ascontiguousarray(a)).to(dev)
+
+    def pid8(k):
+        u = k.astype(np.int64) & 0xFFFFFFFF
+        return ((u * 2654435761) & 0xFFFFFFFF) >> 29
+
+    cases = []
+    big = np.iinfo(np.int32).max
+    nl, nr = 6_000_000, 3_000_000
+    lk = rng.integers(0, 1 << 20, nl).astype(np.int32)
+    rk = rng.integers(0, 1 << 20, nr).astype(np.int32)
+    lk[rng.random(nl) < 0.01] = big
+    rk[rng.random(nr) < 0.001] = big
+    cases.append(("partitioned_mn_join",
+                  (dt(lk), dt(rng.random(nl) < 0.9), dt(rk),
+                   dt(rng.random(nr) < 0.9), 12_000_000, 2.0),
+                  f"{nl} x {nr} int32, iinfo.max keys on both sides"))
+    cand = np.arange(0, 1 << 24, dtype=np.int64)
+    hot = cand[pid8(cand) == 3][:1_250_000].astype(np.int32)
+    nl, nr = 4_000_000, 2_000_000
+    cases.append(("partitioned_mn_join",
+                  (dt(rng.choice(hot, nl)), dt(np.ones(nl, bool)),
+                   dt(rng.choice(hot, nr)), dt(rng.random(nr) < 0.95),
+                   8_000_000, 8.0),
+                  f"{nl} x {nr} int32, every row in one partition"))
+    pool = rng.integers(-(1 << 40), 1 << 40, 2_000_000, dtype=np.int64)
+    nl, nr = 6_000_000, 3_000_000
+    cases.append(("partitioned_mn_join",
+                  (dt(rng.choice(pool, nl)), dt(rng.random(nl) < 0.9),
+                   dt(rng.choice(pool, nr)), dt(rng.random(nr) < 0.9),
+                   12_000_000, 2.0),
+                  f"{nl} x {nr} int64 over [-2^40, 2^40)"))
+    n = 10_000_001
+    one = np.zeros(n, bool)
+    one[0] = True
+    cases.append(("seg_scan",
+                  ("sum", dt(rng.integers(-10**6, 10**6, n)), dt(one)),
+                  f"n={n} int64 sum, one segment"))
+    n = 7_777_777
+    vals = rng.normal(size=n)
+    vals[rng.integers(0, n, 5)] = np.nan
+    cases.append(("seg_scan",
+                  ("max", dt(vals), dt(rng.random(n) < 2e-5)),
+                  f"n={n} float64 max, segments of about 50,000 rows"))
+    n = 9_999_999
+    change = rng.random(n) < 1e-5
+    change[0] = True
+    cases.append(("last_of_group", (dt(change), n),
+                  f"n={n}, groups of about 100,000 rows"))
+    n = 5_000_003
+    part_start = rng.random(n) < 1.6e-5
+    part_start[0] = True
+    starts = np.nonzero(part_start)[0]
+    ends = np.append(starts[1:], n) - 1
+    pend = np.repeat(ends, np.diff(np.append(starts, n))).astype(np.int32)
+    cases.append(("part_reduce_broadcast",
+                  ("min", dt(rng.integers(-2**31, 2**31 - 1, n,
+                                          dtype=np.int64).astype(np.int32)),
+                   dt(part_start), dt(pend)),
+                  f"n={n} int32 min, partitions of about 60,000 rows"))
     return cases
 
 
@@ -665,6 +1034,36 @@ def library_step_checks(lib: Recorder, label: str, dev) -> list:
     return out
 
 
+def port_kernel_names() -> set:
+    """The ``__global__`` functions of the port's CUDA sources."""
+    import re
+    from nds_tpu_torch.engine.cuda_build import CSRC
+    pat = re.compile(r"__global__\s+(?:void\s+)?(?:__launch_bounds__\([^)]*\)"
+                     r"\s+)?(?:void\s+)?(\w+)\s*\(")
+    return {m for f in CSRC.glob("*.cu") for m in pat.findall(f.read_text())}
+
+
+def kernel_families(by_name: dict) -> dict:
+    """From {kernel name: (ms, launches)}: cub's radix-sort kernels summed
+    (every torch.sort and the library sorts of the executor), and each of
+    the port's own kernels summed over its instantiations."""
+    import re
+    ours = port_kernel_names()
+    cub, port = [0.0, 0], {}
+    for name, (ms, cnt) in by_name.items():
+        if "DeviceRadixSort" in name:
+            cub[0] += ms
+            cub[1] += cnt
+        m = re.match(r"(?:void )?\(anonymous namespace\)::(\w+)", name)
+        if m and m.group(1) in ours:
+            tot = port.setdefault(m.group(1), [0.0, 0])
+            tot[0] += ms
+            tot[1] += cnt
+    return {"cub_radix_sort": {"ms": cub[0], "launches": cub[1]},
+            "port_kernels": {k: {"ms": v[0], "launches": v[1]}
+                             for k, v in sorted(port.items())}}
+
+
 def profile_pass(dsess, units, dev, per_unit, label) -> dict:
     """One more pass of the units under torch.profiler. Each unit ends in
     its device->host copy, so the device work a unit launched runs inside
@@ -721,6 +1120,7 @@ def profile_pass(dsess, units, dev, per_unit, label) -> dict:
            "device_launches": len(work),
            "top_device_kernels": [{"kernel": k[:160], "ms": ms, "count": c}
                                   for k, (ms, c) in top],
+           **kernel_families(by_name),
            "top_host_ops": [{"op": e.key[:120],
                              "self_cpu_ms": e.self_cpu_time_total / 1000,
                              "count": e.count} for e in host_ops]}
@@ -869,7 +1269,7 @@ def rules_of(suite: str) -> str:
 
 def run_leg(suite, KX, factory_of, dev, pool, record, path=None,
             raw=None, check_names=None, required=None,
-            same_kernels=True) -> tuple:
+            same_kernels=True, k6_parent=None) -> tuple:
     """One power run on the card over the suite's generated tables: the
     untimed pass with its captured kernel calls, the kernel checks, the
     timed pass with launch counts read, the profiled pass and the oracle
@@ -882,7 +1282,7 @@ def run_leg(suite, KX, factory_of, dev, pool, record, path=None,
     versions on their largest captured calls (every kernel, or the decodes
     when ``raw`` is given); the timed pass must launch every kernel the
     untimed pass called and those of ``required`` (the suite's own set by
-    default)."""
+    default). ``k6_parent``: see ``k6_breakdowns``."""
     import torch
     path = path or suite
     tables = _ORACLE_TABLES[suite]
@@ -917,6 +1317,23 @@ def run_leg(suite, KX, factory_of, dev, pool, record, path=None,
         check_names = KERNELS if raw is None else DECODE_KERNELS
     main_cases = kernel_checks(KX, rec, path, dev, check_names)
     checks = list(main_cases.values())
+    # K6's steps at its largest call on the single-device NDS leg, and
+    # its build sort held to its plain version on that call's blocks
+    breakdown = None
+    if path == "nds" and "partitioned_mn_join" in rec.largest:
+        k6_args = rec.largest["partitioned_mn_join"][1]
+        if dev.type == "cuda":
+            breakdown = k6_breakdowns(KX, k6_args, dev, k6_parent)
+        with Recorder({"partition_sort": (KX, "partition_sort")}) as srt:
+            KX.partitioned_mn_join(*k6_args)
+        # on the CPU K6's plain version sorts with torch.sort instead
+        if "partition_sort" in srt.largest:
+            checks.append(check_kernel(KX, "partition_sort",
+                                       srt.largest["partition_sort"][1],
+                                       "K6's largest call", dev))
+        elif dev.type == "cuda":
+            raise SmokeError("K6's largest call made no partition_sort "
+                             "call")
     called = [n for n, c in rec.calls.items() if c > 0]
     del rec
     # the library steps (L1-L3) on the single-device legs
@@ -926,6 +1343,11 @@ def run_leg(suite, KX, factory_of, dev, pool, record, path=None,
     if suite == "nds_h" and raw is None:
         for name, kargs, label in sf1_shape_cases(tables, dev):
             checks.append(check_kernel(KX, name, kargs, label, dev))
+    if path == "nds":
+        for name, kargs, label in nds_adversarial_cases(dev):
+            checks.append(check_kernel(KX, name, kargs, label, dev))
+        if dev.type == "cuda":
+            checks += check_lookback_layouts(KX, dev)
 
     checks_s = time.perf_counter() - t0 - warm_s
 
@@ -972,7 +1394,7 @@ def run_leg(suite, KX, factory_of, dev, pool, record, path=None,
            "compression_ratio": scanned_raw / scanned if scanned else None,
            "profile": profile, "kernel_checks": checks,
            "per_unit": per_unit, "called_in_warm_pass": called,
-           "library_steps": library_steps,
+           "library_steps": library_steps, "k6_breakdown": breakdown,
            "warm_peak_device_bytes": warm_peaks,
            "mismatches": bad}
     record[path] = leg
@@ -1353,9 +1775,11 @@ def kernels_line(paths: dict) -> list:
             "launches": sum(p["launches"].get(name, 0)
                             for p in paths.values()),
             "max_abs_err": max(errs),
-            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "ms": r["ms"], "device_ms": r["device_ms"],
+            "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            "library_ms": r["library_ms"]})
+            "library_ms": r["library_ms"],
+            "library_device_ms": r["library_device_ms"]})
     return line
 
 
@@ -1368,6 +1792,9 @@ def main() -> int:
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--out", default=None,
                     help="also write the full record here as JSON")
+    ap.add_argument("--k6-parent", default=None, metavar="DIR",
+                    help="another checkout of this repo (git archive), "
+                    "whose K6 design the step breakdown also times")
     args = ap.parse_args()
 
     import torch
@@ -1424,7 +1851,7 @@ def main() -> int:
         release(dev)
         run_distributed(KX, dev, pool, record, paths)
         paths["nds"], dsess = run_leg("nds", KX, factory_of, dev, pool,
-                                      record)
+                                      record, k6_parent=args.k6_parent)
         paths["window"] = run_window_path(KX, dsess, dev, pool, record)
         # the raw executors go before the columnar legs start, so that
         # raw and encoded buffers are never resident together

@@ -4,27 +4,41 @@
 // associative scan with op +, min or max), `seg_reduce_at_ends` (that scan
 // gathered at each group's last sorted row, K5), `part_reduce_broadcast` (the
 // scan read at each row's partition end, K7) and `last_of_group` (a reversed
-// running min of the next change position, K7). One scan implementation
-// serves all of them, and the prefix of match counts inside
-// partitioned_join.cu's M:N join (K6) too.
+// running min of the next change position, K7). One scan kernel serves all of
+// them, and the prefix of match counts inside partitioned_join.cu's M:N join
+// (K6) too.
 //
-// Three passes, a true segmented scan whose carry crosses blocks:
-//   1. scan_tiles: each block scans one tile of 1024 rows (4 per thread) in
-//      registers and shared memory, writing the tile-local inclusive scan
-//      value and a flag "a segment started between the tile start and this
-//      row", and the tile's aggregate (value, any-flag).
-//   2. scan_carries: one block scans the tile aggregates, giving the global
-//      scan value at the end of every tile.
-//   3. a finishing pass folds the previous tile's carry into every row read
-//      where no segment started in its tile before it: per row in place
-//      (seg_scan), at each row's partition end (part_reduce_broadcast), at
-//      each group's end (seg_reduce_at_ends), or per row in reverse order with
-//      the final minus-one and clip (last_of_group).
-// The combiner is (a, b) -> (b.flag ? b.v : op(a.v, b.v), a.flag | b.flag).
+// One pass with decoupled look-back (lookback.cuh): each block takes the next
+// tile of 2048 rows from a counter, loads it with 16-byte vector loads (the
+// flags 8 bytes at a time), scans its 8 rows per thread in registers, the
+// threads of a warp with shuffles and the 8 warps through shared memory,
+// publishes the tile's aggregate (value, any-reset flag), applies the
+// in-tile prefix to its rows, and only then has warp 0 read the tiles
+// before it, 32 at a time, until the segmented combination of the window
+// holds a reset or an inclusive prefix (looking back later gives the tiles
+// before it the time to publish their prefixes). A tile whose aggregate holds a
+// reset publishes its inclusive prefix at once (it does not depend on the
+// tiles before it), and a tile whose first row resets does not look back at
+// all. The combiner is (a, b) -> (b.flag ? b.v : op(a.v, b.v),
+// a.flag | b.flag). Each consumer's finishing step is folded into the
+// tile's store:
+//   seg_scan and K6's prefix: every row's value, with vector stores;
+//   K5: each group's value at its last row, out[g] = scan at
+//     clip(starts2[g + 1] - 1, 0, n - 1). The tile stages its final values in
+//     shared memory and writes the groups whose end lies in it, found by a
+//     32-way search of the ends (non-decreasing, as starts2 is sorted); the
+//     groups that end at the last row (a fixed group capacity leaves many
+//     empty ones there) take its value without loading their starts;
+//   last_of_group: the tiles walk the rows from the end, scanning the next
+//     change position with min, and store clip(scan - 1, 0, n - 1);
+//   part_reduce_broadcast: a row's partition end can lie in a later tile, so
+//     the scan stores every row and a second kernel gathers at pend.
 // min/max on floats propagate NaN, as jnp.minimum/maximum do. An integer sum
 // wraps in two's complement, as the JAX scan's does; int32 counts stay int32.
-// A float sum associates in the tile order above, not in
-// lax.associative_scan's, so float sums agree to rounding, not bit for bit.
+// A float sum associates in this kernel's order (rows of a thread, threads of
+// a warp, warps, tiles), not in lax.associative_scan's, so float sums agree
+// to rounding, not bit for bit: the tolerance stated in the tests and the
+// smoke (relative 1e-12 and 1e-9 of float64 values) holds.
 //
 // Where the segment flags come from: K5 compares neighbouring group ids, the
 // window scans read a bool flag per row, K6's prefix restarts every `seg_len`
@@ -32,25 +46,33 @@
 // the values "next change position" computed from the change flags).
 //
 // What bounds it on an H100: bytes. The function must read n values and n
-// flags and write n values (or G for K5); the passes also write and re-read
-// the n-row tile scan and one flag byte per row, so this simple version moves
-// about twice the bytes it must. The reads and writes of passes 1 and 3 are
-// coalesced except the gathers at pend, which follow the sorted partition
-// ends and so hit few distinct lines; pass 2 touches only n / 1024 entries.
+// flags and write n values (G for K5); this kernel moves those and, per tile
+// of 2048 rows, 16 bytes of tile state and the few words its look-back reads.
+// part_reduce_broadcast moves n values more (the stored scan, read again at
+// pend).
 //
 // The entry points launch on the given stream, allocate nothing (the caller
-// passes every output and scratch buffer) and return cudaGetLastError().
+// passes every output and scratch buffer) and return cudaGetLastError(). The
+// tile state (16 bytes a tile) and the counter are the wrapper's, kept
+// across calls, with a new epoch for every launch.
 
 #include <cstdint>
+#include <cstring>
 #include <cuda_runtime.h>
 #include <type_traits>
 
+#include "lookback.cuh"
+
 namespace {
 
+using lookback::u64;
+
 constexpr int kThreads = 256;
-constexpr int kItems = 4;
+constexpr int kItems = 8;
 constexpr int kTile = kThreads * kItems;
-constexpr int kCarryThreads = 1024;
+constexpr int kWarps = kThreads / 32;
+constexpr int kStateWords = 2;  // status and value (16 bytes)
+constexpr unsigned kFull = 0xffffffffu;
 
 enum { kSum = 0, kMin = 1, kMax = 2 };
 
@@ -77,50 +99,180 @@ __device__ __forceinline__ V op(V a, V b) {
   return b < a ? b : a;
 }
 
+// (a, b) -> b in place
 template <typename V, int OP>
 __device__ __forceinline__ void combine(V av, bool af, V& bv, bool& bf) {
-  // (a, b) -> b in place
   if (!bf) bv = op<V, OP>(av, bv);
   bf = bf || af;
 }
 
-// inclusive segmented scan of (v, f) over the threads of one block
-template <typename V, int OP, int N>
-__device__ void block_scan(V& v, bool& f, V* sv, bool* sf) {
-  const int t = threadIdx.x;
-  sv[t] = v;
-  sf[t] = f;
-  __syncthreads();
-  for (int d = 1; d < N; d <<= 1) {
-    V pv = v;
-    bool pf = false;
-    const bool has = t >= d;
-    if (has) {
-      pv = sv[t - d];
-      pf = sf[t - d];
-    }
-    __syncthreads();
-    if (has) {
-      combine<V, OP>(pv, pf, v, f);
-      sv[t] = v;
-      sf[t] = f;
-    }
-    __syncthreads();
+template <typename V>
+__device__ __forceinline__ u64 bits_of(V v) {
+  u64 b = 0;
+  memcpy(&b, &v, sizeof(V));
+  return b;
+}
+
+template <typename V>
+__device__ __forceinline__ V of_bits(u64 b) {
+  V v;
+  memcpy(&v, &b, sizeof(V));
+  return v;
+}
+
+// kItems elements at p (16-byte aligned) with 16-byte loads and stores
+template <typename T>
+__device__ __forceinline__ void load_vec(const T* p, T (&v)[kItems]) {
+  constexpr int kVec = kItems * sizeof(T) / 16;
+  uint4 w[kVec];
+#pragma unroll
+  for (int j = 0; j < kVec; ++j) w[j] = reinterpret_cast<const uint4*>(p)[j];
+  memcpy(v, w, sizeof(w));
+}
+
+template <typename T>
+__device__ __forceinline__ void store_vec(T* p, const T (&v)[kItems]) {
+  constexpr int kVec = kItems * sizeof(T) / 16;
+  uint4 w[kVec];
+  memcpy(w, v, sizeof(w));
+#pragma unroll
+  for (int j = 0; j < kVec; ++j) reinterpret_cast<uint4*>(p)[j] = w[j];
+}
+
+// ---- tile state: a status (epoch << 35 | flag << 34 | kind << 32) and
+// the tile's value. A 4-byte value shares the status word (its bits in the
+// low 32), published with one 8-byte store and read with one load; an
+// 8-byte value sits beside it in one 16-byte word, stored and loaded whole.
+// Either way a reader sees a status and the value stored with it, and no
+// fence is needed; an inclusive prefix overwrites the aggregate.
+
+template <typename V>
+__device__ __forceinline__ void publish(u64* st, long long tile,
+                                        unsigned epoch, unsigned kind, V v,
+                                        bool f) {
+  u64* s = st + kStateWords * tile;
+  const u64 status = (static_cast<u64>(epoch) << 35) |
+                     (f ? 1ull << 34 : 0ull) | (static_cast<u64>(kind) << 32);
+  if constexpr (sizeof(V) == 4) {
+    uint32_t b;
+    memcpy(&b, &v, sizeof(b));
+    lookback::st_relaxed(s, status | b);
+  } else {
+    lookback::st_pair(s, status, bits_of(v));
   }
 }
 
-// ---- sources of (value, reset flag) per scanned row
-
-// K5: values, a segment at every change of the sorted group id
+// one load of a tile's state: its status and value bits
 template <typename V>
-struct GidSource {
-  const V* data;
-  const int32_t* gid;
-  __device__ void load(long long i, V& v, bool& f) const {
-    v = data[i];
-    f = (i == 0) || (gid[i] != gid[i - 1]);
+__device__ __forceinline__ void load_state(const u64* st, long long tile,
+                                           u64& w, u64& b) {
+  const u64* s = st + kStateWords * tile;
+  if constexpr (sizeof(V) == 4) {
+    w = lookback::ld_relaxed(s);
+    b = w & 0xffffffffull;
+  } else {
+    lookback::ld_pair(s, w, b);
   }
-};
+}
+
+__device__ __forceinline__ bool published(u64 w, unsigned epoch) {
+  return (w >> 35) == epoch && ((w >> 32) & 3u) != lookback::kNone;
+}
+
+// a published tile's value; `stop` when it is an inclusive prefix or an
+// aggregate that holds a reset (nothing before it matters then)
+template <typename V>
+__device__ __forceinline__ void decode_state(u64 w, u64 b, V& v, bool& stop) {
+  if constexpr (sizeof(V) == 4) {
+    const uint32_t b32 = static_cast<uint32_t>(b);
+    memcpy(&v, &b32, sizeof(b32));
+  } else {
+    v = of_bits<V>(b);
+  }
+  stop = ((w >> 32) & 3u) == lookback::kPrefix || ((w >> 34) & 1u) != 0;
+}
+
+// warp shuffles of a value; int64_t goes through long long
+template <typename V>
+__device__ __forceinline__ V shfl_up(V v, int d) {
+  if constexpr (std::is_same<V, int64_t>::value)
+    return static_cast<V>(__shfl_up_sync(kFull, static_cast<long long>(v), d));
+  else
+    return __shfl_up_sync(kFull, v, d);
+}
+
+template <typename V>
+__device__ __forceinline__ V shfl_from(V v, int lane) {
+  if constexpr (std::is_same<V, int64_t>::value)
+    return static_cast<V>(__shfl_sync(kFull, static_cast<long long>(v), lane));
+  else
+    return __shfl_sync(kFull, v, lane);
+}
+
+// inclusive segmented scan over the lanes of a warp
+template <typename V, int OP>
+__device__ __forceinline__ void warp_scan(V& v, bool& f, int lane) {
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const V pv = shfl_up(v, d);
+    const int pf = __shfl_up_sync(kFull, f ? 1 : 0, d);
+    if (lane >= d) combine<V, OP>(pv, pf != 0, v, f);
+  }
+}
+
+// warp 0: the scan value at the end of tile - 1 (tile > 0), from the
+// tiles before it, 32 at a time
+template <typename V, int OP>
+__device__ V tile_prefix(const u64* st, long long tile, unsigned epoch,
+                         int lane) {
+  V acc{};
+  bool have = false;
+  for (long long end = tile - 1;; end -= 32) {
+    const long long t = end - 31 + lane;
+    V v{};
+    bool f = true;  // lanes before tile 0 sit before its prefix
+    if (t >= 0) {
+      u64 w, b;
+      load_state<V>(st, t, w, b);
+      while (!published(w, epoch)) {
+        __nanosleep(32);
+        load_state<V>(st, t, w, b);
+      }
+      decode_state<V>(w, b, v, f);
+    }
+    warp_scan<V, OP>(v, f, lane);
+    const V wv = shfl_from(v, 31);
+    const bool wf = __shfl_sync(kFull, f ? 1 : 0, 31) != 0;
+    acc = have ? op<V, OP>(wv, acc) : wv;
+    have = true;
+    if (wf) return acc;
+  }
+}
+
+// first index in [lo, hi) where the monotone `pred` holds, else hi: a
+// 32-way search by the lanes of one warp
+template <typename P>
+__device__ long long warp_first(long long lo, long long hi, P pred, int lane) {
+  while (hi - lo > 32) {
+    const long long step = (hi - lo + 31) / 32;
+    const long long i = lo + lane * step;
+    const unsigned m = __ballot_sync(kFull, i >= hi || pred(i));
+    if (m == 0) {
+      lo += 31 * step + 1;
+    } else {
+      const int f = __ffs(m) - 1;
+      if (f == 0) return lo;
+      hi = lo + f * step < hi ? lo + f * step : hi;
+      lo += (f - 1) * step + 1;
+    }
+  }
+  const long long i = lo + lane;
+  const unsigned m = __ballot_sync(kFull, i < hi && pred(i));
+  return m ? lo + __ffs(m) - 1 : hi;
+}
+
+// ---- sources of (value, reset flag) for the kItems scanned rows from base;
+// rows past n are fresh segments that no written row reads
 
 // windows: values and one bool flag per row; with no flags, a segment
 // every seg_len rows (K6's per-partition prefix)
@@ -129,9 +281,69 @@ struct FlagSource {
   const V* data;
   const uint8_t* flags;
   long long seg_len;
-  __device__ void load(long long i, V& v, bool& f) const {
-    v = data[i];
-    f = flags != nullptr ? flags[i] != 0 : (i % seg_len) == 0;
+  bool vec;  // data 16-byte and flags 8-byte aligned
+  __device__ void load(long long base, long long n, V (&v)[kItems],
+                       bool (&f)[kItems]) const {
+    if (vec && base + kItems <= n) {
+      load_vec(data + base, v);
+      if (flags != nullptr) {
+        uint2 w[kItems / 8];
+#pragma unroll
+        for (int j = 0; j < kItems / 8; ++j)
+          w[j] = reinterpret_cast<const uint2*>(flags + base)[j];
+        uint8_t b[kItems];
+        memcpy(b, w, sizeof(b));
+#pragma unroll
+        for (int k = 0; k < kItems; ++k) f[k] = b[k] != 0;
+        return;
+      }
+#pragma unroll
+      for (int k = 0; k < kItems; ++k) f[k] = false;
+    } else {
+#pragma unroll
+      for (int k = 0; k < kItems; ++k) {
+        const long long i = base + k;
+        v[k] = i < n ? data[i] : V{};
+        f[k] = i >= n || (flags != nullptr && flags[i] != 0);
+      }
+      if (flags != nullptr) return;
+    }
+    long long r = base % seg_len;
+#pragma unroll
+    for (int k = 0; k < kItems; ++k) {
+      f[k] = f[k] || r == 0;
+      r = r + 1 == seg_len ? 0 : r + 1;
+    }
+  }
+};
+
+// K5: values, a segment at every change of the sorted group id
+template <typename V>
+struct GidSource {
+  const V* data;
+  const int32_t* gid;
+  bool vec;  // data and gid 16-byte aligned
+  __device__ void load(long long base, long long n, V (&v)[kItems],
+                       bool (&f)[kItems]) const {
+    int32_t g[kItems];
+    if (vec && base + kItems <= n) {
+      load_vec(data + base, v);
+      load_vec(gid + base, g);
+    } else {
+#pragma unroll
+      for (int k = 0; k < kItems; ++k) {
+        const long long i = base + k;
+        v[k] = i < n ? data[i] : V{};
+        g[k] = i < n ? gid[i] : 0;
+      }
+    }
+    int32_t prev = base > 0 && base <= n ? gid[base - 1] : 0;
+#pragma unroll
+    for (int k = 0; k < kItems; ++k) {
+      const long long i = base + k;
+      f[k] = i == 0 || i >= n || g[k] != prev;
+      prev = g[k];
+    }
   }
 };
 
@@ -139,106 +351,240 @@ struct FlagSource {
 // position of the next change after it (n where there is none)
 struct NextChangeSource {
   const uint8_t* change;
-  long long n;
-  __device__ void load(long long k, int32_t& v, bool& f) const {
-    const long long i = n - 1 - k;
-    v = static_cast<int32_t>((i + 1 < n && change[i + 1]) ? i + 1 : n);
-    f = false;
+  __device__ void load(long long base, long long n, int32_t (&v)[kItems],
+                       bool (&f)[kItems]) const {
+#pragma unroll
+    for (int k = 0; k < kItems; ++k) {
+      const long long i = n - 1 - (base + k);
+      v[k] = static_cast<int32_t>((i >= 0 && i + 1 < n && change[i + 1])
+                                      ? i + 1 : n);
+      f[k] = i < 0;
+    }
   }
 };
 
-template <typename V, int OP, typename Src>
-__global__ void scan_tiles(Src src, long long n, V* __restrict__ run,
-                           uint8_t* __restrict__ fl, V* __restrict__ tile_v,
-                           uint8_t* __restrict__ tile_f) {
-  __shared__ V sv[kThreads];
-  __shared__ bool sf[kThreads];
-  const long long base = blockIdx.x * (long long)kTile + threadIdx.x * kItems;
+// ---- sinks: what a tile stores once its rows hold their final values
+
+struct NoShared {};
+
+template <typename V>
+struct RowSink {
+  using Shared = NoShared;
+  V* out;
+  bool vec;  // out 16-byte aligned
+  __device__ void begin(Shared&, long long, long long, int) const {}
+  __device__ void store(Shared&, long long r0, long long n,
+                        const V (&v)[kItems]) const {
+    const long long base = r0 + threadIdx.x * kItems;
+    if (vec && base + kItems <= n) {
+      store_vec(out + base, v);
+      return;
+    }
+#pragma unroll
+    for (int k = 0; k < kItems; ++k)
+      if (base + k < n) out[base + k] = v[k];
+  }
+};
+
+// K5: out[g] = scan at e(g) = clip(starts2[g + 1] - 1, 0, n - 1) (n - 1
+// for the last group), for the groups whose end lies in this tile
+template <typename V, typename S>
+struct EndsSink {
+  struct Shared {
+    V vals[kTile];
+    long long g_lo, g_hi, g_tail;
+  };
+  const S* starts2;
+  long long G;
+  V* out;
+  __device__ long long end_of(long long g, long long n) const {
+    long long e = (g + 1 < G ? static_cast<long long>(starts2[g + 1]) : n) - 1;
+    return e < 0 ? 0 : (e > n - 1 ? n - 1 : e);
+  }
+  // warps 0-2 find the tile's groups (and, in the last tile, the first
+  // group that ends at the last row); read after the next barrier
+  __device__ void begin(Shared& sh, long long r0, long long n, int lane) const {
+    const int warp = threadIdx.x >> 5;
+    if (warp > 2) return;
+    const bool last = r0 + kTile >= n;
+    long long r = r0;
+    if (warp == 1) r = last ? n : r0 + kTile;
+    if (warp == 2) r = last ? n - 1 : n;
+    long long g = G;
+    if (r < n)
+      g = warp_first(0, G, [&](long long x) { return end_of(x, n) >= r; },
+                     lane);
+    if (lane == 0) (warp == 0 ? sh.g_lo : warp == 1 ? sh.g_hi : sh.g_tail) = g;
+  }
+  __device__ void store(Shared& sh, long long r0, long long n,
+                        const V (&v)[kItems]) const {
+    const int t = threadIdx.x;
+#pragma unroll
+    for (int k = 0; k < kItems; ++k) sh.vals[t * kItems + k] = v[k];
+    __syncthreads();
+    // the groups that end at the last row (a fixed group capacity leaves
+    // a long suffix of empty ones) take its value without a load
+    const long long g_hi = sh.g_hi;
+    const long long g_tail = sh.g_tail < g_hi ? sh.g_tail : g_hi;
+    constexpr int kBatch = 8;
+    for (long long g0 = sh.g_lo + t; g0 < g_tail; g0 += kThreads * kBatch) {
+      long long e[kBatch];
+#pragma unroll
+      for (int j = 0; j < kBatch; ++j) {
+        const long long g = g0 + j * kThreads;
+        e[j] = g < g_tail ? end_of(g, n) : r0;
+      }
+#pragma unroll
+      for (int j = 0; j < kBatch; ++j) {
+        const long long g = g0 + j * kThreads;
+        if (g < g_tail) out[g] = sh.vals[e[j] - r0];
+      }
+    }
+    if (g_tail < g_hi) {
+      const V last = sh.vals[n - 1 - r0];
+      for (long long g = g_tail + t; g < g_hi; g += kThreads) out[g] = last;
+    }
+  }
+};
+
+// last_of_group: row n - 1 - k gets clip(scan[k] - 1, 0, n - 1); a
+// thread's rows are contiguous (in reverse), stored with 16-byte stores
+// where they are aligned
+struct LastSink {
+  using Shared = NoShared;
+  int32_t* out;
+  bool vec;  // out 16-byte aligned and n a multiple of 4
+  __device__ void begin(Shared&, long long, long long, int) const {}
+  __device__ void store(Shared&, long long r0, long long n,
+                        const int32_t (&v)[kItems]) const {
+    const long long base = r0 + threadIdx.x * kItems;
+    int32_t w[kItems];
+#pragma unroll
+    for (int k = 0; k < kItems; ++k) {
+      long long x = static_cast<long long>(v[k]) - 1;
+      x = x < 0 ? 0 : (x > n - 1 ? n - 1 : x);
+      w[kItems - 1 - k] = static_cast<int32_t>(x);
+    }
+    if (vec && base + kItems <= n) {
+      store_vec(out + (n - base - kItems), w);
+      return;
+    }
+#pragma unroll
+    for (int k = 0; k < kItems; ++k)
+      if (base + k < n) out[n - 1 - (base + k)] = w[kItems - 1 - k];
+  }
+};
+
+template <typename V, int OP, typename Src, typename Sink>
+__global__ void __launch_bounds__(kThreads)
+    scan_kernel(Src src, Sink sink, long long n, long long ntiles, u64* st,
+                u64* ctr, unsigned epoch) {
+  __shared__ long long s_tile;
+  __shared__ V s_wv[kWarps];
+  __shared__ bool s_wf[kWarps];
+  __shared__ bool s_first;
+  __shared__ V s_pre;
+  __shared__ bool s_has;
+  __shared__ typename Sink::Shared s_sink;
+  const int t = threadIdx.x;
+  const int lane = t & 31;
+  const int warp = t >> 5;
+  if (t == 0) s_tile = lookback::take(ctr, ntiles - 1);
+  __syncthreads();
+  const long long tile = s_tile;
+  const long long r0 = tile * kTile;
   V v[kItems];
   bool f[kItems];
-  for (int k = 0; k < kItems; ++k) {
-    const long long i = base + k;
-    if (i < n) {
-      src.load(i, v[k], f[k]);
-    } else {
-      // past the end: a fresh segment that no written row reads
-      src.load(n - 1, v[k], f[k]);
-      f[k] = true;
-    }
-    if (k > 0) combine<V, OP>(v[k - 1], f[k - 1], v[k], f[k]);
-  }
-  // exclusive prefix over the threads before this one
+  src.load(r0 + t * kItems, n, v, f);
+  sink.begin(s_sink, r0, n, lane);
+  if (t == 0) s_first = f[0];
+#pragma unroll
+  for (int k = 1; k < kItems; ++k) combine<V, OP>(v[k - 1], f[k - 1], v[k], f[k]);
   V tv = v[kItems - 1];
   bool tf = f[kItems - 1];
-  block_scan<V, OP, kThreads>(tv, tf, sv, sf);
-  const int t = threadIdx.x;
-  if (t > 0) {
-    const V pv = sv[t - 1];
-    const bool pf = sf[t - 1];
-    for (int k = 0; k < kItems; ++k) combine<V, OP>(pv, pf, v[k], f[k]);
+  warp_scan<V, OP>(tv, tf, lane);
+  // this thread's exclusive prefix within its warp
+  const V ev = shfl_up(tv, 1);
+  const bool ef = __shfl_up_sync(kFull, tf ? 1 : 0, 1) != 0;
+  if (lane == 31) {
+    s_wv[warp] = tv;
+    s_wf[warp] = tf;
   }
+  __syncthreads();
+
+  // the warps before this one, and the tile's aggregate
+  V pv = s_wv[0];
+  bool pf = s_wf[0];
+  V av = s_wv[0];
+  bool af = s_wf[0];
+#pragma unroll
+  for (int w = 1; w < kWarps; ++w) {
+    V x = s_wv[w];
+    bool xf = s_wf[w];
+    if (w < warp) {
+      V y = x;
+      bool yf = xf;
+      combine<V, OP>(pv, pf, y, yf);
+      pv = y;
+      pf = yf;
+    }
+    combine<V, OP>(av, af, x, xf);
+    av = x;
+    af = xf;
+  }
+  if (t == 0)
+    publish(st, tile, epoch,
+            (tile == 0 || af) ? lookback::kPrefix : lookback::kAgg, av, af);
+
+  // the rows' values within the tile first: the scan of the rows before
+  // each thread's first row in this tile, and whether it holds a reset
+  bool h = warp > 0;
+  V x = pv;
+  bool xf = warp > 0 && pf;
+  if (lane > 0) {
+    x = (h && !ef) ? op<V, OP>(x, ev) : ev;
+    xf = xf || ef;
+    h = true;
+  }
+#pragma unroll
   for (int k = 0; k < kItems; ++k) {
-    const long long i = base + k;
-    if (i < n) {
-      run[i] = v[k];
-      fl[i] = f[k] ? 1 : 0;
+    if (h && !f[k]) v[k] = op<V, OP>(x, v[k]);
+    f[k] = f[k] || xf;
+  }
+
+  // then the tiles before this one, once its own work is done
+  if (warp == 0) {
+    V pre{};
+    const bool has = tile > 0 && !s_first;
+    if (has) {
+      pre = tile_prefix<V, OP>(st, tile, epoch, lane);
+      if (lane == 0 && !af)
+        publish(st, tile, epoch, lookback::kPrefix, op<V, OP>(pre, av), false);
+    }
+    if (lane == 0) {
+      s_pre = pre;
+      s_has = has;
     }
   }
-  if (t == kThreads - 1) {
-    tile_v[blockIdx.x] = v[kItems - 1];
-    tile_f[blockIdx.x] = f[kItems - 1] ? 1 : 0;
+  __syncthreads();
+  if (s_has) {
+    const V pre = s_pre;
+#pragma unroll
+    for (int k = 0; k < kItems; ++k)
+      if (!f[k]) v[k] = op<V, OP>(pre, v[k]);
   }
+  sink.store(s_sink, r0, n, v);
 }
 
-// one block: carry[b] = global inclusive scan value at the end of tile b
-template <typename V, int OP>
-__global__ void scan_carries(const V* __restrict__ tile_v,
-                             const uint8_t* __restrict__ tile_f,
-                             long long ntiles, V* __restrict__ carry) {
-  __shared__ V sv[kCarryThreads];
-  __shared__ bool sf[kCarryThreads];
-  const int t = threadIdx.x;
-  const long long chunk = (ntiles + kCarryThreads - 1) / kCarryThreads;
-  const long long b0 = t * chunk;
-  const long long b1 = b0 + chunk < ntiles ? b0 + chunk : ntiles;
-  // this thread's chunk aggregate. Empty chunks sit only at the tail,
-  // after every real one, so the block scan below never combines one
-  // into a real chunk's prefix and their value does not matter
-  V acc = tile_v[0];
-  bool af = false;
-  for (long long b = b0; b < b1; ++b) {
-    V bv = tile_v[b];
-    bool bf = tile_f[b] != 0;
-    if (b > b0) combine<V, OP>(acc, af, bv, bf);
-    acc = bv;
-    af = bf;
+template <typename V, typename S>
+__global__ void gather_at(const V* __restrict__ run, const S* __restrict__ at,
+                          long long n, V* __restrict__ out) {
+  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < n;
+       i += (long long)gridDim.x * blockDim.x) {
+    long long e = static_cast<long long>(at[i]);
+    e = e < 0 ? 0 : (e > n - 1 ? n - 1 : e);
+    out[i] = run[e];
   }
-  V tv = acc;
-  bool tf = af;
-  block_scan<V, OP, kCarryThreads>(tv, tf, sv, sf);
-  bool have = t > 0;
-  V pv = have ? sv[t - 1] : acc;
-  bool pf = have ? sf[t - 1] : false;
-  for (long long b = b0; b < b1; ++b) {
-    V bv = tile_v[b];
-    bool bf = tile_f[b] != 0;
-    if (have) combine<V, OP>(pv, pf, bv, bf);
-    carry[b] = bv;
-    pv = bv;
-    pf = bf;
-    have = true;
-  }
-}
-
-// the global scan value at scanned row e
-template <typename V, int OP>
-__device__ __forceinline__ V scan_at(const V* __restrict__ run,
-                                     const uint8_t* __restrict__ fl,
-                                     const V* __restrict__ carry, long long e) {
-  V v = run[e];
-  const long long b = e / kTile;
-  if (b > 0 && !fl[e]) v = op<V, OP>(carry[b - 1], v);
-  return v;
 }
 
 unsigned grid_for(long long m) {
@@ -248,128 +594,78 @@ unsigned grid_for(long long m) {
   return static_cast<unsigned>(g);
 }
 
-template <typename V, int OP>
-__global__ void finish_rows(V* __restrict__ run, const uint8_t* __restrict__ fl,
-                            const V* __restrict__ carry, long long n) {
-  for (long long k = blockIdx.x * (long long)blockDim.x + threadIdx.x; k < n;
-       k += (long long)gridDim.x * blockDim.x) {
-    const long long b = k / kTile;
-    if (b > 0 && !fl[k]) run[k] = op<V, OP>(carry[b - 1], run[k]);
-  }
+bool aligned(const void* p, uintptr_t a) {
+  return p == nullptr || reinterpret_cast<uintptr_t>(p) % a == 0;
 }
 
-template <typename V, int OP, typename S>
-__global__ void gather_at(const V* __restrict__ run,
-                          const uint8_t* __restrict__ fl,
-                          const V* __restrict__ carry,
-                          const S* __restrict__ at, long long n,
-                          V* __restrict__ out) {
-  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < n;
-       i += (long long)gridDim.x * blockDim.x) {
-    long long e = static_cast<long long>(at[i]);
-    e = e < 0 ? 0 : (e > n - 1 ? n - 1 : e);
-    out[i] = scan_at<V, OP>(run, fl, carry, e);
-  }
-}
+struct State {
+  u64* words;
+  u64* ctr;
+  unsigned epoch;
+};
 
-template <typename V, int OP, typename S>
-__global__ void gather_ends(const V* __restrict__ run,
-                            const uint8_t* __restrict__ fl,
-                            const V* __restrict__ carry,
-                            const S* __restrict__ starts2, long long G,
-                            long long n, V* __restrict__ out) {
-  for (long long g = blockIdx.x * (long long)blockDim.x + threadIdx.x; g < G;
-       g += (long long)gridDim.x * blockDim.x) {
-    long long nxt = g + 1 < G ? static_cast<long long>(starts2[g + 1]) : n;
-    long long e = nxt - 1;
-    e = e < 0 ? 0 : (e > n - 1 ? n - 1 : e);
-    out[g] = scan_at<V, OP>(run, fl, carry, e);
-  }
-}
-
-// last_of_group: row i = n - 1 - k gets clip(scan[k] - 1, 0, n - 1)
-__global__ void finish_last_of_group(const int32_t* __restrict__ run,
-                                     const uint8_t* __restrict__ fl,
-                                     const int32_t* __restrict__ carry,
-                                     long long n, int32_t* __restrict__ out) {
-  for (long long k = blockIdx.x * (long long)blockDim.x + threadIdx.x; k < n;
-       k += (long long)gridDim.x * blockDim.x) {
-    long long v = static_cast<long long>(scan_at<int32_t, kMin>(run, fl, carry, k)) - 1;
-    v = v < 0 ? 0 : (v > n - 1 ? n - 1 : v);
-    out[n - 1 - k] = static_cast<int32_t>(v);
-  }
-}
-
-// passes 1 and 2
-template <typename V, int OP, typename Src>
-void scan_passes(const Src& src, long long n, V* run, uint8_t* fl, V* tile_v,
-                 uint8_t* tile_f, V* carry, cudaStream_t s) {
+template <typename V, int OP, typename Src, typename Sink>
+void launch(const Src& src, const Sink& sink, long long n, const State& s,
+            cudaStream_t stream) {
   const long long ntiles = (n + kTile - 1) / kTile;
-  scan_tiles<V, OP, Src><<<static_cast<unsigned>(ntiles), kThreads, 0, s>>>(
-      src, n, run, fl, tile_v, tile_f);
-  scan_carries<V, OP><<<1, kCarryThreads, 0, s>>>(tile_v, tile_f, ntiles,
-                                                  carry);
+  scan_kernel<V, OP, Src, Sink><<<static_cast<unsigned>(ntiles), kThreads, 0,
+                                  stream>>>(src, sink, n, ntiles, s.words,
+                                            s.ctr, s.epoch);
 }
 
 // ---- entry bodies, one per (value type, op)
 
+enum Mode { kEnds = 0, kRows = 1, kAtPend = 2 };
+
 struct Args {
   const void* data;
-  const void* gid;      // K5
-  const void* flags;    // windows (nullptr: seg_len)
+  const void* gid;    // K5
+  const void* flags;  // windows (nullptr: seg_len)
   long long seg_len;
   long long n;
-  const void* at;       // K5 starts2 / part_reduce_broadcast pend
+  const void* at;     // K5 starts2 / part_reduce_broadcast pend
   int at64;
-  long long G;          // K5 groups
-  void* run;
-  void* fl;
-  void* tile_v;
-  void* tile_f;
-  void* carry;
+  long long G;        // K5 groups
+  void* run;          // part_reduce_broadcast's stored scan
   void* out;
+  State state;
 };
-
-enum Mode { kEnds = 0, kRows = 1, kAtPend = 2 };
 
 template <typename V, int OP>
 void run_mode(int mode, const Args& a, cudaStream_t s) {
-  V* run = static_cast<V*>(a.run);
-  uint8_t* fl = static_cast<uint8_t*>(a.fl);
-  V* tile_v = static_cast<V*>(a.tile_v);
-  uint8_t* tile_f = static_cast<uint8_t*>(a.tile_f);
-  V* carry = static_cast<V*>(a.carry);
+  const V* data = static_cast<const V*>(a.data);
   V* out = static_cast<V*>(a.out);
   if (mode == kEnds) {
-    GidSource<V> src{static_cast<const V*>(a.data),
-                     static_cast<const int32_t*>(a.gid)};
-    scan_passes<V, OP>(src, a.n, run, fl, tile_v, tile_f, carry, s);
+    GidSource<V> src{data, static_cast<const int32_t*>(a.gid),
+                     aligned(a.data, 16) && aligned(a.gid, 16)};
     if (a.at64)
-      gather_ends<V, OP, int64_t><<<grid_for(a.G), kThreads, 0, s>>>(
-          run, fl, carry, static_cast<const int64_t*>(a.at), a.G, a.n, out);
+      launch<V, OP>(src, EndsSink<V, int64_t>{
+                        static_cast<const int64_t*>(a.at), a.G, out},
+                    a.n, a.state, s);
     else
-      gather_ends<V, OP, int32_t><<<grid_for(a.G), kThreads, 0, s>>>(
-          run, fl, carry, static_cast<const int32_t*>(a.at), a.G, a.n, out);
+      launch<V, OP>(src, EndsSink<V, int32_t>{
+                        static_cast<const int32_t*>(a.at), a.G, out},
+                    a.n, a.state, s);
     return;
   }
-  FlagSource<V> src{static_cast<const V*>(a.data),
-                    static_cast<const uint8_t*>(a.flags), a.seg_len};
-  scan_passes<V, OP>(src, a.n, run, fl, tile_v, tile_f, carry, s);
-  if (mode == kRows) {
-    finish_rows<V, OP><<<grid_for(a.n), kThreads, 0, s>>>(run, fl, carry, a.n);
-  } else if (a.at64) {
-    gather_at<V, OP, int64_t><<<grid_for(a.n), kThreads, 0, s>>>(
-        run, fl, carry, static_cast<const int64_t*>(a.at), a.n, out);
-  } else {
-    gather_at<V, OP, int32_t><<<grid_for(a.n), kThreads, 0, s>>>(
-        run, fl, carry, static_cast<const int32_t*>(a.at), a.n, out);
-  }
+  FlagSource<V> src{data, static_cast<const uint8_t*>(a.flags), a.seg_len,
+                    aligned(a.data, 16) && aligned(a.flags, 8)};
+  V* rows = mode == kRows ? out : static_cast<V*>(a.run);
+  launch<V, OP>(src, RowSink<V>{rows, aligned(rows, 16)}, a.n, a.state, s);
+  if (mode == kRows) return;
+  if (a.at64)
+    gather_at<V, int64_t><<<grid_for(a.n), kThreads, 0, s>>>(
+        rows, static_cast<const int64_t*>(a.at), a.n, out);
+  else
+    gather_at<V, int32_t><<<grid_for(a.n), kThreads, 0, s>>>(
+        rows, static_cast<const int32_t*>(a.at), a.n, out);
 }
 
 template <typename V>
 int dispatch_op(int opc, int mode, const Args& a, cudaStream_t s) {
   switch (opc) {
     case kSum:
+      if (mode == kEnds) return static_cast<int>(cudaErrorInvalidValue);
       run_mode<V, kSum>(mode, a, s);
       break;
     case kMin:
@@ -400,69 +696,76 @@ int dispatch(int vtype, int opc, int mode, const Args& a, void* stream) {
   }
 }
 
+State state_of(void* words, void* ctr, long long epoch) {
+  return State{static_cast<u64*>(words), static_cast<u64*>(ctr),
+               static_cast<unsigned>(epoch)};
+}
+
+bool bad_epoch(long long epoch) { return epoch < 1 || epoch >= (1LL << 29); }
+
 }  // namespace
 
 extern "C" {
 
 int nds_seg_scan_tile() { return kTile; }
 
-// K5. vtype: 0 int32, 1 int64, 2 float32, 3 float64. gid: int32[n];
-// starts2: int32 or int64 [G]. Scratch: run V[n], fl uint8[n],
-// tile_v V[ntiles], tile_f uint8[ntiles], carry V[ntiles] with
-// ntiles = ceil(n / nds_seg_scan_tile()). out: V[G]. n >= 1, G >= 1.
+int nds_seg_scan_state_words() { return kStateWords; }
+
+// Every entry takes the tile state `words` (int64[nds_seg_scan_state_words()
+// * ceil(n / nds_seg_scan_tile())], no word of it tagged with `epoch` or a
+// later one), the tile counter `ctr` (int64[1], 0) and this launch's epoch,
+// 1 <= epoch < 2^29. n >= 1.
+
+// K5. vtype: 0 int32, 1 int64, 2 float32, 3 float64. gid: int32[n] sorted;
+// starts2: int32 or int64 [G], non-decreasing (each group's first sorted
+// row). out: V[G]. G >= 1.
 int nds_seg_reduce_at_ends(const void* data, int vtype, int is_max,
                            const void* gid, long long n, const void* starts2,
-                           int starts64, long long G, void* run, void* fl,
-                           void* tile_v, void* tile_f, void* carry, void* out,
-                           void* stream) {
-  if (n < 1 || G < 1) return static_cast<int>(cudaErrorInvalidValue);
-  Args a{data, gid, nullptr, 0, n, starts2, starts64, G,
-         run, fl, tile_v, tile_f, carry, out};
+                           int starts64, long long G, void* out, void* words,
+                           void* ctr, long long epoch, void* stream) {
+  if (n < 1 || G < 1 || bad_epoch(epoch))
+    return static_cast<int>(cudaErrorInvalidValue);
+  Args a{data, gid, nullptr, 0, n, starts2, starts64, G, nullptr, out,
+         state_of(words, ctr, epoch)};
   return dispatch(vtype, is_max ? kMax : kMin, kEnds, a, stream);
 }
 
 // K7 seg_scan, per row. op: 0 sum, 1 min, 2 max. flags: bool[n], or null
-// for a reset every seg_len rows. out: V[n] (also the tile scan); fl
-// uint8[n] and the tile buffers are scratch as above. n >= 1.
+// for a reset every seg_len rows. out: V[n].
 int nds_seg_scan(const void* data, int vtype, int opc, const void* flags,
-                 long long seg_len, long long n, void* out, void* fl,
-                 void* tile_v, void* tile_f, void* carry, void* stream) {
-  if (n < 1 || (flags == nullptr && seg_len < 1))
+                 long long seg_len, long long n, void* out, void* words,
+                 void* ctr, long long epoch, void* stream) {
+  if (n < 1 || (flags == nullptr && seg_len < 1) || bad_epoch(epoch))
     return static_cast<int>(cudaErrorInvalidValue);
-  Args a{data, nullptr, flags, seg_len, n, nullptr, 0, 0,
-         out, fl, tile_v, tile_f, carry, out};
+  Args a{data, nullptr, flags, seg_len, n, nullptr, 0, 0, nullptr, out,
+         state_of(words, ctr, epoch)};
   return dispatch(vtype, opc, kRows, a, stream);
 }
 
 // K7 part_reduce_broadcast: out[i] = scan at pend[i] (int32 or int64 [n]).
-// part_start: bool[n]. Scratch: run V[n], fl uint8[n], tile buffers.
+// part_start: bool[n]. run: V[n] scratch (the stored scan).
 int nds_part_reduce_broadcast(const void* data, int vtype, int opc,
                               const void* part_start, long long n,
                               const void* pend, int pend64, void* out,
-                              void* run, void* fl, void* tile_v, void* tile_f,
-                              void* carry, void* stream) {
-  if (n < 1) return static_cast<int>(cudaErrorInvalidValue);
-  Args a{data, nullptr, part_start, 0, n, pend, pend64, 0,
-         run, fl, tile_v, tile_f, carry, out};
+                              void* run, void* words, void* ctr,
+                              long long epoch, void* stream) {
+  if (n < 1 || bad_epoch(epoch)) return static_cast<int>(cudaErrorInvalidValue);
+  Args a{data, nullptr, part_start, 0, n, pend, pend64, 0, run, out,
+         state_of(words, ctr, epoch)};
   return dispatch(vtype, opc, kAtPend, a, stream);
 }
 
-// K7 last_of_group: change bool[n] -> out int32[n]. Scratch: run int32[n],
-// fl uint8[n], tile_v int32[ntiles], tile_f uint8[ntiles], carry
-// int32[ntiles]. 1 <= n < 2^31 - 1.
-int nds_last_of_group(const void* change, long long n, void* out, void* run,
-                      void* fl, void* tile_v, void* tile_f, void* carry,
-                      void* stream) {
-  if (n < 1 || n >= 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  NextChangeSource src{static_cast<const uint8_t*>(change), n};
-  int32_t* r = static_cast<int32_t*>(run);
-  uint8_t* f = static_cast<uint8_t*>(fl);
-  int32_t* c = static_cast<int32_t*>(carry);
-  scan_passes<int32_t, kMin>(src, n, r, f, static_cast<int32_t*>(tile_v),
-                             static_cast<uint8_t*>(tile_f), c, s);
-  finish_last_of_group<<<grid_for(n), kThreads, 0, s>>>(
-      r, f, c, n, static_cast<int32_t*>(out));
+// K7 last_of_group: change bool[n] -> out int32[n]. 1 <= n < 2^31 - 1.
+int nds_last_of_group(const void* change, long long n, void* out, void* words,
+                      void* ctr, long long epoch, void* stream) {
+  if (n < 1 || n >= 2147483647LL || bad_epoch(epoch))
+    return static_cast<int>(cudaErrorInvalidValue);
+  launch<int32_t, kMin>(NextChangeSource{static_cast<const uint8_t*>(change)},
+                        LastSink{static_cast<int32_t*>(out),
+                                 aligned(out, 16) && n % 4 == 0},
+                        n,
+                        state_of(words, ctr, epoch),
+                        static_cast<cudaStream_t>(stream));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -52,20 +52,25 @@ SIGNATURES = {
     },
     "seg_scan": {
         "nds_seg_scan_tile": [],
+        "nds_seg_scan_state_words": [],
         "nds_seg_reduce_at_ends": [_P, _I, _I, _P, _LL, _P, _I, _LL, _P, _P,
-                                   _P, _P, _P, _P, _P],
-        "nds_seg_scan": [_P, _I, _I, _P, _LL, _LL, _P, _P, _P, _P, _P, _P],
+                                   _P, _LL, _P],
+        "nds_seg_scan": [_P, _I, _I, _P, _LL, _LL, _P, _P, _P, _LL, _P],
         "nds_part_reduce_broadcast": [_P, _I, _I, _P, _LL, _P, _I, _P, _P,
-                                      _P, _P, _P, _P, _P],
-        "nds_last_of_group": [_P, _LL, _P, _P, _P, _P, _P, _P, _P],
+                                      _P, _P, _LL, _P],
+        "nds_last_of_group": [_P, _LL, _P, _P, _P, _LL, _P],
     },
     "partitioned_join": {
-        "nds_pj_tile": [],
+        "nds_pj_partition_tile": [],
+        "nds_pj_sort_tile": [_I],
+        "nds_pj_max_parts": [],
         "nds_pj_partition": [_P, _P, _LL, _I, _I, _I, _LL, _P, _P, _P, _P,
-                             _P, _I, _P],
-        "nds_pj_ranges": [_P, _I, _LL, _P, _P, _LL, _I, _P, _P, _P],
+                             _P, _P, _LL, _P],
+        "nds_pj_sort": [_P, _P, _P, _P, _P, _P, _I, _I, _LL, _P, _P, _P, _P,
+                        _P, _P, _LL, _P],
+        "nds_pj_ranges": [_P, _I, _LL, _P, _LL, _I, _P, _P, _P, _P, _P],
         "nds_pj_expand": [_P, _P, _P, _P, _I, _LL, _LL, _LL, _P, _P, _P, _P,
-                          _P, _P],
+                          _P, _P, _P],
     },
     "columnar_decode": {
         "nds_bitpack_decode": [_P, _LL, _I, _LL, _I, _I, _P, _P],
@@ -104,7 +109,9 @@ def find_nvcc() -> "str | None":
 
 
 def _lib_path(name: str) -> pathlib.Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    # the digest covers the shared headers, which every source may include
+    src = (CSRC / f"{name}.cu").read_bytes() + b"".join(
+        h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{tag[:16]}.so"
 

@@ -17,6 +17,8 @@ seg_reduce_at_ends     ``seg_scan`` + ``seg_reduce_at_ends``  csrc/seg_scan.cu
                        (K5)
 partitioned_mn_join    ``partitioned_mn_join`` +             csrc/partitioned_join.cu
                        ``_radix_scatter`` + ``_pids`` (K6)   (+ csrc/seg_scan.cu)
+partition_sort         K6's build sort, ``lax.sort`` of      csrc/partitioned_join.cu
+                       ``(keys, gidx)`` with ``num_keys=1``
 seg_scan               ``seg_scan``, per row (K7)            csrc/seg_scan.cu
 part_reduce_broadcast  ``part_reduce_broadcast`` (K7)        csrc/seg_scan.cu
 last_of_group          ``last_of_group`` (K7)                csrc/seg_scan.cu
@@ -40,18 +42,20 @@ fallback from the kernel to the plain version. Each wrapper counts its
 kernel launches in ``LAUNCHES[<wrapper>]`` (``reset_launches`` zeroes
 them), so a run can show that it went through the kernels.
 
-All thirteen are bound by bytes on the card: the source files say how many,
-and what their design does about it. One library call sits inside a
-kernel: ``partitioned_mn_join`` sorts its (partitions x capacity) build
-block with one batched ``torch.sort``, the step the JAX version hands to
-XLA's library sort (``lax.sort``); everything the JAX version computes
-with its own arithmetic is CUDA C++.
+All fourteen are bound by bytes on the card: the source files say how
+many, and what their design does about it. The scans, the M:N join's
+partition and its build sort are single-pass kernels with decoupled
+look-back (``csrc/lookback.cuh``); their tile words live in buffers
+kept across calls, one per device, stream and word layout
+(``_lookback``), each launch with epochs of its own, so nothing is
+zeroed between calls.
 """
 
 from __future__ import annotations
 
 import ctypes
 import os
+import threading
 
 import torch
 
@@ -506,12 +510,58 @@ def seg_reduce_at_ends_plain(op: str, data, gid, starts2):
 _SCAN_VTYPES = {torch.int32: 0, torch.int64: 1, torch.float32: 2,
                 torch.float64: 3}
 
+# The tile words of the decoupled look-back kernels (seg_scan.cu,
+# partitioned_join.cu) and their tile counter, kept across calls: one set
+# per (device, stream, layout). The two layouts never share words, so a
+# word is only ever read in the layout it was written in: "scan" holds
+# seg_scan.cu's tile state (a status word tagged with the epoch at bit 35,
+# beside a raw value), "count" the count words of lookback.cuh (tagged at
+# bit 34) of the partition and the radix sort. Every launch tags its words
+# with epochs of its own, so nothing is zeroed between calls; a buffer is
+# zeroed when it is made or grown, and its epochs then start over.
+# Launches on one stream run in order; another stream gets words and a
+# counter of its own.
+_LOOKBACK: dict = {}
+_LOOKBACK_LAYOUTS = ("scan", "count")
+_EPOCH_END = 1 << 29
+_LOOKBACK_LOCK = threading.Lock()
+
+
+def _lookback(dev, stream: int, layout: str, words: int,
+              epochs: int = 1) -> tuple:
+    """(tile words int64[>= words], tile counter int64[1], first epoch) for
+    one launch on ``stream`` that uses ``epochs`` consecutive epochs of
+    ``layout`` ("scan" or "count")."""
+    if layout not in _LOOKBACK_LAYOUTS:
+        raise ValueError(f"look-back layout {layout!r}")
+    key = (dev, stream, layout)
+    with _LOOKBACK_LOCK:
+        buf, ctr, nxt = _LOOKBACK.get(key, (None, None, 1))
+        if buf is None or buf.numel() < words or nxt + epochs > _EPOCH_END:
+            size = max(words, 1 << 16,
+                       2 * buf.numel() if buf is not None else 0)
+            buf = torch.zeros(size, dtype=torch.int64, device=dev)
+            if ctr is None:
+                ctr = torch.zeros(1, dtype=torch.int64, device=dev)
+            nxt = 1
+        _LOOKBACK[key] = (buf, ctr, nxt + epochs)
+        return buf, ctr, nxt
+
+
+def _scan_state(lib, n: int, dev, stream: int) -> tuple:
+    """The look-back state of one scan launch over ``n`` rows."""
+    ntiles = -(-n // lib.nds_seg_scan_tile())
+    return _lookback(dev, stream, "scan",
+                     ntiles * lib.nds_seg_scan_state_words())
+
 
 @_counted
 def seg_reduce_at_ends(op: str, data, gid, starts2):
     """Grouped min or max (``op`` is "min" or "max") over rows sorted
     by group id, with no scatter: a segmented scan read at segment
-    ends. Rows outside any group must carry the op's identity."""
+    ends. Rows outside any group must carry the op's identity;
+    ``starts2`` holds each group's first sorted row, so it does not
+    decrease."""
     if op not in ("min", "max"):
         raise ValueError(f"seg_reduce_at_ends: op {op!r}")
     if not _launch_device(data, gid, starts2):
@@ -524,31 +574,17 @@ def seg_reduce_at_ends(op: str, data, gid, starts2):
     if n < 1 or G < 1:
         raise ValueError(f"seg_reduce_at_ends: n={n}, G={G}")
     cb, lib = _lib("seg_scan")
-    tile = lib.nds_seg_scan_tile()
-    ntiles = -(-n // tile)
     dev = data.device
-    run = torch.empty(n, dtype=data.dtype, device=dev)
-    fl = torch.empty(n, dtype=torch.uint8, device=dev)
-    tile_v = torch.empty(ntiles, dtype=data.dtype, device=dev)
-    tile_f = torch.empty(ntiles, dtype=torch.uint8, device=dev)
-    carry = torch.empty(ntiles, dtype=data.dtype, device=dev)
     out = torch.empty(G, dtype=data.dtype, device=dev)
+    stream = cb.stream_handle()
+    words, ctr, epoch = _scan_state(lib, n, dev, stream)
     err = lib.nds_seg_reduce_at_ends(
         _ptr(data), _SCAN_VTYPES[data.dtype], int(op == "max"), _ptr(gid),
-        n, _ptr(starts2), int(starts2.dtype == torch.int64), G, _ptr(run),
-        _ptr(fl), _ptr(tile_v), _ptr(tile_f), _ptr(carry), _ptr(out),
-        cb.stream_handle())
+        n, _ptr(starts2), int(starts2.dtype == torch.int64), G, _ptr(out),
+        _ptr(words), _ptr(ctr), epoch, stream)
     cb.check(err, "seg_reduce_at_ends")
     LAUNCHES["seg_reduce_at_ends"] += 1
     return out
-
-
-def _scan_scratch(lib, n: int, dtype, dev) -> tuple:
-    """Per-tile aggregates and carries of the three-pass scan."""
-    ntiles = -(-n // lib.nds_seg_scan_tile())
-    return (torch.empty(ntiles, dtype=dtype, device=dev),
-            torch.empty(ntiles, dtype=torch.uint8, device=dev),
-            torch.empty(ntiles, dtype=dtype, device=dev))
 
 
 def _check_scan(op: str, vals, flags, name: str) -> int:
@@ -576,12 +612,11 @@ def seg_scan(op: str, vals, flags):
     cb, lib = _lib("seg_scan")
     dev = vals.device
     out = torch.empty(n, dtype=vals.dtype, device=dev)
-    fl = torch.empty(n, dtype=torch.uint8, device=dev)
-    tile_v, tile_f, carry = _scan_scratch(lib, n, vals.dtype, dev)
+    stream = cb.stream_handle()
+    words, ctr, epoch = _scan_state(lib, n, dev, stream)
     err = lib.nds_seg_scan(
         _ptr(vals), _SCAN_VTYPES[vals.dtype], _OP_CODES[op], _ptr(flags), 0,
-        n, _ptr(out), _ptr(fl), _ptr(tile_v), _ptr(tile_f), _ptr(carry),
-        cb.stream_handle())
+        n, _ptr(out), _ptr(words), _ptr(ctr), epoch, stream)
     cb.check(err, "seg_scan")
     LAUNCHES["seg_scan"] += 1
     return out
@@ -608,14 +643,13 @@ def part_reduce_broadcast(op: str, data, part_start, pend):
     cb, lib = _lib("seg_scan")
     dev = data.device
     run = torch.empty(n, dtype=data.dtype, device=dev)
-    fl = torch.empty(n, dtype=torch.uint8, device=dev)
     out = torch.empty(n, dtype=data.dtype, device=dev)
-    tile_v, tile_f, carry = _scan_scratch(lib, n, data.dtype, dev)
+    stream = cb.stream_handle()
+    words, ctr, epoch = _scan_state(lib, n, dev, stream)
     err = lib.nds_part_reduce_broadcast(
         _ptr(data), _SCAN_VTYPES[data.dtype], _OP_CODES[op],
         _ptr(part_start), n, _ptr(pend), int(pend.dtype == torch.int64),
-        _ptr(out), _ptr(run), _ptr(fl), _ptr(tile_v), _ptr(tile_f),
-        _ptr(carry), cb.stream_handle())
+        _ptr(out), _ptr(run), _ptr(words), _ptr(ctr), epoch, stream)
     cb.check(err, "part_reduce_broadcast")
     LAUNCHES["part_reduce_broadcast"] += 1
     return out
@@ -644,13 +678,11 @@ def last_of_group(change, n: int):
         raise ValueError(f"last_of_group: n={n}")
     cb, lib = _lib("seg_scan")
     dev = change.device
-    run = torch.empty(n, dtype=torch.int32, device=dev)
-    fl = torch.empty(n, dtype=torch.uint8, device=dev)
     out = torch.empty(n, dtype=torch.int32, device=dev)
-    tile_v, tile_f, carry = _scan_scratch(lib, n, torch.int32, dev)
-    err = lib.nds_last_of_group(
-        _ptr(change), n, _ptr(out), _ptr(run), _ptr(fl), _ptr(tile_v),
-        _ptr(tile_f), _ptr(carry), cb.stream_handle())
+    stream = cb.stream_handle()
+    words, ctr, epoch = _scan_state(lib, n, dev, stream)
+    err = lib.nds_last_of_group(_ptr(change), n, _ptr(out), _ptr(words),
+                                _ptr(ctr), epoch, stream)
     cb.check(err, "last_of_group")
     LAUNCHES["last_of_group"] += 1
     return out
@@ -755,26 +787,88 @@ def partitioned_mn_join_plain(lkey, lok, rkey, rok, out_capacity: int,
             overflow)
 
 
+def partition_sort_plain(keys, gidx, counts):
+    """Plain version of ``partition_sort``: per partition ``p``, the
+    first ``counts[p]`` (key, row) pairs sorted stably by key, and the
+    rest of the partition (iinfo(key).max, 0). Where the blocks' tails
+    already hold those, as the JAX version's radix scatter leaves them,
+    this is the stable sort of the whole block with its row ids
+    gathered (the JAX version's ``lax.sort`` with ``num_keys=1``)."""
+    ks = torch.full_like(keys, torch.iinfo(keys.dtype).max)
+    gs = torch.zeros_like(gidx)
+    for p, c in enumerate(counts.tolist()):
+        k, order = torch.sort(keys[p, :c], stable=True)
+        ks[p, :c] = k
+        gs[p, :c] = gidx[p, :c].index_select(0, order)
+    return ks, gs
+
+
+@_counted
+def partition_sort(keys, gidx, counts):
+    """The build sort of ``partitioned_mn_join``: each partition's
+    occupied (key, row) pairs, the first ``counts[p]`` slots of row
+    ``p`` of the ``(nparts, cap)`` blocks ``keys`` (int32 or int64) and
+    ``gidx`` (int32), sorted stably by key, and the unoccupied slots
+    after them as (iinfo(key).max, 0); ``0 <= counts[p] <= cap``, as the
+    partition kernel writes them. Returns ``(keys, rows)``; the inputs
+    are left as they are."""
+    if not _launch_device(keys, gidx, counts):
+        return partition_sort_plain(keys, gidx, counts)
+    if (keys.dtype not in _KEY_DTYPES or keys.dim() != 2
+            or not keys.is_contiguous()):
+        raise ValueError(f"partition_sort: keys {keys.dtype} "
+                         f"{tuple(keys.shape)}")
+    if (gidx.dtype != torch.int32 or gidx.shape != keys.shape
+            or not gidx.is_contiguous()):
+        raise ValueError(f"partition_sort: gidx {gidx.dtype} "
+                         f"{tuple(gidx.shape)}")
+    nparts, cap = keys.shape
+    _require(counts, "counts", (torch.int32,), nparts)
+    cb, lib = _lib("partitioned_join")
+    if not 1 <= nparts <= lib.nds_pj_max_parts() or cap < 1:
+        raise ValueError(f"partition_sort: {nparts} partitions of {cap}")
+    dev = keys.device
+    key64 = int(keys.dtype == torch.int64)
+    ks, gs = torch.empty_like(keys), torch.empty_like(gidx)
+    tk, tg = torch.empty_like(keys), torch.empty_like(gidx)
+    # counts of every digit (8 bits, up to 8 passes) per partition
+    hist = torch.zeros(nparts * 8 * 256, dtype=torch.int32, device=dev)
+    dbase = torch.empty_like(hist)
+    info = torch.empty(nparts * 8, dtype=torch.int32, device=dev)
+    tiles = -(-cap // lib.nds_pj_sort_tile(key64))
+    stream = cb.stream_handle()
+    words, ctr, epoch = _lookback(dev, stream, "count",
+                                  nparts * tiles * 256, 8 if key64 else 4)
+    err = lib.nds_pj_sort(
+        _ptr(keys), _ptr(gidx), _ptr(tk), _ptr(tg), _ptr(ks), _ptr(gs),
+        key64, nparts, cap, _ptr(counts), _ptr(hist), _ptr(dbase),
+        _ptr(info), _ptr(words), _ptr(ctr), epoch, stream)
+    cb.check(err, "partition_sort")
+    LAUNCHES["partition_sort"] += 1
+    return ks, gs
+
+
 def _radix_partition(lib, cb, key, ok, nparts: int, cap: int, log2r: int,
-                     over, side: int):
-    """One side's (nparts, cap) key, row-index and occupancy blocks,
-    written by the partition kernels of ``partitioned_join.cu``; the
-    side's dropped-row count lands in ``over[side]``."""
+                     count, over, side: int) -> tuple:
+    """One side's (nparts, cap) key and row-index blocks, written by the
+    partition kernel of ``partitioned_join.cu``: only each partition's
+    occupied prefix, whose length lands in ``count`` (int32[nparts]);
+    the side's dropped rows land in ``over[side]``."""
     dev = key.device
     n = key.shape[0]
-    tile = lib.nds_pj_tile()
-    nblocks = max(-(-n // tile), 1)
     keys = torch.empty((nparts, cap), dtype=key.dtype, device=dev)
     gidx = torch.empty((nparts, cap), dtype=torch.int32, device=dev)
-    occ = torch.empty((nparts, cap), dtype=torch.bool, device=dev)
-    block_cnt = torch.empty((nblocks, nparts), dtype=torch.int32,
-                            device=dev)
+    ntiles = -(-n // lib.nds_pj_partition_tile())
+    stream = cb.stream_handle()
+    words, ctr, epoch = _lookback(dev, stream, "count",
+                                  ntiles * lib.nds_pj_max_parts())
     err = lib.nds_pj_partition(
         _ptr(key), _ptr(ok), n, int(key.dtype == torch.int64), nparts,
-        log2r, cap, _ptr(keys), _ptr(gidx), _ptr(occ), _ptr(block_cnt),
-        _ptr(over), side, cb.stream_handle())
+        log2r, cap, _ptr(keys), _ptr(gidx), _ptr(count),
+        _ptr(over) + side * over.element_size(), _ptr(words), _ptr(ctr),
+        epoch, stream)
     cb.check(err, "partitioned_mn_join (partition)")
-    return keys, gidx, occ
+    return keys, gidx
 
 
 @_counted
@@ -791,11 +885,29 @@ def partitioned_mn_join(lkey, lok, rkey, rok, out_capacity: int,
     if not _launch_device(lkey, lok, rkey, rok):
         return partitioned_mn_join_plain(lkey, lok, rkey, rok,
                                          out_capacity, part_slack, nparts)
+    steps = partitioned_mn_join_steps(lkey, lok, rkey, rok, out_capacity,
+                                      part_slack, nparts)
+    while True:
+        try:
+            next(steps)
+        except StopIteration as done:
+            LAUNCHES["partitioned_mn_join"] += 1
+            return done.value
+
+
+def partitioned_mn_join_steps(lkey, lok, rkey, rok, out_capacity: int,
+                              part_slack: float, nparts: int = NPART):
+    """The launches of ``partitioned_mn_join`` on the card, as a
+    generator: it yields each step's name ("partition_left",
+    "partition_right", "build_sort", "ranges", "prefix", "expand") right
+    after it enqueues the step, and returns the join's result. The
+    wrapper runs it to its end; a measurement can record a CUDA event at
+    each step (chip_smoke.py's K6 breakdown)."""
     _keys_of(lkey, lok, rkey, rok)
     if nparts < 1 or nparts & (nparts - 1) or nparts > 32:
         raise ValueError(f"partitioned_mn_join: nparts={nparts}")
     nl, nr = lkey.shape[0], rkey.shape[0]
-    if nl < 1 or nr < 1:
+    if not (1 <= nl < 2**31 and 1 <= nr < 2**31):
         raise ValueError(f"partitioned_mn_join: sides of {nl} and {nr} "
                          f"rows")
     log2r = max(nparts.bit_length() - 1, 0)
@@ -807,42 +919,44 @@ def partitioned_mn_join(lkey, lok, rkey, rok, out_capacity: int,
     _cs, scan = _lib("seg_scan")
     dev = lkey.device
     over = torch.empty(2, dtype=torch.int64, device=dev)
-    lk_p, lg_p, _ = _radix_partition(lib, cb, lkey, lok, nparts, lcap,
-                                     log2r, over, 0)
-    rk_p, rg_p, rok_p = _radix_partition(lib, cb, rkey, rok, nparts,
-                                         rcap, log2r, over, 1)
-    # the one library call: the batched stable sort of the build block
-    # (the JAX version's lax.sort)
-    ks, order = torch.sort(lk_p, dim=1, stable=True)
-    gs = lg_p.gather(1, order)
+    counts = torch.empty((2, nparts), dtype=torch.int32, device=dev)
+    lk_p, lg_p = _radix_partition(lib, cb, lkey, lok, nparts, lcap, log2r,
+                                  counts[0], over, 0)
+    yield "partition_left"
+    rk_p, rg_p = _radix_partition(lib, cb, rkey, rok, nparts, rcap, log2r,
+                                  counts[1], over, 1)
+    yield "partition_right"
+    ks, gs = partition_sort(lk_p, lg_p, counts[0])
+    yield "build_sort"
+    stream = cb.stream_handle()
     lo_i = torch.empty((nparts, rcap), dtype=torch.int32, device=dev)
     cnt = torch.empty((nparts, rcap), dtype=torch.int64, device=dev)
     err = lib.nds_pj_ranges(
-        _ptr(ks), int(lkey.dtype == torch.int64), lcap, _ptr(rk_p),
-        _ptr(rok_p), rcap, nparts, _ptr(lo_i), _ptr(cnt),
-        cb.stream_handle())
+        _ptr(ks), int(lkey.dtype == torch.int64), lcap, _ptr(rk_p), rcap,
+        nparts, _ptr(counts[0]), _ptr(counts[1]), _ptr(lo_i), _ptr(cnt),
+        stream)
     cb.check(err, "partitioned_mn_join (ranges)")
+    yield "ranges"
     # per-partition int64 prefix of the match counts: the segmented scan
     # kernel, restarting every rcap slots
     m = nparts * rcap
     offs = torch.empty(m, dtype=torch.int64, device=dev)
-    fl = torch.empty(m, dtype=torch.uint8, device=dev)
-    tile_v, tile_f, carry = _scan_scratch(scan, m, torch.int64, dev)
+    words, ctr, epoch = _scan_state(scan, m, dev, stream)
     err = scan.nds_seg_scan(
         _ptr(cnt), _SCAN_VTYPES[torch.int64], _OP_CODES["sum"], None, rcap,
-        m, _ptr(offs), _ptr(fl), _ptr(tile_v), _ptr(tile_f), _ptr(carry),
-        cb.stream_handle())
+        m, _ptr(offs), _ptr(words), _ptr(ctr), epoch, stream)
     cb.check(err, "partitioned_mn_join (prefix)")
+    yield "prefix"
     lidx = torch.empty(nparts * kp, dtype=torch.int32, device=dev)
     ridx = torch.empty(nparts * kp, dtype=torch.int32, device=dev)
     present = torch.empty(nparts * kp, dtype=torch.bool, device=dev)
     overflow = torch.empty((), dtype=torch.int64, device=dev)
     err = lib.nds_pj_expand(
         _ptr(offs), _ptr(lo_i), _ptr(gs), _ptr(rg_p), nparts, lcap, rcap,
-        kp, _ptr(over), _ptr(lidx), _ptr(ridx), _ptr(present),
-        _ptr(overflow), cb.stream_handle())
+        kp, _ptr(counts[1]), _ptr(over), _ptr(lidx), _ptr(ridx),
+        _ptr(present), _ptr(overflow), stream)
     cb.check(err, "partitioned_mn_join (expand)")
-    LAUNCHES["partitioned_mn_join"] += 1
+    yield "expand"
     return lidx, ridx, present, overflow
 
 

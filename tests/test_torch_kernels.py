@@ -215,6 +215,7 @@ def test_cpu_tensors_take_the_plain_versions_and_count_no_launch():
     assert set(KX.launch_counts()) == {
         "direct_lookup_join", "matmul_probe_join", "bitmask_semi",
         "keyed_minmax_semi", "seg_reduce_at_ends", "partitioned_mn_join",
-        "seg_scan", "part_reduce_broadcast", "last_of_group",
+        "partition_sort", "seg_scan", "part_reduce_broadcast",
+        "last_of_group",
         "bitpack_decode", "unpack_mask", "rle_decode", "exchange_pack"}
     assert all(v == 0 for v in KX.launch_counts().values())

@@ -9,7 +9,14 @@ the plain PyTorch version there.
   ``overflow`` exactly equal, slot for slot, over int32 and packed int64
   keys, invalid rows, a hot key that overflows its partition (small
   ``part_slack``), output capacity too small for the matches (small
-  ``K``), and sides shorter than 16 rows.
+  ``K``), sides shorter than 16 rows, valid keys equal to
+  ``iinfo(key).max`` on both sides (they match the unoccupied slots too),
+  every row in one partition, an int64 key range wider than 2^32 and
+  empty partitions.
+- ``partition_sort`` (K6's build sort): its plain version equals the
+  stable sort of the whole block with its row ids gathered
+  (``torch.sort`` + ``gather``, and the JAX version's ``lax.sort``) on
+  the radix-scattered blocks of every K6 case.
 - ``seg_scan`` (K7) for "sum", "min" and "max" over int32, int64 and
   float64, with resets at the edges, everywhere and nowhere; and
   ``part_reduce_broadcast`` and ``last_of_group`` on the same inputs.
@@ -51,13 +58,36 @@ def _assert_same(got, exp):
 
 # ------------------------------------------------------------------ K6
 
-def _keys(rng, n, dom, dtype, base):
-    return (rng.integers(0, dom, n) + base).astype(dtype)
+def _pid8(keys):
+    """Each key's partition of 8, as both packages hash it."""
+    u = keys.astype(np.int64) & 0xFFFFFFFF
+    return ((u * 2654435761) & 0xFFFFFFFF) >> 29
 
+
+def _pool(dom, dtype, base, gen):
+    """``dom`` distinct keys to draw from: ``pids=a,b`` the first keys
+    from ``base`` up whose partition of 8 is one of those; ``wide``
+    keys spread over 2^40 on either side of ``base``."""
+    if gen == "wide":
+        return np.linspace(base - (1 << 40), base + (1 << 40), dom,
+                           dtype=np.int64).astype(dtype)
+    want = [int(x) for x in gen[5:].split(",")]
+    cand = base + np.arange(64 * dom, dtype=np.int64)
+    return cand[np.isin(_pid8(cand), want)][:dom].astype(dtype)
+
+
+def _keys(rng, n, dom, dtype, base, gen="uniform"):
+    if gen == "uniform":
+        return (rng.integers(0, dom, n) + base).astype(dtype)
+    return rng.choice(_pool(dom, dtype, base, gen), n)
+
+
+_I32_MAX = np.iinfo(np.int32).max
+_I64_MAX = np.iinfo(np.int64).max
 
 K6_CASES = {
     # name: (seed, nl, nr, key domain, dtype, key base, K, part_slack,
-    #        left valid fraction, right valid fraction)
+    #        left valid fraction, right valid fraction[, key generator])
     "int32": (1, 700, 500, 300, np.int32, 0, 2000, 2.0, 1.0, 1.0),
     "int32_invalid_rows": (2, 600, 650, 90, np.int32, -40, 3000, 2.0,
                            0.8, 0.7),
@@ -71,17 +101,35 @@ K6_CASES = {
     "left_short": (7, 9, 400, 30, np.int32, 0, 800, 2.0, 1.0, 0.9),
     "right_short": (8, 400, 5, 30, np.int64, 1 << 33, 800, 2.0, 0.9, 1.0),
     "both_short": (9, 3, 2, 2, np.int32, 0, 4, 2.0, 1.0, 1.0),
+    # keys up to iinfo.max: a valid max key also matches every unoccupied
+    # build slot, whose sentinel is the same value
+    "int32_sentinel_keys": (10, 300, 250, 6, np.int32, _I32_MAX - 5, 40000,
+                            2.0, 0.9, 0.9),
+    "int64_sentinel_keys": (11, 260, 300, 5, np.int64, _I64_MAX - 4, 40000,
+                            2.0, 0.95, 0.85),
+    "one_partition": (12, 300, 200, 40, np.int32, 1000, 3000, 8.0, 1.0,
+                      1.0, "pids=5"),
+    "int64_wide_range": (13, 500, 450, 64, np.int64, 1 << 36, 6000, 2.0,
+                         0.9, 0.9, "wide"),
+    "empty_partitions": (14, 400, 350, 30, np.int64, -(1 << 33), 8000, 2.0,
+                         1.0, 0.9, "pids=0,3,4"),
 }
+
+
+def _k6_inputs(case):
+    seed, nl, nr, dom, kdt, base, K, slack, lvf, rvf, *gen = K6_CASES[case]
+    gen = gen[0] if gen else "uniform"
+    rng = np.random.default_rng(seed)
+    lkey = _keys(rng, nl, dom, kdt, base, gen)
+    rkey = _keys(rng, nr, dom, kdt, base, gen)
+    lok = rng.random(nl) < lvf
+    rok = rng.random(nr) < rvf
+    return lkey, lok, rkey, rok, K, slack
 
 
 @pytest.mark.parametrize("case", sorted(K6_CASES))
 def test_partitioned_mn_join_matches_reference(case):
-    seed, nl, nr, dom, kdt, base, K, slack, lvf, rvf = K6_CASES[case]
-    rng = np.random.default_rng(seed)
-    lkey = _keys(rng, nl, dom, kdt, base)
-    rkey = _keys(rng, nr, dom, kdt, base)
-    lok = rng.random(nl) < lvf
-    rok = rng.random(nr) < rvf
+    lkey, lok, rkey, rok, K, slack = _k6_inputs(case)
     exp = REF.partitioned_mn_join(lkey, lok, rkey, rok, K, slack)
     got = KX.partitioned_mn_join(_t(lkey), _t(lok), _t(rkey), _t(rok), K,
                                  slack)
@@ -90,6 +138,108 @@ def test_partitioned_mn_join_matches_reference(case):
         _assert_same(g, e)
     if case.endswith("overflow"):
         assert int(got[3]) > 0
+
+
+def test_k6_cases_hold_what_they_name():
+    lkey, lok, rkey, rok, _K, _s = _k6_inputs("int32_sentinel_keys")
+    assert (lkey[lok] == _I32_MAX).any() and (rkey[rok] == _I32_MAX).any()
+    lkey, lok, rkey, rok, _K, _s = _k6_inputs("int64_sentinel_keys")
+    assert (lkey[lok] == _I64_MAX).any() and (rkey[rok] == _I64_MAX).any()
+    lkey, *_ = _k6_inputs("one_partition")
+    assert set(_pid8(lkey)) == {5}
+    lkey, *_ = _k6_inputs("int64_wide_range")
+    assert int(lkey.max()) - int(lkey.min()) > 1 << 32
+    lkey, _lok, rkey, *_ = _k6_inputs("empty_partitions")
+    assert set(_pid8(lkey)) | set(_pid8(rkey)) == {0, 3, 4}
+
+
+@pytest.mark.parametrize("side", ("left", "right"))
+@pytest.mark.parametrize("case", sorted(K6_CASES))
+def test_partition_sort_plain_is_the_block_sort(case, side):
+    """The build sort's plain version, given the radix-scattered blocks
+    and each partition's occupied count, equals the stable sort of the
+    whole block with its row ids gathered: torch.sort + gather here, and
+    the JAX version's lax.sort([keys, gidx], num_keys=1)."""
+    lkey, lok, rkey, rok, _K, slack = _k6_inputs(case)
+    key, ok = (lkey, lok) if side == "left" else (rkey, rok)
+    nparts = KX.NPART
+    log2r = nparts.bit_length() - 1
+    cap = KX._part_caps(len(lkey), len(rkey), slack, nparts)[
+        0 if side == "left" else 1]
+    keys, gidx, occ, _over = KX._radix_scatter_plain(_t(key), _t(ok),
+                                                     nparts, cap, log2r)
+    counts = occ.sum(1).to(torch.int32)
+    assert bool((occ == (torch.arange(cap)[None, :]
+                         < counts[:, None])).all())
+    got_k, got_g = KX.partition_sort(keys, gidx, counts)
+    exp_k, order = torch.sort(keys, dim=1, stable=True)
+    _assert_same(got_k, exp_k.numpy())
+    _assert_same(got_g, gidx.gather(1, order).numpy())
+    rk, rg, _rok, _rover = REF._radix_scatter(jnp.asarray(key),
+                                               jnp.asarray(ok), nparts, cap,
+                                               log2r)
+    jk, jg = jax.lax.sort([rk, rg], num_keys=1, is_stable=True)
+    _assert_same(got_k, jk)
+    _assert_same(got_g, jg)
+
+
+def test_partition_sort_plain_leaves_its_inputs():
+    keys = torch.tensor([[5, 3, 9, 7], [2, 2, 1, 0]], dtype=torch.int32)
+    gidx = torch.tensor([[0, 1, 2, 3], [4, 5, 6, 7]], dtype=torch.int32)
+    counts = torch.tensor([3, 2], dtype=torch.int32)
+    k0, g0 = keys.clone(), gidx.clone()
+    ks, gs = KX.partition_sort(keys, gidx, counts)
+    assert torch.equal(keys, k0) and torch.equal(gidx, g0)
+    big = torch.iinfo(torch.int32).max
+    assert ks.tolist() == [[3, 5, 9, big], [2, 2, big, big]]
+    assert gs.tolist() == [[1, 0, 2, 0], [4, 5, 0, 0]]
+
+
+def test_lookback_state_epochs_and_growth(monkeypatch):
+    """The look-back state is planned on the host: each launch gets
+    epochs no earlier launch used; a larger need gives a new zeroed
+    buffer and the epochs start over, as they do before they run out."""
+    monkeypatch.setattr(KX, "_LOOKBACK", {})
+    dev = torch.device("cpu")
+    buf, ctr, e1 = KX._lookback(dev, 0, "count", 100, 4)
+    assert e1 == 1 and buf.numel() >= 100 and not bool(buf.any())
+    assert ctr.shape == (1,) and int(ctr) == 0
+    buf2, ctr2, e2 = KX._lookback(dev, 0, "count", 100)
+    assert buf2 is buf and ctr2 is ctr and e2 == 5
+    buf.fill_(7)
+    big, ctr3, e3 = KX._lookback(dev, 0, "count", buf.numel() + 1)
+    assert big.numel() >= 2 * buf.numel() and not bool(big.any())
+    assert ctr3 is ctr and e3 == 1
+    KX._LOOKBACK[(dev, 0, "count")] = (big, ctr, KX._EPOCH_END - 2)
+    big.fill_(7)
+    again, _c, e4 = KX._lookback(dev, 0, "count", 10, 4)
+    assert e4 == 1 and not bool(again.any())
+
+
+def test_lookback_layouts_and_streams_never_share_words(monkeypatch):
+    """The scan's tile state and the count words of the partition and
+    the sort are laid out differently, so they never share a buffer, a
+    counter or an epoch sequence; nor do two streams of one device. A
+    word is then only read in the layout, and by the stream, that wrote
+    it."""
+    monkeypatch.setattr(KX, "_LOOKBACK", {})
+    dev = torch.device("cpu")
+    got = {}
+    for stream in (0, 1):
+        for layout in ("scan", "count"):
+            got[stream, layout] = KX._lookback(dev, stream, layout, 64, 3)
+    bufs = [b for b, _c, _e in got.values()]
+    ctrs = [c for _b, c, _e in got.values()]
+    assert len({b.data_ptr() for b in bufs}) == 4
+    assert len({c.data_ptr() for c in ctrs}) == 4
+    assert all(e == 1 for _b, _c, e in got.values())
+    # a launch of one layout leaves the other's epochs where they were
+    assert KX._lookback(dev, 0, "scan", 64)[2] == 4
+    assert KX._lookback(dev, 0, "scan", 64)[2] == 5
+    assert KX._lookback(dev, 0, "count", 64)[2] == 4
+    assert KX._lookback(dev, 1, "count", 64)[2] == 4
+    with pytest.raises(ValueError, match="layout"):
+        KX._lookback(dev, 0, "words", 64)
 
 
 # ------------------------------------------------------------------ K7
@@ -208,15 +358,19 @@ def test_new_wrappers_count_no_launch_on_cpu():
     KX.part_reduce_broadcast("max", v, f, torch.tensor([2, 2, 2, 3]))
     KX.last_of_group(f, 4)
     KX.partitioned_mn_join(v, f, v, f, 8, 2.0)
+    KX.partition_sort(v.reshape(2, 2), v.reshape(2, 2).to(torch.int32),
+                      torch.tensor([2, 1], dtype=torch.int32))
     assert all(c == 0 for c in KX.launch_counts().values())
     for name in ("seg_scan", "part_reduce_broadcast", "last_of_group",
-                 "partitioned_mn_join"):
+                 "partitioned_mn_join", "partition_sort"):
         assert name in KX.LAUNCHES
 
 
 _META_CALLS = {
     "partitioned_mn_join": lambda k, ok: KX.partitioned_mn_join(
         k, ok, k, ok, 8, 2.0),
+    "partition_sort": lambda k, ok: KX.partition_sort(
+        k.reshape(2, 2), k.reshape(2, 2), k[:2]),
     "seg_scan": lambda k, ok: KX.seg_scan("sum", k, ok),
     "part_reduce_broadcast": lambda k, ok: KX.part_reduce_broadcast(
         "max", k, ok, k),
