@@ -78,7 +78,13 @@ Drives ``nds_tpu_torch`` (never ``jax``, never ``nds_tpu``) on the card:
 Kernel checks: integer, bool and min/max outputs must equal the plain
 version's exactly; a float sum (the segmented scan's "sum" on float
 values) within |got - plain| <= 1e-9 * max(1, |plain|), since the two add
-in other orders. Each check gives the kernel's time per call (``ms``:
+in other orders. K5's float sums are held to each group's own sum, taken
+apart in float64, within 4096 units of the data's rounding (about 1e-12
+for float64) of the group's sum of |x| (``within_group_sum_tol``); and to
+the plain version within 1e-9 of the larger of |plain| and the prefix at
+the group's bounding rows, since the plain version is the reference's
+cumsum differences, whose rounding grows with the prefix
+(``within_seg_sum_tol``). Each check gives the kernel's time per call (``ms``:
 CUDA events around the call with the card idle at the start event, so
 the host's part of the call up to its last launch is in it; median of 7
 after 2 warm-ups), its device time (``device_ms``: the same while a spin
@@ -123,11 +129,19 @@ KERNELS = {
     "keyed_minmax_semi": ("nds_tpu_torch/csrc/dense_domain.cu",
                           "nds_tpu/engine/kernels.py:285"),
     "seg_reduce_at_ends": ("nds_tpu_torch/csrc/seg_scan.cu",
-                           "nds_tpu/engine/kernels.py:420,438"),
+                           "nds_tpu/engine/kernels.py:420,438; "
+                           "nds_tpu/engine/device_exec.py:2139"),
     "partitioned_mn_join": ("nds_tpu_torch/csrc/partitioned_join.cu",
                             "nds_tpu/engine/kernels.py:349,321,310"),
     "partition_sort": ("nds_tpu_torch/csrc/partitioned_join.cu",
-                       "nds_tpu/engine/kernels.py:377"),
+                       "nds_tpu/engine/kernels.py:377; "
+                       "nds_tpu/engine/device_exec.py:2220"),
+    "pack_group_key": ("nds_tpu_torch/csrc/group_key.cu",
+                       "nds_tpu/engine/device_exec.py:2207-2218"),
+    "group_bounds": ("nds_tpu_torch/csrc/seg_scan.cu",
+                     "nds_tpu/engine/device_exec.py:2221,2228"),
+    "running_max": ("nds_tpu_torch/csrc/seg_scan.cu",
+                    "nds_tpu/engine/device_exec.py:2464,2485,2487"),
     "seg_scan": ("nds_tpu_torch/csrc/seg_scan.cu",
                  "nds_tpu/engine/kernels.py:420"),
     "part_reduce_broadcast": ("nds_tpu_torch/csrc/seg_scan.cu",
@@ -145,9 +159,11 @@ KERNELS = {
 }
 # the kernels each timed run must have launched
 H_REQUIRED = ("direct_lookup_join", "matmul_probe_join", "bitmask_semi",
-              "keyed_minmax_semi", "seg_reduce_at_ends")
+              "keyed_minmax_semi", "seg_reduce_at_ends", "pack_group_key",
+              "partition_sort", "group_bounds")
 DS_REQUIRED = ("partitioned_mn_join", "partition_sort", "seg_scan",
-               "last_of_group")
+               "last_of_group", "pack_group_key", "group_bounds",
+               "running_max")
 WINDOW_REQUIRED = ("part_reduce_broadcast", "last_of_group")
 # the columnar decode kernels (K8, K9): the timed passes under "auto"
 # must launch all three between them, the NDS pass the mask unpack
@@ -166,13 +182,25 @@ EXCHANGE_DEAD = 0.1
 # (the decode kernels: the columnar path with their largest call)
 LINE_PATH = {**{n: "nds_h" for n in H_REQUIRED},
              "partitioned_mn_join": "nds", "partition_sort": "nds",
-             "seg_scan": "nds",
+             "seg_scan": "nds", "pack_group_key": "nds", "group_bounds": "nds",
+             "running_max": "nds",
              "last_of_group": "nds", "part_reduce_broadcast": "window",
              "exchange_pack": "dist_nds_h"}
 # the bit-width sweep of the decode kernels: TPC-H's SF1 lineitem count
 SWEEP_ROWS = 6_001_215
 # float sums add in other orders in the kernel and its plain version
 FLOAT_SUM_RTOL = 1e-9
+# the kernels that add floats (a float sum is held to FLOAT_SUM_RTOL)
+FLOAT_SUMS = ("seg_scan", "seg_reduce_at_ends")
+# K5's float sums against each group's own float64 sum: within this many
+# units of the data's rounding (finfo.eps) of the group's sum of |x|. The
+# kernel adds a group's tiles one after another, so its error grows with
+# the square root of the tiles it spans in practice (about 1e-14 of the
+# sum of |x| for 10^5 tiles of float64), and with their count at worst
+GROUP_SUM_EPS = 4096
+# the groups of more rows are summed apart by torch.sum (a tree); the rest
+# by segment_reduce, which adds each group's rows one after another
+GROUP_SUM_SEQ_ROWS = 4096
 # the distributed NDS leg's largest scale, a cut of depth: each exchange
 # of two sharded sides doubles a side's capacity (the reference's
 # static-shape contract), so the leg's memory and time grow faster than
@@ -315,6 +343,78 @@ def within_float_sum_tol(got, exp) -> bool:
     return bool((d <= lim).all())
 
 
+def group_sums(args) -> tuple:
+    """(sum, sum of |x|) of each of K5's groups in float64, taken apart
+    from the kernel and from its plain version: over each group's rows,
+    from its start to the next group's start (none where it starts past
+    its end)."""
+    import torch
+    _op, data, _gid, starts2 = args
+    n = data.shape[0]
+    nxt = torch.cat([starts2[1:], starts2.new_full((1,), n)])
+    end = (nxt - 1).clamp(0, n - 1)
+    lengths = torch.where(starts2 > end, 0, end - starts2 + 1)
+    x = data.to(torch.float64)
+    rows = x[int(starts2[0]):]
+    sums = torch.segment_reduce(rows, "sum", lengths=lengths)
+    abs_sums = torch.segment_reduce(rows.abs(), "sum", lengths=lengths)
+    big = torch.nonzero(lengths > GROUP_SUM_SEQ_ROWS).flatten()
+    for g, a, e in zip(big.tolist(), starts2[big].tolist(),
+                       end[big].tolist()):
+        sums[g] = x[a:e + 1].sum()
+        abs_sums[g] = x[a:e + 1].abs().sum()
+    empty = lengths == 0
+    return sums.masked_fill(empty, 0.0), abs_sums.masked_fill(empty, 0.0)
+
+
+def within_group_sum_tol(args, got) -> bool:
+    """K5's float sums against each group's own float64 sum
+    (``group_sums``): |got - sum| <= GROUP_SUM_EPS * eps * sum of |x|, so
+    a group with no rows (or only zeros) must read 0 exactly."""
+    import torch
+    sums, abs_sums = group_sums(args)
+    lim = GROUP_SUM_EPS * torch.finfo(got.dtype).eps * abs_sums
+    return bool(((got.to(torch.float64) - sums).abs() <= lim).all())
+
+
+def within_seg_sum_tol(args, got, exp) -> bool:
+    """K5's float sums against its plain version, the reference's cumsum
+    differences, whose own rounding grows with the prefix at a group's
+    bounding rows (the ulp of the global prefix, as the reference's
+    ``_seg_sum`` notes), not with the group's sum: |got - exp| <=
+    FLOAT_SUM_RTOL * max(1, |exp|, |prefix at the group's last row|,
+    |prefix before its first row|)."""
+    import torch
+    _op, data, _gid, starts2 = args
+    n = data.shape[0]
+    csum = torch.cumsum(data.to(torch.float64), 0).abs()
+    nxt = torch.cat([starts2[1:], starts2.new_full((1,), n)])
+    end = (nxt - 1).clamp(0, n - 1)
+    before = (starts2 - 1).clamp(0, n - 1)
+    exp64 = exp.to(torch.float64)
+    scale = torch.maximum(torch.maximum(csum[end], csum[before]),
+                          exp64.abs()).clamp_min(1.0)
+    d = (got.to(torch.float64) - exp64).abs()
+    return bool((d <= FLOAT_SUM_RTOL * scale).all())
+
+
+def agrees(name: str, args, got, exp) -> tuple:
+    """(max_abs_err against the plain version's output ``exp``, whether
+    the kernel's output ``got`` holds): exact, except a float sum. K5's
+    float sums must be within their tolerance of the groups' own float64
+    sums (``within_group_sum_tol``) and of the plain version's
+    (``within_seg_sum_tol``); the segmented scan's within FLOAT_SUM_RTOL of
+    the plain version's."""
+    err = max_abs_err(got, exp)
+    if not (name in FLOAT_SUMS and args[0] == "sum"
+            and got.dtype.is_floating_point):
+        return err, err == 0.0
+    if name == "seg_reduce_at_ends":
+        return err, (within_group_sum_tol(args, got)
+                     and (err == 0.0 or within_seg_sum_tol(args, got, exp)))
+    return err, err == 0.0 or within_float_sum_tol(got, exp)
+
+
 def work_of(name: str, args, out) -> tuple:
     """(bytes the function must move, operations it does): each input
     read once, each output written once; the operations are one per
@@ -337,6 +437,18 @@ def work_of(name: str, args, out) -> tuple:
         moved = (occupied * (keys.element_size() + gidx.element_size())
                  + nbytes(counts) + nbytes(out))
         ops = occupied
+    if name == "pack_group_key":
+        # the row mask and the validities, and a key's value only where
+        # the row is present and the key valid (elsewhere it is filled,
+        # never read; a field of no bits is never read at all)
+        row, arrs, valids, fields = args[:4]
+        moved = (nbytes(row) + nbytes(out)
+                 + sum(nbytes(v) for v in valids if v is not None))
+        for a, v, (_has_valid, _lo, width) in zip(arrs, valids, fields):
+            if width:
+                ok = row if v is None else row & v
+                moved += int(ok.sum()) * a.element_size()
+        ops = row.numel()
     if name in DECODE_KERNELS:
         # a few integer operations per output row
         ops = out.numel()
@@ -357,14 +469,36 @@ def library_call(name: str, args):
     only (the port never calls it); None where there is none."""
     import torch
     if name == "seg_reduce_at_ends":
-        # grouped min/max by one scatter-reduce over the group ids
         op, data, gid, starts2 = args
         idx = gid.to(torch.int64)
         out = torch.empty(starts2.shape[0], dtype=data.dtype,
                           device=data.device)
+        if op == "sum" and data.dtype.is_floating_point:
+            # the groups' lengths: a group holds the rows from its start to
+            # the next group's start (none where it starts past its end)
+            n = data.shape[0]
+            nxt = torch.cat([starts2[1:], starts2.new_full((1,), n)])
+            end = (nxt - 1).clamp(0, n - 1)
+            lengths = torch.where(starts2 > end, 0, end - starts2 + 1)
+            return lambda: torch.segment_reduce(data, "sum", lengths=lengths)
+        if op == "sum":
+            # segment_reduce takes no integers: one index_add_ per group id
+            return lambda: out.zero_().index_add_(0, idx, data)
+        # grouped min/max by one scatter-reduce over the group ids
         return lambda: out.scatter_reduce_(
             0, idx, data, "amin" if op == "min" else "amax",
             include_self=False)
+    if name == "running_max":
+        vals = args[0]
+        return lambda: torch.cummax(vals, 0)
+    if name == "rle_decode":
+        # each run's value repeated to the next run's start, the last run
+        # to n
+        values, starts, n = args
+        lengths = torch.diff(starts.to(torch.int64),
+                             append=starts.new_full((1,), n).to(torch.int64))
+        return lambda: torch.repeat_interleave(values, lengths,
+                                               output_size=n)
     if name == "seg_scan" and args[0] == "sum":
         # the unsegmented running sum: the same function where no row
         # resets
@@ -407,10 +541,8 @@ def check_kernel(KX, name: str, args, label: str, dev,
     if dev.type == "cuda":
         torch.cuda.synchronize()
     plain_first_s = time.perf_counter() - t0
-    err = max_abs_err(got, exp)
-    float_sum = (name == "seg_scan" and args[0] == "sum"
-                 and got.dtype.is_floating_point)
-    if err != 0.0 and not (float_sum and within_float_sum_tol(got, exp)):
+    err, ok = agrees(name, args, got, exp)
+    if not ok:
         raise SmokeError(f"{name} [{label}] differs from its plain "
                          f"version: max_abs_err={err}")
     ms = time_ms(lambda: fn(*args), dev)
@@ -421,6 +553,12 @@ def check_kernel(KX, name: str, args, label: str, dev,
     plain_ms = (plain_first_s * 1000 if plain_first_s > 1.0 else
                 time_ms(lambda: plain(*args), dev, reps=3, warm=1))
     lib = library_call(name, args)
+    try:
+        if lib is not None:
+            lib()
+    except RuntimeError as exc:  # a library call that takes no such input
+        log(f"{name} [{label}]: no library call: {exc}")
+        lib = None
     library_ms = time_ms(lib, dev) if lib is not None else None
     library_device_ms = (time_ms(lib, dev, spin=True) if lib is not None
                          else None)
@@ -626,7 +764,9 @@ def lookback_layout_cases(KX, dev) -> list:
 
     probe = torch.zeros(1, device=dev)
     key = (probe.device, torch.cuda.current_stream().cuda_stream, "count")
-    nxt = KX._LOOKBACK.get(key, (None, None, 1))[2]
+    # the next count launch's epoch, from the counter word on the card
+    ent = KX._LOOKBACK.get(key)
+    nxt = 1 if ent is None else int(ent[1].item()) >> 32
     n = 1 << 21
     ep = nxt + np.arange(n) % 16
     kind = 1 + np.arange(n) % 2
@@ -663,7 +803,7 @@ def check_lookback_layouts(KX, dev) -> list:
         checks.append(check_kernel(KX, name, args, label, dev))
     stream = torch.cuda.current_stream().cuda_stream
     spans = {}
-    for (d, st, layout), (buf, _c, _e) in KX._LOOKBACK.items():
+    for (d, st, layout), (buf, *_rest) in KX._LOOKBACK.items():
         if st == stream:
             spans.setdefault(layout, []).append(
                 (buf.data_ptr(), buf.data_ptr() + buf.numel() * 8))
@@ -936,6 +1076,10 @@ def call_size(name: str, args, kwargs=None) -> int:
 def _cloned(x):
     if hasattr(x, "clone"):
         return x.clone()
+    if type(x).__name__ == "DVal":
+        # an executor column, materialized: its arrays, dictionary, bounds
+        return x.with_arrays(x.arr.clone(),
+                             None if x.valid is None else x.valid.clone())
     if isinstance(x, (list, tuple)):
         return type(x)(_cloned(y) for y in x)
     if isinstance(x, dict):
@@ -976,11 +1120,21 @@ class Recorder:
         def wrapper(*args, **kwargs):
             self.calls[name] += 1
             size = call_size(name, args, kwargs)
-            cur = self.largest.get(name)
-            if cur is None or size > cur[0]:
-                self.largest[name] = (size, _cloned(args), _cloned(kwargs))
+            for key in (name, variant_of(name, args)):
+                cur = self.largest.get(key)
+                if key is not None and (cur is None or size > cur[0]):
+                    self.largest[key] = (size, _cloned(args),
+                                         _cloned(kwargs))
             return fn(*args, **kwargs)
         return wrapper
+
+
+def variant_of(name: str, args) -> "str | None":
+    """The calls of a kernel kept apart from its largest call: K5's sums
+    (``_seg_sum``, L2) beside its grouped min/max."""
+    if name == "seg_reduce_at_ends" and args and args[0] == "sum":
+        return "seg_reduce_at_ends[sum]"
+    return None
 
 
 def kernel_targets(KX) -> dict:
@@ -995,19 +1149,26 @@ def kernel_targets(KX) -> dict:
 LIBRARY_STEPS = {
     # name: (row, owner of the function, attribute)
     "compact_perm": ("L1", "module", "_compact_perm"),
-    "lexsort": ("L2, L3", "module", "_lexsort"),
-    "seg_sum": ("L2", "trace", "_seg_sum"),
+    "lexsort": ("L3, windows", "module", "_lexsort"),
     "build_lookup": ("L3", "trace", "_build_lookup"),
     "probe": ("L3", "trace", "_probe"),
 }
+# L2's group-id sort: the pack of each call that takes the packed key, and
+# the operands of each that keeps the successive sorts
+GROUP_SORT_STEPS = {"pack_group_key": ("module", "_pack_group_key"),
+                    "group_operands": ("module", "_group_operands")}
 
 
 def library_targets() -> dict:
-    """The executor's library steps, for a ``Recorder``."""
+    """The executor's library steps and the group-id sort's two routes,
+    for a ``Recorder``."""
     from nds_tpu_torch.engine import device_exec as dx
     owners = {"module": dx, "trace": dx._Trace}
-    return {name: (owners[where], attr)
-            for name, (_row, where, attr) in LIBRARY_STEPS.items()}
+    out = {name: (owners[where], attr)
+           for name, (_row, where, attr) in LIBRARY_STEPS.items()}
+    out.update({name: (owners[where], attr)
+                for name, (where, attr) in GROUP_SORT_STEPS.items()})
+    return out
 
 
 def library_step_checks(lib: Recorder, label: str, dev) -> list:
@@ -1031,6 +1192,212 @@ def library_step_checks(lib: Recorder, label: str, dev) -> list:
                "bytes": moved, "bound_ms": bound_ms, "bound_by": bound_by}
         log(json.dumps(rec))
         out.append(rec)
+    return out
+
+
+def sort_passes(key) -> tuple:
+    """(passes that move rows, passes) of ``partition_sort`` over ``key``:
+    8-bit digits of the key's order-preserving bits, and a pass whose
+    digit takes one value over every row moves nothing (``digit_plan``
+    marks it, and the sort skips it)."""
+    import torch
+    bits = key.element_size() * 8
+    u = key ^ (torch.iinfo(key.dtype).min)
+    moved = 0
+    for d in range(bits // 8):
+        dig = (u >> (8 * d)) & 0xFF
+        moved += int(dig.min() != dig.max())
+    return moved, bits // 8
+
+
+def group_sort_record(KX, lib: Recorder, label: str, dev) -> "dict | None":
+    """L2's group-id sort at its largest call that packs its keys: the
+    pack, ``partition_sort`` of the packed key and ``group_bounds``, each
+    timed, beside ``_lexsort`` of the reference's operands and
+    ``torch.sort`` of the packed key on the same rows; the perms must be
+    equal. Also the calls of each route in the untimed pass."""
+    import torch
+    from nds_tpu_torch.engine import device_exec as dx
+    routes = {"packed": lib.calls["pack_group_key"],
+              "successive_sorts": lib.calls["group_operands"]}
+    if "pack_group_key" not in lib.largest:
+        log(json.dumps({"phase": f"{label} group-id sort", "routes": routes}))
+        return {"routes": routes}
+    _size, (row, keyvals, fields, bits), _kw = lib.largest["pack_group_key"]
+    n = row.shape[0]
+    G = dx._Trace._group_capacity(n, keyvals)
+    iota = torch.arange(n, dtype=torch.int32, device=dev).view(1, n)
+    counts = torch.full((1,), n, dtype=torch.int32, device=dev)
+
+    def pack():
+        return dx._pack_group_key(row, keyvals, fields, bits)
+    key = pack()
+    lexsort = lib.function("lexsort")
+    ops = dx._group_operands(row, keyvals)
+    ks, perm = KX.partition_sort(key.view(1, n), iota, counts)
+    if not torch.equal(perm.view(n).to(torch.int64), lexsort(ops, n, dev)):
+        raise SmokeError(f"{label}: the packed key's sort differs from "
+                         f"_lexsort's at L2's largest call")
+    moved, passes = sort_passes(key)
+    sort_bytes = 2 * n * (key.element_size() + 4)
+    rec = {"step": "group_sort", "path": label, "rows": n,
+           "present_rows": int(row.sum()), "groups_cap": G,
+           "keys": len(keyvals), "bits": bits, "key_dtype": str(key.dtype),
+           "routes": routes, "passes_moved": moved, "passes": passes,
+           "operands": [list(o.shape) + [str(o.dtype).replace("torch.", "")]
+                        for o in ops],
+           "pack_ms": time_ms(pack, dev),
+           "sort_ms": time_ms(lambda: KX.partition_sort(key.view(1, n), iota,
+                                                        counts), dev),
+           "sort_device_ms": time_ms(lambda: KX.partition_sort(
+               key.view(1, n), iota, counts), dev, spin=True),
+           "bounds_ms": time_ms(lambda: KX.group_bounds(ks.view(n), bits - 1,
+                                                        G), dev),
+           "torch_sort_ms": time_ms(lambda: torch.sort(key, stable=True),
+                                    dev),
+           "lexsort_ms": time_ms(lambda: lexsort(ops, n, dev), dev),
+           "sort_bytes": sort_bytes,
+           "sort_bound_ms": sort_bytes / HBM_BYTES_PER_S * 1000}
+    log(json.dumps({"phase": f"{label} group-id sort", **rec}))
+    return rec
+
+
+def graph_replay_cases(dev) -> list:
+    """(kernel, make inputs, label) for the graph case: the scan layout
+    (``seg_scan``, K5's sum, ``group_bounds``, ``running_max``), the count
+    layout (K6, whose partition takes it) and ``partition_sort``. Each
+    ``make(seed)`` gives a new set of inputs of one shape."""
+    import numpy as np
+    import torch
+
+    def dt(a):
+        return torch.as_tensor(np.ascontiguousarray(a)).to(dev)
+
+    n = 3_000_017
+    G = 50_000
+
+    def scan(seed):
+        rng = np.random.default_rng(seed)
+        return ("sum", dt(rng.integers(-10**9, 10**9, n)),
+                dt(rng.random(n) < 1e-4))
+
+    def groups(seed):
+        rng = np.random.default_rng(seed)
+        cuts = np.sort(rng.choice(np.arange(1, n), G // 2 - 1,
+                                  replace=False))
+        gid = np.zeros(n, np.int32)
+        gid[cuts] = 1
+        gid = np.cumsum(gid).astype(np.int32)
+        starts2 = np.searchsorted(gid, np.arange(G, dtype=np.int32))
+        return ("sum", dt(rng.integers(-10**6, 10**6, n).astype(np.int32)),
+                dt(gid), dt(starts2.astype(np.int64)))
+
+    def bounds(seed):
+        rng = np.random.default_rng(seed)
+        keys = np.sort(rng.integers(0, 1 << 20, n).astype(np.int32))
+        keys[rng.random(n) < 0.1] |= 1 << 20  # absent rows, sorted last
+        return (dt(np.sort(keys)), 20, G)
+
+    def cummax(seed):
+        rng = np.random.default_rng(seed)
+        return (dt(np.where(rng.random(n) < 1e-3, np.arange(n), 0)
+                   .astype(np.int32)),)
+
+    def k6(seed):
+        rng = np.random.default_rng(seed)
+        nl, nr = 2_000_000, 1_000_000
+        pool = rng.integers(0, 1 << 30, 400_000).astype(np.int32)
+        return (dt(rng.choice(pool, nl)), dt(rng.random(nl) < 0.9),
+                dt(rng.choice(pool, nr)), dt(rng.random(nr) < 0.9),
+                4_000_000, 2.0)
+
+    def sort(seed):
+        rng = np.random.default_rng(seed)
+        nparts, cap = 4, 1_000_000
+        return (dt(rng.integers(-(1 << 40), 1 << 40, (nparts, cap))),
+                dt(rng.integers(0, 1 << 30, (nparts, cap)).astype(np.int32)),
+                dt(rng.integers(cap // 2, cap + 1, nparts).astype(np.int32)))
+
+    return [("seg_scan", scan, f"n={n} int64 sum"),
+            ("seg_reduce_at_ends", groups, f"n={n} G={G} int32 sum"),
+            ("group_bounds", bounds, f"n={n} int32 keys, G={G}"),
+            ("running_max", cummax, f"n={n} int32"),
+            ("partitioned_mn_join", k6, "2000000 x 1000000 int32"),
+            ("partition_sort", sort, "4 x 1000000 int64")]
+
+
+def reset_and_grow(KX, stream) -> list:
+    """Every look-back buffer of ``stream`` (where a graph was captured
+    that holds it) reset by the host, which must zero it and set its
+    counter word back to epoch 1 in place, and then outgrown; fresh memory
+    of each old buffer's size is filled with junk, which a graph whose
+    buffer had been freed would read. Returns the junk, to be kept until
+    the graph has been replayed."""
+    import torch
+    junk = []
+    with torch.cuda.stream(stream):
+        for key, (buf, ctr, _used, retired) in list(KX._LOOKBACK.items()):
+            if key[1] != stream.cuda_stream:
+                continue
+            KX._LOOKBACK[key] = (buf, ctr, KX._EPOCH_HOST, retired)
+            KX._lookback(*key, buf.numel() + 1)
+            if bool(buf.any()) or int(ctr.item()) != KX._EPOCH_FIRST:
+                raise SmokeError(f"the look-back {key[2]} reset did not "
+                                 f"reach the captured buffer")
+            junk.append(torch.full_like(buf, -1))
+    stream.synchronize()
+    return junk
+
+
+def graph_replays(KX, dev) -> list:
+    """The graph case: each kernel of ``graph_replay_cases`` run once on a
+    side stream (its look-back buffers are made there, outside the
+    capture), captured in a ``torch.cuda.CUDAGraph`` on that stream, and
+    the graph replayed three times with new inputs copied into the
+    captured ones in between, the third after the host has reset and
+    outgrown its look-back buffers (``reset_and_grow``); each replay's
+    outputs must equal the plain version on its inputs (a float sum within
+    its tolerance, ``agrees``). With epochs passed from the host, the
+    second replay would take the first's tile words as published; with a
+    buffer freed at its growth, the third would read another tensor's
+    memory."""
+    import torch
+    out = []
+    for name, make, label in graph_replay_cases(dev):
+        fn, plain = getattr(KX, name), getattr(KX, name + "_plain")
+        static = make(0)
+        stream = torch.cuda.Stream()
+        stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(stream):
+            fn(*static)
+        stream.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=stream):
+            got = fn(*static)
+        errs = []
+        junk = []
+        for seed in (1, 2, 3):
+            if seed == 3:
+                junk = reset_and_grow(KX, stream)
+            new = make(seed)
+            for a, b in zip(static, new):
+                if isinstance(a, torch.Tensor):
+                    a.copy_(b)
+            graph.replay()
+            torch.cuda.synchronize()
+            exp = plain(*new)
+            err, ok = agrees(name, new, got, exp)
+            if not ok:
+                raise SmokeError(f"{name} [{label}] replay {seed} of its "
+                                 f"graph differs from its plain version: "
+                                 f"max_abs_err={err}")
+            errs.append(err)
+        rec = {"kernel": name, "case": f"graph, 3 replays (the last after "
+               f"a reset and a growth of its buffers), {label}",
+               "max_abs_err": max(errs)}
+        log(json.dumps({"phase": "graph replay", **rec}))
+        out.append(rec)
+        del graph, got, static, junk
     return out
 
 
@@ -1059,7 +1426,14 @@ def kernel_families(by_name: dict) -> dict:
             tot = port.setdefault(m.group(1), [0.0, 0])
             tot[0] += ms
             tot[1] += cnt
+    # torch.cummax / cummin (what the windows' running max ran on before
+    # running_max)
+    scan_idx = [(ms, cnt) for name, (ms, cnt) in by_name.items()
+                if "scan_innermost_dim_with_indices" in name
+                or "cummax" in name]
     return {"cub_radix_sort": {"ms": cub[0], "launches": cub[1]},
+            "cummax_kernels": {"ms": sum(m for m, _c in scan_idx),
+                               "launches": sum(c for _m, c in scan_idx)},
             "port_kernels": {k: {"ms": v[0], "launches": v[1]}
                              for k, v in sorted(port.items())}}
 
@@ -1249,11 +1623,12 @@ def kernel_checks(KX, rec, label, dev, only=KERNELS) -> dict:
     """Each kernel of ``only`` the untimed pass called, against its plain
     version on its largest captured call."""
     out = {}
-    for name in only:
-        if name in rec.largest:
-            _size, args, kwargs = rec.largest[name]
-            out[name] = check_kernel(KX, name, args, f"{label} main path",
-                                     dev, kwargs)
+    for key, (_size, args, kwargs) in rec.largest.items():
+        name = key.split("[")[0]
+        if name in only:
+            case = f"{label} main path" + (f", op {args[0]}" if key != name
+                                           else "")
+            out[key] = check_kernel(KX, name, args, case, dev, kwargs)
     return out
 
 
@@ -1339,6 +1714,8 @@ def run_leg(suite, KX, factory_of, dev, pool, record, path=None,
     # the library steps (L1-L3) on the single-device legs
     library_steps = (library_step_checks(lib, path, dev)
                      if path in ("nds_h", "nds") else [])
+    group_sort = (group_sort_record(KX, lib, path, dev)
+                  if path in ("nds_h", "nds") else None)
     del lib
     if suite == "nds_h" and raw is None:
         for name, kargs, label in sf1_shape_cases(tables, dev):
@@ -1395,6 +1772,7 @@ def run_leg(suite, KX, factory_of, dev, pool, record, path=None,
            "profile": profile, "kernel_checks": checks,
            "per_unit": per_unit, "called_in_warm_pass": called,
            "library_steps": library_steps, "k6_breakdown": breakdown,
+           "group_sort": group_sort,
            "warm_peak_device_bytes": warm_peaks,
            "mismatches": bad}
     record[path] = leg
@@ -1413,6 +1791,11 @@ def run_leg(suite, KX, factory_of, dev, pool, record, path=None,
     missing = sorted(n for n in required if launches.get(n, 0) <= 0)
     if missing:
         raise SmokeError(f"the timed {path} run launched no {missing}")
+    cummax = profile.get("cummax_kernels", {}).get("launches", 0)
+    if suite != "nds_h" and dev.type == "cuda" and cummax:
+        raise SmokeError(f"the profiled {path} pass ran {cummax} torch "
+                         f"cummax kernels: the windows' running max is "
+                         f"running_max's")
     leg["main_cases"] = main_cases
     return leg, dsess
 
@@ -1845,6 +2228,11 @@ def main() -> int:
             log(json.dumps({"phase": "build", "seconds": record["build_s"],
                             "built": built}))
         paths = {}
+        if dev.type == "cuda":
+            replays = graph_replays(KX, dev)
+            record["graph_replays"] = replays
+            paths["graph_replays"] = {"launches": {}, "kernel_checks": replays,
+                                      "main_cases": {}}
         paths["nds_h"], dsess = run_leg("nds_h", KX, factory_of, dev, pool,
                                         record)
         del dsess

@@ -11,7 +11,15 @@
 // The tile words live in a buffer the wrapper keeps across calls. Each
 // launch tags its words with its own epoch, and a word of another epoch
 // reads as "not yet published", so nothing is zeroed between calls. The
-// tile counter is left at 0 by the block that takes the last id.
+// epoch lives on the card, in the counter word beside the tile counter:
+// `ctr` holds the next tile id in its low 32 bits and the launch's epoch
+// above them, so one atomicAdd hands a block both, and the block that
+// draws the launch's last id leaves the counter at (epoch + 1, id 0) for
+// the next launch on the stream. No launch takes an epoch from the host,
+// so a CUDA graph that replays a launch gives each replay an epoch of its
+// own. The words hold 30 (count words) or 29 (seg_scan.cu's state) bits
+// of the epoch: the wrapper zeroes the words and sets the counter back to
+// epoch 1 before the range runs out (kernels._lookback says how).
 
 #pragma once
 
@@ -50,21 +58,36 @@ __device__ __forceinline__ void ld_pair(const u64* p, u64& a, u64& b) {
                : "=l"(a), "=l"(b) : "l"(p) : "memory");
 }
 
-// The next tile id. `last` is the value of the counter's last increment
-// in this launch: the block that draws it leaves the counter at 0.
-__device__ __forceinline__ long long take(u64* ctr, long long last) {
-  const long long id = static_cast<long long>(atomicAdd(ctr, 1ULL));
-  if (id == last) atomicExch(ctr, 0ULL);
-  return id;
+// One draw from the counter word: the tile id (`id`, the low 32 bits) and
+// the launch's epoch (`epoch`, the bits above). `last` is the id of the
+// launch's last draw: the block that draws it moves the counter on to the
+// next epoch with id 0. Every other draw of the launch comes before it, so
+// every block of a launch sees one epoch.
+struct Draw {
+  long long id;
+  unsigned epoch;
+};
+
+__device__ __forceinline__ Draw take(u64* ctr, long long last) {
+  const u64 v = atomicAdd(ctr, 1ULL);
+  const Draw d{static_cast<long long>(v & 0xffffffffULL),
+               static_cast<unsigned>(v >> 32)};
+  if (d.id == last) atomicExch(ctr, static_cast<u64>(d.epoch + 1) << 32);
+  return d;
 }
 
 // ---- count words: [epoch (30 bits) | kind (2) | count (32)], one per
-// (tile, bin), for the partition and the radix sort's digit offsets
+// (tile, bin), for the partition and the radix sort's digit offsets. The
+// epoch is taken modulo 2^30 where it is stored and compared, so that a
+// counter run past the range (the wrapper resets it before) reads and
+// writes the same field rather than waiting on a word it can never match.
+
+constexpr unsigned kCountEpochMask = (1u << 30) - 1;
 
 __device__ __forceinline__ u64 count_word(unsigned epoch, unsigned kind,
                                           unsigned count) {
-  return (static_cast<u64>(epoch) << 34) | (static_cast<u64>(kind) << 32) |
-         count;
+  return (static_cast<u64>(epoch & kCountEpochMask) << 34) |
+         (static_cast<u64>(kind) << 32) | count;
 }
 
 constexpr int kCountBatch = 16;
@@ -77,6 +100,7 @@ __device__ __forceinline__ unsigned count_lookback(const u64* words,
                                                    long long tile,
                                                    long long stride,
                                                    unsigned epoch) {
+  epoch &= kCountEpochMask;
   unsigned excl = 0;
   for (long long t = tile - 1;; t -= kCountBatch) {
     u64 w[kCountBatch];

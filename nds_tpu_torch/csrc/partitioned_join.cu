@@ -1,4 +1,5 @@
-// Radix-partitioned M:N inner join (K6).
+// Radix-partitioned M:N inner join (K6), and the radix sort that K6's build
+// and the group-by (L2) share.
 //
 // Replaces nds_tpu/engine/kernels.py `partitioned_mn_join` with its helpers
 // `_radix_scatter` and `_pids`, and the batched `lax.sort` of its build
@@ -37,7 +38,12 @@
 //     [count_p, cap) as (iinfo(key).max, row 0), which is where the stable
 //     sort of the whole block puts the unoccupied slots (a valid key equal to
 //     iinfo(key).max sorts before them, as in the JAX version), and copies a
-//     partition that no pass moved.
+//     partition that no pass moved. The same sort, over one partition of all
+//     rows with their ids as payload, is the group-by's sort (L2,
+//     nds_tpu/engine/device_exec.py `_group_ids`' lax.sort at `:2220`): the
+//     executor packs presence, validity and the keys into one non-negative
+//     key where their bounds allow, so that the passes above its top bit
+//     hold one digit value and are skipped.
 //   ranges: one thread per probe slot searches its partition's sorted build
 //     keys (the occupied prefix; a probe key equal to iinfo(key).max also
 //     matches every unoccupied slot, as the JAX version's searchsorted over
@@ -67,8 +73,9 @@
 // per probe row and level.
 //
 // The entry points launch on the given stream, allocate nothing (the tile
-// words and the counter of the look-back are the wrapper's, kept across
-// calls, with a new epoch for every launch) and return cudaGetLastError().
+// words and the counter word of the look-back are the wrapper's, kept
+// across calls; each launch draws a new epoch from the counter word on the
+// card, lookback.cuh) and return cudaGetLastError().
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -186,8 +193,7 @@ __global__ void __launch_bounds__(kThreads)
                    long long n, long long ntiles, int nparts, int log2r,
                    long long cap, K* __restrict__ keys,
                    int32_t* __restrict__ gidx, int32_t* __restrict__ count,
-                   long long* __restrict__ over, u64* words, u64* ctr,
-                   unsigned epoch) {
+                   long long* __restrict__ over, u64* words, u64* ctr) {
   __shared__ K s_key[kPartTile];
   __shared__ int32_t s_row[kPartTile];
   __shared__ int s_wcnt[kWarps][kMaxParts];
@@ -195,13 +201,19 @@ __global__ void __launch_bounds__(kThreads)
   __shared__ unsigned s_base[kMaxParts];
   __shared__ int s_valid;
   __shared__ long long s_tile;
+  __shared__ unsigned s_epoch;
   const int t = threadIdx.x;
   const int lane = t & 31;
   const int warp = t >> 5;
-  if (t == 0) s_tile = lookback::take(ctr, ntiles - 1);
+  if (t == 0) {
+    const lookback::Draw d = lookback::take(ctr, ntiles - 1);
+    s_tile = d.id;
+    s_epoch = d.epoch;
+  }
   if (t < kWarps * kMaxParts) (&s_wcnt[0][0])[t] = 0;
   __syncthreads();
   const long long tile = s_tile;
+  const unsigned epoch = s_epoch;
   const long long r0 = tile * kPartTile;
 
   // tile order = (warp, item, lane) = row order; every load is issued
@@ -373,8 +385,7 @@ __global__ void __launch_bounds__(kThreads)
               const int32_t* __restrict__ info,
               const unsigned* __restrict__ dbase, const K* kP,
               const int32_t* gP, K* kT,
-              int32_t* gT, K* kO, int32_t* gO, u64* words, u64* ctr,
-              unsigned epoch) {
+              int32_t* gT, K* kO, int32_t* gO, u64* words, u64* ctr) {
   constexpr int kPasses = sizeof(K);
   constexpr int kTile = kThreads * I;
   __shared__ K s_key[kTile];
@@ -386,6 +397,7 @@ __global__ void __launch_bounds__(kThreads)
   __shared__ long long s_end[kMaxParts];
   __shared__ long long s_total;
   __shared__ long long s_id;
+  __shared__ unsigned s_epoch;
   const int t = threadIdx.x;
   const int lane = t & 31;
   const int warp = t >> 5;
@@ -404,11 +416,18 @@ __global__ void __launch_bounds__(kThreads)
   }
   __syncthreads();
   const long long total = s_total;
+  // every block draws until its id is past the last tile, so the launch
+  // draws total + gridDim.x ids, all of one epoch
   while (true) {
-    if (t == 0) s_id = lookback::take(ctr, total + gridDim.x - 1);
+    if (t == 0) {
+      const lookback::Draw dr = lookback::take(ctr, total + gridDim.x - 1);
+      s_id = dr.id;
+      s_epoch = dr.epoch;
+    }
     for (int i = t; i < kWarps * kDigits; i += kThreads) (&s_wcnt[0][0])[i] = 0;
     __syncthreads();
     const long long id = s_id;
+    const unsigned epoch = s_epoch;
     if (id >= total) break;
     int p = 0;
     while (s_end[p] <= id) ++p;
@@ -698,8 +717,8 @@ __global__ void __launch_bounds__(kThreads)
 template <typename K>
 void sort_t(const void* kP, const void* gP, void* kT, void* gT, void* kO, void* gO,
             int nparts, long long cap, const int32_t* count, unsigned* hist,
-            unsigned* dbase, int32_t* info, u64* words, u64* ctr,
-            unsigned epoch, K sent, cudaStream_t s) {
+            unsigned* dbase, int32_t* info, u64* words, u64* ctr, K sent,
+            cudaStream_t s) {
   constexpr int kPasses = sizeof(K);
   constexpr int I = sort_items<K>();
   const unsigned hx = static_cast<unsigned>((cap + kHistRows - 1) / kHistRows);
@@ -717,15 +736,11 @@ void sort_t(const void* kP, const void* gP, void* kT, void* gT, void* kO, void* 
         d, nparts, cap, count, info, dbase, static_cast<const K*>(kP),
         static_cast<const int32_t*>(gP), static_cast<K*>(kT),
         static_cast<int32_t*>(gT), static_cast<K*>(kO),
-        static_cast<int32_t*>(gO), words, ctr, epoch + d);
+        static_cast<int32_t*>(gO), words, ctr);
   const unsigned fx = static_cast<unsigned>((cap + kFinishRows - 1) / kFinishRows);
   sort_finish<K><<<dim3(fx, nparts), kThreads, 0, s>>>(
       static_cast<const K*>(kP), static_cast<const int32_t*>(gP),
       static_cast<K*>(kO), static_cast<int32_t*>(gO), cap, count, info, sent);
-}
-
-bool bad_epoch(long long epoch, int passes) {
-  return epoch < 1 || epoch + passes > (1LL << 29);
 }
 
 }  // namespace
@@ -738,9 +753,10 @@ int nds_pj_sort_tile(int key64) {
 }
 int nds_pj_max_parts() { return kMaxParts; }
 
-// The look-back entries take the tile words `words` (int64; no word tagged
-// with an epoch this launch uses), the tile counter `ctr` (int64[1], 0) and
-// the launch's first epoch, 1 <= epoch < 2^29.
+// The look-back entries take the tile words `words` (int64) and the counter
+// word `ctr` (int64[1]: the next launch's epoch << 32, its tile id 0). Each
+// launch draws one epoch from it (the sort one per pass), and no word of
+// `words` may hold an epoch that a launch draws.
 
 // One side's partition blocks. key: int32 or int64 (key64) [n], ok: bool[n],
 // 1 <= n < 2^31. keys: K[nparts * cap], gidx: int32[nparts * cap]: the
@@ -752,27 +768,26 @@ int nds_pj_max_parts() { return kMaxParts; }
 int nds_pj_partition(const void* key, const void* ok, long long n, int key64,
                      int nparts, int log2r, long long cap, void* keys,
                      void* gidx, void* count, void* over, void* words,
-                     void* ctr, long long epoch, void* stream) {
+                     void* ctr, void* stream) {
   if (n < 1 || n >= (1LL << 31) || cap < 1 || nparts < 1 ||
-      nparts > kMaxParts || nparts != (1 << log2r) || bad_epoch(epoch, 1))
+      nparts > kMaxParts || nparts != (1 << log2r))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const long long ntiles = (n + kPartTile - 1) / kPartTile;
-  const unsigned e = static_cast<unsigned>(epoch);
   if (key64)
     partition_rows<int64_t><<<static_cast<unsigned>(ntiles), kThreads, 0, s>>>(
         static_cast<const int64_t*>(key), static_cast<const uint8_t*>(ok), n,
         ntiles, nparts, log2r, cap, static_cast<int64_t*>(keys),
         static_cast<int32_t*>(gidx), static_cast<int32_t*>(count),
         static_cast<long long*>(over), static_cast<u64*>(words),
-        static_cast<u64*>(ctr), e);
+        static_cast<u64*>(ctr));
   else
     partition_rows<int32_t><<<static_cast<unsigned>(ntiles), kThreads, 0, s>>>(
         static_cast<const int32_t*>(key), static_cast<const uint8_t*>(ok), n,
         ntiles, nparts, log2r, cap, static_cast<int32_t*>(keys),
         static_cast<int32_t*>(gidx), static_cast<int32_t*>(count),
         static_cast<long long*>(over), static_cast<u64*>(words),
-        static_cast<u64*>(ctr), e);
+        static_cast<u64*>(ctr));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -781,14 +796,13 @@ int nds_pj_partition(const void* key, const void* ok, long long n, int key64,
 // tkeys, tgidx: scratch of the same shapes; okeys, ogidx: the sorted
 // blocks. hist: int32[nparts * 8 * 256] of zeros; dbase:
 // int32[nparts * 8 * 256] and info: int32[nparts * 8], scratch. words:
-// nparts * ceil(cap / nds_pj_sort_tile(key64)) * 256. Epochs epoch
-// .. epoch + 7 (int64 keys) or + 3 (int32).
+// nparts * ceil(cap / nds_pj_sort_tile(key64)) * 256. Eight (int64 keys)
+// or four (int32) passes, each drawing an epoch.
 int nds_pj_sort(const void* keys, const void* gidx, void* tkeys, void* tgidx, void* okeys,
                 void* ogidx, int key64, int nparts, long long cap,
                 const void* count, void* hist, void* dbase, void* info,
-                void* words, void* ctr, long long epoch, void* stream) {
-  if (cap < 1 || nparts < 1 || nparts > kMaxParts ||
-      bad_epoch(epoch, key64 ? 8 : 4))
+                void* words, void* ctr, void* stream) {
+  if (cap < 1 || nparts < 1 || nparts > kMaxParts)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int32_t* cnt = static_cast<const int32_t*>(count);
@@ -797,13 +811,12 @@ int nds_pj_sort(const void* keys, const void* gidx, void* tkeys, void* tgidx, vo
   int32_t* inf = static_cast<int32_t*>(info);
   u64* w = static_cast<u64*>(words);
   u64* c = static_cast<u64*>(ctr);
-  const unsigned e = static_cast<unsigned>(epoch);
   if (key64)
     sort_t<int64_t>(keys, gidx, tkeys, tgidx, okeys, ogidx, nparts, cap, cnt,
-                    h, b, inf, w, c, e, INT64_MAX, s);
+                    h, b, inf, w, c, INT64_MAX, s);
   else
     sort_t<int32_t>(keys, gidx, tkeys, tgidx, okeys, ogidx, nparts, cap, cnt,
-                    h, b, inf, w, c, e, INT32_MAX, s);
+                    h, b, inf, w, c, INT32_MAX, s);
   return static_cast<int>(cudaGetLastError());
 }
 

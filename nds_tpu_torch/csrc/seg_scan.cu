@@ -1,34 +1,50 @@
-// Segmented scans (K5 and K7).
+// Segmented scans (K5, K7, and L2's group bounds and segment sums).
 //
 // Replaces nds_tpu/engine/kernels.py `seg_scan` (a (value, reset-flag)
 // associative scan with op +, min or max), `seg_reduce_at_ends` (that scan
 // gathered at each group's last sorted row, K5), `part_reduce_broadcast` (the
 // scan read at each row's partition end, K7) and `last_of_group` (a reversed
-// running min of the next change position, K7). One scan kernel serves all of
-// them, and the prefix of match counts inside partitioned_join.cu's M:N join
-// (K6) too.
+// running min of the next change position, K7); and from
+// nds_tpu/engine/device_exec.py the group ids after `_group_ids`' sort
+// (`:2221-2230`, with its callers' clip to the group capacity and their
+// searchsorted of the group starts: group_bounds), `_seg_sum`'s cumsum
+// differences (`:2139`, K5 with op +) and the windows' `lax.cummax`
+// (`:2464`, `:2485`, `:2487`: seg_scan with op max over one segment). One
+// scan kernel serves all of them, and the prefix of match counts inside
+// partitioned_join.cu's M:N join (K6) too.
 //
 // One pass with decoupled look-back (lookback.cuh): each block takes the next
-// tile of 2048 rows from a counter, loads it with 16-byte vector loads (the
-// flags 8 bytes at a time), scans its 8 rows per thread in registers, the
-// threads of a warp with shuffles and the 8 warps through shared memory,
-// publishes the tile's aggregate (value, any-reset flag), applies the
-// in-tile prefix to its rows, and only then has warp 0 read the tiles
-// before it, 32 at a time, until the segmented combination of the window
-// holds a reset or an inclusive prefix (looking back later gives the tiles
-// before it the time to publish their prefixes). A tile whose aggregate holds a
-// reset publishes its inclusive prefix at once (it does not depend on the
-// tiles before it), and a tile whose first row resets does not look back at
-// all. The combiner is (a, b) -> (b.flag ? b.v : op(a.v, b.v),
-// a.flag | b.flag). Each consumer's finishing step is folded into the
-// tile's store:
-//   seg_scan and K6's prefix: every row's value, with vector stores;
+// tile of 2048 rows and the launch's epoch from the counter word, loads the
+// tile with 16-byte vector loads (the flags 8 bytes at a time), scans its 8
+// rows per thread in registers, the threads of a warp with shuffles and the
+// 8 warps through shared memory, publishes the tile's aggregate (value,
+// any-reset flag), applies the in-tile prefix to its rows, and only then has
+// warp 0 read the tiles before it, 32 at a time, until the segmented
+// combination of the window holds a reset or an inclusive prefix (looking
+// back later gives the tiles before it the time to publish their prefixes).
+// A tile whose aggregate holds a reset publishes its inclusive prefix at
+// once (it does not depend on the tiles before it), and a tile whose first
+// row resets does not look back at all. The combiner is (a, b) -> (b.flag ?
+// b.v : op(a.v, b.v), a.flag | b.flag). Each consumer's finishing step is
+// folded into the tile's store:
+//   seg_scan, the running max and K6's prefix: every row's value, with
+//     vector stores;
 //   K5: each group's value at its last row, out[g] = scan at
 //     clip(starts2[g + 1] - 1, 0, n - 1). The tile stages its final values in
 //     shared memory and writes the groups whose end lies in it, found by a
-//     32-way search of the ends (non-decreasing, as starts2 is sorted); the
-//     groups that end at the last row (a fixed group capacity leaves many
-//     empty ones there) take its value without loading their starts;
+//     32-way search of the ends (non-decreasing, as starts2 is sorted); of
+//     the groups that end at the last row (a fixed group capacity leaves
+//     many empty ones there, up to n), the last tile writes the first and a
+//     second launch of many blocks the rest, with its value (min, max) or 0
+//     (a sum: as `_seg_sum`'s differences give a group with no rows);
+//   group_bounds: the source reads the sorted packed key and its row before,
+//     and scans the first-row flags (present, and a key unlike the row
+//     before) with +; a 32-bit key comes as int32 biased by -2^31, so its
+//     presence bit is the sign bit, inverted; the store writes each row's presence and group id
+//     (the count minus one, clipped to [0, G - 1]), starts2[g] at each
+//     group's first row and the group count at the last row. A second small
+//     launch writes starts2 past the last group (n), which it reads the
+//     count for from the card;
 //   last_of_group: the tiles walk the rows from the end, scanning the next
 //     change position with min, and store clip(scan - 1, 0, n - 1);
 //   part_reduce_broadcast: a row's partition end can lie in a later tile, so
@@ -36,25 +52,28 @@
 // min/max on floats propagate NaN, as jnp.minimum/maximum do. An integer sum
 // wraps in two's complement, as the JAX scan's does; int32 counts stay int32.
 // A float sum associates in this kernel's order (rows of a thread, threads of
-// a warp, warps, tiles), not in lax.associative_scan's, so float sums agree
-// to rounding, not bit for bit: the tolerance stated in the tests and the
-// smoke (relative 1e-12 and 1e-9 of float64 values) holds.
+// a warp, warps, tiles), not in lax.associative_scan's nor in the cumsum
+// differences', so float sums agree to rounding, not bit for bit: the
+// tolerance stated in the tests and the smoke (relative 1e-12 and 1e-9 of
+// float64 values) holds.
 //
 // Where the segment flags come from: K5 compares neighbouring group ids, the
 // window scans read a bool flag per row, K6's prefix restarts every `seg_len`
-// rows, and last_of_group has none (one segment, scanned from the end, over
-// the values "next change position" computed from the change flags).
+// rows (the running max: seg_len = n, one segment), group_bounds has one
+// segment, and last_of_group has none (one segment, scanned from the end,
+// over the values "next change position" computed from the change flags).
 //
 // What bounds it on an H100: bytes. The function must read n values and n
 // flags and write n values (G for K5); this kernel moves those and, per tile
 // of 2048 rows, 16 bytes of tile state and the few words its look-back reads.
 // part_reduce_broadcast moves n values more (the stored scan, read again at
-// pend).
+// pend). group_bounds reads n keys and writes n presence bytes, n group ids
+// and G starts.
 //
 // The entry points launch on the given stream, allocate nothing (the caller
 // passes every output and scratch buffer) and return cudaGetLastError(). The
-// tile state (16 bytes a tile) and the counter are the wrapper's, kept
-// across calls, with a new epoch for every launch.
+// tile state (16 bytes a tile) and the counter word are the wrapper's, kept
+// across calls; each launch draws its epoch from the counter word on the card.
 
 #include <cstdint>
 #include <cstring>
@@ -72,7 +91,9 @@ constexpr int kItems = 8;
 constexpr int kTile = kThreads * kItems;
 constexpr int kWarps = kThreads / 32;
 constexpr int kStateWords = 2;  // status and value (16 bytes)
+constexpr unsigned kStateEpochMask = (1u << 29) - 1;
 constexpr unsigned kFull = 0xffffffffu;
+constexpr unsigned kFillBlocks = 2048;
 
 enum { kSum = 0, kMin = 1, kMax = 2 };
 
@@ -140,7 +161,8 @@ __device__ __forceinline__ void store_vec(T* p, const T (&v)[kItems]) {
 }
 
 // ---- tile state: a status (epoch << 35 | flag << 34 | kind << 32) and
-// the tile's value. A 4-byte value shares the status word (its bits in the
+// the tile's value. The status holds the epoch modulo 2^29 (see
+// lookback.cuh for the range). A 4-byte value shares the status word (its bits in the
 // low 32), published with one 8-byte store and read with one load; an
 // 8-byte value sits beside it in one 16-byte word, stored and loaded whole.
 // Either way a reader sees a status and the value stored with it, and no
@@ -151,7 +173,7 @@ __device__ __forceinline__ void publish(u64* st, long long tile,
                                         unsigned epoch, unsigned kind, V v,
                                         bool f) {
   u64* s = st + kStateWords * tile;
-  const u64 status = (static_cast<u64>(epoch) << 35) |
+  const u64 status = (static_cast<u64>(epoch & kStateEpochMask) << 35) |
                      (f ? 1ull << 34 : 0ull) | (static_cast<u64>(kind) << 32);
   if constexpr (sizeof(V) == 4) {
     uint32_t b;
@@ -176,7 +198,8 @@ __device__ __forceinline__ void load_state(const u64* st, long long tile,
 }
 
 __device__ __forceinline__ bool published(u64 w, unsigned epoch) {
-  return (w >> 35) == epoch && ((w >> 32) & 3u) != lookback::kNone;
+  return (w >> 35) == (epoch & kStateEpochMask) &&
+         ((w >> 32) & 3u) != lookback::kNone;
 }
 
 // a published tile's value; `stop` when it is an inclusive prefix or an
@@ -272,18 +295,23 @@ __device__ long long warp_first(long long lo, long long hi, P pred, int lane) {
 }
 
 // ---- sources of (value, reset flag) for the kItems scanned rows from base;
-// rows past n are fresh segments that no written row reads
+// rows past n are fresh segments that no written row reads. A source may
+// hand its sink what it read besides (`Extra`).
+
+struct NoExtra {};
 
 // windows: values and one bool flag per row; with no flags, a segment
-// every seg_len rows (K6's per-partition prefix)
+// every seg_len rows (K6's per-partition prefix, and one segment of all
+// rows for the windows' running max)
 template <typename V>
 struct FlagSource {
+  using Extra = NoExtra;
   const V* data;
   const uint8_t* flags;
   long long seg_len;
   bool vec;  // data 16-byte and flags 8-byte aligned
   __device__ void load(long long base, long long n, V (&v)[kItems],
-                       bool (&f)[kItems]) const {
+                       bool (&f)[kItems], Extra&) const {
     if (vec && base + kItems <= n) {
       load_vec(data + base, v);
       if (flags != nullptr) {
@@ -320,11 +348,12 @@ struct FlagSource {
 // K5: values, a segment at every change of the sorted group id
 template <typename V>
 struct GidSource {
+  using Extra = NoExtra;
   const V* data;
   const int32_t* gid;
   bool vec;  // data and gid 16-byte aligned
   __device__ void load(long long base, long long n, V (&v)[kItems],
-                       bool (&f)[kItems]) const {
+                       bool (&f)[kItems], Extra&) const {
     int32_t g[kItems];
     if (vec && base + kItems <= n) {
       load_vec(data + base, v);
@@ -350,15 +379,61 @@ struct GidSource {
 // last_of_group: scanned row k is row i = n - 1 - k, whose value is the
 // position of the next change after it (n where there is none)
 struct NextChangeSource {
+  using Extra = NoExtra;
   const uint8_t* change;
   __device__ void load(long long base, long long n, int32_t (&v)[kItems],
-                       bool (&f)[kItems]) const {
+                       bool (&f)[kItems], Extra&) const {
 #pragma unroll
     for (int k = 0; k < kItems; ++k) {
       const long long i = n - 1 - (base + k);
       v[k] = static_cast<int32_t>((i >= 0 && i + 1 < n && change[i + 1])
                                       ? i + 1 : n);
       f[k] = i < 0;
+    }
+  }
+};
+
+// group_bounds: the sorted packed group key; a row is present where its
+// presence bit (bit pbit, set for absent rows) is clear, and a group's
+// first row where it is present and its key differs from the row before
+// (row 0 always). `flip` undoes the bias of a 32-bit key (int32, biased by
+// -2^31: its sign bit flipped) before the presence bit is read; it is 0
+// for every other key. The scanned value is the first flag, as int32, in
+// one segment; the presence and first flags go to the sink as bits.
+struct GroupExtra {
+  unsigned present;
+  unsigned first;
+};
+
+template <typename K>
+struct GroupSource {
+  using Extra = GroupExtra;
+  const K* keys;
+  int pbit;
+  K flip;
+  bool vec;  // keys 16-byte aligned
+  __device__ void load(long long base, long long n, int32_t (&v)[kItems],
+                       bool (&f)[kItems], Extra& x) const {
+    K k_[kItems];
+    if (vec && base + kItems <= n) {
+      load_vec(keys + base, k_);
+    } else {
+#pragma unroll
+      for (int k = 0; k < kItems; ++k)
+        k_[k] = base + k < n ? keys[base + k] : K{};
+    }
+    K prev = base > 0 && base <= n ? keys[base - 1] : K{};
+    x.present = x.first = 0;
+#pragma unroll
+    for (int k = 0; k < kItems; ++k) {
+      const long long i = base + k;
+      const bool pr = i < n && (((k_[k] ^ flip) >> pbit) & 1) == 0;
+      const bool fi = pr && (i == 0 || k_[k] != prev);
+      x.present |= pr ? 1u << k : 0u;
+      x.first |= fi ? 1u << k : 0u;
+      v[k] = fi ? 1 : 0;
+      f[k] = i >= n;
+      prev = k_[k];
     }
   }
 };
@@ -373,8 +448,9 @@ struct RowSink {
   V* out;
   bool vec;  // out 16-byte aligned
   __device__ void begin(Shared&, long long, long long, int) const {}
+  template <typename E>
   __device__ void store(Shared&, long long r0, long long n,
-                        const V (&v)[kItems]) const {
+                        const V (&v)[kItems], const E&) const {
     const long long base = r0 + threadIdx.x * kItems;
     if (vec && base + kItems <= n) {
       store_vec(out + base, v);
@@ -387,8 +463,13 @@ struct RowSink {
 };
 
 // K5: out[g] = scan at e(g) = clip(starts2[g + 1] - 1, 0, n - 1) (n - 1
-// for the last group), for the groups whose end lies in this tile
-template <typename V, typename S>
+// for the last group), for the groups whose end lies in this tile. For a
+// sum, a group with no rows (starts2[g] > e(g): the empty groups past the
+// last, whose start is n) writes 0. Of the groups that end at the last row,
+// the last tile writes the first (g_tail) and leaves its index in `tail`;
+// the rest, G - 1 - g_tail of them (the whole capacity past the last group,
+// up to n), are ends_tail's, a launch of many blocks.
+template <typename V, typename S, int OP>
 struct EndsSink {
   struct Shared {
     V vals[kTile];
@@ -397,6 +478,7 @@ struct EndsSink {
   const S* starts2;
   long long G;
   V* out;
+  long long* tail;
   __device__ long long end_of(long long g, long long n) const {
     long long e = (g + 1 < G ? static_cast<long long>(starts2[g + 1]) : n) - 1;
     return e < 0 ? 0 : (e > n - 1 ? n - 1 : e);
@@ -416,33 +498,40 @@ struct EndsSink {
                      lane);
     if (lane == 0) (warp == 0 ? sh.g_lo : warp == 1 ? sh.g_hi : sh.g_tail) = g;
   }
+  template <typename E>
   __device__ void store(Shared& sh, long long r0, long long n,
-                        const V (&v)[kItems]) const {
+                        const V (&v)[kItems], const E&) const {
     const int t = threadIdx.x;
 #pragma unroll
     for (int k = 0; k < kItems; ++k) sh.vals[t * kItems + k] = v[k];
     __syncthreads();
     // the groups that end at the last row (a fixed group capacity leaves
-    // a long suffix of empty ones) take its value without a load
+    // a long suffix of empty ones) take its value without a load; for a
+    // sum only the first of them can hold rows
     const long long g_hi = sh.g_hi;
     const long long g_tail = sh.g_tail < g_hi ? sh.g_tail : g_hi;
     constexpr int kBatch = 8;
     for (long long g0 = sh.g_lo + t; g0 < g_tail; g0 += kThreads * kBatch) {
       long long e[kBatch];
+      bool empty[kBatch];
 #pragma unroll
       for (int j = 0; j < kBatch; ++j) {
         const long long g = g0 + j * kThreads;
         e[j] = g < g_tail ? end_of(g, n) : r0;
+        empty[j] = OP == kSum && g < g_tail &&
+                   static_cast<long long>(starts2[g]) > e[j];
       }
 #pragma unroll
       for (int j = 0; j < kBatch; ++j) {
         const long long g = g0 + j * kThreads;
-        if (g < g_tail) out[g] = sh.vals[e[j] - r0];
+        if (g < g_tail) out[g] = empty[j] ? V{} : sh.vals[e[j] - r0];
       }
     }
-    if (g_tail < g_hi) {
-      const V last = sh.vals[n - 1 - r0];
-      for (long long g = g_tail + t; g < g_hi; g += kThreads) out[g] = last;
+    if (g_tail < g_hi && t == 0) {
+      const bool empty =
+          OP == kSum && static_cast<long long>(starts2[g_tail]) > n - 1;
+      out[g_tail] = empty ? V{} : sh.vals[n - 1 - r0];
+      *tail = g_tail;
     }
   }
 };
@@ -455,8 +544,9 @@ struct LastSink {
   int32_t* out;
   bool vec;  // out 16-byte aligned and n a multiple of 4
   __device__ void begin(Shared&, long long, long long, int) const {}
+  template <typename E>
   __device__ void store(Shared&, long long r0, long long n,
-                        const int32_t (&v)[kItems]) const {
+                        const int32_t (&v)[kItems], const E&) const {
     const long long base = r0 + threadIdx.x * kItems;
     int32_t w[kItems];
 #pragma unroll
@@ -475,11 +565,55 @@ struct LastSink {
   }
 };
 
+// group_bounds: per row its presence (bool) and its group id, the count of
+// first rows up to it minus one, clipped to [0, G - 1] (the executor's
+// clamp to the group capacity); each first row of a group g < G writes
+// starts2[g] = its row (int64); the last row writes the group count.
+struct GroupSink {
+  using Shared = NoShared;
+  uint8_t* present;
+  int32_t* gid;
+  int64_t* starts2;
+  long long* ngroups;
+  long long G;
+  bool vec;  // present 8-byte and gid 16-byte aligned
+  __device__ void begin(Shared&, long long, long long, int) const {}
+  __device__ void store(Shared&, long long r0, long long n,
+                        const int32_t (&v)[kItems],
+                        const GroupExtra& x) const {
+    const long long base = r0 + threadIdx.x * kItems;
+    int32_t g[kItems];
+    uint8_t pr[kItems];
+#pragma unroll
+    for (int k = 0; k < kItems; ++k) {
+      const long long c = static_cast<long long>(v[k]) - 1;
+      g[k] = static_cast<int32_t>(c < 0 ? 0 : (c > G - 1 ? G - 1 : c));
+      pr[k] = (x.present >> k) & 1u;
+      if (((x.first >> k) & 1u) && c < G) starts2[c] = base + k;
+      if (base + k == n - 1) *ngroups = v[k];
+    }
+    if (vec && base + kItems <= n) {
+      store_vec(gid + base, g);
+      uint2 w;
+      memcpy(&w, pr, sizeof(w));
+      *reinterpret_cast<uint2*>(present + base) = w;
+      return;
+    }
+#pragma unroll
+    for (int k = 0; k < kItems; ++k) {
+      if (base + k >= n) break;
+      gid[base + k] = g[k];
+      present[base + k] = pr[k];
+    }
+  }
+};
+
 template <typename V, int OP, typename Src, typename Sink>
 __global__ void __launch_bounds__(kThreads)
     scan_kernel(Src src, Sink sink, long long n, long long ntiles, u64* st,
-                u64* ctr, unsigned epoch) {
+                u64* ctr) {
   __shared__ long long s_tile;
+  __shared__ unsigned s_epoch;
   __shared__ V s_wv[kWarps];
   __shared__ bool s_wf[kWarps];
   __shared__ bool s_first;
@@ -489,13 +623,19 @@ __global__ void __launch_bounds__(kThreads)
   const int t = threadIdx.x;
   const int lane = t & 31;
   const int warp = t >> 5;
-  if (t == 0) s_tile = lookback::take(ctr, ntiles - 1);
+  if (t == 0) {
+    const lookback::Draw d = lookback::take(ctr, ntiles - 1);
+    s_tile = d.id;
+    s_epoch = d.epoch;
+  }
   __syncthreads();
   const long long tile = s_tile;
+  const unsigned epoch = s_epoch;
   const long long r0 = tile * kTile;
   V v[kItems];
   bool f[kItems];
-  src.load(r0 + t * kItems, n, v, f);
+  typename Src::Extra extra;
+  src.load(r0 + t * kItems, n, v, f, extra);
   sink.begin(s_sink, r0, n, lane);
   if (t == 0) s_first = f[0];
 #pragma unroll
@@ -573,7 +713,7 @@ __global__ void __launch_bounds__(kThreads)
     for (int k = 0; k < kItems; ++k)
       if (!f[k]) v[k] = op<V, OP>(pre, v[k]);
   }
-  sink.store(s_sink, r0, n, v);
+  sink.store(s_sink, r0, n, v, extra);
 }
 
 template <typename V, typename S>
@@ -587,11 +727,42 @@ __global__ void gather_at(const V* __restrict__ run, const S* __restrict__ at,
   }
 }
 
+// K5's second launch: the groups after g_tail, the first group that ends at
+// the last row, take its value (min, max) or 0 (a sum: they hold no row)
+template <typename V>
+__global__ void ends_tail(V* __restrict__ out, long long G,
+                          const long long* __restrict__ tail, int sum) {
+  const long long gt = *tail;
+  const V v = sum ? V{} : out[gt];
+  for (long long g = gt + 1 + blockIdx.x * (long long)blockDim.x + threadIdx.x;
+       g < G; g += (long long)gridDim.x * blockDim.x)
+    out[g] = v;
+}
+
+// group_bounds' second launch: the groups past the last, starts2[g] = n for
+// ngroups <= g < G (with no group at all, gid is 0 everywhere and
+// starts2[0] = 0), as searchsorted of g in the clipped group ids gives them
+__global__ void starts_tail(int64_t* __restrict__ starts2, long long G,
+                            const long long* __restrict__ ngroups,
+                            long long n) {
+  const long long ng = *ngroups;
+  for (long long g = ng + blockIdx.x * (long long)blockDim.x + threadIdx.x;
+       g < G; g += (long long)gridDim.x * blockDim.x)
+    starts2[g] = (ng == 0 && g == 0) ? 0 : n;
+}
+
 unsigned grid_for(long long m) {
   long long g = (m + kThreads - 1) / kThreads;
   if (g < 1) g = 1;
   if (g > 65535LL * 32) g = 65535LL * 32;
   return static_cast<unsigned>(g);
+}
+
+// blocks for a fill whose length only the card knows: enough to fill the
+// card, each looping over its share
+unsigned fill_grid(long long m) {
+  const unsigned g = grid_for(m);
+  return g < kFillBlocks ? g : kFillBlocks;
 }
 
 bool aligned(const void* p, uintptr_t a) {
@@ -601,7 +772,6 @@ bool aligned(const void* p, uintptr_t a) {
 struct State {
   u64* words;
   u64* ctr;
-  unsigned epoch;
 };
 
 template <typename V, int OP, typename Src, typename Sink>
@@ -610,7 +780,7 @@ void launch(const Src& src, const Sink& sink, long long n, const State& s,
   const long long ntiles = (n + kTile - 1) / kTile;
   scan_kernel<V, OP, Src, Sink><<<static_cast<unsigned>(ntiles), kThreads, 0,
                                   stream>>>(src, sink, n, ntiles, s.words,
-                                            s.ctr, s.epoch);
+                                            s.ctr);
 }
 
 // ---- entry bodies, one per (value type, op)
@@ -626,6 +796,7 @@ struct Args {
   const void* at;     // K5 starts2 / part_reduce_broadcast pend
   int at64;
   long long G;        // K5 groups
+  void* tail;         // K5's first group ending at the last row (int64)
   void* run;          // part_reduce_broadcast's stored scan
   void* out;
   State state;
@@ -638,14 +809,17 @@ void run_mode(int mode, const Args& a, cudaStream_t s) {
   if (mode == kEnds) {
     GidSource<V> src{data, static_cast<const int32_t*>(a.gid),
                      aligned(a.data, 16) && aligned(a.gid, 16)};
+    long long* tail = static_cast<long long*>(a.tail);
     if (a.at64)
-      launch<V, OP>(src, EndsSink<V, int64_t>{
-                        static_cast<const int64_t*>(a.at), a.G, out},
+      launch<V, OP>(src, EndsSink<V, int64_t, OP>{
+                        static_cast<const int64_t*>(a.at), a.G, out, tail},
                     a.n, a.state, s);
     else
-      launch<V, OP>(src, EndsSink<V, int32_t>{
-                        static_cast<const int32_t*>(a.at), a.G, out},
+      launch<V, OP>(src, EndsSink<V, int32_t, OP>{
+                        static_cast<const int32_t*>(a.at), a.G, out, tail},
                     a.n, a.state, s);
+    ends_tail<V><<<fill_grid(a.G), kThreads, 0, s>>>(out, a.G, tail,
+                                                     OP == kSum);
     return;
   }
   FlagSource<V> src{data, static_cast<const uint8_t*>(a.flags), a.seg_len,
@@ -665,7 +839,6 @@ template <typename V>
 int dispatch_op(int opc, int mode, const Args& a, cudaStream_t s) {
   switch (opc) {
     case kSum:
-      if (mode == kEnds) return static_cast<int>(cudaErrorInvalidValue);
       run_mode<V, kSum>(mode, a, s);
       break;
     case kMin:
@@ -696,12 +869,9 @@ int dispatch(int vtype, int opc, int mode, const Args& a, void* stream) {
   }
 }
 
-State state_of(void* words, void* ctr, long long epoch) {
-  return State{static_cast<u64*>(words), static_cast<u64*>(ctr),
-               static_cast<unsigned>(epoch)};
+State state_of(void* words, void* ctr) {
+  return State{static_cast<u64*>(words), static_cast<u64*>(ctr)};
 }
-
-bool bad_epoch(long long epoch) { return epoch < 1 || epoch >= (1LL << 29); }
 
 }  // namespace
 
@@ -712,33 +882,36 @@ int nds_seg_scan_tile() { return kTile; }
 int nds_seg_scan_state_words() { return kStateWords; }
 
 // Every entry takes the tile state `words` (int64[nds_seg_scan_state_words()
-// * ceil(n / nds_seg_scan_tile())], no word of it tagged with `epoch` or a
-// later one), the tile counter `ctr` (int64[1], 0) and this launch's epoch,
-// 1 <= epoch < 2^29. n >= 1.
+// * ceil(n / nds_seg_scan_tile())]) and the counter word `ctr` (int64[1]:
+// the next launch's epoch << 32, its tile id 0; each launch draws one epoch
+// from it, and no word of `words` may hold that epoch or a later one). n >= 1.
 
-// K5. vtype: 0 int32, 1 int64, 2 float32, 3 float64. gid: int32[n] sorted;
-// starts2: int32 or int64 [G], non-decreasing (each group's first sorted
-// row). out: V[G]. G >= 1.
-int nds_seg_reduce_at_ends(const void* data, int vtype, int is_max,
+// K5. vtype: 0 int32, 1 int64, 2 float32, 3 float64. op: 0 sum, 1 min, 2
+// max. gid: int32[n] sorted; starts2: int32 or int64 [G], non-decreasing
+// (each group's first sorted row, n past the last group). out: V[G]; a sum
+// writes 0 for a group with no rows. tail: int64[1] scratch. G >= 1. Two
+// launches: the scan, then the groups after the first that ends at the last
+// row.
+int nds_seg_reduce_at_ends(const void* data, int vtype, int opc,
                            const void* gid, long long n, const void* starts2,
-                           int starts64, long long G, void* out, void* words,
-                           void* ctr, long long epoch, void* stream) {
-  if (n < 1 || G < 1 || bad_epoch(epoch))
-    return static_cast<int>(cudaErrorInvalidValue);
-  Args a{data, gid, nullptr, 0, n, starts2, starts64, G, nullptr, out,
-         state_of(words, ctr, epoch)};
-  return dispatch(vtype, is_max ? kMax : kMin, kEnds, a, stream);
+                           int starts64, long long G, void* out, void* tail,
+                           void* words, void* ctr, void* stream) {
+  if (n < 1 || G < 1) return static_cast<int>(cudaErrorInvalidValue);
+  Args a{data, gid, nullptr, 0, n, starts2, starts64, G, tail, nullptr, out,
+         state_of(words, ctr)};
+  return dispatch(vtype, opc, kEnds, a, stream);
 }
 
 // K7 seg_scan, per row. op: 0 sum, 1 min, 2 max. flags: bool[n], or null
-// for a reset every seg_len rows. out: V[n].
+// for a reset every seg_len rows (seg_len = n: one segment, the running
+// max of the windows). out: V[n].
 int nds_seg_scan(const void* data, int vtype, int opc, const void* flags,
                  long long seg_len, long long n, void* out, void* words,
-                 void* ctr, long long epoch, void* stream) {
-  if (n < 1 || (flags == nullptr && seg_len < 1) || bad_epoch(epoch))
+                 void* ctr, void* stream) {
+  if (n < 1 || (flags == nullptr && seg_len < 1))
     return static_cast<int>(cudaErrorInvalidValue);
-  Args a{data, nullptr, flags, seg_len, n, nullptr, 0, 0, nullptr, out,
-         state_of(words, ctr, epoch)};
+  Args a{data, nullptr, flags, seg_len, n, nullptr, 0, 0, nullptr, nullptr,
+         out, state_of(words, ctr)};
   return dispatch(vtype, opc, kRows, a, stream);
 }
 
@@ -748,24 +921,56 @@ int nds_part_reduce_broadcast(const void* data, int vtype, int opc,
                               const void* part_start, long long n,
                               const void* pend, int pend64, void* out,
                               void* run, void* words, void* ctr,
-                              long long epoch, void* stream) {
-  if (n < 1 || bad_epoch(epoch)) return static_cast<int>(cudaErrorInvalidValue);
-  Args a{data, nullptr, part_start, 0, n, pend, pend64, 0, run, out,
-         state_of(words, ctr, epoch)};
+                              void* stream) {
+  if (n < 1) return static_cast<int>(cudaErrorInvalidValue);
+  Args a{data, nullptr, part_start, 0, n, pend, pend64, 0, nullptr, run, out,
+         state_of(words, ctr)};
   return dispatch(vtype, opc, kAtPend, a, stream);
 }
 
 // K7 last_of_group: change bool[n] -> out int32[n]. 1 <= n < 2^31 - 1.
 int nds_last_of_group(const void* change, long long n, void* out, void* words,
-                      void* ctr, long long epoch, void* stream) {
-  if (n < 1 || n >= 2147483647LL || bad_epoch(epoch))
+                      void* ctr, void* stream) {
+  if (n < 1 || n >= 2147483647LL)
     return static_cast<int>(cudaErrorInvalidValue);
   launch<int32_t, kMin>(NextChangeSource{static_cast<const uint8_t*>(change)},
                         LastSink{static_cast<int32_t*>(out),
                                  aligned(out, 16) && n % 4 == 0},
-                        n,
-                        state_of(words, ctr, epoch),
+                        n, state_of(words, ctr),
                         static_cast<cudaStream_t>(stream));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// L2 group_bounds. keys: the sorted packed group keys, int32 or int64
+// (key64) [n], the presence bit at pbit (set for absent rows); non-negative,
+// except a 32-bit key (int32, pbit 31), which is biased by -2^31. present:
+// bool[n]; gid: int32[n]; starts2: int64[G]; ngroups: int64[1].
+// 1 <= n < 2^31 - 1, 1 <= G <= n. Two launches: the scan, then the tail of
+// starts2.
+int nds_group_bounds(const void* keys, int key64, int pbit, long long n,
+                     long long G, void* present, void* gid, void* starts2,
+                     void* ngroups, void* words, void* ctr, void* stream) {
+  if (n < 1 || n >= 2147483647LL || G < 1 || G > n || pbit < 0 ||
+      pbit > (key64 ? 62 : 31))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  GroupSink sink{static_cast<uint8_t*>(present), static_cast<int32_t*>(gid),
+                 static_cast<int64_t*>(starts2),
+                 static_cast<long long*>(ngroups), G,
+                 aligned(present, 8) && aligned(gid, 16)};
+  if (key64)
+    launch<int32_t, kSum>(
+        GroupSource<int64_t>{static_cast<const int64_t*>(keys), pbit, 0,
+                             aligned(keys, 16)},
+        sink, n, state_of(words, ctr), s);
+  else
+    launch<int32_t, kSum>(
+        GroupSource<int32_t>{static_cast<const int32_t*>(keys), pbit,
+                             pbit == 31 ? INT32_MIN : 0, aligned(keys, 16)},
+        sink, n, state_of(words, ctr), s);
+  starts_tail<<<fill_grid(G), kThreads, 0, s>>>(
+      static_cast<int64_t*>(starts2), G,
+      static_cast<const long long*>(ngroups), n);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -54,23 +54,30 @@ SIGNATURES = {
         "nds_seg_scan_tile": [],
         "nds_seg_scan_state_words": [],
         "nds_seg_reduce_at_ends": [_P, _I, _I, _P, _LL, _P, _I, _LL, _P, _P,
-                                   _P, _LL, _P],
-        "nds_seg_scan": [_P, _I, _I, _P, _LL, _LL, _P, _P, _P, _LL, _P],
+                                   _P, _P, _P],
+        "nds_seg_scan": [_P, _I, _I, _P, _LL, _LL, _P, _P, _P, _P],
         "nds_part_reduce_broadcast": [_P, _I, _I, _P, _LL, _P, _I, _P, _P,
-                                      _P, _P, _LL, _P],
-        "nds_last_of_group": [_P, _LL, _P, _P, _P, _LL, _P],
+                                      _P, _P, _P],
+        "nds_last_of_group": [_P, _LL, _P, _P, _P, _P],
+        "nds_group_bounds": [_P, _I, _I, _LL, _LL, _P, _P, _P, _P, _P, _P,
+                             _P],
     },
     "partitioned_join": {
         "nds_pj_partition_tile": [],
         "nds_pj_sort_tile": [_I],
         "nds_pj_max_parts": [],
         "nds_pj_partition": [_P, _P, _LL, _I, _I, _I, _LL, _P, _P, _P, _P,
-                             _P, _P, _LL, _P],
+                             _P, _P, _P],
         "nds_pj_sort": [_P, _P, _P, _P, _P, _P, _I, _I, _LL, _P, _P, _P, _P,
-                        _P, _P, _LL, _P],
+                        _P, _P, _P],
         "nds_pj_ranges": [_P, _I, _LL, _P, _LL, _I, _P, _P, _P, _P, _P],
         "nds_pj_expand": [_P, _P, _P, _P, _I, _LL, _LL, _LL, _P, _P, _P, _P,
                           _P, _P, _P],
+    },
+    "group_key": {
+        "nds_pack_max_fields": [],
+        "nds_pack_group_key": [_P, _LL, _I, _P, _P, _P, _P, _P, _I, _I, _P,
+                               _P],
     },
     "columnar_decode": {
         "nds_bitpack_decode": [_P, _LL, _I, _LL, _I, _I, _P, _P],
@@ -156,7 +163,8 @@ def build_all() -> dict[str, float]:
 def library(name: str) -> ctypes.CDLL:
     """The loaded library of one source (``dense_domain``,
     ``small_build_probe``, ``seg_scan``, ``partitioned_join``,
-    ``columnar_decode``, ``exchange``), built first if needed."""
+    ``group_key``, ``columnar_decode``, ``exchange``), built first if
+    needed."""
     lib = _LIBS.get(name)
     if lib is not None:
         return lib

@@ -388,6 +388,77 @@ def _lexsort(keys, n: int, device):
     return perm
 
 
+def _group_operands(row, keyvals) -> list:
+    """The operands of the reference's group-id sort, most significant
+    first: presence, then per key its validity (where it has one) and its
+    narrowed value filled with 0 where not ``_ok`` (``:2207-2218``)."""
+    ops = [(~row).to(torch.int32)]
+    for kv in keyvals:
+        if kv.valid is not None:
+            ops.append((~kv.valid).to(torch.int32))
+        arr = _narrow_key(kv)
+        ops.append(torch.where(_ok(kv, row), arr,
+                               torch.zeros((), dtype=arr.dtype,
+                                           device=arr.device)))
+    return ops
+
+
+# the widest packed group key: an int64 that stays non-negative
+PACK_MAX_BITS = 63
+
+
+def _pack_layout(keyvals, n: int):
+    """How the group-id sort's operands pack into one non-negative
+    integer, decided on the host from bounds: ``(fields, bits)``, where
+    ``fields`` holds per key (has a validity bit, low end of its value
+    span, value bits) and ``bits`` counts them all with the presence bit
+    at the top; None where a key is a float or has no bounds, the layout
+    needs more than ``PACK_MAX_BITS`` bits or more fields than the pack
+    kernel takes, or the rows do not fit the sort's int32 row ids. A
+    value is filled with 0 where it is not ``_ok``, so its span takes in
+    0; a bool packs as 0/1; a dictionary code spans its dictionary."""
+    if not 1 <= n < 2**31 - 1:
+        return None
+    fields, bits = [], 1
+    for kv in keyvals:
+        dtype = kv.arr.dtype
+        if dtype == torch.bool:
+            lo, hi = 0, 1
+        elif dtype not in (torch.int32, torch.int64):
+            return None
+        elif kv.sdict is not None:
+            lo, hi = 0, len(kv.sdict) - 1
+        elif kv.lo is None or kv.hi is None:
+            return None
+        else:
+            lo, hi = int(kv.lo), int(kv.hi)
+        lo, hi = min(lo, 0), max(hi, 0)
+        width = (hi - lo).bit_length()
+        has_valid = kv.valid is not None
+        bits += int(has_valid) + width
+        if bits > PACK_MAX_BITS:
+            return None
+        fields.append((has_valid, lo, width))
+    if sum(1 for v, _lo, w in fields if v or w) > KX.PACK_MAX_FIELDS:
+        return None
+    return fields, bits
+
+
+def _pack_group_key(row, keyvals, fields, bits: int):
+    """The group-id sort's operands as one key (``_pack_layout``): int32
+    for up to 32 bits (a key of 32 biased by -2^31, which keeps its
+    order), else int64; the presence bit (set where the row is not
+    present) at bit ``bits - 1``, then per key its validity bit (set where
+    NULL) and its filled value minus the span's low end, in one pass
+    (``kernels.pack_group_key``). The order of the keys is the
+    lexicographic order of the operands. The values need no narrowing:
+    they are the same in either width."""
+    return KX.pack_group_key(row, [kv.arr.contiguous() for kv in keyvals],
+                             [None if kv.valid is None
+                              else kv.valid.contiguous() for kv in keyvals],
+                             fields, bits)
+
+
 def _epoch_days_to_civil(days):
     """Hinnant's algorithm: epoch days -> (year, month, day), integer ops
     only."""
@@ -1520,12 +1591,11 @@ class _Trace:
                 out.cols[(b, name)] = DVal(arr, valid, sdict, lo, hi)
             return out
         keyvals = [self.eval(e, ctx) for _, e in node.group_keys]
-        perm, gid, present_s, ngroups = self._group_ids(ctx, keyvals)
         G = self._group_capacity(ctx.n, keyvals)
-        gid = gid.clamp_max(G - 1)
+        # starts2: first sorted position per group (n for empty groups)
+        perm, gid, present_s, ngroups, starts2 = self._group_ids(
+            ctx, keyvals, G)
         out = DCtx(G, self._arange(G) < ngroups)
-        # first sorted position per group (n for empty groups)
-        starts2 = _ss(gid, self._arange(G, gid.dtype))
         starts = starts2.clamp(0, ctx.n - 1)
         for (kname, _kexpr), kv in zip(node.group_keys, keyvals):
             arr_s = kv.arr.index_select(0, perm)
@@ -1544,23 +1614,12 @@ class _Trace:
         return out
 
     @staticmethod
-    def _seg_sum(data, starts2, G):
-        """Per-segment sum over the sorted row space via inclusive-cumsum
-        differences (starts2[g] = first sorted row of group g, n for
-        empty groups; rows outside any group carry 0). The cumsum keeps
-        the data's dtype, as the reference's does."""
-        n = data.shape[0]
-        csum = torch.cumsum(data, 0, dtype=data.dtype)
-        nxt = torch.cat([starts2[1:],
-                         torch.full((1,), n, dtype=starts2.dtype,
-                                    device=starts2.device)])
-        end = (nxt - 1).clamp(0, n - 1)
-        hi = csum.index_select(0, end)
-        lo = torch.where(starts2 > 0,
-                         csum.index_select(0, (starts2 - 1).clamp(0, n - 1)),
-                         torch.zeros((), dtype=csum.dtype,
-                                     device=csum.device))
-        return hi - lo
+    def _seg_sum(data, gid, starts2):
+        """Per-segment sum over the sorted row space (gid sorted, starts2[g]
+        = first sorted row of group g, n for empty groups; rows outside
+        any group carry 0), in the data's dtype, as the reference's
+        cumsum differences give it: K5 with op sum."""
+        return KX.seg_reduce_at_ends("sum", data.contiguous(), gid, starts2)
 
     @staticmethod
     def _agg_bounds(spec: P.AggSpec, ctx: DCtx, dv):
@@ -1594,19 +1653,27 @@ class _Trace:
                 return n
         return max(min(prod, n), 1)
 
-    def _group_ids(self, ctx: DCtx, keyvals):
+    def _group_ids(self, ctx: DCtx, keyvals, G: int):
         """Stable sort rows by (presence, key validity+values...);
-        returns (perm, gid int32 per sorted row, presence per sorted row,
-        ngroups). Present rows sort to the front."""
+        returns (perm, gid int32 per sorted row clipped to the group
+        capacity G, presence per sorted row, ngroups, starts2 = the first
+        sorted row of each of the G groups, n past the last). Present
+        rows sort to the front. Where the keys' bounds pack them into one
+        integer (``_pack_layout``, a host decision), the repo's radix sort
+        orders that key and ``group_bounds`` reads the groups off it in one
+        pass; else successive stable sorts (``_lexsort``)."""
         n = ctx.n
-        ops = [(~ctx.row).to(torch.int32)]
-        for kv in keyvals:
-            if kv.valid is not None:
-                ops.append((~kv.valid).to(torch.int32))
-            arr = _narrow_key(kv)
-            ops.append(torch.where(_ok(kv, ctx.row), arr,
-                                   torch.zeros((), dtype=arr.dtype,
-                                               device=self.dev)))
+        layout = _pack_layout(keyvals, n)
+        if layout is not None:
+            fields, bits = layout
+            key = _pack_group_key(ctx.row, keyvals, fields, bits)
+            counts = torch.full((1,), n, dtype=torch.int32, device=self.dev)
+            ks, perm = KX.partition_sort(key.view(1, n),
+                                         self._arange(n).view(1, n), counts)
+            present_s, gid, ngroups, starts2 = KX.group_bounds(
+                ks.view(n), bits - 1, G)
+            return perm.view(n), gid, present_s, ngroups, starts2
+        ops = _group_operands(ctx.row, keyvals)
         perm = _lexsort(ops, n, self.dev)
         present_s = ctx.row.index_select(0, perm)
         diff = self._zeros(n, torch.bool)
@@ -1617,9 +1684,10 @@ class _Trace:
         first_s = present_s & diff
         gid = torch.cumsum(first_s.to(torch.int32), 0,
                            dtype=torch.int32) - 1
-        gid = gid.clamp(0, n - 1)
+        gid = gid.clamp(0, n - 1).clamp_max(G - 1)
         ngroups = first_s.sum()
-        return perm, gid, present_s, ngroups
+        starts2 = _ss(gid, self._arange(G, gid.dtype))
+        return perm, gid, present_s, ngroups, starts2
 
     def _agg_global(self, spec: P.AggSpec, ctx: DCtx, dv):
         if spec.func == "count":
@@ -1684,14 +1752,14 @@ class _Trace:
         if spec.func == "count" and spec.distinct:
             return self._count_distinct_grouped(ctx, dv, perm, gid, G)
         if dv is None:  # count(*)
-            cnt = self._seg_sum(present_s.to(torch.int32), starts2,
-                                G).to(torch.int64)
+            cnt = self._seg_sum(present_s.to(torch.int32), gid,
+                                starts2).to(torch.int64)
             return cnt, None, None
         arr_s = dv.arr.index_select(0, perm)
         w = present_s
         if dv.valid is not None:
             w = w & dv.valid.index_select(0, perm)
-        cnt = self._seg_sum(w.to(torch.int32), starts2, G).to(torch.int64)
+        cnt = self._seg_sum(w.to(torch.int32), gid, starts2).to(torch.int64)
         if spec.func == "count":
             return cnt, None, None
         valid = cnt > 0
@@ -1703,10 +1771,10 @@ class _Trace:
                 data = torch.where(w, arr_s.to(torch.int64),
                                    torch.zeros((), dtype=torch.int64,
                                                device=self.dev))
-            return self._seg_sum(data, starts2, G), valid, None
+            return self._seg_sum(data, gid, starts2), valid, None
         if spec.func == "avg":
             f = _to_float(arr_s, spec.arg.dtype, self.fdt)
-            s = self._seg_sum(torch.where(w, f, zero_f), starts2, G)
+            s = self._seg_sum(torch.where(w, f, zero_f), gid, starts2)
             return s / cnt.clamp_min(1).to(self.fdt), valid, None
         if spec.func in ("min", "max"):
             isf = arr_s.dtype.is_floating_point
@@ -1742,8 +1810,8 @@ class _Trace:
             return red, valid, dv.sdict
         if spec.func in ("stddev_samp", "stddev"):
             f = _to_float(arr_s, spec.arg.dtype, self.fdt)
-            s1 = self._seg_sum(torch.where(w, f, zero_f), starts2, G)
-            s2 = self._seg_sum(torch.where(w, f * f, zero_f), starts2, G)
+            s1 = self._seg_sum(torch.where(w, f, zero_f), gid, starts2)
+            s2 = self._seg_sum(torch.where(w, f * f, zero_f), gid, starts2)
             c = cnt.to(self.fdt)
             var = (s2 - s1 * s1 / c.clamp_min(1)) / (c - 1).clamp_min(1)
             sd = torch.sqrt(var.clamp_min(0.0))
@@ -1761,7 +1829,7 @@ class _Trace:
         w0 = _ok(dv, ctx.row)
         # group id per original row: scatter sorted gid back through perm
         gid_orig = torch.empty_like(gid)
-        gid_orig[perm] = gid
+        gid_orig[perm.to(torch.int64)] = gid
         keys = [(~ctx.row).to(torch.int32), gid_orig, (~w0).to(torch.int32),
                 torch.where(w0, val, torch.zeros((), dtype=val.dtype,
                                                  device=self.dev))]
@@ -1773,16 +1841,17 @@ class _Trace:
                              (g2[1:] != g2[:-1]) | (v2[1:] != v2[:-1])])
         flag = w2 & newpair
         starts2 = _ss(g2, self._arange(G, g2.dtype))
-        cnt = self._seg_sum(flag.to(torch.int32), starts2, G).to(torch.int64)
+        cnt = self._seg_sum(flag.to(torch.int32), g2, starts2).to(
+            torch.int64)
         return cnt, None, None
 
     # ------------------------------------------------------------- windows
 
     def _run_window(self, node: P.Window) -> DCtx:
         """Sort-based window evaluation: per window column one multi-key
-        sort into partition-major/order-minor space, then running maxima,
-        cumsum differences and segmented scans, scattered back through
-        the permutation."""
+        sort into partition-major/order-minor space, then running maxima
+        (``running_max``), cumsum differences and segmented scans,
+        scattered back through the permutation."""
         ctx = self.run(node.child)
         out = DCtx(ctx.n, ctx.row)
         out.cols.update(ctx.cols)
@@ -1837,8 +1906,7 @@ class _Trace:
         part_start[0] = True
         for i in part_ops:
             part_start = part_start | self._changes(sorted_ops[i])
-        start_pos = torch.cummax(torch.where(part_start, iota, zero_i),
-                                 0).values
+        start_pos = KX.running_max(torch.where(part_start, iota, zero_i))
 
         def scatter(res_sorted, valid_sorted=None, lo=None, hi=None):
             # perm is a permutation: every slot is written once
@@ -1863,12 +1931,10 @@ class _Trace:
             change = order_change()
             if spec.func == "dense_rank":
                 c = torch.cumsum(change.to(torch.int64), 0)
-                cstart = torch.cummax(
-                    torch.where(part_start, c, torch.zeros_like(c)),
-                    0).values
+                cstart = KX.running_max(
+                    torch.where(part_start, c, torch.zeros_like(c)))
                 return scatter(c - cstart + 1, lo=1, hi=n)
-            lastchg = torch.cummax(torch.where(change, iota, zero_i),
-                                   0).values
+            lastchg = KX.running_max(torch.where(change, iota, zero_i))
             return scatter((lastchg - start_pos + 1).to(torch.int64),
                            lo=1, hi=n)
 
@@ -1959,9 +2025,10 @@ class _Trace:
     def _distinct_ctx(self, ctx: DCtx, keyvals, output, b: str) -> DCtx:
         """One row per distinct key tuple: the group-id sort, read at
         each group's first sorted row."""
-        perm, gid, _present_s, ngroups = self._group_ids(ctx, keyvals)
         G = ctx.n
-        starts = _ss(gid, self._arange(G, gid.dtype)).clamp(0, ctx.n - 1)
+        perm, _gid, _present_s, ngroups, starts2 = self._group_ids(
+            ctx, keyvals, G)
+        starts = starts2.clamp(0, ctx.n - 1)
         out = DCtx(G, self._arange(G) < ngroups)
         for (name, _dt), kv in zip(output, keyvals):
             arr_g = kv.arr.index_select(0, perm).index_select(0, starts)

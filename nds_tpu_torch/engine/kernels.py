@@ -14,11 +14,20 @@ matmul_probe_join      ``matmul_probe_join`` (K2)            csrc/small_build_pr
 bitmask_semi           ``bitmask_semi`` (K3)                 csrc/dense_domain.cu
 keyed_minmax_semi      ``keyed_minmax_semi`` (K4)            csrc/dense_domain.cu
 seg_reduce_at_ends     ``seg_scan`` + ``seg_reduce_at_ends``  csrc/seg_scan.cu
-                       (K5)
+                       (K5); with op "sum",
+                       ``device_exec.py`` ``_seg_sum`` (L2)
+pack_group_key         ``device_exec.py`` ``_group_ids``'    csrc/group_key.cu
+                       sort operands, packed (L2)
+group_bounds           ``device_exec.py`` ``_group_ids``      csrc/seg_scan.cu
+                       after its sort (L2)
+running_max            ``device_exec.py`` the windows'        csrc/seg_scan.cu
+                       ``lax.cummax``
 partitioned_mn_join    ``partitioned_mn_join`` +             csrc/partitioned_join.cu
                        ``_radix_scatter`` + ``_pids`` (K6)   (+ csrc/seg_scan.cu)
 partition_sort         K6's build sort, ``lax.sort`` of      csrc/partitioned_join.cu
-                       ``(keys, gidx)`` with ``num_keys=1``
+                       ``(keys, gidx)`` with ``num_keys=1``;
+                       ``_group_ids``' ``lax.sort`` over one
+                       packed key (L2)
 seg_scan               ``seg_scan``, per row (K7)            csrc/seg_scan.cu
 part_reduce_broadcast  ``part_reduce_broadcast`` (K7)        csrc/seg_scan.cu
 last_of_group          ``last_of_group`` (K7)                csrc/seg_scan.cu
@@ -42,13 +51,14 @@ fallback from the kernel to the plain version. Each wrapper counts its
 kernel launches in ``LAUNCHES[<wrapper>]`` (``reset_launches`` zeroes
 them), so a run can show that it went through the kernels.
 
-All fourteen are bound by bytes on the card: the source files say how
-many, and what their design does about it. The scans, the M:N join's
-partition and its build sort are single-pass kernels with decoupled
-look-back (``csrc/lookback.cuh``); their tile words live in buffers
-kept across calls, one per device, stream and word layout
-(``_lookback``), each launch with epochs of its own, so nothing is
-zeroed between calls.
+All seventeen are bound by bytes on the card: the source files say how
+many, and what their design does about it. The scans, the group bounds,
+the M:N join's partition and its build sort are single-pass kernels with
+decoupled look-back (``csrc/lookback.cuh``); their tile words live in
+buffers kept across calls, one per device, stream and word layout
+(``_lookback``), and each launch draws an epoch of its own from a counter
+word on the card, so nothing is zeroed between calls and a CUDA graph's
+replays do not repeat an epoch.
 """
 
 from __future__ import annotations
@@ -495,15 +505,25 @@ def seg_scan_plain(op: str, vals, flags):
 def seg_reduce_at_ends_plain(op: str, data, gid, starts2):
     """Plain version of ``seg_reduce_at_ends``: the segmented scan over
     sorted group ids, read at each group's last row (``starts2`` holds
-    each group's first sorted row, n past the last group)."""
+    each group's first sorted row, n past the last group). A sum is the
+    reference's ``_seg_sum``: inclusive-cumsum differences at each group's
+    bounding rows, in the data's dtype, 0 for a group with no rows."""
     n = data.shape[0]
-    first = torch.cat([torch.ones(1, dtype=torch.bool, device=gid.device),
-                       gid[1:] != gid[:-1]])
-    run = seg_scan_plain(op, data, first)
     nxt = torch.cat([starts2[1:],
                      torch.full((1,), n, dtype=starts2.dtype,
                                 device=starts2.device)])
     end = (nxt - 1).clamp(0, n - 1)
+    if op == "sum":
+        csum = torch.cumsum(data, 0, dtype=data.dtype)
+        hi = csum.index_select(0, end)
+        lo = torch.where(starts2 > 0,
+                         csum.index_select(0, (starts2 - 1).clamp(0, n - 1)),
+                         torch.zeros((), dtype=csum.dtype,
+                                     device=csum.device))
+        return hi - lo
+    first = torch.cat([torch.ones(1, dtype=torch.bool, device=gid.device),
+                       gid[1:] != gid[:-1]])
+    run = seg_scan_plain(op, data, first)
     return run[end]
 
 
@@ -511,41 +531,85 @@ _SCAN_VTYPES = {torch.int32: 0, torch.int64: 1, torch.float32: 2,
                 torch.float64: 3}
 
 # The tile words of the decoupled look-back kernels (seg_scan.cu,
-# partitioned_join.cu) and their tile counter, kept across calls: one set
+# partitioned_join.cu) and their counter word, kept across calls: one set
 # per (device, stream, layout). The two layouts never share words, so a
 # word is only ever read in the layout it was written in: "scan" holds
 # seg_scan.cu's tile state (a status word tagged with the epoch at bit 35,
 # beside a raw value), "count" the count words of lookback.cuh (tagged at
-# bit 34) of the partition and the radix sort. Every launch tags its words
-# with epochs of its own, so nothing is zeroed between calls; a buffer is
-# zeroed when it is made or grown, and its epochs then start over.
-# Launches on one stream run in order; another stream gets words and a
-# counter of its own.
+# bit 34) of the partition and the radix sort. The epoch lives on the card:
+# the counter word holds the next launch's epoch above its tile counter,
+# and each launch (each pass of the sort) draws one, so nothing is zeroed
+# between calls and the host passes no epoch, which a CUDA graph would
+# replay. Launches on one stream run in order; another stream gets words
+# and a counter of its own.
+#
+# The range: a status word holds 29 bits of the epoch (a count word 30).
+# The host cannot read the card's epoch without a synchronize, so it counts
+# the epochs its own calls draw, and once they would pass _EPOCH_HOST (half
+# the range) it zeroes the buffer in place, on the stream, and sets its
+# counter word back to epoch 1. The other half, 2^28 epochs, is headroom
+# for the launches that a CUDA graph replays without a call of the host: a
+# graph of k look-back launches (a sort counts one per pass) can be
+# replayed 2^28 / k times between two such resets, about 1.3M replays of a
+# graph of 200, and whoever replays graphs must count its replays' epochs
+# into the host's count before that (past the range a tile could read a
+# stale word of another epoch).
+#
+# The lifetime: a captured graph holds the pointers of the buffer and the
+# counter word that its launches were given. So neither is ever freed or
+# replaced while the process runs: the reset zeroes them in place (a graph
+# sees it), and a need for more words gives the entry a new, larger buffer
+# and counter word but keeps the old ones alive beside it (``retired``),
+# still zeroed at every reset. Each growth at least doubles the buffer, so
+# the retired ones hold less than the current one. A buffer is never made,
+# grown or zeroed during a capture (``_lookback`` raises): a launch runs
+# once on the capturing stream before its capture.
+# (device, stream, layout) -> (buffer, counter word, epochs the host's
+# calls drew since the last reset, retired (buffer, counter word) pairs)
 _LOOKBACK: dict = {}
 _LOOKBACK_LAYOUTS = ("scan", "count")
 _EPOCH_END = 1 << 29
+_EPOCH_HOST = 1 << 28
+_EPOCH_FIRST = 1 << 32   # the counter word at epoch 1, tile id 0
 _LOOKBACK_LOCK = threading.Lock()
+
+
+def _capturing(dev) -> bool:
+    return dev.type == "cuda" and torch.cuda.is_current_stream_capturing()
 
 
 def _lookback(dev, stream: int, layout: str, words: int,
               epochs: int = 1) -> tuple:
-    """(tile words int64[>= words], tile counter int64[1], first epoch) for
-    one launch on ``stream`` that uses ``epochs`` consecutive epochs of
-    ``layout`` ("scan" or "count")."""
+    """(tile words int64[>= words], counter word int64[1]) for one launch
+    on ``stream`` that draws ``epochs`` epochs of ``layout`` ("scan" or
+    "count") from the counter word on the card."""
     if layout not in _LOOKBACK_LAYOUTS:
         raise ValueError(f"look-back layout {layout!r}")
     key = (dev, stream, layout)
     with _LOOKBACK_LOCK:
-        buf, ctr, nxt = _LOOKBACK.get(key, (None, None, 1))
-        if buf is None or buf.numel() < words or nxt + epochs > _EPOCH_END:
-            size = max(words, 1 << 16,
-                       2 * buf.numel() if buf is not None else 0)
-            buf = torch.zeros(size, dtype=torch.int64, device=dev)
-            if ctr is None:
-                ctr = torch.zeros(1, dtype=torch.int64, device=dev)
-            nxt = 1
-        _LOOKBACK[key] = (buf, ctr, nxt + epochs)
-        return buf, ctr, nxt
+        buf, ctr, used, retired = _LOOKBACK.get(key, (None, None, 0, ()))
+        grow = buf is None or buf.numel() < words
+        reset = used + epochs > _EPOCH_HOST
+        if (grow or reset) and _capturing(dev):
+            raise RuntimeError(
+                f"the look-back {layout} buffer would be made or zeroed "
+                f"during a graph capture: run the launch once on the "
+                f"capturing stream first")
+        if reset:
+            for b, c in retired + ((buf, ctr),):
+                b.zero_()
+                c.fill_(_EPOCH_FIRST)
+            used = 0
+        if grow:
+            if buf is not None:
+                retired += ((buf, ctr),)
+            buf = torch.zeros(max(words, 1 << 16,
+                                  2 * buf.numel() if buf is not None else 0),
+                              dtype=torch.int64, device=dev)
+            ctr = torch.full((1,), _EPOCH_FIRST, dtype=torch.int64,
+                             device=dev)
+        _LOOKBACK[key] = (buf, ctr, used + epochs, retired)
+        return buf, ctr
 
 
 def _scan_state(lib, n: int, dev, stream: int) -> tuple:
@@ -557,12 +621,14 @@ def _scan_state(lib, n: int, dev, stream: int) -> tuple:
 
 @_counted
 def seg_reduce_at_ends(op: str, data, gid, starts2):
-    """Grouped min or max (``op`` is "min" or "max") over rows sorted
-    by group id, with no scatter: a segmented scan read at segment
-    ends. Rows outside any group must carry the op's identity;
-    ``starts2`` holds each group's first sorted row, so it does not
-    decrease."""
-    if op not in ("min", "max"):
+    """Grouped sum, min or max (``op``) over rows sorted by group id,
+    with no scatter: a segmented scan read at segment ends. Rows outside
+    any group must carry the op's identity (0 for a sum); ``starts2``
+    holds each group's first sorted row (n past the last group), so it
+    does not decrease. A sum keeps the data's dtype (int32 counts and
+    int64 sums are exact) and is 0 for a group with no rows; a float sum
+    adds in another order than the reference's cumsum differences."""
+    if op not in _OP_CODES:
         raise ValueError(f"seg_reduce_at_ends: op {op!r}")
     if not _launch_device(data, gid, starts2):
         return seg_reduce_at_ends_plain(op, data, gid, starts2)
@@ -576,12 +642,13 @@ def seg_reduce_at_ends(op: str, data, gid, starts2):
     cb, lib = _lib("seg_scan")
     dev = data.device
     out = torch.empty(G, dtype=data.dtype, device=dev)
+    tail = torch.empty((), dtype=torch.int64, device=dev)
     stream = cb.stream_handle()
-    words, ctr, epoch = _scan_state(lib, n, dev, stream)
+    words, ctr = _scan_state(lib, n, dev, stream)
     err = lib.nds_seg_reduce_at_ends(
-        _ptr(data), _SCAN_VTYPES[data.dtype], int(op == "max"), _ptr(gid),
+        _ptr(data), _SCAN_VTYPES[data.dtype], _OP_CODES[op], _ptr(gid),
         n, _ptr(starts2), int(starts2.dtype == torch.int64), G, _ptr(out),
-        _ptr(words), _ptr(ctr), epoch, stream)
+        _ptr(tail), _ptr(words), _ptr(ctr), stream)
     cb.check(err, "seg_reduce_at_ends")
     LAUNCHES["seg_reduce_at_ends"] += 1
     return out
@@ -613,10 +680,10 @@ def seg_scan(op: str, vals, flags):
     dev = vals.device
     out = torch.empty(n, dtype=vals.dtype, device=dev)
     stream = cb.stream_handle()
-    words, ctr, epoch = _scan_state(lib, n, dev, stream)
+    words, ctr = _scan_state(lib, n, dev, stream)
     err = lib.nds_seg_scan(
         _ptr(vals), _SCAN_VTYPES[vals.dtype], _OP_CODES[op], _ptr(flags), 0,
-        n, _ptr(out), _ptr(words), _ptr(ctr), epoch, stream)
+        n, _ptr(out), _ptr(words), _ptr(ctr), stream)
     cb.check(err, "seg_scan")
     LAUNCHES["seg_scan"] += 1
     return out
@@ -645,11 +712,11 @@ def part_reduce_broadcast(op: str, data, part_start, pend):
     run = torch.empty(n, dtype=data.dtype, device=dev)
     out = torch.empty(n, dtype=data.dtype, device=dev)
     stream = cb.stream_handle()
-    words, ctr, epoch = _scan_state(lib, n, dev, stream)
+    words, ctr = _scan_state(lib, n, dev, stream)
     err = lib.nds_part_reduce_broadcast(
         _ptr(data), _SCAN_VTYPES[data.dtype], _OP_CODES[op],
         _ptr(part_start), n, _ptr(pend), int(pend.dtype == torch.int64),
-        _ptr(out), _ptr(run), _ptr(words), _ptr(ctr), epoch, stream)
+        _ptr(out), _ptr(run), _ptr(words), _ptr(ctr), stream)
     cb.check(err, "part_reduce_broadcast")
     LAUNCHES["part_reduce_broadcast"] += 1
     return out
@@ -680,12 +747,187 @@ def last_of_group(change, n: int):
     dev = change.device
     out = torch.empty(n, dtype=torch.int32, device=dev)
     stream = cb.stream_handle()
-    words, ctr, epoch = _scan_state(lib, n, dev, stream)
+    words, ctr = _scan_state(lib, n, dev, stream)
     err = lib.nds_last_of_group(_ptr(change), n, _ptr(out), _ptr(words),
-                                _ptr(ctr), epoch, stream)
+                                _ptr(ctr), stream)
     cb.check(err, "last_of_group")
     LAUNCHES["last_of_group"] += 1
     return out
+
+
+def running_max_plain(vals):
+    """Plain version of ``running_max``: ``torch.cummax`` along the rows,
+    the reference's ``lax.cummax``."""
+    return torch.cummax(vals, 0).values
+
+
+@_counted
+def running_max(vals):
+    """Running maximum of int32 or int64 ``vals`` over all rows (the
+    windows' partition starts, peer-group starts and last changes): the
+    segmented scan with op max and one segment, exact."""
+    if not _launch_device(vals):
+        return running_max_plain(vals)
+    _require(vals, "vals", _KEY_DTYPES)
+    n = vals.shape[0]
+    if n < 1:
+        raise ValueError(f"running_max: n={n}")
+    cb, lib = _lib("seg_scan")
+    dev = vals.device
+    out = torch.empty(n, dtype=vals.dtype, device=dev)
+    stream = cb.stream_handle()
+    words, ctr = _scan_state(lib, n, dev, stream)
+    err = lib.nds_seg_scan(
+        _ptr(vals), _SCAN_VTYPES[vals.dtype], _OP_CODES["max"], None, n, n,
+        _ptr(out), _ptr(words), _ptr(ctr), stream)
+    cb.check(err, "running_max")
+    LAUNCHES["running_max"] += 1
+    return out
+
+
+# the most fields (keys with a validity bit or value bits) one packed
+# group key takes: the kernel holds them in its parameters
+PACK_MAX_FIELDS = 16
+_PACK_TYPES = {torch.int32: 0, torch.int64: 1, torch.bool: 2}
+
+
+# the bias of a key of exactly 32 bits, stored as int32
+_BIAS32 = 1 << 31
+
+
+def pack_group_key_plain(row, arrs, valids, fields, bits: int):
+    """Plain version of ``pack_group_key``, in int64 elementwise ops."""
+    dev = row.device
+    zero = torch.zeros((), dtype=torch.int64, device=dev)
+    key = torch.where(row, zero, torch.full((), 1 << (bits - 1),
+                                            dtype=torch.int64, device=dev))
+    shift = bits - 1
+    for arr, valid, (has_valid, lo, width) in zip(arrs, valids, fields):
+        ok = row if valid is None else row & valid
+        if has_valid:
+            shift -= 1
+            key |= (~valid).to(torch.int64) << shift
+        if width:
+            shift -= width
+            val = torch.where(ok, arr.to(torch.int64) - lo,
+                              torch.full((), -lo, dtype=torch.int64,
+                                         device=dev))
+            key |= val << shift
+    if bits == 32:
+        key -= _BIAS32
+    return key.to(torch.int32 if bits <= 32 else torch.int64)
+
+
+@_counted
+def pack_group_key(row, arrs, valids, fields, bits: int):
+    """The group-id sort's operands as one non-negative key: the presence
+    bit (set where ``row`` is False) at bit ``bits - 1``, then per key,
+    the most significant first, its validity bit (set where NULL; only
+    where ``fields`` gives it one, exactly where ``valids`` holds a mask)
+    and its value filled with 0 where not present or NULL, minus ``lo``,
+    in ``width`` bits (``fields``: one ``(has_valid, lo, width)`` per key,
+    from the executor's ``_pack_layout``). int32 for ``bits <= 32``, else
+    int64 (``bits <= 63``); a key of exactly 32 bits is biased by -2^31,
+    which keeps its order as int32. ``arrs``: int32, int64 or bool
+    values."""
+    if not _launch_device(row, *arrs, *[v for v in valids if v is not None]):
+        return pack_group_key_plain(row, arrs, valids, fields, bits)
+    n = row.shape[0]
+    _require(row, "row", (torch.bool,))
+    if not 1 <= bits <= 63 or n < 1:
+        raise ValueError(f"pack_group_key: {bits} bits, n={n}")
+    keep = []
+    for arr, valid, (has_valid, lo, width) in zip(arrs, valids, fields):
+        if has_valid != (valid is not None) or lo > 0 or width < 0:
+            raise ValueError(f"pack_group_key: field {(has_valid, lo, width)}")
+        if width:
+            _require(arr, "arr", tuple(_PACK_TYPES), n)
+        if valid is not None:
+            _require(valid, "valid", (torch.bool,), n)
+        if width or has_valid:
+            keep.append((arr if width else None, valid, int(lo), int(width)))
+    cb, lib = _lib("group_key")
+    k = len(keep)
+    if k > lib.nds_pack_max_fields():
+        raise ValueError(f"pack_group_key: {k} fields")
+    if 1 + sum(w + (v is not None) for _a, v, _l, w in keep) != bits:
+        raise ValueError(f"pack_group_key: the fields do not make {bits} "
+                         f"bits")
+    m = max(k, 1)
+    key64 = int(bits > 32)
+    out = torch.empty(n, dtype=torch.int64 if key64 else torch.int32,
+                      device=row.device)
+    err = lib.nds_pack_group_key(
+        _ptr(row), n, k,
+        (ctypes.c_void_p * m)(*[None if a is None else _ptr(a)
+                                for a, _v, _l, _w in keep]),
+        (ctypes.c_void_p * m)(*[None if v is None else _ptr(v)
+                                for _a, v, _l, _w in keep]),
+        (ctypes.c_longlong * m)(*[lo for _a, _v, lo, _w in keep]),
+        (ctypes.c_int * m)(*[0 if a is None else _PACK_TYPES[a.dtype]
+                             for a, _v, _l, _w in keep]),
+        (ctypes.c_int * m)(*[w for _a, _v, _l, w in keep]),
+        bits, key64, _ptr(out), cb.stream_handle())
+    cb.check(err, "pack_group_key")
+    LAUNCHES["pack_group_key"] += 1
+    return out
+
+
+def group_bounds_plain(keys, pbit: int, G: int):
+    """Plain version of ``group_bounds``, step by step as the executor's
+    ``_group_ids`` after its sort (the reference's ``:2221-2230``) and its
+    callers' clamp and ``searchsorted``."""
+    n = keys.shape[0]
+    packed = keys.to(torch.int64)
+    if keys.dtype == torch.int32 and pbit == 31:
+        packed = packed + _BIAS32
+    present = ((packed >> pbit) & 1) == 0
+    diff = torch.ones(n, dtype=torch.bool, device=keys.device)
+    diff[1:] = keys[1:] != keys[:-1]
+    first_s = present & diff
+    gid = torch.cumsum(first_s.to(torch.int32), 0, dtype=torch.int32) - 1
+    gid = gid.clamp(0, n - 1).clamp_max(G - 1)
+    ngroups = first_s.sum()
+    starts2 = torch.searchsorted(
+        gid, torch.arange(G, dtype=torch.int32, device=keys.device))
+    return present, gid, ngroups, starts2
+
+
+@_counted
+def group_bounds(keys, pbit: int, G: int):
+    """The group ids of rows sorted by their packed group key (int32 or
+    int64, as ``pack_group_key`` writes it; bit ``pbit`` set for rows that
+    are not present, so present rows come first): ``(present_s bool, gid
+    int32, ngroups int64 scalar, starts2 int64[G])``. A group's first row
+    is a present row whose key differs from the row before (row 0
+    always); gid is the count of first rows up to each row, minus one,
+    clipped to ``[0, G - 1]``; starts2[g] is the first row whose gid is at
+    least g (n for the groups past the last; 0 for group 0 when there is
+    none), ``searchsorted`` of g in gid. An int32 key with ``pbit`` 31 is
+    a 32-bit key, biased by -2^31."""
+    if not _launch_device(keys):
+        return group_bounds_plain(keys, pbit, G)
+    _require(keys, "keys", _KEY_DTYPES)
+    n = keys.shape[0]
+    key64 = int(keys.dtype == torch.int64)
+    if not 1 <= n < 2**31 - 1 or not 1 <= G <= n:
+        raise ValueError(f"group_bounds: n={n}, G={G}")
+    if not 0 <= pbit <= (62 if key64 else 31):
+        raise ValueError(f"group_bounds: presence bit {pbit}")
+    cb, lib = _lib("seg_scan")
+    dev = keys.device
+    present = torch.empty(n, dtype=torch.bool, device=dev)
+    gid = torch.empty(n, dtype=torch.int32, device=dev)
+    starts2 = torch.empty(G, dtype=torch.int64, device=dev)
+    ngroups = torch.empty((), dtype=torch.int64, device=dev)
+    stream = cb.stream_handle()
+    words, ctr = _scan_state(lib, n, dev, stream)
+    err = lib.nds_group_bounds(
+        _ptr(keys), key64, int(pbit), n, int(G), _ptr(present), _ptr(gid),
+        _ptr(starts2), _ptr(ngroups), _ptr(words), _ptr(ctr), stream)
+    cb.check(err, "group_bounds")
+    LAUNCHES["group_bounds"] += 1
+    return present, gid, ngroups, starts2
 
 
 # ------------------------------------------------ partitioned M:N join
@@ -837,12 +1079,13 @@ def partition_sort(keys, gidx, counts):
     info = torch.empty(nparts * 8, dtype=torch.int32, device=dev)
     tiles = -(-cap // lib.nds_pj_sort_tile(key64))
     stream = cb.stream_handle()
-    words, ctr, epoch = _lookback(dev, stream, "count",
-                                  nparts * tiles * 256, 8 if key64 else 4)
+    # one epoch per pass
+    words, ctr = _lookback(dev, stream, "count", nparts * tiles * 256,
+                           8 if key64 else 4)
     err = lib.nds_pj_sort(
         _ptr(keys), _ptr(gidx), _ptr(tk), _ptr(tg), _ptr(ks), _ptr(gs),
         key64, nparts, cap, _ptr(counts), _ptr(hist), _ptr(dbase),
-        _ptr(info), _ptr(words), _ptr(ctr), epoch, stream)
+        _ptr(info), _ptr(words), _ptr(ctr), stream)
     cb.check(err, "partition_sort")
     LAUNCHES["partition_sort"] += 1
     return ks, gs
@@ -860,13 +1103,13 @@ def _radix_partition(lib, cb, key, ok, nparts: int, cap: int, log2r: int,
     gidx = torch.empty((nparts, cap), dtype=torch.int32, device=dev)
     ntiles = -(-n // lib.nds_pj_partition_tile())
     stream = cb.stream_handle()
-    words, ctr, epoch = _lookback(dev, stream, "count",
-                                  ntiles * lib.nds_pj_max_parts())
+    words, ctr = _lookback(dev, stream, "count",
+                           ntiles * lib.nds_pj_max_parts())
     err = lib.nds_pj_partition(
         _ptr(key), _ptr(ok), n, int(key.dtype == torch.int64), nparts,
         log2r, cap, _ptr(keys), _ptr(gidx), _ptr(count),
         _ptr(over) + side * over.element_size(), _ptr(words), _ptr(ctr),
-        epoch, stream)
+        stream)
     cb.check(err, "partitioned_mn_join (partition)")
     return keys, gidx
 
@@ -941,10 +1184,10 @@ def partitioned_mn_join_steps(lkey, lok, rkey, rok, out_capacity: int,
     # kernel, restarting every rcap slots
     m = nparts * rcap
     offs = torch.empty(m, dtype=torch.int64, device=dev)
-    words, ctr, epoch = _scan_state(scan, m, dev, stream)
+    words, ctr = _scan_state(scan, m, dev, stream)
     err = scan.nds_seg_scan(
         _ptr(cnt), _SCAN_VTYPES[torch.int64], _OP_CODES["sum"], None, rcap,
-        m, _ptr(offs), _ptr(words), _ptr(ctr), epoch, stream)
+        m, _ptr(offs), _ptr(words), _ptr(ctr), stream)
     cb.check(err, "partitioned_mn_join (prefix)")
     yield "prefix"
     lidx = torch.empty(nparts * kp, dtype=torch.int32, device=dev)

@@ -196,30 +196,73 @@ def test_partition_sort_plain_leaves_its_inputs():
 
 
 def test_lookback_state_epochs_and_growth(monkeypatch):
-    """The look-back state is planned on the host: each launch gets
-    epochs no earlier launch used; a larger need gives a new zeroed
-    buffer and the epochs start over, as they do before they run out."""
+    """The look-back state: the epochs live in the counter word on the
+    card (epoch 1 above a tile counter of 0 when the buffer is made), and
+    the host only counts the epochs its calls draw. A larger need gives a
+    new zeroed buffer and a counter word at epoch 1, and keeps the old
+    ones alive, since a captured graph may hold them. A count that would
+    pass the host's half of the range zeroes every buffer of the entry and
+    sets every counter word back to epoch 1, in place, so that a graph
+    sees it; the other half is left to the epochs that graph replays
+    draw."""
     monkeypatch.setattr(KX, "_LOOKBACK", {})
     dev = torch.device("cpu")
-    buf, ctr, e1 = KX._lookback(dev, 0, "count", 100, 4)
-    assert e1 == 1 and buf.numel() >= 100 and not bool(buf.any())
-    assert ctr.shape == (1,) and int(ctr) == 0
-    buf2, ctr2, e2 = KX._lookback(dev, 0, "count", 100)
-    assert buf2 is buf and ctr2 is ctr and e2 == 5
+    key = (dev, 0, "count")
+    buf, ctr = KX._lookback(dev, 0, "count", 100, 4)
+    assert buf.numel() >= 100 and not bool(buf.any())
+    assert ctr.shape == (1,) and int(ctr) == KX._EPOCH_FIRST == 1 << 32
+    assert KX._LOOKBACK[key][2] == 4
+    buf2, ctr2 = KX._lookback(dev, 0, "count", 100)
+    assert buf2 is buf and ctr2 is ctr and KX._LOOKBACK[key][2] == 5
+    # the kernels move the counter word on; the host never writes it
+    ctr.fill_(7 << 32)
     buf.fill_(7)
-    big, ctr3, e3 = KX._lookback(dev, 0, "count", buf.numel() + 1)
+    big, ctr3 = KX._lookback(dev, 0, "count", buf.numel() + 1)
     assert big.numel() >= 2 * buf.numel() and not bool(big.any())
-    assert ctr3 is ctr and e3 == 1
-    KX._LOOKBACK[(dev, 0, "count")] = (big, ctr, KX._EPOCH_END - 2)
+    assert int(ctr3) == KX._EPOCH_FIRST
+    _b, _c, used, retired = KX._LOOKBACK[key]
+    assert used == 6 and len(retired) == 1
+    assert retired[0][0] is buf and retired[0][1] is ctr
+    assert int(ctr) == 7 << 32 and bool(buf.all())
+    KX._LOOKBACK[key] = (big, ctr3, KX._EPOCH_HOST - 2, retired)
     big.fill_(7)
-    again, _c, e4 = KX._lookback(dev, 0, "count", 10, 4)
-    assert e4 == 1 and not bool(again.any())
+    ctr3.fill_(9 << 32)
+    again, ctr4 = KX._lookback(dev, 0, "count", 10, 4)
+    assert again is big and ctr4 is ctr3
+    assert not bool(big.any()) and not bool(buf.any())
+    assert int(ctr3) == int(ctr) == KX._EPOCH_FIRST
+    assert KX._LOOKBACK[key][2] == 4
+    KX._LOOKBACK[key] = (big, ctr3, KX._EPOCH_HOST - 1, retired)
+    big.fill_(7)
+    assert KX._lookback(dev, 0, "count", 10)[0] is big and bool(big.all())
+    assert KX._lookback(dev, 0, "count", 10)[0] is big
+    assert not bool(big.any()) and KX._LOOKBACK[key][2] == 1
+    assert KX._EPOCH_HOST * 2 == KX._EPOCH_END == 1 << 29
+
+
+def test_lookback_state_is_never_made_in_a_capture(monkeypatch):
+    """A capture may not make, grow or zero a buffer (that would put a
+    memset into the graph): ``_lookback`` raises there, and serves a
+    buffer made before."""
+    monkeypatch.setattr(KX, "_LOOKBACK", {})
+    dev = torch.device("cpu")
+    buf, ctr = KX._lookback(dev, 0, "scan", 64)
+    monkeypatch.setattr(KX, "_capturing", lambda d: True)
+    assert KX._lookback(dev, 0, "scan", 64)[0] is buf
+    with pytest.raises(RuntimeError, match="capture"):
+        KX._lookback(dev, 0, "scan", buf.numel() + 1)
+    with pytest.raises(RuntimeError, match="capture"):
+        KX._lookback(dev, 1, "scan", 64)
+    key = (dev, 0, "scan")
+    KX._LOOKBACK[key] = (buf, ctr, KX._EPOCH_HOST, ())
+    with pytest.raises(RuntimeError, match="capture"):
+        KX._lookback(dev, 0, "scan", 64)
 
 
 def test_lookback_layouts_and_streams_never_share_words(monkeypatch):
     """The scan's tile state and the count words of the partition and
     the sort are laid out differently, so they never share a buffer, a
-    counter or an epoch sequence; nor do two streams of one device. A
+    counter word or an epoch count; nor do two streams of one device. A
     word is then only read in the layout, and by the stream, that wrote
     it."""
     monkeypatch.setattr(KX, "_LOOKBACK", {})
@@ -228,16 +271,17 @@ def test_lookback_layouts_and_streams_never_share_words(monkeypatch):
     for stream in (0, 1):
         for layout in ("scan", "count"):
             got[stream, layout] = KX._lookback(dev, stream, layout, 64, 3)
-    bufs = [b for b, _c, _e in got.values()]
-    ctrs = [c for _b, c, _e in got.values()]
+    bufs = [b for b, _c in got.values()]
+    ctrs = [c for _b, c in got.values()]
     assert len({b.data_ptr() for b in bufs}) == 4
     assert len({c.data_ptr() for c in ctrs}) == 4
-    assert all(e == 1 for _b, _c, e in got.values())
-    # a launch of one layout leaves the other's epochs where they were
-    assert KX._lookback(dev, 0, "scan", 64)[2] == 4
-    assert KX._lookback(dev, 0, "scan", 64)[2] == 5
-    assert KX._lookback(dev, 0, "count", 64)[2] == 4
-    assert KX._lookback(dev, 1, "count", 64)[2] == 4
+    assert all(int(c) == KX._EPOCH_FIRST for c in ctrs)
+    # a launch of one layout leaves the other's count where it was
+    KX._lookback(dev, 0, "scan", 64)
+    KX._lookback(dev, 0, "scan", 64)
+    used = {k: v[2] for k, v in KX._LOOKBACK.items()}
+    assert used == {(dev, 0, "scan"): 5, (dev, 0, "count"): 3,
+                    (dev, 1, "scan"): 3, (dev, 1, "count"): 3}
     with pytest.raises(ValueError, match="layout"):
         KX._lookback(dev, 0, "words", 64)
 
