@@ -12,7 +12,9 @@ Drives ``nds_tpu_torch`` (never ``jax``, never ``nds_tpu``) on the card:
    pool of CPU oracle workers (one per core, at most 8), before the card
    is touched: the workers inherit the tables and run only numpy;
 3. builds the CUDA C++ kernels from ``nds_tpu_torch/csrc`` with ``nvcc``
-   (one process per source, all at once);
+   (one process per source, all at once); the graph case: each look-back
+   layout, ``partition_sort`` and a two-word multi-key sort captured in
+   a CUDA graph and replayed three times with new inputs, exact;
 4. NDS-H leg at ``--sf`` (default SF1, ``bench.py``'s scale):
    ``Session.for_nds_h(make_device_factory())`` on ``cuda``;
    an untimed pass of the 22 queries captures each kernel's largest call;
@@ -23,9 +25,13 @@ Drives ``nds_tpu_torch`` (never ``jax``, never ``nds_tpu``) on the card:
    0, the 22 queries timed, the counts read; a pass under
    ``torch.profiler`` for the card's busy time; every result checked
    against the CPU oracle by the validator's rules, in the worker pool;
-   the executor's library steps (L1-L3: the compactor sort, the
-   multi-key sort, segment sums, the sort-merge build and probe) counted
-   and their largest calls timed, here and on the NDS leg;
+   the steps that ran on torch library calls before the port gave them
+   hand kernels (the multi-key sort, the sort-merge build and probe, the
+   compactor) counted, and their largest calls timed beside the torch
+   calls they replaced and held to them exactly, here and on the NDS
+   leg; the leg fails if it called ``_lexsort`` or if its profiled pass
+   ran any torch sort (cub's radix sort or another) or searchsorted
+   kernel;
 4b. distributed phase: a world of one rank over NCCL
    (``parallel.mesh.make_mesh(1)``) and ``make_distributed_factory`` over
    it: the NDS-H leg again at ``--sf``, its kernels (the exchange's
@@ -49,12 +55,19 @@ Drives ``nds_tpu_torch`` (never ``jax``, never ``nds_tpu``) on the card:
    the scans and their build sort held to their plain versions on
    adversarial inputs of up to 10M rows (``nds_adversarial_cases``) and
    right after an int64 scan whose values read as the sort's count words
-   (``lookback_layout_cases``);
+   (``lookback_layout_cases``); the sorts' pack, the sorted search in
+   every mode and the compactor on adversarial inputs
+   (``sort_search_cases``: descending keys, NULLS FIRST and LAST, int64
+   keys at iinfo's ends, floats with -0.0, +0.0 and NaN, a key without
+   bounds beside bounded ones, several words, every row absent and none,
+   empty builds, probes equal to the sentinel), and the multi-key sort
+   against ``_lexsort`` on them (``sort_chain_checks``);
 6. window path: whole-partition MIN/MAX and a running SUM under the
    default RANGE frame over ``store_sales`` at the NDS leg's scale (no NDS
    statement takes either form: the only path to
    ``part_reduce_broadcast``), kernels checked, timed with counts read,
-   results checked against the oracle;
+   a profiled pass (no torch sort or searchsorted kernel), results
+   checked against the oracle;
 7. columnar phase, after the raw executors are released: both legs again
    under ``columnar.set_mode("auto")`` (the compressed columnar store),
    each through a fresh executor, with the same untimed, timed and
@@ -107,6 +120,7 @@ from __future__ import annotations
 
 import argparse
 import functools
+import hashlib
 import json
 import multiprocessing
 import os
@@ -135,9 +149,16 @@ KERNELS = {
                             "nds_tpu/engine/kernels.py:349,321,310"),
     "partition_sort": ("nds_tpu_torch/csrc/partitioned_join.cu",
                        "nds_tpu/engine/kernels.py:377; "
-                       "nds_tpu/engine/device_exec.py:2220"),
+                       "nds_tpu/engine/device_exec.py:2220,1781"),
     "pack_group_key": ("nds_tpu_torch/csrc/group_key.cu",
                        "nds_tpu/engine/device_exec.py:2207-2218"),
+    "pack_sort_key": ("nds_tpu_torch/csrc/sort_key.cu",
+                      "nds_tpu/engine/device_exec.py:2611,2456,2396,2255,"
+                      "2091,2220"),
+    "sorted_search": ("nds_tpu_torch/csrc/sorted_search.cu",
+                      "nds_tpu/engine/device_exec.py:293,1785"),
+    "compact_perm": ("nds_tpu_torch/csrc/compact.cu",
+                     "nds_tpu/engine/device_exec.py:947,2617"),
     "group_bounds": ("nds_tpu_torch/csrc/seg_scan.cu",
                      "nds_tpu/engine/device_exec.py:2221,2228"),
     "running_max": ("nds_tpu_torch/csrc/seg_scan.cu",
@@ -160,11 +181,14 @@ KERNELS = {
 # the kernels each timed run must have launched
 H_REQUIRED = ("direct_lookup_join", "matmul_probe_join", "bitmask_semi",
               "keyed_minmax_semi", "seg_reduce_at_ends", "pack_group_key",
-              "partition_sort", "group_bounds")
+              "partition_sort", "group_bounds", "pack_sort_key",
+              "sorted_search", "compact_perm")
 DS_REQUIRED = ("partitioned_mn_join", "partition_sort", "seg_scan",
                "last_of_group", "pack_group_key", "group_bounds",
-               "running_max")
-WINDOW_REQUIRED = ("part_reduce_broadcast", "last_of_group")
+               "running_max", "pack_sort_key", "sorted_search",
+               "compact_perm")
+WINDOW_REQUIRED = ("part_reduce_broadcast", "last_of_group", "pack_sort_key",
+                   "partition_sort")
 # the columnar decode kernels (K8, K9): the timed passes under "auto"
 # must launch all three between them, the NDS pass the mask unpack
 DECODE_KERNELS = ("bitpack_decode", "unpack_mask", "rle_decode")
@@ -183,7 +207,8 @@ EXCHANGE_DEAD = 0.1
 LINE_PATH = {**{n: "nds_h" for n in H_REQUIRED},
              "partitioned_mn_join": "nds", "partition_sort": "nds",
              "seg_scan": "nds", "pack_group_key": "nds", "group_bounds": "nds",
-             "running_max": "nds",
+             "running_max": "nds", "pack_sort_key": "nds",
+             "sorted_search": "nds", "compact_perm": "nds",
              "last_of_group": "nds", "part_reduce_broadcast": "window",
              "exchange_pack": "dist_nds_h"}
 # the bit-width sweep of the decode kernels: TPC-H's SF1 lineitem count
@@ -449,6 +474,24 @@ def work_of(name: str, args, out) -> tuple:
                 ok = row if v is None else row & v
                 moved += int(ok.sum()) * a.element_size()
         ops = row.numel()
+    if name == "pack_sort_key":
+        # the row mask (where a field fills by it), the permutation and the
+        # validities once each, a value only where the fill leaves it
+        # (elsewhere it is never read), the word once
+        from nds_tpu_torch.engine import kernels as KX
+        row, arrs, valids, fields = args[:4]
+        perm = args[5] if len(args) > 5 else None
+        by_row = [bool(f[0] & KX.SORT_USE_ROW) for f in fields]
+        moved = (nbytes(out) + nbytes(perm) + (nbytes(row) if any(by_row)
+                                               else 0)
+                 + sum(nbytes(v) for v in valids if v is not None))
+        for a, v, use_row in zip(arrs, valids, by_row):
+            ok = row if use_row else None
+            if v is not None:
+                ok = v if ok is None else ok & v
+            moved += (a.numel() if ok is None else int(ok.sum())) \
+                * a.element_size()
+        ops = arrs[0].numel()
     if name in DECODE_KERNELS:
         # a few integer operations per output row
         ops = out.numel()
@@ -517,6 +560,16 @@ def library_call(name: str, args):
             ks, order = torch.sort(kb, dim=1, stable=True)
             return ks, gb.gather(1, order)
         return sort_gather
+    if name == "sorted_search":
+        ks, q = args[:2]
+        mode = args[2] if len(args) > 2 else "left"
+        if mode in ("left", "right"):
+            return lambda: torch.searchsorted(ks, q, right=mode == "right")
+        return None
+    if name == "compact_perm":
+        # the stable sort of the 0/1 key that the compactor replaced
+        row = args[0]
+        return lambda: torch.sort((~row).to(torch.int32), stable=True)
     if name == "keyed_minmax_semi":
         bkey, bok, bval, _pk, _po, _pv, lo, dom = args
         idx = torch.where(bok, bkey.to(torch.int64) - lo,
@@ -1010,6 +1063,171 @@ def nds_adversarial_cases(dev) -> list:
     return cases
 
 
+def adversarial_sort_keys(dev, n: int, seed: int) -> dict:
+    """Sort keys of ``n`` rows (row mask, ``SortKey`` list) for the packed
+    sort's adversarial cases: descending keys and NULLS FIRST and LAST
+    ranks, int32 and int64 keys without bounds at their types' minimum
+    and maximum (a descending minimum wraps, as the reference's negation
+    does), a bounded key filled by the row mask with values out of its
+    bounds on absent rows, floats with -0.0, +0.0, NaN of both signs and
+    infinities, a bool, over several words; the same keys with every row
+    absent and with none."""
+    import numpy as np
+    import torch
+    from nds_tpu_torch.engine import device_exec as dx
+    rng = np.random.default_rng(seed)
+
+    def dt(a):
+        return torch.as_tensor(np.ascontiguousarray(a)).to(dev)
+
+    row = rng.random(n) < 0.7
+    valid = dt(rng.random(n) < 0.8)
+    i32 = rng.integers(-2**31, 2**31, n, dtype=np.int64).astype(np.int32)
+    i32[::7] = np.iinfo(np.int32).min
+    i32[1::7] = np.iinfo(np.int32).max
+    i64 = rng.integers(-2**62, 2**62, n, dtype=np.int64)
+    i64[::5] = np.iinfo(np.int64).min
+    i64[1::5] = np.iinfo(np.int64).max
+    f64 = rng.integers(-3, 4, n) / 2.0
+    f64[::3] = -0.0
+    f64[1::9] = np.nan
+    f64[2::9] = -np.nan
+    f64[3::11] = np.inf
+    f64[4::11] = -np.inf
+    small = rng.integers(-7, 8, n).astype(np.int32)
+    junk = rng.random(n) < 0.5
+
+    def keys(r):
+        # out of its bounds only on absent rows, which the fill hides
+        sr = np.where(~r & junk, 1000, small).astype(np.int32)
+        r = dt(r)
+        return [dx.SortKey(r, invert=True), dx.SortKey(valid),
+                dx.SortKey(dt(sr), valid, use_row=True, negate=True,
+                           lo=-7, hi=7),
+                dx.SortKey(dt(i32), negate=True), dx.SortKey(dt(i64), valid),
+                dx.SortKey(dt(f64), valid, negate=True),
+                dx.SortKey(dt(f64.astype(np.float32))),
+                dx.SortKey(dt(rng.random(n) < 0.5), valid, negate=True),
+                dx.SortKey(dt(i64), negate=True)]
+    none, every = np.zeros(n, bool), np.ones(n, bool)
+    return {"mixed": (dt(row), keys(row)),
+            "every row absent": (dt(none), keys(none)),
+            "no row absent": (dt(every), keys(every))}
+
+
+def sort_search_cases(dev) -> list:
+    """(kernel, args, label) of the sorts, searches and the compactor
+    beside the NDS leg's own calls, at up to about 10M rows:
+    ``pack_sort_key`` on every word of ``adversarial_sort_keys``, first
+    and through a permutation; ``sorted_search`` in every mode over int32
+    and int64 keys with a sentinel tail (iinfo.max, as an invalid build
+    row holds it) and probes equal to the sentinel and to iinfo.min, into
+    no keys, one, 2,048 and 2,049 (the splitters' edge), 144,067 (NDS's
+    largest probe build) and 5,000,000; ``compact_perm`` with every row
+    absent, none, and at lengths no multiple of its tile."""
+    import numpy as np
+    import torch
+    from nds_tpu_torch.engine import device_exec as dx
+    rng = np.random.default_rng(31)
+
+    def dt(a):
+        return torch.as_tensor(np.ascontiguousarray(a)).to(dev)
+
+    cases = []
+    n = 10_000_019
+    perm = dt(rng.permutation(n).astype(np.int32))
+    for what, (row, keys) in adversarial_sort_keys(dev, n, 37).items():
+        for j, (fields, bits) in enumerate(dx._sort_layout(keys, n)):
+            args = dx._word_args(row, keys, fields, bits)
+            cases.append(("pack_sort_key", args,
+                          f"n={n} {what}, word {j} ({bits} bits)"))
+            if what == "mixed":
+                cases.append(("pack_sort_key", args + (perm,),
+                              f"n={n} {what}, word {j} ({bits} bits), "
+                              f"through a permutation"))
+    for nk, m, dtype in ((0, 1_000_003, np.int32), (1, 1_000_003, np.int64),
+                         (2048, 3_000_017, np.int32),
+                         (2049, 3_000_017, np.int64),
+                         (144_067, 10_000_019, np.int64),
+                         (5_000_000, 10_000_019, np.int32)):
+        info = np.iinfo(dtype)
+        ks = np.sort(rng.integers(-1000, 1000, nk)).astype(dtype)
+        ks[nk - nk // 7:] = info.max
+        q = rng.integers(-1100, 1100, m).astype(dtype)
+        q[::11] = info.max
+        q[1::13] = info.min
+        tks, tq = dt(ks), dt(q)
+        label = f"{m} {dtype.__name__} queries into {nk} keys"
+        for mode in ("left", "right", "both"):
+            cases.append(("sorted_search", (tks, tq, mode),
+                          f"{label}, {mode}"))
+        if nk:
+            cases.append(("sorted_search",
+                          (tks, tq, "probe",
+                           dt(rng.permutation(nk).astype(np.int32)),
+                           dt(rng.random(m) < 0.9)), f"{label}, probe"))
+            cases.append(("sorted_search", (tks, tq, "probe"),
+                          f"{label}, probe with no rows and no mask"))
+    for nr, what in ((6_480_001, "a third present"), (6_480_001, "none"),
+                     (6_480_001, "all"), (4097, "runs"), (1, "all")):
+        row = {"a third present": rng.random(nr) < 1 / 3,
+               "none": np.zeros(nr, bool), "all": np.ones(nr, bool),
+               "runs": (np.arange(nr) // 300) % 2 == 0}[what]
+        cases.append(("compact_perm", (dt(row),), f"n={nr}, {what} "
+                      f"present"))
+    return cases
+
+
+def lexsort_operands(row, keys) -> list:
+    """A multi-key sort's operands for ``_lexsort`` on the card, each float
+    taken as ``lax.sort``'s comparator takes it (-0.0 as +0.0, every NaN
+    as +NaN): torch's sort on the card (cub's radix sort) orders -0.0
+    before +0.0 and a NaN with its sign bit set below every number, where
+    ``lax.sort``, torch's sort on the CPU and ``pack_sort_key`` do not."""
+    import torch
+    from nds_tpu_torch.engine import device_exec as dx
+    ops = []
+    for k in keys:
+        v = dx._sort_operand(row, k)
+        if v.dtype.is_floating_point:
+            zero = torch.zeros((), dtype=v.dtype, device=v.device)
+            v = torch.where(v == 0, zero, v)
+            v = torch.where(torch.isnan(v), float("nan"), v)
+        ops.append(v)
+    return ops
+
+
+def sort_chain_checks(dev) -> list:
+    """The executor's multi-key sort (``_sort_perm``: every word packed
+    and sorted by ``partition_sort``) against ``_lexsort`` of the same
+    operands, on ``adversarial_sort_keys``: the permutations must be
+    equal."""
+    import torch
+    from nds_tpu_torch.engine import device_exec as dx
+    out = []
+    n = 5_000_011
+    for what, (row, keys) in adversarial_sort_keys(dev, n, 41).items():
+        got = dx._sort_perm(row, keys, n, dev).to(torch.int64)
+        exp = dx._lexsort(lexsort_operands(row, keys), n, dev)
+        differ = torch.nonzero(got != exp).flatten()
+        rec = {"kernel": "pack_sort_key",
+               "case": f"sort chain against _lexsort, n={n}, {what}",
+               "words_bits": [b for _f, b in dx._sort_layout(keys, n)],
+               "max_abs_err": float("inf") if differ.numel() else 0.0}
+        if differ.numel():
+            at = int(differ[0])
+            rec["first_difference"] = {
+                "at": at, "rows": [int(got[at]), int(exp[at])],
+                "operands": [[float(o[int(got[at])]), float(o[int(exp[at])])]
+                             for o in lexsort_operands(row, keys)]}
+        log(json.dumps(rec))
+        if differ.numel():
+            raise SmokeError(f"the packed sort differs from _lexsort: "
+                             f"{rec['case']}: {rec['first_difference']}")
+        out.append(rec)
+    return out
+
+
 def decode_sweep_cases(dev) -> list:
     """(kernel, args, label) of the decode kernels over SWEEP_ROWS rows:
     every bit width into int32 (bias added in int32) and into int64 (bias
@@ -1069,33 +1287,47 @@ def call_size(name: str, args, kwargs=None) -> int:
     the rows it writes."""
     if name in DECODE_KERNELS:
         return int(args[2] if name == "rle_decode" else args[1])
+    if name == "sort":
+        # the executor's multi-key sort (row mask, keys, rows, device)
+        return int(args[2]) * len(args[1])
     return sum(a.numel() for a in _tensors(list(args)
                                            + list((kwargs or {}).values())))
 
 
-def _cloned(x):
-    if hasattr(x, "clone"):
-        return x.clone()
+def _mapped(x, fn):
+    """``x`` with every tensor in it (in lists, tuples and dicts, the
+    executor's columns and sort keys) replaced by ``fn(tensor)``."""
+    import dataclasses
+    import torch
+    if isinstance(x, torch.Tensor):
+        return fn(x)
+    if dataclasses.is_dataclass(x) and not isinstance(x, type):
+        # a sort key of the executor
+        return dataclasses.replace(x, **{
+            f.name: _mapped(getattr(x, f.name), fn)
+            for f in dataclasses.fields(x)})
     if type(x).__name__ == "DVal":
         # an executor column, materialized: its arrays, dictionary, bounds
-        return x.with_arrays(x.arr.clone(),
-                             None if x.valid is None else x.valid.clone())
+        return x.with_arrays(fn(x.arr),
+                             None if x.valid is None else fn(x.valid))
     if isinstance(x, (list, tuple)):
-        return type(x)(_cloned(y) for y in x)
+        return type(x)(_mapped(y, fn) for y in x)
     if isinstance(x, dict):
-        return {k: _cloned(v) for k, v in x.items()}
+        return {k: _mapped(v, fn) for k, v in x.items()}
     return x
 
 
 class Recorder:
     """Wraps functions during an untimed pass: per name, its calls and a
-    copy of the inputs of its largest call. ``targets`` maps a name to
-    the (owner, attribute) of the function to wrap; a call's size is
-    ``call_size``."""
+    copy of the inputs of its largest call, kept in host memory so that
+    the copies do not crowd the card during the pass (``inputs`` puts
+    them back). ``targets`` maps a name to the (owner, attribute) of the
+    function to wrap; a call's size is ``call_size``."""
 
     def __init__(self, targets: dict):
         self.targets = targets
         self.calls: dict = {n: 0 for n in targets}
+        # key -> (size, args, kwargs, device of the call)
         self.largest: dict = {}
         self.saved: dict = {}
 
@@ -1116,24 +1348,45 @@ class Recorder:
         raw = self.saved[name]
         return raw.__func__ if isinstance(raw, staticmethod) else raw
 
+    def inputs(self, key) -> tuple:
+        """(args, kwargs) of ``key``'s largest call, on its device."""
+        _size, args, kwargs, dev = self.largest[key]
+        return (_mapped(args, lambda t: t.to(dev)),
+                _mapped(kwargs, lambda t: t.to(dev)))
+
     def _wrap(self, name, fn):
         def wrapper(*args, **kwargs):
             self.calls[name] += 1
             size = call_size(name, args, kwargs)
-            for key in (name, variant_of(name, args)):
-                cur = self.largest.get(key)
-                if key is not None and (cur is None or size > cur[0]):
-                    self.largest[key] = (size, _cloned(args),
-                                         _cloned(kwargs))
+            keys = [k for k in (name, variant_of(name, args))
+                    if k is not None and (k not in self.largest
+                                          or size > self.largest[k][0])]
+            if keys:
+                tens = _tensors(list(args) + list(kwargs.values()))
+                dev = tens[0].device if tens else None
+                kept = (size, _mapped(args, _host_copy),
+                        _mapped(kwargs, _host_copy), dev)
+                for k in keys:
+                    self.largest[k] = kept
             return fn(*args, **kwargs)
         return wrapper
 
 
+def _host_copy(t):
+    return t.to("cpu", copy=True)
+
+
 def variant_of(name: str, args) -> "str | None":
     """The calls of a kernel kept apart from its largest call: K5's sums
-    (``_seg_sum``, L2) beside its grouped min/max."""
+    (``_seg_sum``, L2) beside its grouped min/max, each mode of
+    ``sorted_search``, and the words ``pack_sort_key`` packs through a
+    permutation beside the first of a sort."""
     if name == "seg_reduce_at_ends" and args and args[0] == "sum":
         return "seg_reduce_at_ends[sum]"
+    if name == "sorted_search":
+        return f"sorted_search[{args[2] if len(args) > 2 else 'left'}]"
+    if name == "pack_sort_key" and len(args) > 5 and args[5] is not None:
+        return "pack_sort_key[gather]"
     return None
 
 
@@ -1142,54 +1395,142 @@ def kernel_targets(KX) -> dict:
     return {n: (KX, n) for n in KERNELS}
 
 
-# the executor's library steps, L1-L3 of PERF.md's kernel table: torch
-# ops, not hand kernels. The raw legs count each pure step's calls in
-# their untimed pass (the plans fix them: the timed pass makes the same)
-# and time its largest call
+# the executor's steps that ran on torch library calls before this port
+# gave them hand kernels (PERF.md's kernel table: the sorts, L3 and L1).
+# The raw legs count each step's calls in their untimed pass (the plans fix
+# them: the timed pass makes the same) and time its largest call by the
+# route it takes now and by the torch calls it replaced, on the same inputs;
+# the two must agree exactly
 LIBRARY_STEPS = {
     # name: (row, owner of the function, attribute)
-    "compact_perm": ("L1", "module", "_compact_perm"),
-    "lexsort": ("L3, windows", "module", "_lexsort"),
-    "build_lookup": ("L3", "trace", "_build_lookup"),
-    "probe": ("L3", "trace", "_probe"),
+    "sort": ("sorts", "module", "_sort_perm"),
+    "build_lookup": ("L3 build", "trace", "_build_lookup"),
+    "probe": ("L3 probe", "trace", "_probe"),
+    "compact": ("L1", "kernels", "compact_perm"),
 }
 # L2's group-id sort: the pack of each call that takes the packed key, and
-# the operands of each that keeps the successive sorts
+# the operands of each that takes the multi-key sort
 GROUP_SORT_STEPS = {"pack_group_key": ("module", "_pack_group_key"),
                     "group_operands": ("module", "_group_operands")}
+# the torch route of the multi-key sorts: no card leg may call it
+NEVER_CALLED = {"lexsort": ("module", "_lexsort")}
 
 
 def library_targets() -> dict:
-    """The executor's library steps and the group-id sort's two routes,
-    for a ``Recorder``."""
+    """The executor's former library steps, the group-id sort's two routes
+    and ``_lexsort``, for a ``Recorder``."""
     from nds_tpu_torch.engine import device_exec as dx
-    owners = {"module": dx, "trace": dx._Trace}
+    from nds_tpu_torch.engine import kernels as KX
+    owners = {"module": dx, "trace": dx._Trace, "kernels": KX}
     out = {name: (owners[where], attr)
            for name, (_row, where, attr) in LIBRARY_STEPS.items()}
-    out.update({name: (owners[where], attr)
-                for name, (where, attr) in GROUP_SORT_STEPS.items()})
+    for steps in (GROUP_SORT_STEPS, NEVER_CALLED):
+        out.update({name: (owners[where], attr)
+                    for name, (where, attr) in steps.items()})
     return out
 
 
+def _sort_key_bytes(keys) -> int:
+    return sum(nbytes(k.arr) + nbytes(k.valid) for k in keys)
+
+
+def replaced_step(name: str, args, lexsort, dev) -> tuple:
+    """(the torch calls a step replaced, on its inputs, as a function;
+    the bytes the step must move; its extra record): the successive
+    stable sorts of the operands (``_lexsort``), the stable ``torch.sort``
+    of the build's sentinel keys, ``torch.searchsorted`` with the probe's
+    gathers, the stable ``torch.sort`` of the 0/1 key."""
+    import torch
+    from nds_tpu_torch.engine import device_exec as dx
+    from nds_tpu_torch.engine import kernels as KX
+    extra = {}
+    if name == "sort":
+        row, keys, n, _device = args
+        ops = lexsort_operands(row, keys)
+        layout = dx._sort_layout(keys, n)
+        uses_row = any(k.use_row for k in keys)
+        moved = (_sort_key_bytes(keys) + (nbytes(row) if uses_row else 0)
+                 + 4 * n)
+        extra["words_bits"] = [b for _f, b in layout]
+        # the least significant word alone: the radix sort against one
+        # torch.sort of it
+        word = KX.pack_sort_key(*dx._word_args(row, keys, *layout[-1]))
+        iota = torch.arange(n, dtype=torch.int32, device=dev).view(1, n)
+        counts = torch.full((1,), n, dtype=torch.int32, device=dev)
+        extra["word_sort_ms"] = time_ms(
+            lambda: KX.partition_sort(word.view(1, n), iota, counts), dev)
+        extra["word_torch_sort_ms"] = time_ms(
+            lambda: torch.sort(word, stable=True), dev)
+        extra["word_bound_ms"] = 2 * n * (word.element_size() + 4) \
+            / HBM_BYTES_PER_S * 1000
+        return (lambda: lexsort(ops, n, dev)), moved, extra
+    if name == "build_lookup":
+        key, ok = args
+        sent = torch.iinfo(key.dtype).max
+
+        def old():
+            return torch.sort(torch.where(ok, key, torch.full_like(key, sent)),
+                              stable=True)
+        return old, nbytes(list(args)) + key.numel() * (
+            key.element_size() + 4), extra
+    if name == "probe":
+        ks, order, pkey, pok = args
+        n = ks.shape[0]
+        ks2, pk2 = dx._promoted(ks, pkey)
+
+        def old():
+            pos = torch.searchsorted(ks2, pk2).clamp(0, n - 1)
+            hit = (ks2.index_select(0, pos) == pk2) & pok
+            return order.index_select(0, pos), hit
+        extra["searchsorted_ms"] = time_ms(
+            lambda: torch.searchsorted(ks2, pk2), dev)
+        return old, nbytes(list(args)) + pkey.numel() * 5, extra
+    row = args[0]
+
+    def old():
+        return (torch.sort((~row).to(torch.int32), stable=True)[1],
+                row.sum())
+    return old, nbytes(row) + 4 * row.numel() + 8, extra
+
+
 def library_step_checks(lib: Recorder, label: str, dev) -> list:
-    """Each library step's largest call timed on the card (CUDA events,
-    median of 7), with the bytes it must move and their bound."""
+    """Each former library step's largest call timed on the card (CUDA
+    events, median of 7) by its route now (``ms``, ``device_ms``) and by
+    the torch calls it replaced (``library_ms``, ``library_device_ms``),
+    with the bytes it must move and their bound; the two routes' results
+    must be equal."""
+    import torch
+    from nds_tpu_torch.engine import kernels as KX
     out = []
-    for name, (row, _where, _attr) in LIBRARY_STEPS.items():
+    lexsort = lib.function("lexsort")
+    for name, (row, where, attr) in LIBRARY_STEPS.items():
         if name not in lib.largest:
             continue
-        args = lib.largest[name][1]
-        fn = lib.function(name)
-        res = fn(*args)
-        moved = nbytes(list(args)) + nbytes(res)
-        bound_ms, bound_by = bound(moved, sum(
-            t.numel() for t in _tensors(list(args))))
+        args = lib.inputs(name)[0]
+        # a kernel wrapper as the module holds it now: the recorders of the
+        # warm pass are gone
+        fn = getattr(KX, attr) if where == "kernels" else lib.function(name)
+        old, moved, extra = replaced_step(name, args, lexsort, dev)
+        got, exp = fn(*args), old()
+        same = all(a.shape == b.shape and torch.equal(a.to(torch.int64),
+                                                      b.to(torch.int64))
+                   for a, b in zip(_tensors(got), _tensors(exp)))
+        if not same:
+            raise SmokeError(f"{label}: the {name} step differs from the "
+                             f"torch calls it replaced at its largest call")
+        bound_ms, bound_by = bound(moved, 0)
+        shapes = (_tensors(list(args)) if name != "sort" else
+                  [t for k in args[1] for t in _tensors([k.arr, k.valid])])
         rec = {"step": name, "row": row, "path": label,
                "calls": lib.calls[name],
                "shapes": [list(t.shape) + [str(t.dtype).replace("torch.", "")]
-                          for t in _tensors(list(args))],
-               "library_ms": time_ms(lambda: fn(*args), dev),
-               "bytes": moved, "bound_ms": bound_ms, "bound_by": bound_by}
+                          for t in shapes],
+               "ms": time_ms(lambda: fn(*args), dev),
+               "device_ms": time_ms(lambda: fn(*args), dev, spin=True),
+               "library_ms": time_ms(old, dev),
+               "library_device_ms": time_ms(old, dev, spin=True),
+               "bytes": moved, "bound_ms": bound_ms, "bound_by": bound_by,
+               **extra}
         log(json.dumps(rec))
         out.append(rec)
     return out
@@ -1219,11 +1560,11 @@ def group_sort_record(KX, lib: Recorder, label: str, dev) -> "dict | None":
     import torch
     from nds_tpu_torch.engine import device_exec as dx
     routes = {"packed": lib.calls["pack_group_key"],
-              "successive_sorts": lib.calls["group_operands"]}
+              "multi_key_sort": lib.calls["group_operands"]}
     if "pack_group_key" not in lib.largest:
         log(json.dumps({"phase": f"{label} group-id sort", "routes": routes}))
         return {"routes": routes}
-    _size, (row, keyvals, fields, bits), _kw = lib.largest["pack_group_key"]
+    (row, keyvals, fields, bits), _kw = lib.inputs("pack_group_key")
     n = row.shape[0]
     G = dx._Trace._group_capacity(n, keyvals)
     iota = torch.arange(n, dtype=torch.int32, device=dev).view(1, n)
@@ -1263,12 +1604,16 @@ def group_sort_record(KX, lib: Recorder, label: str, dev) -> "dict | None":
 
 
 def graph_replay_cases(dev) -> list:
-    """(kernel, make inputs, label) for the graph case: the scan layout
-    (``seg_scan``, K5's sum, ``group_bounds``, ``running_max``), the count
-    layout (K6, whose partition takes it) and ``partition_sort``. Each
-    ``make(seed)`` gives a new set of inputs of one shape."""
+    """(kernel, make inputs, label[, function, plain version]) for the
+    graph case: the scan layout (``seg_scan``, K5's sum, ``group_bounds``,
+    ``running_max``), the count layout (K6, whose partition takes it),
+    ``partition_sort``, and the executor's multi-key sort of two words
+    (``_sort_perm``: two packs and two sorts, against ``_lexsort``). Each
+    ``make(seed)`` gives a new set of inputs of one shape; the function
+    is the kernel's wrapper unless the case names one."""
     import numpy as np
     import torch
+    from nds_tpu_torch.engine import device_exec as dx
 
     def dt(a):
         return torch.as_tensor(np.ascontiguousarray(a)).to(dev)
@@ -1318,12 +1663,35 @@ def graph_replay_cases(dev) -> list:
                 dt(rng.integers(0, 1 << 30, (nparts, cap)).astype(np.int32)),
                 dt(rng.integers(cap // 2, cap + 1, nparts).astype(np.int32)))
 
+    def chain_keys(row, a, b):
+        # presence and a descending int32 without bounds in one word of 33
+        # bits, an int64 without bounds in the second
+        return [dx.SortKey(row, invert=True), dx.SortKey(a, negate=True),
+                dx.SortKey(b)]
+
+    def chain(row, a, b):
+        return dx._sort_perm(row, chain_keys(row, a, b), n, dev)
+
+    def chain_plain(row, a, b):
+        return dx._lexsort(lexsort_operands(row, chain_keys(row, a, b)), n,
+                           dev).to(torch.int32)
+
+    def chain_inputs(seed):
+        rng = np.random.default_rng(seed)
+        return (dt(rng.random(n) < 0.8),
+                dt(rng.integers(-2**31, 2**31, n, dtype=np.int64)
+                   .astype(np.int32)),
+                dt(rng.integers(-4, 4, n, dtype=np.int64) << 61))
+
     return [("seg_scan", scan, f"n={n} int64 sum"),
             ("seg_reduce_at_ends", groups, f"n={n} G={G} int32 sum"),
             ("group_bounds", bounds, f"n={n} int32 keys, G={G}"),
             ("running_max", cummax, f"n={n} int32"),
             ("partitioned_mn_join", k6, "2000000 x 1000000 int32"),
-            ("partition_sort", sort, "4 x 1000000 int64")]
+            ("partition_sort", sort, "4 x 1000000 int64"),
+            ("pack_sort_key", chain_inputs,
+             f"n={n}, the multi-key sort of two words (33 and 64 bits), "
+             f"pack_sort_key and partition_sort", chain, chain_plain)]
 
 
 def reset_and_grow(KX, stream) -> list:
@@ -1363,8 +1731,8 @@ def graph_replays(KX, dev) -> list:
     memory."""
     import torch
     out = []
-    for name, make, label in graph_replay_cases(dev):
-        fn, plain = getattr(KX, name), getattr(KX, name + "_plain")
+    for name, make, label, *fns in graph_replay_cases(dev):
+        fn, plain = fns or (getattr(KX, name), getattr(KX, name + "_plain"))
         static = make(0)
         stream = torch.cuda.Stream()
         stream.wait_stream(torch.cuda.current_stream())
@@ -1412,17 +1780,27 @@ def port_kernel_names() -> set:
 
 def kernel_families(by_name: dict) -> dict:
     """From {kernel name: (ms, launches)}: cub's radix-sort kernels summed
-    (every torch.sort and the library sorts of the executor), and each of
-    the port's own kernels summed over its instantiations."""
+    (what a large torch.sort runs), torch's other sort kernels (a small
+    torch.sort sorts in place in one block) and its searchsorted kernels,
+    and each of the port's own kernels summed over its instantiations."""
     import re
     ours = port_kernel_names()
     cub, port = [0.0, 0], {}
+    other_sorts, searches = [0.0, 0], [0.0, 0]
     for name, (ms, cnt) in by_name.items():
+        m = re.match(r"(?:void )?\(anonymous namespace\)::(\w+)", name)
+        mine = bool(m and m.group(1) in ours)
         if "DeviceRadixSort" in name:
             cub[0] += ms
             cub[1] += cnt
-        m = re.match(r"(?:void )?\(anonymous namespace\)::(\w+)", name)
-        if m and m.group(1) in ours:
+        elif ("sort" in name.lower() and "searchsorted" not in name
+              and not mine):
+            other_sorts[0] += ms
+            other_sorts[1] += cnt
+        if "searchsorted" in name:
+            searches[0] += ms
+            searches[1] += cnt
+        if mine:
             tot = port.setdefault(m.group(1), [0.0, 0])
             tot[0] += ms
             tot[1] += cnt
@@ -1432,10 +1810,29 @@ def kernel_families(by_name: dict) -> dict:
                 if "scan_innermost_dim_with_indices" in name
                 or "cummax" in name]
     return {"cub_radix_sort": {"ms": cub[0], "launches": cub[1]},
+            "torch_sort_kernels": {"ms": other_sorts[0],
+                                   "launches": other_sorts[1]},
+            "searchsorted_kernels": {"ms": searches[0],
+                                     "launches": searches[1]},
             "cummax_kernels": {"ms": sum(m for m, _c in scan_idx),
                                "launches": sum(c for _m, c in scan_idx)},
             "port_kernels": {k: {"ms": v[0], "launches": v[1]}
                              for k, v in sorted(port.items())}}
+
+
+def no_library_sorts(profile: dict, path: str, dev) -> None:
+    """A profiled pass of the card's legs runs no torch sort (cub's radix
+    sort or another) and no torch searchsorted: the sorts, the sort-merge
+    build and probe and the compactor are the port's kernels."""
+    if dev.type != "cuda":
+        return
+    ran = {fam: profile[fam]["launches"]
+           for fam in ("cub_radix_sort", "torch_sort_kernels",
+                       "searchsorted_kernels")
+           if profile[fam]["launches"]}
+    if ran:
+        raise SmokeError(f"the profiled {path} pass ran torch's sort or "
+                         f"search kernels: {ran}")
 
 
 def profile_pass(dsess, units, dev, per_unit, label) -> dict:
@@ -1623,12 +2020,14 @@ def kernel_checks(KX, rec, label, dev, only=KERNELS) -> dict:
     """Each kernel of ``only`` the untimed pass called, against its plain
     version on its largest captured call."""
     out = {}
-    for key, (_size, args, kwargs) in rec.largest.items():
+    for key in list(rec.largest):
         name = key.split("[")[0]
         if name in only:
-            case = f"{label} main path" + (f", op {args[0]}" if key != name
-                                           else "")
+            case = f"{label} main path" + (f", {key[len(name) + 1:-1]}"
+                                           if key != name else "")
+            args, kwargs = rec.inputs(key)
             out[key] = check_kernel(KX, name, args, case, dev, kwargs)
+            del args, kwargs
     return out
 
 
@@ -1696,7 +2095,7 @@ def run_leg(suite, KX, factory_of, dev, pool, record, path=None,
     # its build sort held to its plain version on that call's blocks
     breakdown = None
     if path == "nds" and "partitioned_mn_join" in rec.largest:
-        k6_args = rec.largest["partitioned_mn_join"][1]
+        k6_args = rec.inputs("partitioned_mn_join")[0]
         if dev.type == "cuda":
             breakdown = k6_breakdowns(KX, k6_args, dev, k6_parent)
         with Recorder({"partition_sort": (KX, "partition_sort")}) as srt:
@@ -1704,14 +2103,18 @@ def run_leg(suite, KX, factory_of, dev, pool, record, path=None,
         # on the CPU K6's plain version sorts with torch.sort instead
         if "partition_sort" in srt.largest:
             checks.append(check_kernel(KX, "partition_sort",
-                                       srt.largest["partition_sort"][1],
+                                       srt.inputs("partition_sort")[0],
                                        "K6's largest call", dev))
         elif dev.type == "cuda":
             raise SmokeError("K6's largest call made no partition_sort "
                              "call")
     called = [n for n, c in rec.calls.items() if c > 0]
     del rec
-    # the library steps (L1-L3) on the single-device legs
+    if dev.type == "cuda" and lib.calls["lexsort"]:
+        raise SmokeError(f"the {path} leg called _lexsort "
+                         f"{lib.calls['lexsort']} times: its sorts are the "
+                         f"packed sort's")
+    # the former library steps (the sorts, L1, L3) on the single-device legs
     library_steps = (library_step_checks(lib, path, dev)
                      if path in ("nds_h", "nds") else [])
     group_sort = (group_sort_record(KX, lib, path, dev)
@@ -1721,8 +2124,10 @@ def run_leg(suite, KX, factory_of, dev, pool, record, path=None,
         for name, kargs, label in sf1_shape_cases(tables, dev):
             checks.append(check_kernel(KX, name, kargs, label, dev))
     if path == "nds":
-        for name, kargs, label in nds_adversarial_cases(dev):
+        for name, kargs, label in (nds_adversarial_cases(dev)
+                                   + sort_search_cases(dev)):
             checks.append(check_kernel(KX, name, kargs, label, dev))
+        checks += sort_chain_checks(dev)
         if dev.type == "cuda":
             checks += check_lookback_layouts(KX, dev)
 
@@ -1759,6 +2164,10 @@ def run_leg(suite, KX, factory_of, dev, pool, record, path=None,
                            f"{raw['per_unit'][name]['kernels']}")
     for name, _ in units:
         log(json.dumps({"suite": path, "unit": name, **per_unit[name]}))
+    # one digest of every unit's kernel block, to hold a later run to
+    kernels_digest = hashlib.sha256(json.dumps(
+        [(name, per_unit[name]["kernels"]) for name, _ in units],
+        sort_keys=True, default=str).encode()).hexdigest()[:16]
     scanned = sum(u["bytes_scanned"] or 0 for u in per_unit.values())
     scanned_raw = sum(u["bytes_scanned_raw"] or u["bytes_scanned"] or 0
                       for u in per_unit.values())
@@ -1772,7 +2181,7 @@ def run_leg(suite, KX, factory_of, dev, pool, record, path=None,
            "profile": profile, "kernel_checks": checks,
            "per_unit": per_unit, "called_in_warm_pass": called,
            "library_steps": library_steps, "k6_breakdown": breakdown,
-           "group_sort": group_sort,
+           "group_sort": group_sort, "kernels_digest": kernels_digest,
            "warm_peak_device_bytes": warm_peaks,
            "mismatches": bad}
     record[path] = leg
@@ -1780,7 +2189,7 @@ def run_leg(suite, KX, factory_of, dev, pool, record, path=None,
                     "units": len(units), "power_total_ms": power_ms,
                     "launches": launches, "peak_device_bytes": peak,
                     "resident_buffer_bytes": resident,
-                    "bytes_scanned": scanned,
+                    "bytes_scanned": scanned, "kernels_digest": kernels_digest,
                     "oracle_s": oracle_s, "mismatches": len(bad)}))
     if bad:
         raise SmokeError("results differ from the CPU oracle: "
@@ -1796,6 +2205,8 @@ def run_leg(suite, KX, factory_of, dev, pool, record, path=None,
         raise SmokeError(f"the profiled {path} pass ran {cummax} torch "
                          f"cummax kernels: the windows' running max is "
                          f"running_max's")
+    if path in ("nds_h", "nds"):
+        no_library_sorts(profile, path, dev)
     leg["main_cases"] = main_cases
     return leg, dsess
 
@@ -1814,6 +2225,7 @@ def run_window_path(KX, dsess, dev, pool, record) -> dict:
     KX.reset_launches()
     per_unit, results = timed_pass(dsess, ex, units, dev)
     launches = KX.launch_counts()
+    profile = profile_pass(dsess, units, dev, per_unit, "window")
     bad, _s = oracle_check(pool, "nds", units, results, per_unit,
                            rules="window")
     for name, _ in units:
@@ -1821,7 +2233,7 @@ def run_window_path(KX, dsess, dev, pool, record) -> dict:
             orient="list")
         log(json.dumps({"suite": "window", "unit": name, **{
             k: v for k, v in per_unit[name].items() if k != "result"}}))
-    out = {"launches": launches, "per_unit": per_unit,
+    out = {"launches": launches, "per_unit": per_unit, "profile": profile,
            "kernel_checks": list(main_cases.values()), "mismatches": bad}
     record["window"] = out
     log(json.dumps({"phase": "window path", "launches": launches,
@@ -1831,6 +2243,7 @@ def run_window_path(KX, dsess, dev, pool, record) -> dict:
     missing = [n for n in WINDOW_REQUIRED if launches.get(n, 0) <= 0]
     if missing:
         raise SmokeError(f"the window path launched no {missing}")
+    no_library_sorts(profile, "window", dev)
     out["main_cases"] = main_cases
     return out
 

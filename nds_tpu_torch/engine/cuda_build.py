@@ -79,6 +79,19 @@ SIGNATURES = {
         "nds_pack_group_key": [_P, _LL, _I, _P, _P, _P, _P, _P, _I, _I, _P,
                                _P],
     },
+    "sort_key": {
+        "nds_sort_max_fields": [],
+        "nds_pack_sort_key": [_P, _P, _LL, _I, _P, _P, _P, _P, _P, _P, _P, _I,
+                              _P, _P],
+    },
+    "sorted_search": {
+        "nds_sorted_search": [_P, _I, _LL, _P, _LL, _I, _P, _P, _P, _P, _P,
+                              _P, _P],
+    },
+    "compact": {
+        "nds_compact_tile": [],
+        "nds_compact_perm": [_P, _LL, _P, _P, _P, _P],
+    },
     "columnar_decode": {
         "nds_bitpack_decode": [_P, _LL, _I, _LL, _I, _I, _P, _P],
         "nds_rle_decode": [_P, _P, _I, _LL, _I, _P, _P],
@@ -163,8 +176,8 @@ def build_all() -> dict[str, float]:
 def library(name: str) -> ctypes.CDLL:
     """The loaded library of one source (``dense_domain``,
     ``small_build_probe``, ``seg_scan``, ``partitioned_join``,
-    ``group_key``, ``columnar_decode``, ``exchange``), built first if
-    needed."""
+    ``group_key``, ``sort_key``, ``sorted_search``, ``compact``,
+    ``columnar_decode``, ``exchange``), built first if needed."""
     lib = _LIBS.get(name)
     if lib is not None:
         return lib

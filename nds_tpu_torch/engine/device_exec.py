@@ -17,9 +17,10 @@ the executor's device (``cuda`` unless the caller asks for the CPU):
   (``join.direct``, ``join.matmul``, ``semi.bitmask``, ``agg.segscan``
   ...), so each query's ``__kernels`` block matches the reference's.
   The hand-written CUDA kernels run behind those stamps (the radix
-  partitioned M:N join among them) and under the window functions'
-  running and whole-partition aggregates; sorts, searchsorted, cumsum
-  and gathers are torch library ops, as the reference left them to XLA.
+  partitioned M:N join among them), under the window functions'
+  running and whole-partition aggregates, and in the sorts, searches
+  and the result compactor; cumsum and gathers are torch library ops,
+  as the reference left them to XLA.
 - **Windows, set operations, DISTINCT** follow the reference: one
   multi-key sort into partition-major order per window column, with
   rank from running maxima, whole-partition sums from cumsum
@@ -45,8 +46,10 @@ the executor's device (``cuda`` unless the caller asks for the CPU):
   into lookup tables the device gathers through.
 - **Decimals are scaled int64**; division and AVG go through float64.
 
-Multi-key ``lax.sort`` becomes successive stable ``torch.sort`` passes
-from the least to the most significant key, which gives the same
+A multi-key ``lax.sort`` becomes order-preserving words of at most 64
+bits, laid out on the host from the keys' bounds (``_sort_layout``) and
+sorted stably from the least significant word up by the radix sort,
+with the row ids as payload (``_sort_perm``), which gives the same
 permutation as one stable lexicographic sort. Gathers whose index can
 leave the array (dictionary codes of NULL rows) clamp it, since torch
 faults where ``jnp.take`` fills. What is not ported yet (parameterized
@@ -349,13 +352,19 @@ def _and_valid(a, b):
     return a & b
 
 
-def _ss(ks, q, side="left"):
-    """searchsorted of q into the sorted ks (one dtype for both)."""
+def _promoted(ks, q):
+    """``ks`` and ``q`` in one dtype, as ``jnp.searchsorted`` promotes."""
     if ks.dtype != q.dtype:
         dt = torch.promote_types(ks.dtype, q.dtype)
         ks, q = ks.to(dt), q.to(dt)
-    return torch.searchsorted(ks.contiguous(), q.contiguous(),
-                              right=(side == "right"))
+    return ks.contiguous(), q.contiguous()
+
+
+def _ss(ks, q, side="left"):
+    """searchsorted of q into the sorted ks (the reference's ``_ss``):
+    int64 places for ``side`` "left" or "right", both for "both"
+    (``kernels.sorted_search``)."""
+    return KX.sorted_search(*_promoted(ks, q), side)
 
 
 def _take_codes(table, codes):
@@ -370,17 +379,12 @@ def _take_codes(table, codes):
     return table.index_select(0, codes.to(torch.int64).clamp(0, n - 1))
 
 
-def _compact_perm(row):
-    """The stable permutation that moves present rows to the front (the
-    reference's compactor sort)."""
-    return torch.sort((~row).to(torch.int32), stable=True)[1]
-
-
 def _lexsort(keys, n: int, device):
     """Stable permutation sorting rows by ``keys`` (most significant
     first): one stable sort per key from the least significant up, the
     same order as ``lax.sort(keys + [iota], num_keys=len(keys),
-    is_stable=True)``."""
+    is_stable=True)``. The plain cross-check of ``_sort_perm``: the
+    executor never calls it."""
     perm = torch.arange(n, dtype=torch.int64, device=device)
     for key in reversed(keys):
         _, idx = torch.sort(key.index_select(0, perm), stable=True)
@@ -388,19 +392,173 @@ def _lexsort(keys, n: int, device):
     return perm
 
 
-def _group_operands(row, keyvals) -> list:
-    """The operands of the reference's group-id sort, most significant
+@dataclasses.dataclass(frozen=True, eq=False)
+class SortKey:
+    """One operand of a multi-key sort, as the reference builds it:
+    ``arr`` filled with 0 where ``valid`` is False or, with ``use_row``,
+    the row is not present; then taken as 1 - value (``invert``, a bool:
+    a presence or NULLS LAST rank) and negated (``negate``: a descending
+    key). ``lo``/``hi`` bound ``arr`` on every slot the fill leaves, the
+    absent rows' among them (None where no such bound is known)."""
+    arr: torch.Tensor
+    valid: "torch.Tensor | None" = None
+    use_row: bool = False
+    invert: bool = False
+    negate: bool = False
+    lo: "int | None" = None
+    hi: "int | None" = None
+
+
+def _sort_operand(row, k: SortKey):
+    """The operand ``k`` stands for, as a tensor (``_lexsort``'s input;
+    a bool as int32)."""
+    v = k.arr.to(torch.int32) if k.arr.dtype == torch.bool else k.arr
+    ok = _and_valid(row if k.use_row else None, k.valid)
+    if ok is not None:
+        v = torch.where(ok, v, torch.zeros((), dtype=v.dtype,
+                                           device=v.device))
+    if k.invert:
+        v = 1 - v
+    return -v if k.negate else v
+
+
+# the widest word of a multi-key sort
+SORT_WORD_BITS = 64
+
+
+def _sort_field(k: SortKey) -> tuple:
+    """``(mode, lo, width)`` of one operand's field (``kernels.SORT_*``):
+    a float takes its full width in ``lax.sort``'s order; an integer
+    whose values, fill and negation included, lie in a span narrower than
+    its type takes value - lo in the span's bits; any other integer its
+    full width."""
+    dt = k.arr.dtype
+    if dt.is_floating_point:
+        return KX.SORT_FLOAT, 0, torch.finfo(dt).bits
+    if dt == torch.bool:
+        lo, hi, full = 0, 1, 64
+    else:
+        lo, hi, full = k.lo, k.hi, torch.iinfo(dt).bits
+        if lo is None or hi is None or (k.negate
+                                        and lo == torch.iinfo(dt).min):
+            return KX.SORT_INT, 0, full
+    lo, hi = int(lo), int(hi)
+    if k.negate:
+        lo, hi = -hi, -lo
+    lo, hi = min(lo, 0), max(hi, 0)
+    width = (hi - lo).bit_length()
+    if width >= full:
+        return KX.SORT_INT, 0, full
+    return KX.SORT_SPAN, lo, width
+
+
+def _sort_layout(keys, n: int) -> list:
+    """How a multi-key sort's operands (``SortKey``s, the most
+    significant first) split into words, decided on the host from their
+    bounds: ``[(fields, bits), ...]``, the most significant word first,
+    each field ``(index of its key, mode, lo, width)``, each word at most
+    ``SORT_WORD_BITS`` bits and ``kernels.SORT_MAX_FIELDS`` fields, no
+    field over two words; a field of no bits (a span of one value) takes
+    none. A bound is only as good as the fill behind it: a key whose
+    absent rows are not filled is bounded only where its ``lo``/``hi``
+    hold there too (``SortKey``)."""
+    if not 1 <= n < 2**31 - 1:
+        raise DeviceExecError(f"a sort of {n} rows: the row ids are int32")
+    words, cur, bits = [], [], 0
+    for i, k in enumerate(keys):
+        mode, lo, width = _sort_field(k)
+        if not width:
+            continue
+        if cur and (bits + width > SORT_WORD_BITS
+                    or len(cur) == KX.SORT_MAX_FIELDS):
+            words.append((cur, bits))
+            cur, bits = [], 0
+        cur.append((i, mode, lo, width))
+        bits += width
+    if cur:
+        words.append((cur, bits))
+    return words
+
+
+def _word_args(row, keys, fields, bits: int) -> tuple:
+    """``kernels.pack_sort_key``'s arguments for one word of
+    ``_sort_layout``: the row mask where a field fills by it, each
+    field's values and validity, its ``(flags, mode, lo, width)``, the
+    word's bits."""
+    flags = [KX.SORT_USE_ROW * keys[i].use_row
+             | KX.SORT_INVERT * keys[i].invert
+             | KX.SORT_NEGATE * keys[i].negate for i, *_f in fields]
+    return (row if any(f & KX.SORT_USE_ROW for f in flags) else None,
+            [keys[i].arr.contiguous() for i, *_f in fields],
+            [None if keys[i].valid is None else keys[i].valid.contiguous()
+             for i, *_f in fields],
+            [(f, m, lo, w) for f, (_i, m, lo, w) in zip(flags, fields)],
+            bits)
+
+
+def _sort_perm(row, keys, n: int, device):
+    """The stable permutation (int32) sorting the rows by ``keys``
+    (``SortKey``s, the most significant first), ``_lexsort``'s of their
+    operands exactly: each word of ``_sort_layout``, from the least
+    significant up, packed in the order of the permutation so far
+    (``kernels.pack_sort_key``) and sorted stably with that permutation as
+    its payload (``partition_sort`` over one partition). ``row``: the
+    mask the ``use_row`` keys fill by."""
+    perm = torch.arange(n, dtype=torch.int32, device=device)
+    counts = torch.full((1,), n, dtype=torch.int32, device=device)
+    first = True
+    for fields, bits in reversed(_sort_layout(keys, n)):
+        word = KX.pack_sort_key(*_word_args(row, keys, fields, bits),
+                                None if first else perm)
+        _ks, perm = KX.partition_sort(word.view(1, n), perm.view(1, n),
+                                      counts)
+        perm = perm.view(n)
+        first = False
+    return perm
+
+
+def _sort_values(key):
+    """``key`` (int32 or int64) sorted: ``partition_sort`` of one word."""
+    n = key.shape[0]
+    ks, _ = KX.partition_sort(
+        key.contiguous().view(1, n),
+        torch.arange(n, dtype=torch.int32, device=key.device).view(1, n),
+        torch.full((1,), n, dtype=torch.int32, device=key.device))
+    return ks.view(n)
+
+
+def _group_sort_keys(row, keyvals) -> list:
+    """The keys of the reference's group-id sort, most significant
     first: presence, then per key its validity (where it has one) and its
-    narrowed value filled with 0 where not ``_ok`` (``:2207-2218``)."""
-    ops = [(~row).to(torch.int32)]
+    narrowed value filled with 0 where not ``_ok`` (``:2207-2218``); the
+    fill bounds a key on every slot where its values are bounded."""
+    keys = [SortKey(row, invert=True)]
     for kv in keyvals:
         if kv.valid is not None:
-            ops.append((~kv.valid).to(torch.int32))
-        arr = _narrow_key(kv)
-        ops.append(torch.where(_ok(kv, row), arr,
-                               torch.zeros((), dtype=arr.dtype,
-                                           device=arr.device)))
-    return ops
+            keys.append(SortKey(kv.valid, invert=True))
+        lo, hi = ((0, len(kv.sdict) - 1) if kv.sdict is not None
+                  else (kv.lo, kv.hi))
+        keys.append(SortKey(_narrow_key(kv), kv.valid, use_row=True,
+                            lo=lo, hi=hi))
+    return keys
+
+
+def _group_operands(row, keyvals) -> list:
+    """The operands of the reference's group-id sort, as tensors."""
+    return [_sort_operand(row, k) for k in _group_sort_keys(row, keyvals)]
+
+
+def _order_keys(dv, asc: bool, nulls_first: bool) -> list:
+    """An ORDER BY or window order key's sort keys (the reference's
+    ``_run_sort`` ``:2598-2608``): its NULL rank where it has a validity,
+    then its narrowed value (a bool as 0/1), negated where descending and
+    0 where NULL. Absent rows keep their values, so no bound holds on
+    every slot: the value takes its full width."""
+    keys = []
+    if dv.valid is not None:
+        keys.append(SortKey(dv.valid, invert=not nulls_first))
+    keys.append(SortKey(_narrow_key(dv), dv.valid, negate=not asc))
+    return keys
 
 
 # the widest packed group key: an int64 that stays non-negative
@@ -762,14 +920,14 @@ class DeviceExecutor:
     def _to_host(self, row, outs, overflow):
         """The query's one device->host exchange: the overflow count
         (None is returned on overflow, for the caller's retry) and the
-        result. Large results compact first: one stable sort moves valid
-        rows to the front and only a power-of-two prefix covering them
-        crosses to the host."""
+        result. Large results compact first: the compactor
+        (``kernels.compact_perm``) moves valid rows to the front and only a
+        power-of-two prefix covering them crosses to the host."""
         n = row.shape[0]
         if n >= self.COMPACT_MIN_ROWS and outs:
-            perm = _compact_perm(row)
+            perm, cnt = KX.compact_perm(row)
             cnt_h, over_h = torch.stack(
-                [row.sum(), overflow.to(torch.int64)]).cpu().tolist()
+                [cnt, overflow.to(torch.int64)]).cpu().tolist()
             if over_h:
                 return None
             C = 1
@@ -1268,18 +1426,25 @@ class _Trace:
 
     @staticmethod
     def _build_lookup(key, ok):
-        """Sort build keys (invalid rows to the sentinel end)."""
+        """Sort build keys (invalid rows to the sentinel end): the sorted
+        keys and their rows (int32), ``partition_sort`` of one partition
+        with the row ids as payload (the reference's explicit int32
+        iota)."""
         sentinel = torch.iinfo(key.dtype).max
         k = torch.where(ok, key, torch.full_like(key, sentinel))
-        ks, order = torch.sort(k, stable=True)
-        return ks, order
+        n = k.shape[0]
+        ks, order = KX.partition_sort(
+            k.view(1, n),
+            torch.arange(n, dtype=torch.int32, device=k.device).view(1, n),
+            torch.full((1,), n, dtype=torch.int32, device=k.device))
+        return ks.view(n), order.view(n)
 
     @staticmethod
     def _probe(ks, order, pkey, pok):
-        n = ks.shape[0]
-        pos = _ss(ks, pkey).clamp(0, n - 1)
-        hit = (ks.index_select(0, pos) == pkey) & pok
-        return order.index_select(0, pos), hit
+        """Each probe key's build row and whether it matched: the
+        reference's ``_probe`` in one ``sorted_search``."""
+        ks, pkey = _promoted(ks, pkey)
+        return KX.sorted_search(ks, pkey, "probe", order, pok.contiguous())
 
     def _run_join(self, node: P.Join) -> DCtx:
         lctx, rctx = self.run(node.left), self.run(node.right)
@@ -1318,7 +1483,7 @@ class _Trace:
                     sentinel = torch.iinfo(rkey.dtype).max
                     ks = torch.where(rok, rkey,
                                      torch.full_like(rkey, sentinel))
-                    order = self._arange(rkey.shape[0], torch.int64)
+                    order = self._arange(rkey.shape[0])
                     self._note("join.presorted")
                 else:
                     ks, order = self._build_lookup(rkey, rok)
@@ -1354,7 +1519,7 @@ class _Trace:
 
     def _mn_join(self, node, lctx, rctx, lkey, lok, rkey, rok) -> DCtx:
         """Generic M:N inner join: sort the left side by key, find each
-        right row's match range by two searchsorteds, expand into a
+        right row's match range by one two-sided search, expand into a
         fixed-capacity slot array. Capacity = slack * max(|L|, |R|);
         overflow is counted for the executor's doubled-slack retry."""
         K = max(int(self.slack * max(lctx.n, rctx.n)), 1)
@@ -1377,8 +1542,7 @@ class _Trace:
             return out
         self._note("join.sortmerge")
         ks, order = self._build_lookup(lkey, lok)
-        lo = _ss(ks, rkey, side="left")
-        hi = _ss(ks, rkey, side="right")
+        lo, hi = _ss(ks, rkey, side="both")
         cnt = torch.where(rok, hi - lo, torch.zeros_like(lo)).to(
             torch.int64)
         offs = torch.cumsum(cnt, 0)
@@ -1561,11 +1725,11 @@ class _Trace:
         self._note("semi.sortmerge")
         k_sent = torch.iinfo(rkey.dtype).max
         rkey_s = torch.where(rok2, rkey, torch.full_like(rkey, k_sent))
-        perm = _lexsort([rkey_s, rcol_n], rkey_s.shape[0], self.dev)
+        perm = _sort_perm(None, [SortKey(rkey_s), SortKey(rcol_n)],
+                          rkey_s.shape[0], self.dev)
         sk = rkey_s.index_select(0, perm)
         sc = rcol_n.index_select(0, perm)
-        pos_l = _ss(sk, lkey, side="left")
-        pos_r = _ss(sk, lkey, side="right")
+        pos_l, pos_r = _ss(sk, lkey, side="both")
         n = sk.shape[0]
         cmin = sc.index_select(0, pos_l.clamp(0, n - 1))
         cmax = sc.index_select(0, (pos_r - 1).clamp(0, n - 1))
@@ -1661,7 +1825,8 @@ class _Trace:
         rows sort to the front. Where the keys' bounds pack them into one
         integer (``_pack_layout``, a host decision), the repo's radix sort
         orders that key and ``group_bounds`` reads the groups off it in one
-        pass; else successive stable sorts (``_lexsort``)."""
+        pass; else the multi-key sort of the operands as words
+        (``_sort_perm``)."""
         n = ctx.n
         layout = _pack_layout(keyvals, n)
         if layout is not None:
@@ -1674,7 +1839,8 @@ class _Trace:
                 ks.view(n), bits - 1, G)
             return perm.view(n), gid, present_s, ngroups, starts2
         ops = _group_operands(ctx.row, keyvals)
-        perm = _lexsort(ops, n, self.dev)
+        perm = _sort_perm(ctx.row, _group_sort_keys(ctx.row, keyvals), n,
+                          self.dev)
         present_s = ctx.row.index_select(0, perm)
         diff = self._zeros(n, torch.bool)
         diff[0] = True
@@ -1699,11 +1865,11 @@ class _Trace:
             if spec.distinct:
                 # sentinel-free distinct: validity is its own sort key
                 arr = _narrow_key(dv)
-                iv = (~w).to(torch.int32)
-                perm = _lexsort([iv, arr], arr.shape[0], self.dev)
-                iv_s = iv.index_select(0, perm)
+                perm = _sort_perm(None, [SortKey(w, invert=True),
+                                         SortKey(arr)], arr.shape[0],
+                                  self.dev)
                 v_s = arr.index_select(0, perm)
-                w_s = iv_s == 0
+                w_s = w.index_select(0, perm)
                 newv = torch.cat([self._ones_bool(1), v_s[1:] != v_s[:-1]])
                 cnt = (newv & w_s).sum()
             else:
@@ -1824,18 +1990,23 @@ class _Trace:
         occurrences of (gid, value) among valid rows."""
         n = ctx.n
         val = _narrow_key(dv)
+        lo, hi = ((0, len(dv.sdict) - 1) if dv.sdict is not None
+                  else (dv.lo, dv.hi))
         if val.dtype not in (torch.int32, torch.int64):
             val = dv.arr.to(torch.int64)
+            lo, hi = (0, 1) if dv.arr.dtype == torch.bool else (None, None)
         w0 = _ok(dv, ctx.row)
         # group id per original row: scatter sorted gid back through perm
+        # (a permutation: every slot takes a gid in [0, G - 1])
         gid_orig = torch.empty_like(gid)
         gid_orig[perm.to(torch.int64)] = gid
-        keys = [(~ctx.row).to(torch.int32), gid_orig, (~w0).to(torch.int32),
-                torch.where(w0, val, torch.zeros((), dtype=val.dtype,
-                                                 device=self.dev))]
-        perm2 = _lexsort(keys, n, self.dev)
+        keys = [SortKey(ctx.row, invert=True), SortKey(gid_orig, lo=0,
+                                                       hi=G - 1),
+                SortKey(w0, invert=True),
+                SortKey(val, dv.valid, use_row=True, lo=lo, hi=hi)]
+        perm2 = _sort_perm(ctx.row, keys, n, self.dev)
         g2 = gid_orig.index_select(0, perm2)
-        v2 = keys[3].index_select(0, perm2)
+        v2 = _sort_operand(ctx.row, keys[3]).index_select(0, perm2)
         w2 = w0.index_select(0, perm2)
         newpair = torch.cat([self._ones_bool(1),
                              (g2[1:] != g2[:-1]) | (v2[1:] != v2[:-1])])
@@ -1869,37 +2040,17 @@ class _Trace:
         n = ctx.n
         iota = self._arange(n)
         zero_i = torch.zeros((), dtype=torch.int32, device=self.dev)
-        ops = [(~ctx.row).to(torch.int32)]
-        part_ops = []
-        for p in spec.partition:
-            dv = self.eval(p, ctx)
-            if dv.valid is not None:
-                ops.append((~dv.valid).to(torch.int32))
-                part_ops.append(len(ops) - 1)
-            arr = _narrow_key(dv)
-            ops.append(torch.where(_ok(dv, ctx.row), arr,
-                                   torch.zeros((), dtype=arr.dtype,
-                                               device=self.dev)))
-            part_ops.append(len(ops) - 1)
-        order_ops = []
+        # the keys of the reference's sort (``:2424-2456``): presence, the
+        # partition keys as the group-by fills them, the order keys
+        keys = _group_sort_keys(ctx.row, [self.eval(p, ctx)
+                                          for p in spec.partition])
+        nparts = len(keys)
         for e, asc, nulls_first in spec.order:
-            dv = self.eval(e, ctx)
-            if dv.valid is not None:
-                rank = dv.valid if nulls_first else ~dv.valid
-                ops.append(rank.to(torch.int32))
-                order_ops.append(len(ops) - 1)
-            arr = _narrow_key(dv)
-            if arr.dtype == torch.bool:
-                arr = arr.to(torch.int32)
-            key = arr if asc else -arr
-            if dv.valid is not None:
-                key = torch.where(dv.valid, key,
-                                  torch.zeros((), dtype=key.dtype,
-                                              device=self.dev))
-            ops.append(key)
-            order_ops.append(len(ops) - 1)
-        perm = _lexsort(ops, n, self.dev)
-        sorted_ops = {i: ops[i].index_select(0, perm)
+            keys += _order_keys(self.eval(e, ctx), asc, nulls_first)
+        perm = _sort_perm(ctx.row, keys, n, self.dev)
+        part_ops = list(range(1, nparts))
+        order_ops = list(range(nparts, len(keys)))
+        sorted_ops = {i: _sort_operand(ctx.row, keys[i]).index_select(0, perm)
                       for i in part_ops + order_ops}
         present_s = ctx.row.index_select(0, perm)
         part_start = self._zeros(n, torch.bool)
@@ -1910,12 +2061,13 @@ class _Trace:
 
         def scatter(res_sorted, valid_sorted=None, lo=None, hi=None):
             # perm is a permutation: every slot is written once
-            arr = torch.zeros_like(res_sorted).index_copy_(0, perm,
+            idx = perm.to(torch.int64)
+            arr = torch.zeros_like(res_sorted).index_copy_(0, idx,
                                                            res_sorted)
             valid = None
             if valid_sorted is not None:
                 valid = torch.zeros_like(valid_sorted).index_copy_(
-                    0, perm, valid_sorted)
+                    0, idx, valid_sorted)
             return DVal(arr, valid, None, lo, hi)
 
         def order_change():
@@ -2116,10 +2268,9 @@ class _Trace:
             lkey = lkey.to(torch.int32)
             rkey = rkey.to(torch.int32)
             sent = 2**31 - 1
-        ks = torch.sort(torch.where(rctx.row, rkey,
-                                    torch.full_like(rkey, sent)))[0]
-        pos = _ss(ks, lkey).clamp(0, rctx.n - 1)
-        hit = ks.index_select(0, pos) == lkey
+        ks = _sort_values(torch.where(rctx.row, rkey,
+                                      torch.full_like(rkey, sent)))
+        _idx, hit = KX.sorted_search(ks, lkey.contiguous(), "probe")
         keep = hit if node.kind == "intersect" else ~hit
         out = DCtx(lctx.n, lctx.row & keep)
         out.cols = lctx.cols
@@ -2129,30 +2280,18 @@ class _Trace:
 
     def _run_sort(self, node: P.Sort) -> DCtx:
         ctx = self.run(node.child)
-        keys = [(~ctx.row).to(torch.int32)]
+        keys = [SortKey(ctx.row, invert=True)]
         for e, asc, nulls_first in node.keys:
-            dv = self.eval(e, ctx)
-            if dv.valid is not None:
-                rank = dv.valid if nulls_first else ~dv.valid
-                keys.append(rank.to(torch.int32))
-            arr = _narrow_key(dv)
-            if arr.dtype == torch.bool:
-                arr = arr.to(torch.int32)
-            key = arr if asc else -arr
-            if dv.valid is not None:
-                key = torch.where(dv.valid, key,
-                                  torch.zeros((), dtype=key.dtype,
-                                              device=self.dev))
-            keys.append(key)
-        perm = _lexsort(keys, ctx.n, self.dev)
+            keys += _order_keys(self.eval(e, ctx), asc, nulls_first)
+        perm = _sort_perm(ctx.row, keys, ctx.n, self.dev)
         out = ctx.gather(perm)
         out.row = ctx.row.index_select(0, perm)
         return out
 
     def _compact(self, ctx: DCtx) -> DCtx:
         """Stable-sort present rows to the front (before Limit when the
-        child did not already order them)."""
-        perm = _compact_perm(ctx.row)
+        child did not already order them): the compactor."""
+        perm, _count = KX.compact_perm(ctx.row)
         out = ctx.gather(perm)
         out.row = ctx.row.index_select(0, perm)
         return out

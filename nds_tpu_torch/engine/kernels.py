@@ -27,7 +27,17 @@ partitioned_mn_join    ``partitioned_mn_join`` +             csrc/partitioned_jo
 partition_sort         K6's build sort, ``lax.sort`` of      csrc/partitioned_join.cu
                        ``(keys, gidx)`` with ``num_keys=1``;
                        ``_group_ids``' ``lax.sort`` over one
-                       packed key (L2)
+                       packed key (L2); ``_build_lookup``'s
+                       sort (L3); each word of the sorts below
+pack_sort_key          ``device_exec.py`` the multi-operand  csrc/sort_key.cu
+                       ``lax.sort`` of ``_run_sort``, the
+                       windows, count-distinct, the ``<>``
+                       residual and the unpacked group-bys,
+                       as words for ``partition_sort``
+sorted_search          ``device_exec.py`` ``_ss`` and        csrc/sorted_search.cu
+                       ``_probe`` (L3)
+compact_perm           ``device_exec.py`` ``_compactor`` and  csrc/compact.cu
+                       ``_compact`` (L1)
 seg_scan               ``seg_scan``, per row (K7)            csrc/seg_scan.cu
 part_reduce_broadcast  ``part_reduce_broadcast`` (K7)        csrc/seg_scan.cu
 last_of_group          ``last_of_group`` (K7)                csrc/seg_scan.cu
@@ -51,7 +61,7 @@ fallback from the kernel to the plain version. Each wrapper counts its
 kernel launches in ``LAUNCHES[<wrapper>]`` (``reset_launches`` zeroes
 them), so a run can show that it went through the kernels.
 
-All seventeen are bound by bytes on the card: the source files say how
+All twenty are bound by bytes on the card: the source files say how
 many, and what their design does about it. The scans, the group bounds,
 the M:N join's partition and its build sort are single-pass kernels with
 decoupled look-back (``csrc/lookback.cuh``); their tile words live in
@@ -928,6 +938,243 @@ def group_bounds(keys, pbit: int, G: int):
     cb.check(err, "group_bounds")
     LAUNCHES["group_bounds"] += 1
     return present, gid, ngroups, starts2
+
+
+# ---------------------------------- the executor's sorts, searches, compactor
+
+# a sort operand's value type, its field's mode and its flags, as
+# csrc/sort_key.cu reads them
+_SORT_TYPES = {torch.int32: 0, torch.int64: 1, torch.bool: 2,
+               torch.float32: 3, torch.float64: 4}
+SORT_SPAN = 0    # value - lo in the field's width
+SORT_INT = 1     # the full 32 or 64 bits, sign bit flipped
+SORT_FLOAT = 2   # lax.sort's float order, as order-preserving bits
+SORT_USE_ROW = 1  # filled with 0 where the row mask is False
+SORT_INVERT = 2   # a bool taken as 1 - value, after the fill
+SORT_NEGATE = 4   # negated after the fill (a descending key)
+# the most fields one word takes: the kernel holds them in its parameters
+SORT_MAX_FIELDS = 16
+_NAN_BITS = {torch.float32: 0x7FC00000, torch.float64: 0x7FF8000000000000}
+_I64_MIN = -(1 << 63)
+
+
+def _sort_field_plain(row, arr, valid, flags: int, mode: int, lo: int,
+                      width: int):
+    """One field's bits (below 2^width, in int64 as unsigned bits) of
+    ``pack_sort_key``, for rows already in the word's order."""
+    ok = row if flags & SORT_USE_ROW else None
+    if valid is not None:
+        ok = valid if ok is None else ok & valid
+    if mode == SORT_FLOAT:
+        zero = torch.zeros((), dtype=arr.dtype, device=arr.device)
+        x = arr if ok is None else torch.where(ok, arr, zero)
+        if flags & SORT_NEGATE:
+            x = -x
+        x = torch.where(x == 0, zero, x)
+        if arr.dtype == torch.float64:
+            b = torch.where(torch.isnan(x), _NAN_BITS[arr.dtype],
+                            x.view(torch.int64))
+            return torch.where(b < 0, ~b, b ^ _I64_MIN)
+        b = torch.where(torch.isnan(x), _NAN_BITS[arr.dtype],
+                        x.view(torch.int32).to(torch.int64))
+        return torch.where(b < 0, ~b & 0xFFFFFFFF, b | 0x80000000)
+    v = arr.to(torch.int64)
+    if ok is not None:
+        v = torch.where(ok, v, torch.zeros((), dtype=torch.int64,
+                                           device=v.device))
+    if flags & SORT_INVERT:
+        v = 1 - v
+    if flags & SORT_NEGATE:
+        v = -v
+    if mode == SORT_SPAN:
+        return v - lo
+    if width == 32:
+        return (v & 0xFFFFFFFF) ^ 0x80000000
+    return v ^ _I64_MIN
+
+
+def pack_sort_key_plain(row, arrs, valids, fields, bits: int, perm=None):
+    """Plain version of ``pack_sort_key``, in int64 elementwise ops."""
+    if perm is not None:
+        perm = perm.to(torch.int64)
+        row = None if row is None else row.index_select(0, perm)
+        arrs = [a.index_select(0, perm) for a in arrs]
+        valids = [None if v is None else v.index_select(0, perm)
+                  for v in valids]
+    key = torch.zeros(arrs[0].shape[0], dtype=torch.int64,
+                      device=arrs[0].device)
+    shift = bits
+    for arr, valid, (flags, mode, lo, width) in zip(arrs, valids, fields):
+        shift -= width
+        key |= _sort_field_plain(row, arr, valid, flags, mode, lo,
+                                 width) << shift
+    if bits == 32:
+        key = key - (1 << 31)
+    elif bits == 64:
+        key = key ^ _I64_MIN
+    return key.to(torch.int32) if bits <= 32 else key
+
+
+@_counted
+def pack_sort_key(row, arrs, valids, fields, bits: int, perm=None):
+    """One word of a multi-key sort: per row, its operands (``arrs``, the
+    most significant first) as fields from the word's top bit down, so
+    that the words' order is the operands' lexicographic order. Each
+    operand is read at row ``perm[i]`` (int32, the permutation of the
+    words sorted so far; row i where None), filled with 0 where its
+    ``valids`` entry (or None) or, with ``SORT_USE_ROW``, ``row`` is
+    False, taken as 1 - value with ``SORT_INVERT`` (a bool), negated with
+    ``SORT_NEGATE``, then laid out by its mode (``fields``: one ``(flags,
+    mode, lo, width)`` per operand, from the executor's ``_sort_layout``):
+    ``SORT_SPAN`` value - lo in ``width`` bits, ``SORT_INT`` its 32 or 64
+    bits with the sign bit flipped, ``SORT_FLOAT`` ``lax.sort``'s float
+    order (-0.0 as +0.0, every NaN as one NaN above +inf) as
+    order-preserving bits. int32 for ``bits <= 32``, else int64; a word of
+    exactly 32 or 64 bits is biased by -2^31 or -2^63, which keeps its
+    order. ``arrs``: int32, int64, bool, float32 or float64 values."""
+    opt = [t for t in (row, perm, *valids) if t is not None]
+    if not _launch_device(*arrs, *opt):
+        return pack_sort_key_plain(row, arrs, valids, fields, bits, perm)
+    n = arrs[0].shape[0] if arrs else 0
+    if not 1 <= bits <= 64 or n < 1:
+        raise ValueError(f"pack_sort_key: {bits} bits, n={n}")
+    if row is not None:
+        _require(row, "row", (torch.bool,), n)
+    if perm is not None:
+        _require(perm, "perm", (torch.int32,), n)
+    for arr, valid, (flags, mode, lo, width) in zip(arrs, valids, fields):
+        _require(arr, "arr", tuple(_SORT_TYPES), n)
+        if valid is not None:
+            _require(valid, "valid", (torch.bool,), n)
+        if flags & SORT_USE_ROW and row is None:
+            raise ValueError("pack_sort_key: a field fills by the row mask "
+                             "but no row mask is given")
+    cb, lib = _lib("sort_key")
+    k = len(arrs)
+    if not 1 <= k <= lib.nds_sort_max_fields() or len(fields) != k:
+        raise ValueError(f"pack_sort_key: {k} fields")
+    if sum(f[3] for f in fields) != bits:
+        raise ValueError(f"pack_sort_key: the fields do not make {bits} "
+                         f"bits")
+    out = torch.empty(n, dtype=torch.int64 if bits > 32 else torch.int32,
+                      device=arrs[0].device)
+    err = lib.nds_pack_sort_key(
+        None if row is None else _ptr(row),
+        None if perm is None else _ptr(perm), n, k,
+        (ctypes.c_void_p * k)(*[_ptr(a) for a in arrs]),
+        (ctypes.c_void_p * k)(*[None if v is None else _ptr(v)
+                                for v in valids]),
+        (ctypes.c_longlong * k)(*[int(f[2]) for f in fields]),
+        (ctypes.c_int * k)(*[_SORT_TYPES[a.dtype] for a in arrs]),
+        (ctypes.c_int * k)(*[int(f[1]) for f in fields]),
+        (ctypes.c_int * k)(*[int(f[3]) for f in fields]),
+        (ctypes.c_int * k)(*[int(f[0]) for f in fields]),
+        bits, _ptr(out), cb.stream_handle())
+    cb.check(err, "pack_sort_key")
+    LAUNCHES["pack_sort_key"] += 1
+    return out
+
+
+_SEARCH_MODES = {"left": 0, "right": 1, "both": 2, "probe": 3}
+
+
+def sorted_search_plain(ks, q, mode: str = "left", order=None, pok=None):
+    """Plain version of ``sorted_search``: ``torch.searchsorted``, and for
+    "probe" the reference's ``_probe`` step by step."""
+    if mode in ("left", "right"):
+        return torch.searchsorted(ks, q, right=mode == "right")
+    if mode == "both":
+        return torch.searchsorted(ks, q), torch.searchsorted(ks, q,
+                                                             right=True)
+    if mode != "probe":
+        raise ValueError(f"sorted_search: mode {mode!r}")
+    pos = torch.searchsorted(ks, q).clamp(0, ks.shape[0] - 1)
+    hit = ks.index_select(0, pos) == q
+    if pok is not None:
+        hit = hit & pok
+    return (None if order is None else order.index_select(0, pos)), hit
+
+
+@_counted
+def sorted_search(ks, q, mode: str = "left", order=None, pok=None):
+    """The places of the queries ``q`` in the non-decreasing ``ks`` (int32
+    or int64, one dtype for both), exactly ``torch.searchsorted``'s, as
+    int64: "left" (the count of keys below each query), "right" (at or
+    below), "both" (``(left, right)``, a match range); "probe" is the
+    reference's ``_probe``: with ``pos`` the left place clamped to ``[0,
+    n - 1]`` (``n >= 1``), ``(order[pos], ks[pos] == q & pok)``, where
+    ``order`` (int32) and ``pok`` (bool) may be None (no index, no
+    mask)."""
+    opt = [t for t in (order, pok) if t is not None]
+    if not _launch_device(ks, q, *opt):
+        return sorted_search_plain(ks, q, mode, order, pok)
+    if mode not in _SEARCH_MODES:
+        raise ValueError(f"sorted_search: mode {mode!r}")
+    _require(ks, "ks", _KEY_DTYPES)
+    _require(q, "q", (ks.dtype,))
+    n, m = ks.shape[0], q.shape[0]
+    probe = mode == "probe"
+    if probe and n < 1:
+        raise ValueError("sorted_search: a probe into no keys")
+    if order is not None:
+        _require(order, "order", (torch.int32,), n)
+    if pok is not None:
+        _require(pok, "pok", (torch.bool,), m)
+    dev = ks.device
+    pos_a = pos_b = idx = hit = None
+    if probe:
+        hit = torch.empty(m, dtype=torch.bool, device=dev)
+        if order is not None:
+            idx = torch.empty(m, dtype=torch.int32, device=dev)
+    else:
+        pos_a = torch.empty(m, dtype=torch.int64, device=dev)
+        if mode == "both":
+            pos_b = torch.empty(m, dtype=torch.int64, device=dev)
+    if m:
+        cb, lib = _lib("sorted_search")
+        err = lib.nds_sorted_search(
+            _ptr(ks), int(ks.dtype == torch.int64), n, _ptr(q), m,
+            _SEARCH_MODES[mode], None if pok is None else _ptr(pok),
+            None if order is None else _ptr(order),
+            *[None if t is None else _ptr(t) for t in (pos_a, pos_b, idx,
+                                                       hit)],
+            cb.stream_handle())
+        cb.check(err, "sorted_search")
+        LAUNCHES["sorted_search"] += 1
+    if probe:
+        return idx, hit
+    return (pos_a, pos_b) if mode == "both" else pos_a
+
+
+def compact_perm_plain(row):
+    """Plain version of ``compact_perm``: the stable sort of the 0/1 key
+    ``~row`` (the reference's compactor sort), and the present count."""
+    perm = torch.sort((~row).to(torch.int32), stable=True)[1]
+    return perm.to(torch.int32), row.sum()
+
+
+@_counted
+def compact_perm(row):
+    """The stable partition of the rows by ``row``: ``(perm int32[n],
+    count int64 scalar)``, the present rows' ids in row order, then the
+    absent rows' ids in row order, and the present count, on the card."""
+    if not _launch_device(row):
+        return compact_perm_plain(row)
+    _require(row, "row", (torch.bool,))
+    n = row.shape[0]
+    if not 1 <= n < 2**31 - 1:
+        raise ValueError(f"compact_perm: n={n}")
+    cb, lib = _lib("compact")
+    dev = row.device
+    perm = torch.empty(n, dtype=torch.int32, device=dev)
+    count = torch.empty((), dtype=torch.int64, device=dev)
+    tiles = torch.empty(-(-n // lib.nds_compact_tile()), dtype=torch.int32,
+                        device=dev)
+    err = lib.nds_compact_perm(_ptr(row), n, _ptr(tiles), _ptr(perm),
+                               _ptr(count), cb.stream_handle())
+    cb.check(err, "compact_perm")
+    LAUNCHES["compact_perm"] += 1
+    return perm, count
 
 
 # ------------------------------------------------ partitioned M:N join

@@ -131,16 +131,23 @@ def _capacity(n, keys):
                                                      keys)[1])
 
 
+def _lexsort_perm(row, keys, n, device):
+    """``_sort_perm``'s plain cross-check: the successive stable sorts of
+    the operands."""
+    return DX._lexsort([DX._sort_operand(row, k) for k in keys], n, device)
+
+
 def _group_ids(row, keys, G, route):
     ctx, kvs = _port_inputs(row, keys)
     tr = _trace()
     if route == "lexsort":
-        orig = DX._pack_layout
+        orig = DX._pack_layout, DX._sort_perm
         DX._pack_layout = lambda keyvals, n: None
+        DX._sort_perm = _lexsort_perm
         try:
             return tr._group_ids(ctx, kvs, G)
         finally:
-            DX._pack_layout = orig
+            DX._pack_layout, DX._sort_perm = orig
     return tr._group_ids(ctx, kvs, G)
 
 
@@ -417,31 +424,38 @@ def _run(session, stmts):
 def test_nds_h_grouped_aggregates_take_the_packed_route(qn, nds_h_session,
                                                         monkeypatch):
     """Every grouped aggregate of these NDS-H queries packs its keys and
-    sorts them with ``partition_sort`` (no ``_lexsort`` from
-    ``_group_ids``); the rows equal the successive sorts' route
-    exactly."""
-    seen = {"bounds": 0, "lexsort": 0}
-    real_bounds, real_lex = KX.group_bounds, DX._lexsort
+    sorts them with ``partition_sort`` (no multi-key sort from
+    ``_group_ids``); the rows equal those of the route that sorts the
+    operands by successive stable sorts (``_lexsort``) exactly."""
+    seen = {"bounds": 0, "sorts": 0}
+    real_bounds, real_sort = KX.group_bounds, DX._sort_perm
 
     def bounds(*a, **k):
         seen["bounds"] += 1
         return real_bounds(*a, **k)
 
-    def lexsort(*a, **k):
-        seen["lexsort"] += 1
-        return real_lex(*a, **k)
+    def sort_perm(*a, **k):
+        seen["sorts"] += 1
+        return real_sort(*a, **k)
 
     monkeypatch.setattr(KX, "group_bounds", bounds)
-    monkeypatch.setattr(DX, "_lexsort", lexsort)
+    monkeypatch.setattr(DX, "_sort_perm", sort_perm)
     stmts = streams.statements(qn)
     got = _run(nds_h_session, stmts)
-    packed, other_sorts = seen["bounds"], seen["lexsort"]
+    packed, other_sorts = seen["bounds"], seen["sorts"]
     assert packed >= 1, qn
     monkeypatch.setattr(DX, "_pack_layout", lambda keyvals, n: None)
-    seen["lexsort"] = 0
+
+    def lexsort_perm(*a, **k):
+        seen["sorts"] += 1
+        return _lexsort_perm(*a, **k)
+
+    monkeypatch.setattr(DX, "_sort_perm", lexsort_perm)
+    seen["sorts"] = 0
     exp = _run(nds_h_session, stmts)
-    # the successive sorts' route: one _lexsort per group-id sort more
+    # the successive sorts' route: one multi-key sort per group-id sort
+    # more
     assert seen["bounds"] == packed
-    assert seen["lexsort"] == other_sorts + packed, qn
+    assert seen["sorts"] == other_sorts + packed, qn
     assert list(got.columns) == list(exp.columns)
     assert got.equals(exp), qn

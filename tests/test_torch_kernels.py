@@ -217,5 +217,6 @@ def test_cpu_tensors_take_the_plain_versions_and_count_no_launch():
         "keyed_minmax_semi", "seg_reduce_at_ends", "partitioned_mn_join",
         "partition_sort", "seg_scan", "part_reduce_broadcast",
         "last_of_group", "running_max", "pack_group_key", "group_bounds",
+        "pack_sort_key", "sorted_search", "compact_perm",
         "bitpack_decode", "unpack_mask", "rle_decode", "exchange_pack"}
     assert all(v == 0 for v in KX.launch_counts().values())
