@@ -2,7 +2,7 @@
 """Chip smoke of the PyTorch/CUDA port: the NDS-H and NDS power runs on one card.
 
     python3 chip_smoke.py [--sf 1.0] [--sf-ds 1.0] [--out results/smoke.json]
-                          [--k6-parent DIR]
+                          [--parent DIR]
 
 Drives ``nds_tpu_torch`` (never ``jax``, never ``nds_tpu``) on the card:
 
@@ -13,8 +13,10 @@ Drives ``nds_tpu_torch`` (never ``jax``, never ``nds_tpu``) on the card:
    is touched: the workers inherit the tables and run only numpy;
 3. builds the CUDA C++ kernels from ``nds_tpu_torch/csrc`` with ``nvcc``
    (one process per source, all at once); the graph case: each look-back
-   layout, ``partition_sort`` and a two-word multi-key sort captured in
-   a CUDA graph and replayed three times with new inputs, exact;
+   layout, ``partition_sort`` and a multi-key sort of four words (an
+   operand straddling two at an odd bit, each word's digit counts from
+   its pack) captured in a CUDA graph and replayed three times with new
+   inputs, exact;
 4. NDS-H leg at ``--sf`` (default SF1, ``bench.py``'s scale):
    ``Session.for_nds_h(make_device_factory())`` on ``cuda``;
    an untimed pass of the 22 queries captures each kernel's largest call;
@@ -49,9 +51,7 @@ Drives ``nds_tpu_torch`` (never ``jax``, never ``nds_tpu``) on the card:
    the same phases over the 103 statements of the NDS power run
    (``Session.for_nds``), with the validator's two carve-outs (q65 on its
    row count, q78's column 3 at rel tol 0.01001); K6's time per step at
-   its largest call (``k6_breakdown``; with ``--k6-parent DIR``, first
-   the same for the design of another checkout of this repo, unpacked at
-   DIR, on the same inputs, its result held to the kernel's), and K6,
+   its largest call (``k6_breakdown``), and K6,
    the scans and their build sort held to their plain versions on
    adversarial inputs of up to 10M rows (``nds_adversarial_cases``) and
    right after an int64 scan whose values read as the sort's count words
@@ -60,8 +60,16 @@ Drives ``nds_tpu_torch`` (never ``jax``, never ``nds_tpu``) on the card:
    (``sort_search_cases``: descending keys, NULLS FIRST and LAST, int64
    keys at iinfo's ends, floats with -0.0, +0.0 and NaN, a key without
    bounds beside bounded ones, several words, every row absent and none,
-   empty builds, probes equal to the sentinel), and the multi-key sort
-   against ``_lexsort`` on them (``sort_chain_checks``);
+   empty builds, probes equal to the sentinel, builds at the edges of the
+   search's shared-memory index, queries below and above every key and
+   counts no multiple of the queries a thread carries), and the
+   multi-key sort against ``_lexsort`` on them (``sort_chain_checks``);
+   with ``--parent DIR`` (another checkout of this repo, unpacked at
+   DIR), the sorts' and the probe's largest calls on the NDS-H and NDS
+   legs and the NDS leg's largest "left", "right" and "both" searches
+   run on that checkout's design beside this one's, on the same inputs,
+   in turns (parent, this, this, parent), the results held equal
+   (``parent_steps``);
 6. window path: whole-partition MIN/MAX and a running SUM under the
    default RANGE frame over ``store_sales`` at the NDS leg's scale (no NDS
    statement takes either form: the only path to
@@ -457,10 +465,11 @@ def work_of(name: str, args, out) -> tuple:
     if name == "partition_sort":
         # the occupied (key, row) pairs read once, the sorted blocks
         # written once
-        keys, gidx, counts = tens
+        # (and the digit counts, where the caller gives them)
+        keys, gidx, counts = tens[:3]
         occupied = int(counts.sum())
         moved = (occupied * (keys.element_size() + gidx.element_size())
-                 + nbytes(counts) + nbytes(out))
+                 + nbytes(tens[2:]) + nbytes(out))
         ops = occupied
     if name == "pack_group_key":
         # the row mask and the validities, and a key's value only where
@@ -550,7 +559,7 @@ def library_call(name: str, args):
     if name == "partition_sort":
         # the batched stable sort of the whole block, its unoccupied
         # slots set to (iinfo.max, 0) beforehand, and the row ids gathered
-        keys, gidx, counts = args
+        keys, gidx, counts = args[:3]
         tail = (torch.arange(keys.shape[1], device=keys.device)[None, :]
                 >= counts[:, None])
         kb = keys.masked_fill(tail, torch.iinfo(keys.dtype).max)
@@ -632,16 +641,15 @@ def check_kernel(KX, name: str, args, label: str, dev,
     return rec
 
 
-def k6_breakdown(steps, args, dev, reps: int = 5, warm: int = 1,
-                 label: str = "kernel") -> dict:
-    """K6's time per step at one call: ``steps(*args)`` is a generator
-    that yields each step's name right after it enqueues the step
-    (``kernels.partitioned_mn_join_steps``, or ``parent_k6_steps``), and
-    a CUDA event recorded there closes the step. The start event is
-    recorded with the card idle, so the total is the call's time as
-    ``ms`` takes it. Median over ``reps`` calls after ``warm``, each
+def k6_breakdown(KX, args, reps: int = 5, warm: int = 1) -> dict:
+    """K6's time per step at one call: ``kernels.partitioned_mn_join_steps``
+    is a generator that yields each step's name right after it enqueues
+    the step, and a CUDA event recorded there closes the step. The start
+    event is recorded with the card idle, so the total is the call's time
+    as ``ms`` takes it. Median over ``reps`` calls after ``warm``, each
     ending in a synchronize."""
     import torch
+    steps = KX.partitioned_mn_join_steps
     runs = []
     for i in range(warm + reps):
         marks = []
@@ -662,142 +670,38 @@ def k6_breakdown(steps, args, dev, reps: int = 5, warm: int = 1,
         runs.append(step)
     out = {name: statistics.median(r[name] for r in runs)
            for name in runs[0]}
-    log(json.dumps({"phase": f"K6 step breakdown ({label})",
+    log(json.dumps({"phase": "K6 step breakdown",
                     "size": call_size("partitioned_mn_join", args),
                     "steps_ms": out}))
     return out
 
 
-def load_parent_build(root: str):
-    """The ``cuda_build`` module of another checkout of this repo,
-    unpacked at ``root`` (``git archive <commit> | tar -x -C root``),
-    loaded under a name of its own: it builds that checkout's sources
-    into that checkout's ``.build/``."""
+def load_parent(root: str, dev) -> tuple:
+    """The design of another checkout of this repo, unpacked at ``root``
+    (``git archive <commit> | tar -x -C root``): its ``cuda_build``, which
+    builds that checkout's sources into that checkout's ``.build/``, its
+    ``kernels`` on those libraries and its ``device_exec`` on those
+    kernels, each loaded under a name of its own (built at once on the
+    card; on the CPU they run their plain versions). Returns ``(kernels,
+    device_exec)``; everything else they import is this checkout's."""
     import importlib.util
-    path = os.path.join(root, "nds_tpu_torch", "engine", "cuda_build.py")
-    spec = importlib.util.spec_from_file_location("k6_parent_cuda_build",
-                                                  path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
 
-
-def parent_k6_steps(pcb, lkey, lok, rkey, rok, out_capacity: int,
-                    part_slack: float, nparts: int = 8):
-    """K6 as the checkout before the single-pass redesign ran it, step by
-    step on that checkout's kernels (``pcb``: its ``cuda_build``): the
-    partition (fill, histogram, one-block offsets, scatter) of each side,
-    ``torch.sort`` of the whole build block and the gather of its row
-    ids, the ranges, the three-pass scan's prefix and the expansion by
-    binary search; the launches and arguments of that wrapper. Yields
-    each step's name after enqueuing it; returns the join's result."""
-    import torch
-    lib = pcb.library("partitioned_join")
-    scan = pcb.library("seg_scan")
-    stream = pcb.stream_handle()
-    dev = lkey.device
-    key64 = int(lkey.dtype == torch.int64)
-    log2r = nparts.bit_length() - 1
-    lcap = max(-(-int(lkey.shape[0] * part_slack) // nparts), 1)
-    rcap = max(-(-int(rkey.shape[0] * part_slack) // nparts), 1)
-    kp = max(-(-out_capacity // nparts), 1)
-    over = torch.empty(2, dtype=torch.int64, device=dev)
-
-    def empty(shape, dtype):
-        return torch.empty(shape, dtype=dtype, device=dev)
-
-    def partition(key, ok, cap, side):
-        n = key.shape[0]
-        keys, gidx = empty((nparts, cap), key.dtype), empty((nparts, cap),
-                                                            torch.int32)
-        occ = empty((nparts, cap), torch.bool)
-        blocks = empty((max(-(-n // lib.nds_pj_tile()), 1), nparts),
-                       torch.int32)
-        pcb.check(lib.nds_pj_partition(
-            key.data_ptr(), ok.data_ptr(), n, key64, nparts, log2r, cap,
-            keys.data_ptr(), gidx.data_ptr(), occ.data_ptr(),
-            blocks.data_ptr(), over.data_ptr(), side, stream),
-            "parent partition")
-        return keys, gidx, occ
-
-    lk_p, lg_p, _ = partition(lkey, lok, lcap, 0)
-    yield "partition_left"
-    rk_p, rg_p, rok_p = partition(rkey, rok, rcap, 1)
-    yield "partition_right"
-    ks, order = torch.sort(lk_p, dim=1, stable=True)
-    gs = lg_p.gather(1, order)
-    yield "build_sort"
-    lo_i, cnt = empty((nparts, rcap), torch.int32), empty((nparts, rcap),
-                                                          torch.int64)
-    pcb.check(lib.nds_pj_ranges(
-        ks.data_ptr(), key64, lcap, rk_p.data_ptr(), rok_p.data_ptr(), rcap,
-        nparts, lo_i.data_ptr(), cnt.data_ptr(), stream), "parent ranges")
-    yield "ranges"
-    m = nparts * rcap
-    ntiles = -(-m // scan.nds_seg_scan_tile())
-    offs, fl = empty(m, torch.int64), empty(m, torch.uint8)
-    tv, tf, carry = (empty(ntiles, torch.int64), empty(ntiles, torch.uint8),
-                     empty(ntiles, torch.int64))
-    # value type 1 (int64), op 0 (sum), restarting every rcap rows
-    pcb.check(scan.nds_seg_scan(
-        cnt.data_ptr(), 1, 0, None, rcap, m, offs.data_ptr(), fl.data_ptr(),
-        tv.data_ptr(), tf.data_ptr(), carry.data_ptr(), stream),
-        "parent prefix")
-    yield "prefix"
-    lidx, ridx = empty(nparts * kp, torch.int32), empty(nparts * kp,
-                                                        torch.int32)
-    present, overflow = empty(nparts * kp, torch.bool), empty((),
-                                                              torch.int64)
-    pcb.check(lib.nds_pj_expand(
-        offs.data_ptr(), lo_i.data_ptr(), gs.data_ptr(), rg_p.data_ptr(),
-        nparts, lcap, rcap, kp, over.data_ptr(), lidx.data_ptr(),
-        ridx.data_ptr(), present.data_ptr(), overflow.data_ptr(), stream),
-        "parent expand")
-    yield "expand"
-    return lidx, ridx, present, overflow
-
-
-def run_steps(steps):
-    """Runs a step generator to its end; returns what it returns."""
-    while True:
-        try:
-            next(steps)
-        except StopIteration as done:
-            return done.value
-
-
-def k6_breakdowns(KX, args, dev, parent_root) -> dict:
-    """K6's step breakdown of the kernel and, with ``parent_root``, of
-    the parent checkout's design first, on the same inputs in this call
-    (parent, kernel, kernel, parent); the parent's result must equal the
-    kernel's."""
-    import torch
-    out = {}
-    if parent_root is None:
-        out["kernel"] = k6_breakdown(KX.partitioned_mn_join_steps, args,
-                                     dev)
-        return out
-    pcb = load_parent_build(parent_root)
-    pcb.build_all()
-    parent = functools.partial(parent_k6_steps, pcb)
-    got = run_steps(parent(*args))
-    exp = KX.partitioned_mn_join(*args)
-    torch.cuda.synchronize()
-    err = max_abs_err(got, exp)
-    if err != 0.0:
-        raise SmokeError(f"the parent checkout's K6 differs from the "
-                         f"kernel's: max_abs_err={err}")
-    del got, exp
-    order = [("parent", parent), ("kernel", KX.partitioned_mn_join_steps),
-             ("kernel", KX.partitioned_mn_join_steps), ("parent", parent)]
-    halves: dict = {}
-    for label, steps in order:
-        halves.setdefault(label, []).append(
-            k6_breakdown(steps, args, dev, reps=3, label=label))
-    for label, (a, b) in halves.items():
-        out[label] = {k: (a[k] + b[k]) / 2 for k in a}
-    out["order"] = [label for label, _ in order]
-    return out
+    def load(name, rel):
+        spec = importlib.util.spec_from_file_location(
+            name, os.path.join(root, "nds_tpu_torch", "engine", rel))
+        mod = importlib.util.module_from_spec(spec)
+        # a dataclass resolves its annotations through sys.modules
+        sys.modules[name] = mod
+        spec.loader.exec_module(mod)
+        return mod
+    pcb = load("parent_cuda_build", "cuda_build.py")
+    if dev.type == "cuda":
+        pcb.build_all()
+    pkx = load("parent_kernels", "kernels.py")
+    pkx._lib = lambda name: (pcb, pcb.library(name))
+    pdx = load("parent_device_exec", "device_exec.py")
+    pdx.KX = pkx
+    return pkx, pdx
 
 
 def lookback_layout_cases(KX, dev) -> list:
@@ -1122,9 +1026,10 @@ def sort_search_cases(dev) -> list:
     and through a permutation; ``sorted_search`` in every mode over int32
     and int64 keys with a sentinel tail (iinfo.max, as an invalid build
     row holds it) and probes equal to the sentinel and to iinfo.min, into
-    no keys, one, 2,048 and 2,049 (the splitters' edge), 144,067 (NDS's
-    largest probe build) and 5,000,000; ``compact_perm`` with every row
-    absent, none, and at lengths no multiple of its tile."""
+    no keys, one, 2,048 and 2,049, 144,067 (NDS's largest probe build)
+    and 5,000,000, and at the edges of its shared-memory index
+    (``search_index_keys``); ``compact_perm`` with every row absent,
+    none, and at lengths no multiple of its tile."""
     import numpy as np
     import torch
     from nds_tpu_torch.engine import device_exec as dx
@@ -1168,6 +1073,41 @@ def sort_search_cases(dev) -> list:
                            dt(rng.random(m) < 0.9)), f"{label}, probe"))
             cases.append(("sorted_search", (tks, tq, "probe"),
                           f"{label}, probe with no rows and no mask"))
+    # the search's shared-memory index: a build that fits it whole, one
+    # just past it and one of a single key, all keys equal, queries below
+    # and above every key, query counts no multiple of the queries a
+    # thread carries, and queries not 16-byte aligned (the scalar path)
+    for dtype in (np.int32, np.int64):
+        info = np.iinfo(dtype)
+        cap = search_index_keys(dev, dtype == np.int64)
+        for nk in (1, cap, cap + 1):
+            ks = np.sort(rng.integers(-1000, 1000, nk)).astype(dtype)
+            for m in (5, 3_000_017):
+                q = rng.integers(-1100, 1100, m).astype(dtype)
+                q[::11] = info.max
+                q[1::13] = info.min
+                tks, tq = dt(ks), dt(q)
+                label = (f"{m} {dtype.__name__} queries into {nk} keys (the "
+                         f"index holds {cap})")
+                for mode in ("left", "right", "both"):
+                    cases.append(("sorted_search", (tks, tq, mode),
+                                  f"{label}, {mode}"))
+                cases.append(("sorted_search",
+                              (tks, tq, "probe",
+                               dt(rng.permutation(nk).astype(np.int32)),
+                               dt(rng.random(m) < 0.9)), f"{label}, probe"))
+        m = 1_000_003
+        ks = dt(np.full(cap + 3, 5, dtype))
+        q = dt(rng.integers(3, 8, m + 1).astype(dtype))[1:]
+        pok = dt(rng.random(m + 1) < 0.9)[1:]
+        label = f"{m} unaligned {dtype.__name__} queries into {cap + 3} " \
+            f"equal keys"
+        for mode in ("left", "right", "both"):
+            cases.append(("sorted_search", (ks, q, mode), f"{label}, {mode}"))
+        cases.append(("sorted_search",
+                      (ks, q, "probe",
+                       dt(rng.permutation(cap + 3).astype(np.int32)), pok),
+                      f"{label}, probe"))
     for nr, what in ((6_480_001, "a third present"), (6_480_001, "none"),
                      (6_480_001, "all"), (4097, "runs"), (1, "all")):
         row = {"a third present": rng.random(nr) < 1 / 3,
@@ -1176,6 +1116,16 @@ def sort_search_cases(dev) -> list:
         cases.append(("compact_perm", (dt(row),), f"n={nr}, {what} "
                       f"present"))
     return cases
+
+
+def search_index_keys(dev, key64: bool) -> int:
+    """The most keys the search kernel's shared-memory index holds
+    (``csrc/sorted_search.cu``); on the CPU, where no kernel is built,
+    the same numbers."""
+    if dev.type != "cuda":
+        return (1 << 14) - 1 if key64 else (1 << 15) - 1
+    from nds_tpu_torch.engine import kernels as KX
+    return KX._lib("sorted_search")[1].nds_search_index_keys(int(key64))
 
 
 def lexsort_operands(row, keys) -> list:
@@ -1430,8 +1380,44 @@ def library_targets() -> dict:
     return out
 
 
-def _sort_key_bytes(keys) -> int:
-    return sum(nbytes(k.arr) + nbytes(k.valid) for k in keys)
+def _sort_bytes(row, keys, n: int) -> int:
+    """The bytes a multi-key sort must move: each operand's values and
+    validity and the row mask (where a key fills by it) read once, the
+    int32 permutation written once."""
+    uses_row = any(k.use_row for k in keys)
+    return (sum(nbytes(k.arr) + nbytes(k.valid) for k in keys)
+            + (nbytes(row) if uses_row else 0) + 4 * n)
+
+
+def sort_words(kx, dx, row, keys, n: int) -> list:
+    """Per word of a multi-key sort on one design (``kx``, ``dx``: the
+    ``kernels`` and ``device_exec`` of a checkout), the most significant
+    first: its bits, its key type, its digit passes and those that move
+    rows on these keys (``sort_passes``; a word's digits do not depend on
+    the permutation it is packed through), and the bytes its pack and its
+    sort move by the design's model: the pack reads its operands (and the
+    permutation, after the first word) and writes the word; a sort that
+    counts its own digits reads the word once more; each pass that moves
+    reads and writes the key and the row id."""
+    out = []
+    for j, (fields, bits) in enumerate(reversed(dx._sort_layout(keys, n))):
+        args = dx._word_args(row, keys, fields, bits)
+        packed = kx.pack_sort_key(*args)
+        # a design whose pack counts the digits returns (word, counts)
+        counted = isinstance(packed, tuple)
+        word = packed[0] if counted else packed
+        moved, passes = sort_passes(word)
+        kb = word.element_size()
+        pack = (nbytes(args[1]) + nbytes([v for v in args[2] if v is not None])
+                + nbytes(args[0]) + (4 * n if j else 0) + kb * n)
+        out.append({"bits": bits, "dtype": str(word.dtype).replace(
+                        "torch.", ""),
+                    "passes": passes, "passes_moved": moved,
+                    "pack_bytes": pack,
+                    "hist_bytes": 0 if counted else kb * n,
+                    "pass_bytes": moved * 2 * n * (kb + 4)})
+        del packed, word
+    return out[::-1]
 
 
 def replaced_step(name: str, args, lexsort, dev) -> tuple:
@@ -1448,17 +1434,17 @@ def replaced_step(name: str, args, lexsort, dev) -> tuple:
         row, keys, n, _device = args
         ops = lexsort_operands(row, keys)
         layout = dx._sort_layout(keys, n)
-        uses_row = any(k.use_row for k in keys)
-        moved = (_sort_key_bytes(keys) + (nbytes(row) if uses_row else 0)
-                 + 4 * n)
+        moved = _sort_bytes(row, keys, n)
         extra["words_bits"] = [b for _f, b in layout]
-        # the least significant word alone: the radix sort against one
-        # torch.sort of it
-        word = KX.pack_sort_key(*dx._word_args(row, keys, *layout[-1]))
+        extra["words"] = sort_words(KX, dx, row, keys, n)
+        # the least significant word alone: the radix sort (given the
+        # pack's counts) against one torch.sort of it
+        word, hist = KX.pack_sort_key(*dx._word_args(row, keys, *layout[-1]))
         iota = torch.arange(n, dtype=torch.int32, device=dev).view(1, n)
         counts = torch.full((1,), n, dtype=torch.int32, device=dev)
         extra["word_sort_ms"] = time_ms(
-            lambda: KX.partition_sort(word.view(1, n), iota, counts), dev)
+            lambda: KX.partition_sort(word.view(1, n), iota, counts, hist),
+            dev)
         extra["word_torch_sort_ms"] = time_ms(
             lambda: torch.sort(word, stable=True), dev)
         extra["word_bound_ms"] = 2 * n * (word.element_size() + 4) \
@@ -1536,6 +1522,74 @@ def library_step_checks(lib: Recorder, label: str, dev) -> list:
     return out
 
 
+def parent_steps(parent, lib: Recorder, rec: Recorder, label: str,
+                 dev) -> list:
+    """The sorts' and the probe's largest calls of a leg, and on the NDS
+    leg its largest "left", "right" and "both" searches, on the design of
+    another checkout (``parent``: ``load_parent``'s) beside this one's,
+    on the same inputs: both results must be equal; each design timed by
+    the call method (``ms``) and by device ms (``device_ms``, a spin
+    kernel hiding the host), median of 5 in turns (parent, this, this,
+    parent; each the mean of its two turns), beside the bytes the call
+    must move and their bound; for the sorts, each design's words
+    (``sort_words``)."""
+    import torch
+    from nds_tpu_torch.engine import device_exec as dx
+    from nds_tpu_torch.engine import kernels as KX
+    pkx, pdx = parent
+    cases = []
+    if "sort" in lib.largest:
+        cases.append(("sort", lib.inputs("sort")[0], lib.function("sort"),
+                      pdx._sort_perm))
+    if "probe" in lib.largest:
+        cases.append(("probe", lib.inputs("probe")[0],
+                      lib.function("probe"), pdx._Trace._probe))
+    for mode in (("left", "right", "both") if label == "nds" else ()):
+        key = f"sorted_search[{mode}]"
+        if key in rec.largest:
+            cases.append((key, rec.inputs(key)[0], KX.sorted_search,
+                          pkx.sorted_search))
+    out = []
+    for name, args, fn, pfn in cases:
+        got, exp = fn(*args), pfn(*args)
+        same = all(a.shape == b.shape and torch.equal(a.to(torch.int64),
+                                                      b.to(torch.int64))
+                   for a, b in zip(_tensors(got), _tensors(exp)))
+        if not same:
+            raise SmokeError(f"{label}: the {name} step of the parent "
+                             f"checkout's design differs from this one's")
+        if name == "sort":
+            moved = _sort_bytes(*args[:3])
+            shapes = [t for k in args[1] for t in _tensors([k.arr, k.valid])]
+        else:
+            moved = nbytes(list(args)) + nbytes(got)
+            shapes = _tensors(list(args))
+        del got, exp
+        turns: dict = {}
+        for who, f in (("parent", pfn), ("this", fn), ("this", fn),
+                       ("parent", pfn)):
+            turns.setdefault(who, []).append(
+                (time_ms(lambda: f(*args), dev, reps=5, warm=1),
+                 time_ms(lambda: f(*args), dev, reps=5, warm=1, spin=True)))
+        mean = {who: [sum(t[i] for t in ts) / len(ts) for i in (0, 1)]
+                for who, ts in turns.items()}
+        bound_ms, bound_by = bound(moved, 0)
+        r = {"step": name, "path": label,
+             "shapes": [list(t.shape) + [str(t.dtype).replace("torch.", "")]
+                        for t in shapes],
+             "ms": mean["this"][0], "device_ms": mean["this"][1],
+             "parent_ms": mean["parent"][0],
+             "parent_device_ms": mean["parent"][1],
+             "turns": turns, "bytes": moved, "bound_ms": bound_ms,
+             "bound_by": bound_by}
+        if name == "sort":
+            r["words"] = sort_words(KX, dx, *args[:3])
+            r["parent_words"] = sort_words(pkx, pdx, *args[:3])
+        log(json.dumps({"phase": f"{label} beside the parent design", **r}))
+        out.append(r)
+    return out
+
+
 def sort_passes(key) -> tuple:
     """(passes that move rows, passes) of ``partition_sort`` over ``key``:
     8-bit digits of the key's order-preserving bits, and a pass whose
@@ -1607,8 +1661,9 @@ def graph_replay_cases(dev) -> list:
     """(kernel, make inputs, label[, function, plain version]) for the
     graph case: the scan layout (``seg_scan``, K5's sum, ``group_bounds``,
     ``running_max``), the count layout (K6, whose partition takes it),
-    ``partition_sort``, and the executor's multi-key sort of two words
-    (``_sort_perm``: two packs and two sorts, against ``_lexsort``). Each
+    ``partition_sort``, and the executor's multi-key sort of four words
+    (``_sort_perm``: four packs, each counting its word's digits, and four
+    sorts given those counts, against ``_lexsort``). Each
     ``make(seed)`` gives a new set of inputs of one shape; the function
     is the kernel's wrapper unless the case names one."""
     import numpy as np
@@ -1663,25 +1718,33 @@ def graph_replay_cases(dev) -> list:
                 dt(rng.integers(0, 1 << 30, (nparts, cap)).astype(np.int32)),
                 dt(rng.integers(cap // 2, cap + 1, nparts).astype(np.int32)))
 
-    def chain_keys(row, a, b):
-        # presence and a descending int32 without bounds in one word of 33
-        # bits, an int64 without bounds in the second
+    def chain_keys(row, a, c, b):
+        # presence, a descending int32 without bounds, a span of 3 bits
+        # filled by the row mask and an int64 without bounds: 100 bits in
+        # words of 4, 32, 32 and 32, the int32 straddling the first two
         return [dx.SortKey(row, invert=True), dx.SortKey(a, negate=True),
-                dx.SortKey(b)]
+                dx.SortKey(c, use_row=True, lo=0, hi=7), dx.SortKey(b)]
 
-    def chain(row, a, b):
-        return dx._sort_perm(row, chain_keys(row, a, b), n, dev)
+    def chain(*args):
+        return dx._sort_perm(args[0], chain_keys(*args), n, dev)
 
-    def chain_plain(row, a, b):
-        return dx._lexsort(lexsort_operands(row, chain_keys(row, a, b)), n,
+    def chain_plain(*args):
+        return dx._lexsort(lexsort_operands(args[0], chain_keys(*args)), n,
                            dev).to(torch.int32)
 
     def chain_inputs(seed):
         rng = np.random.default_rng(seed)
-        return (dt(rng.random(n) < 0.8),
+        row = rng.random(n) < 0.8
+        return (dt(row),
                 dt(rng.integers(-2**31, 2**31, n, dtype=np.int64)
                    .astype(np.int32)),
+                dt(np.where(row, rng.integers(0, 8, n), 1000)
+                   .astype(np.int32)),
                 dt(rng.integers(-4, 4, n, dtype=np.int64) << 61))
+    words = [b for _p, b in dx._sort_layout(chain_keys(
+        torch.ones(1, dtype=torch.bool), torch.zeros(1, dtype=torch.int32),
+        torch.zeros(1, dtype=torch.int32), torch.zeros(1, dtype=torch.int64)),
+        1)]
 
     return [("seg_scan", scan, f"n={n} int64 sum"),
             ("seg_reduce_at_ends", groups, f"n={n} G={G} int32 sum"),
@@ -1690,8 +1753,10 @@ def graph_replay_cases(dev) -> list:
             ("partitioned_mn_join", k6, "2000000 x 1000000 int32"),
             ("partition_sort", sort, "4 x 1000000 int64"),
             ("pack_sort_key", chain_inputs,
-             f"n={n}, the multi-key sort of two words (33 and 64 bits), "
-             f"pack_sort_key and partition_sort", chain, chain_plain)]
+             f"n={n}, the multi-key sort of words of {words} bits, an "
+             f"int32 straddling two: pack_sort_key (its counts zeroed in "
+             f"the graph) and partition_sort given the counts", chain,
+             chain_plain)]
 
 
 def reset_and_grow(KX, stream) -> list:
@@ -2043,7 +2108,7 @@ def rules_of(suite: str) -> str:
 
 def run_leg(suite, KX, factory_of, dev, pool, record, path=None,
             raw=None, check_names=None, required=None,
-            same_kernels=True, k6_parent=None) -> tuple:
+            same_kernels=True, parent=None) -> tuple:
     """One power run on the card over the suite's generated tables: the
     untimed pass with its captured kernel calls, the kernel checks, the
     timed pass with launch counts read, the profiled pass and the oracle
@@ -2056,7 +2121,9 @@ def run_leg(suite, KX, factory_of, dev, pool, record, path=None,
     versions on their largest captured calls (every kernel, or the decodes
     when ``raw`` is given); the timed pass must launch every kernel the
     untimed pass called and those of ``required`` (the suite's own set by
-    default). ``k6_parent``: see ``k6_breakdowns``."""
+    default). ``parent``: another checkout's design (``load_parent``),
+    timed beside this one's on the single-device legs
+    (``parent_steps``)."""
     import torch
     path = path or suite
     tables = _ORACLE_TABLES[suite]
@@ -2097,7 +2164,7 @@ def run_leg(suite, KX, factory_of, dev, pool, record, path=None,
     if path == "nds" and "partitioned_mn_join" in rec.largest:
         k6_args = rec.inputs("partitioned_mn_join")[0]
         if dev.type == "cuda":
-            breakdown = k6_breakdowns(KX, k6_args, dev, k6_parent)
+            breakdown = {"kernel": k6_breakdown(KX, k6_args)}
         with Recorder({"partition_sort": (KX, "partition_sort")}) as srt:
             KX.partitioned_mn_join(*k6_args)
         # on the CPU K6's plain version sorts with torch.sort instead
@@ -2108,6 +2175,9 @@ def run_leg(suite, KX, factory_of, dev, pool, record, path=None,
         elif dev.type == "cuda":
             raise SmokeError("K6's largest call made no partition_sort "
                              "call")
+    beside_parent = (parent_steps(parent, lib, rec, path, dev)
+                     if parent is not None and path in ("nds_h", "nds")
+                     else None)
     called = [n for n, c in rec.calls.items() if c > 0]
     del rec
     if dev.type == "cuda" and lib.calls["lexsort"]:
@@ -2181,6 +2251,7 @@ def run_leg(suite, KX, factory_of, dev, pool, record, path=None,
            "profile": profile, "kernel_checks": checks,
            "per_unit": per_unit, "called_in_warm_pass": called,
            "library_steps": library_steps, "k6_breakdown": breakdown,
+           "parent_steps": beside_parent,
            "group_sort": group_sort, "kernels_digest": kernels_digest,
            "warm_peak_device_bytes": warm_peaks,
            "mismatches": bad}
@@ -2588,9 +2659,9 @@ def main() -> int:
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--out", default=None,
                     help="also write the full record here as JSON")
-    ap.add_argument("--k6-parent", default=None, metavar="DIR",
+    ap.add_argument("--parent", default=None, metavar="DIR",
                     help="another checkout of this repo (git archive), "
-                    "whose K6 design the step breakdown also times")
+                    "whose sorts and searches are timed beside this one's")
     args = ap.parse_args()
 
     import torch
@@ -2640,6 +2711,12 @@ def main() -> int:
             record["build_s"] = time.perf_counter() - t0
             log(json.dumps({"phase": "build", "seconds": record["build_s"],
                             "built": built}))
+        parent = None
+        if args.parent:
+            t0 = time.perf_counter()
+            parent = load_parent(args.parent, dev)
+            log(json.dumps({"phase": "parent build", "root": args.parent,
+                            "seconds": time.perf_counter() - t0}))
         paths = {}
         if dev.type == "cuda":
             replays = graph_replays(KX, dev)
@@ -2647,12 +2724,12 @@ def main() -> int:
             paths["graph_replays"] = {"launches": {}, "kernel_checks": replays,
                                       "main_cases": {}}
         paths["nds_h"], dsess = run_leg("nds_h", KX, factory_of, dev, pool,
-                                        record)
+                                        record, parent=parent)
         del dsess
         release(dev)
         run_distributed(KX, dev, pool, record, paths)
         paths["nds"], dsess = run_leg("nds", KX, factory_of, dev, pool,
-                                      record, k6_parent=args.k6_parent)
+                                      record, parent=parent)
         paths["window"] = run_window_path(KX, dsess, dev, pool, record)
         # the raw executors go before the columnar legs start, so that
         # raw and encoded buffers are never resident together

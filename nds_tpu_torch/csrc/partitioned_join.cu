@@ -24,7 +24,9 @@
 //     partition's occupied (key, row) pairs by the key's order-preserving
 //     unsigned bits, 8 bits a pass, the row id as payload, so that it gives
 //     the JAX version's sorted (keys, rows) block directly. One histogram
-//     pass counts every digit of every pass per partition; a plan kernel
+//     pass counts every digit of every pass per partition (or the caller
+//     hands in those counts, as the multi-key sorts' pack takes them in
+//     sort_key.cu, and the pass is not launched); a plan kernel
 //     turns the counts into digit offsets and marks a pass whose digit takes
 //     one value across a partition's rows, which that partition skips (the
 //     device decides, the host reads nothing). Each remaining pass is a
@@ -717,13 +719,14 @@ __global__ void __launch_bounds__(kThreads)
 template <typename K>
 void sort_t(const void* kP, const void* gP, void* kT, void* gT, void* kO, void* gO,
             int nparts, long long cap, const int32_t* count, unsigned* hist,
-            unsigned* dbase, int32_t* info, u64* words, u64* ctr, K sent,
-            cudaStream_t s) {
+            bool counted, unsigned* dbase, int32_t* info, u64* words, u64* ctr,
+            K sent, cudaStream_t s) {
   constexpr int kPasses = sizeof(K);
   constexpr int I = sort_items<K>();
   const unsigned hx = static_cast<unsigned>((cap + kHistRows - 1) / kHistRows);
-  digit_hist<K><<<dim3(hx, nparts), kThreads, 0, s>>>(
-      static_cast<const K*>(kP), cap, count, hist);
+  if (!counted)
+    digit_hist<K><<<dim3(hx, nparts), kThreads, 0, s>>>(
+        static_cast<const K*>(kP), cap, count, hist);
   digit_plan<<<nparts, kThreads, 0, s>>>(hist, count, kPasses, dbase, info);
   int dev = 0, sms = 1, per = 1;
   cudaGetDevice(&dev);
@@ -794,14 +797,19 @@ int nds_pj_partition(const void* key, const void* ok, long long n, int key64,
 // The build sort. keys, gidx: K and int32 [nparts * cap] partition blocks
 // whose first count[p] slots of partition p are occupied (only read);
 // tkeys, tgidx: scratch of the same shapes; okeys, ogidx: the sorted
-// blocks. hist: int32[nparts * 8 * 256] of zeros; dbase:
+// blocks. hist: int32[nparts * P * 256] (P = 8 passes for int64 keys, 4
+// for int32): with counted = 0, zeros, and the sort counts the digits of
+// each partition's occupied prefix into it; with counted = 1, those counts
+// as the caller took them, hist[(p * P + d) * 256 + digit] for digit d of
+// the keys' order-preserving unsigned bits (sort_key.cu's pack writes them
+// for one partition), and the sort reads them as they are. dbase:
 // int32[nparts * 8 * 256] and info: int32[nparts * 8], scratch. words:
 // nparts * ceil(cap / nds_pj_sort_tile(key64)) * 256. Eight (int64 keys)
 // or four (int32) passes, each drawing an epoch.
 int nds_pj_sort(const void* keys, const void* gidx, void* tkeys, void* tgidx, void* okeys,
                 void* ogidx, int key64, int nparts, long long cap,
-                const void* count, void* hist, void* dbase, void* info,
-                void* words, void* ctr, void* stream) {
+                const void* count, void* hist, int counted, void* dbase,
+                void* info, void* words, void* ctr, void* stream) {
   if (cap < 1 || nparts < 1 || nparts > kMaxParts)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -813,10 +821,10 @@ int nds_pj_sort(const void* keys, const void* gidx, void* tkeys, void* tgidx, vo
   u64* c = static_cast<u64*>(ctr);
   if (key64)
     sort_t<int64_t>(keys, gidx, tkeys, tgidx, okeys, ogidx, nparts, cap, cnt,
-                    h, b, inf, w, c, INT64_MAX, s);
+                    h, counted != 0, b, inf, w, c, INT64_MAX, s);
   else
     sort_t<int32_t>(keys, gidx, tkeys, tgidx, okeys, ogidx, nparts, cap, cnt,
-                    h, b, inf, w, c, INT32_MAX, s);
+                    h, counted != 0, b, inf, w, c, INT32_MAX, s);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -68,8 +68,8 @@ SIGNATURES = {
         "nds_pj_max_parts": [],
         "nds_pj_partition": [_P, _P, _LL, _I, _I, _I, _LL, _P, _P, _P, _P,
                              _P, _P, _P],
-        "nds_pj_sort": [_P, _P, _P, _P, _P, _P, _I, _I, _LL, _P, _P, _P, _P,
-                        _P, _P, _P],
+        "nds_pj_sort": [_P, _P, _P, _P, _P, _P, _I, _I, _LL, _P, _P, _I, _P,
+                        _P, _P, _P, _P],
         "nds_pj_ranges": [_P, _I, _LL, _P, _LL, _I, _P, _P, _P, _P, _P],
         "nds_pj_expand": [_P, _P, _P, _P, _I, _LL, _LL, _LL, _P, _P, _P, _P,
                           _P, _P, _P],
@@ -81,10 +81,11 @@ SIGNATURES = {
     },
     "sort_key": {
         "nds_sort_max_fields": [],
-        "nds_pack_sort_key": [_P, _P, _LL, _I, _P, _P, _P, _P, _P, _P, _P, _I,
-                              _P, _P],
+        "nds_pack_sort_key": [_P, _P, _LL, _I, _P, _P, _P, _P, _P, _P, _P, _P,
+                              _I, _P, _P, _P],
     },
     "sorted_search": {
+        "nds_search_index_keys": [_I],
         "nds_sorted_search": [_P, _I, _LL, _P, _LL, _I, _P, _P, _P, _P, _P,
                               _P, _P],
     },

@@ -46,7 +46,7 @@ the executor's device (``cuda`` unless the caller asks for the CPU):
   into lookup tables the device gathers through.
 - **Decimals are scaled int64**; division and AVG go through float64.
 
-A multi-key ``lax.sort`` becomes order-preserving words of at most 64
+A multi-key ``lax.sort`` becomes order-preserving words of at most 32
 bits, laid out on the host from the keys' bounds (``_sort_layout``) and
 sorted stably from the least significant word up by the radix sort,
 with the row ids as payload (``_sort_perm``), which gives the same
@@ -60,6 +60,7 @@ never runs on the CPU instead.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import hashlib
 import time
 
@@ -422,10 +423,6 @@ def _sort_operand(row, k: SortKey):
     return -v if k.negate else v
 
 
-# the widest word of a multi-key sort
-SORT_WORD_BITS = 64
-
-
 def _sort_field(k: SortKey) -> tuple:
     """``(mode, lo, width)`` of one operand's field (``kernels.SORT_*``):
     a float takes its full width in ``lax.sort``'s order; an integer
@@ -455,44 +452,85 @@ def _sort_field(k: SortKey) -> tuple:
 def _sort_layout(keys, n: int) -> list:
     """How a multi-key sort's operands (``SortKey``s, the most
     significant first) split into words, decided on the host from their
-    bounds: ``[(fields, bits), ...]``, the most significant word first,
-    each field ``(index of its key, mode, lo, width)``, each word at most
-    ``SORT_WORD_BITS`` bits and ``kernels.SORT_MAX_FIELDS`` fields, no
-    field over two words; a field of no bits (a span of one value) takes
-    none. A bound is only as good as the fill behind it: a key whose
-    absent rows are not filled is bounded only where its ``lo``/``hi``
-    hold there too (``SortKey``)."""
+    bounds: ``[(pieces, bits), ...]``, the most significant word first.
+    The operands' order-preserving bits (``_sort_field``; a field of no
+    bits, a span of one value, takes none), the most significant first,
+    make one string, which is cut into words of at most 32 bits and
+    ``kernels.SORT_MAX_FIELDS`` pieces; each piece ``(index of its key,
+    mode, lo, width, shift)`` is bits ``[shift, shift + width)`` of its
+    operand's field, so an operand may straddle two words (or three). The
+    cuts take the fewest digit passes (a word of w bits sorts in ceil(w /
+    8) passes of 8 bits), then the fewest words, then the fewest operands
+    split, and of those the one whose least significant word is longest.
+    A bound is only as good as the fill behind it: a key whose absent
+    rows are not filled is bounded only where its ``lo``/``hi`` hold there
+    too (``SortKey``)."""
     if not 1 <= n < 2**31 - 1:
         raise DeviceExecError(f"a sort of {n} rows: the row ids are int32")
-    words, cur, bits = [], [], 0
-    for i, k in enumerate(keys):
-        mode, lo, width = _sort_field(k)
-        if not width:
-            continue
-        if cur and (bits + width > SORT_WORD_BITS
-                    or len(cur) == KX.SORT_MAX_FIELDS):
-            words.append((cur, bits))
-            cur, bits = [], 0
-        cur.append((i, mode, lo, width))
-        bits += width
-    if cur:
-        words.append((cur, bits))
+    fields = [(i, *_sort_field(k)) for i, k in enumerate(keys)]
+    fields = [f for f in fields if f[3]]
+    words = []
+    start = 0
+    for cut in _sort_cuts(tuple(f[3] for f in fields), KX.SORT_MAX_FIELDS):
+        pieces, top = [], 0
+        for i, mode, lo, width in fields:
+            a, b = max(start, top), min(cut, top + width)
+            if a < b:
+                pieces.append((i, mode, lo, b - a, top + width - b))
+            top += width
+        words.append((pieces, cut - start))
+        start = cut
     return words
 
 
-def _word_args(row, keys, fields, bits: int) -> tuple:
+@functools.lru_cache(maxsize=256)
+def _sort_cuts(widths: tuple, max_pieces: int) -> tuple:
+    """The ends of the words of ``_sort_layout`` over fields of
+    ``widths`` bits (the most significant first), each word at most 32
+    bits and ``max_pieces`` pieces: the least cost (digit passes, then
+    words, then fields split) over every way to cut, by dynamic
+    programming over the bit positions from the top."""
+    total = sum(widths)
+    field_at = []  # the field of each bit, from the top
+    first = []     # the first bit of each field
+    for f, w in enumerate(widths):
+        first.append(len(field_at))
+        field_at += [f] * w
+    # cost as one integer: passes, then words, then splits
+    unit_pass, unit_word = 1 << 40, 1 << 20
+    best = [0] + [None] * total
+    back = [0] * (total + 1)
+    for c in range(1, total + 1):
+        # a cut at c inside a field splits it, counted at its first cut
+        inside = c < total and first[field_at[c]] < c
+        for p in range(max(0, c - 32), c):
+            if best[p] is None or field_at[c - 1] - field_at[p] >= max_pieces:
+                continue
+            cost = (best[p] + unit_pass * -(-(c - p) // 8) + unit_word
+                    + (1 if inside and p <= first[field_at[c]] else 0))
+            if best[c] is None or cost < best[c]:
+                best[c], back[c] = cost, p
+    cuts = []
+    c = total
+    while c:
+        cuts.append(c)
+        c = back[c]
+    return tuple(reversed(cuts))
+
+
+def _word_args(row, keys, pieces, bits: int) -> tuple:
     """``kernels.pack_sort_key``'s arguments for one word of
-    ``_sort_layout``: the row mask where a field fills by it, each
-    field's values and validity, its ``(flags, mode, lo, width)``, the
-    word's bits."""
+    ``_sort_layout``: the row mask where a piece fills by it, each
+    piece's operand values and validity, its ``(flags, mode, lo, width,
+    shift)``, the word's bits."""
     flags = [KX.SORT_USE_ROW * keys[i].use_row
              | KX.SORT_INVERT * keys[i].invert
-             | KX.SORT_NEGATE * keys[i].negate for i, *_f in fields]
+             | KX.SORT_NEGATE * keys[i].negate for i, *_f in pieces]
     return (row if any(f & KX.SORT_USE_ROW for f in flags) else None,
-            [keys[i].arr.contiguous() for i, *_f in fields],
+            [keys[i].arr.contiguous() for i, *_f in pieces],
             [None if keys[i].valid is None else keys[i].valid.contiguous()
-             for i, *_f in fields],
-            [(f, m, lo, w) for f, (_i, m, lo, w) in zip(flags, fields)],
+             for i, *_f in pieces],
+            [(f, *piece) for f, (_i, *piece) in zip(flags, pieces)],
             bits)
 
 
@@ -501,17 +539,18 @@ def _sort_perm(row, keys, n: int, device):
     (``SortKey``s, the most significant first), ``_lexsort``'s of their
     operands exactly: each word of ``_sort_layout``, from the least
     significant up, packed in the order of the permutation so far
-    (``kernels.pack_sort_key``) and sorted stably with that permutation as
-    its payload (``partition_sort`` over one partition). ``row``: the
-    mask the ``use_row`` keys fill by."""
+    (``kernels.pack_sort_key``, which counts the word's digits too) and
+    sorted stably with that permutation as its payload (``partition_sort``
+    over one partition, from those counts). ``row``: the mask the
+    ``use_row`` keys fill by."""
     perm = torch.arange(n, dtype=torch.int32, device=device)
     counts = torch.full((1,), n, dtype=torch.int32, device=device)
     first = True
-    for fields, bits in reversed(_sort_layout(keys, n)):
-        word = KX.pack_sort_key(*_word_args(row, keys, fields, bits),
-                                None if first else perm)
+    for pieces, bits in reversed(_sort_layout(keys, n)):
+        word, hist = KX.pack_sort_key(*_word_args(row, keys, pieces, bits),
+                                      None if first else perm)
         _ks, perm = KX.partition_sort(word.view(1, n), perm.view(1, n),
-                                      counts)
+                                      counts, hist)
         perm = perm.view(n)
         first = False
     return perm

@@ -958,10 +958,10 @@ _NAN_BITS = {torch.float32: 0x7FC00000, torch.float64: 0x7FF8000000000000}
 _I64_MIN = -(1 << 63)
 
 
-def _sort_field_plain(row, arr, valid, flags: int, mode: int, lo: int,
-                      width: int):
-    """One field's bits (below 2^width, in int64 as unsigned bits) of
-    ``pack_sort_key``, for rows already in the word's order."""
+def _sort_field_plain(row, arr, valid, flags: int, mode: int, lo: int):
+    """One operand's order-preserving bits (in int64, as unsigned bits:
+    a 64-bit operand's top bit is the sign), for rows already in the
+    word's order."""
     ok = row if flags & SORT_USE_ROW else None
     if valid is not None:
         ok = valid if ok is None else ok & valid
@@ -988,9 +988,20 @@ def _sort_field_plain(row, arr, valid, flags: int, mode: int, lo: int,
         v = -v
     if mode == SORT_SPAN:
         return v - lo
-    if width == 32:
+    if arr.dtype == torch.int32:
         return (v & 0xFFFFFFFF) ^ 0x80000000
     return v ^ _I64_MIN
+
+
+def sort_digit_counts_plain(word):
+    """The counts of each 8-bit digit of an int32 word's order-preserving
+    unsigned bits (its sign bit flipped): int32[4 * 256], digit d's
+    counts at ``[d * 256, d * 256 + 256)``, as ``partition_sort`` reads
+    them for one partition."""
+    u = word.to(torch.int64) & 0xFFFFFFFF ^ 0x80000000
+    shifts = torch.arange(0, 32, 8, device=word.device)
+    at = ((u[:, None] >> shifts) & 0xFF) + shifts * 32  # d * 256 + digit
+    return torch.bincount(at.view(-1), minlength=4 * 256).to(torch.int32)
 
 
 def pack_sort_key_plain(row, arrs, valids, fields, bits: int, perm=None):
@@ -1003,46 +1014,50 @@ def pack_sort_key_plain(row, arrs, valids, fields, bits: int, perm=None):
                   for v in valids]
     key = torch.zeros(arrs[0].shape[0], dtype=torch.int64,
                       device=arrs[0].device)
-    shift = bits
-    for arr, valid, (flags, mode, lo, width) in zip(arrs, valids, fields):
-        shift -= width
-        key |= _sort_field_plain(row, arr, valid, flags, mode, lo,
-                                 width) << shift
+    pos = bits
+    for arr, valid, (flags, mode, lo, width, shift) in zip(arrs, valids,
+                                                           fields):
+        pos -= width
+        b = _sort_field_plain(row, arr, valid, flags, mode, lo)
+        key |= ((b >> shift) & ((1 << width) - 1)) << pos
     if bits == 32:
         key = key - (1 << 31)
-    elif bits == 64:
-        key = key ^ _I64_MIN
-    return key.to(torch.int32) if bits <= 32 else key
+    word = key.to(torch.int32)
+    return word, sort_digit_counts_plain(word)
 
 
 @_counted
 def pack_sort_key(row, arrs, valids, fields, bits: int, perm=None):
-    """One word of a multi-key sort: per row, its operands (``arrs``, the
-    most significant first) as fields from the word's top bit down, so
-    that the words' order is the operands' lexicographic order. Each
+    """One word of a multi-key sort, and its digit counts: per row, a
+    piece of each operand (``arrs``, the most significant first) from the
+    word's top bit down, so that the words' order, from the most
+    significant word down, is the operands' lexicographic order. Each
     operand is read at row ``perm[i]`` (int32, the permutation of the
     words sorted so far; row i where None), filled with 0 where its
     ``valids`` entry (or None) or, with ``SORT_USE_ROW``, ``row`` is
     False, taken as 1 - value with ``SORT_INVERT`` (a bool), negated with
-    ``SORT_NEGATE``, then laid out by its mode (``fields``: one ``(flags,
-    mode, lo, width)`` per operand, from the executor's ``_sort_layout``):
-    ``SORT_SPAN`` value - lo in ``width`` bits, ``SORT_INT`` its 32 or 64
-    bits with the sign bit flipped, ``SORT_FLOAT`` ``lax.sort``'s float
-    order (-0.0 as +0.0, every NaN as one NaN above +inf) as
-    order-preserving bits. int32 for ``bits <= 32``, else int64; a word of
-    exactly 32 or 64 bits is biased by -2^31 or -2^63, which keeps its
-    order. ``arrs``: int32, int64, bool, float32 or float64 values."""
+    ``SORT_NEGATE``, then made order-preserving bits by its mode:
+    ``SORT_SPAN`` value - lo, ``SORT_INT`` its 32 or 64 bits with the
+    sign bit flipped, ``SORT_FLOAT`` ``lax.sort``'s float order (-0.0 as
+    +0.0, every NaN as one NaN above +inf). ``fields``: one ``(flags,
+    mode, lo, width, shift)`` per piece, from the executor's
+    ``_sort_layout``: the word takes bits ``[shift, shift + width)`` of
+    those. Returns ``(word int32[n], counts int32[4 * 256])``: a word of
+    exactly 32 bits is biased by -2^31, which keeps its order; the counts
+    are ``sort_digit_counts_plain``'s, which ``partition_sort`` takes in
+    place of its own histogram pass. ``arrs``: int32, int64, bool,
+    float32 or float64 values."""
     opt = [t for t in (row, perm, *valids) if t is not None]
     if not _launch_device(*arrs, *opt):
         return pack_sort_key_plain(row, arrs, valids, fields, bits, perm)
     n = arrs[0].shape[0] if arrs else 0
-    if not 1 <= bits <= 64 or n < 1:
+    if not 1 <= bits <= 32 or n < 1:
         raise ValueError(f"pack_sort_key: {bits} bits, n={n}")
     if row is not None:
         _require(row, "row", (torch.bool,), n)
     if perm is not None:
         _require(perm, "perm", (torch.int32,), n)
-    for arr, valid, (flags, mode, lo, width) in zip(arrs, valids, fields):
+    for arr, valid, (flags, *_f) in zip(arrs, valids, fields):
         _require(arr, "arr", tuple(_SORT_TYPES), n)
         if valid is not None:
             _require(valid, "valid", (torch.bool,), n)
@@ -1056,8 +1071,13 @@ def pack_sort_key(row, arrs, valids, fields, bits: int, perm=None):
     if sum(f[3] for f in fields) != bits:
         raise ValueError(f"pack_sort_key: the fields do not make {bits} "
                          f"bits")
-    out = torch.empty(n, dtype=torch.int64 if bits > 32 else torch.int32,
-                      device=arrs[0].device)
+    dev = arrs[0].device
+    out = torch.empty(n, dtype=torch.int32, device=dev)
+    # zeroed on the stream, so that a graph's replays count from zero
+    counts = torch.zeros(4 * 256, dtype=torch.int32, device=dev)
+
+    def ints(at):
+        return (ctypes.c_int * k)(*[int(f[at]) for f in fields])
     err = lib.nds_pack_sort_key(
         None if row is None else _ptr(row),
         None if perm is None else _ptr(perm), n, k,
@@ -1066,13 +1086,11 @@ def pack_sort_key(row, arrs, valids, fields, bits: int, perm=None):
                                 for v in valids]),
         (ctypes.c_longlong * k)(*[int(f[2]) for f in fields]),
         (ctypes.c_int * k)(*[_SORT_TYPES[a.dtype] for a in arrs]),
-        (ctypes.c_int * k)(*[int(f[1]) for f in fields]),
-        (ctypes.c_int * k)(*[int(f[3]) for f in fields]),
-        (ctypes.c_int * k)(*[int(f[0]) for f in fields]),
-        bits, _ptr(out), cb.stream_handle())
+        ints(1), ints(3), ints(4), ints(0), bits, _ptr(out), _ptr(counts),
+        cb.stream_handle())
     cb.check(err, "pack_sort_key")
     LAUNCHES["pack_sort_key"] += 1
-    return out
+    return out, counts
 
 
 _SEARCH_MODES = {"left": 0, "right": 1, "both": 2, "probe": 3}
@@ -1276,33 +1294,61 @@ def partitioned_mn_join_plain(lkey, lok, rkey, rok, out_capacity: int,
             overflow)
 
 
-def partition_sort_plain(keys, gidx, counts):
+def _sort_hist_size(keys) -> int:
+    """Entries of ``partition_sort``'s digit counts: 256 per pass (8 for
+    int64 keys, 4 for int32) per partition."""
+    return keys.shape[0] * keys.element_size() * 256
+
+
+def partition_sort_plain(keys, gidx, counts, hist=None):
     """Plain version of ``partition_sort``: per partition ``p``, the
     first ``counts[p]`` (key, row) pairs sorted stably by key, and the
     rest of the partition (iinfo(key).max, 0). Where the blocks' tails
     already hold those, as the JAX version's radix scatter leaves them,
     this is the stable sort of the whole block with its row ids
-    gathered (the JAX version's ``lax.sort`` with ``num_keys=1``)."""
+    gathered (the JAX version's ``lax.sort`` with ``num_keys=1``). With
+    ``hist``, the digit counts the caller took, the sort reads only the
+    digits that the kernel's plan moves: those where no one digit value
+    holds every row of the partition."""
     ks = torch.full_like(keys, torch.iinfo(keys.dtype).max)
     gs = torch.zeros_like(gidx)
+    passes = keys.element_size()
     for p, c in enumerate(counts.tolist()):
-        k, order = torch.sort(keys[p, :c], stable=True)
-        ks[p, :c] = k
+        k = keys[p, :c]
+        by = k
+        if hist is not None:
+            h = hist.view(-1, passes, 256)[p]
+            moves = (h == c).any(1).logical_not().tolist()
+            mask = sum(0xFF << (8 * d) for d in range(passes) if moves[d])
+            # the moved digits of the order-preserving bits (the sign bit
+            # flipped), compared as unsigned: their top bit flipped back for
+            # torch's signed order, in the key's own type
+            top = 8 * passes - 1
+            lo = torch.iinfo(keys.dtype).min
+            by = ((k ^ lo) & (mask - (2 << top) if mask >> top else mask)) ^ lo
+        _s, order = torch.sort(by, stable=True)
+        ks[p, :c] = k.index_select(0, order)
         gs[p, :c] = gidx[p, :c].index_select(0, order)
     return ks, gs
 
 
 @_counted
-def partition_sort(keys, gidx, counts):
+def partition_sort(keys, gidx, counts, hist=None):
     """The build sort of ``partitioned_mn_join``: each partition's
     occupied (key, row) pairs, the first ``counts[p]`` slots of row
     ``p`` of the ``(nparts, cap)`` blocks ``keys`` (int32 or int64) and
     ``gidx`` (int32), sorted stably by key, and the unoccupied slots
     after them as (iinfo(key).max, 0); ``0 <= counts[p] <= cap``, as the
-    partition kernel writes them. Returns ``(keys, rows)``; the inputs
-    are left as they are."""
-    if not _launch_device(keys, gidx, counts):
-        return partition_sort_plain(keys, gidx, counts)
+    partition kernel writes them. ``hist``, where given: the counts of
+    each 8-bit digit of the occupied keys' order-preserving unsigned bits
+    (the sign bit flipped), int32[nparts * passes * 256] (8 passes for
+    int64 keys, 4 for int32), at ``(p * passes + d) * 256 + digit``, as
+    ``pack_sort_key`` takes them; the sort then launches no histogram
+    pass of its own. Returns ``(keys, rows)``; the inputs are left as
+    they are."""
+    if not _launch_device(keys, gidx, counts,
+                          *([] if hist is None else [hist])):
+        return partition_sort_plain(keys, gidx, counts, hist)
     if (keys.dtype not in _KEY_DTYPES or keys.dim() != 2
             or not keys.is_contiguous()):
         raise ValueError(f"partition_sort: keys {keys.dtype} "
@@ -1320,9 +1366,13 @@ def partition_sort(keys, gidx, counts):
     key64 = int(keys.dtype == torch.int64)
     ks, gs = torch.empty_like(keys), torch.empty_like(gidx)
     tk, tg = torch.empty_like(keys), torch.empty_like(gidx)
-    # counts of every digit (8 bits, up to 8 passes) per partition
-    hist = torch.zeros(nparts * 8 * 256, dtype=torch.int32, device=dev)
-    dbase = torch.empty_like(hist)
+    counted = hist is not None
+    if counted:
+        _require(hist, "hist", (torch.int32,), _sort_hist_size(keys))
+    else:
+        # counts of every digit (8 bits, up to 8 passes) per partition
+        hist = torch.zeros(nparts * 8 * 256, dtype=torch.int32, device=dev)
+    dbase = torch.empty(nparts * 8 * 256, dtype=torch.int32, device=dev)
     info = torch.empty(nparts * 8, dtype=torch.int32, device=dev)
     tiles = -(-cap // lib.nds_pj_sort_tile(key64))
     stream = cb.stream_handle()
@@ -1331,8 +1381,8 @@ def partition_sort(keys, gidx, counts):
                            8 if key64 else 4)
     err = lib.nds_pj_sort(
         _ptr(keys), _ptr(gidx), _ptr(tk), _ptr(tg), _ptr(ks), _ptr(gs),
-        key64, nparts, cap, _ptr(counts), _ptr(hist), _ptr(dbase),
-        _ptr(info), _ptr(words), _ptr(ctr), stream)
+        key64, nparts, cap, _ptr(counts), _ptr(hist), int(counted),
+        _ptr(dbase), _ptr(info), _ptr(words), _ptr(ctr), stream)
     cb.check(err, "partition_sort")
     LAUNCHES["partition_sort"] += 1
     return ks, gs

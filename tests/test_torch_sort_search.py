@@ -123,7 +123,7 @@ def _operand(rng, n, row, spec):
 I32, I64 = np.int32, np.int64
 P = ("presence",)
 SORT_CASES = {
-    # name: (rows, share present, operand specs, words expected)
+    # name: (rows, share present, operand specs, words of at most 32 bits)
     "asc_bounded_int32": (300, 0.8, [P, ("int", I32, 0, 100, True, False,
                                          0.0, True)], 1),
     "desc_nulls_first": (300, 0.9, [P, ("rank", True),
@@ -131,22 +131,22 @@ SORT_CASES = {
                                      False)], 1),
     "desc_nulls_last_int64": (300, 0.9, [P, ("rank", False),
                                          ("int", I64, -(1 << 40), 1 << 40,
-                                          True, True, 0.2, False)], 1),
+                                          True, True, 0.2, False)], 2),
     "unbounded_int32_extremes": (400, 0.9, [P, ("int", I32, -5, 5, False,
                                                 False, 0.1, False),
                                             ("int", I32, -5, 5, False, True,
-                                             0.0, False)], 2),
+                                             0.0, False)], 3),
     "unbounded_int64_extremes": (400, 0.9, [P, ("int", I64, -5, 5, False,
                                                 True, 0.1, False),
                                             ("int", I64, -5, 5, False,
-                                             False, 0.0, False)], 3),
+                                             False, 0.0, False)], 5),
     "bool_keys": (200, 0.9, [P, ("bool", False, 0.0), ("rank", False),
                              ("bool", True, 0.3)], 1),
     "float64_zeros_nan": (400, 0.9, [P, ("float", np.float64, False, 0.1),
-                                     ("float", np.float64, True, 0.1)], 3),
+                                     ("float", np.float64, True, 0.1)], 5),
     "float32_zeros_nan": (400, 0.9, [P, ("float", np.float32, True, 0.1),
                                      ("int", I32, 0, 9, True, False, 0.0,
-                                      True)], 1),
+                                      True)], 2),
     "unbounded_next_to_bounded": (400, 0.8, [
         P, ("int", I32, 3, 9, True, False, 0.1, True),
         ("int", I64, -9, 9, False, True, 0.0, False),
@@ -159,8 +159,8 @@ SORT_CASES = {
                                              False, 0.3, True)], 1),
     "no_present_row": (100, 0.0, [P, ("rank", True),
                                   ("int", I32, -3, 3, False, True, 0.2,
-                                   False)], 1),
-    "one_row": (1, 1.0, [P, ("float", np.float64, True, 0.0)], 2),
+                                   False)], 2),
+    "one_row": (1, 1.0, [P, ("float", np.float64, True, 0.0)], 3),
     "zero_width_key": (100, 0.9, [P, ("int", I32, 0, 0, True, False, 0.0,
                                       True), ("int", I32, 0, 3, True, True,
                                               0.0, False)], 1),
@@ -199,39 +199,51 @@ def test_packed_sort_equals_lax_sort_and_lexsort(name):
 
 
 def test_pack_sort_key_words():
-    """The word's bits: fields from the top down, a 32-bit word biased by
+    """The word's bits: pieces from the top down, a 32-bit word biased by
     -2^31, floats in lax.sort's order (-0.0 = +0.0, every NaN one value
-    above +inf), a descending int64 at its minimum wrapping as the
-    reference's negation does, and the gather through a permutation."""
+    above +inf) across the two words of a float64, a descending int64 at
+    its minimum wrapping as the reference's negation does, the gather
+    through a permutation, and the word's digit counts beside it."""
     row = torch.tensor([True, False, True, True])
-    w = KX.pack_sort_key(
+    w, counts = KX.pack_sort_key(
         row, [row, torch.tensor([3, 9, -1, 0], dtype=torch.int32)],
         [None, torch.tensor([True, True, True, False])],
-        [(KX.SORT_INVERT, KX.SORT_SPAN, 0, 1),
-         (KX.SORT_USE_ROW | KX.SORT_NEGATE, KX.SORT_SPAN, -3, 3)], 4)
+        [(KX.SORT_INVERT, KX.SORT_SPAN, 0, 1, 0),
+         (KX.SORT_USE_ROW | KX.SORT_NEGATE, KX.SORT_SPAN, -3, 3, 0)], 4)
     assert w.dtype == torch.int32
     # -3 - (-3) = 0, absent and NULL rows filled with 0 -> 3, -(-1) -> 4
     assert w.tolist() == [0, 8 | 3, 4, 3]
-    w = KX.pack_sort_key(None, [torch.tensor([0, -1, 5], dtype=torch.int32)],
-                         [None], [(0, KX.SORT_INT, 0, 32)], 32)
+    assert counts.dtype == torch.int32 and counts.shape == (4 * 256,)
+    np.testing.assert_array_equal(
+        counts.view(4, 256).numpy(),
+        [np.bincount([0, 11, 4, 3], minlength=256), np.eye(256)[0] * 4,
+         np.eye(256)[0] * 4, np.eye(256)[0x80] * 4])
+    w, _c = KX.pack_sort_key(None, [torch.tensor([0, -1, 5],
+                                                 dtype=torch.int32)],
+                             [None], [(0, KX.SORT_INT, 0, 32, 0)], 32)
     assert w.tolist() == [0, -1, 5]
     x = torch.tensor([-0.0, 0.0, float("nan"), -float("nan"), float("inf"),
                       -1.5, 2.0], dtype=torch.float64)
-    w = KX.pack_sort_key(None, [x], [None], [(0, KX.SORT_FLOAT, 0, 64)],
-                         64)
-    assert w.dtype == torch.int64
+    hi, _c = KX.pack_sort_key(None, [x], [None],
+                              [(0, KX.SORT_FLOAT, 0, 32, 32)], 32)
+    lo, _c = KX.pack_sort_key(None, [x], [None],
+                              [(0, KX.SORT_FLOAT, 0, 32, 0)], 32)
+    w = hi.long() * 2**32 + (lo.long() + 2**31)
     assert w[0] == w[1] and w[2] == w[3] and w[2] > w[4]
     assert w[5] < w[0] < w[6] < w[4]
     lo64 = torch.tensor([np.iinfo(np.int64).min, -1, 0], dtype=torch.int64)
-    w = KX.pack_sort_key(None, [lo64], [None],
-                         [(KX.SORT_NEGATE, KX.SORT_INT, 0, 64)], 64)
+    hi, _c = KX.pack_sort_key(None, [lo64], [None],
+                              [(KX.SORT_NEGATE, KX.SORT_INT, 0, 32, 32)], 32)
+    lo, _c = KX.pack_sort_key(None, [lo64], [None],
+                              [(KX.SORT_NEGATE, KX.SORT_INT, 0, 32, 0)], 32)
     # -min wraps to min, the smallest, as in the reference
-    assert w.tolist() == [np.iinfo(np.int64).min, 1, 0]
+    assert (hi.long() * 2**32 + (lo.long() + 2**31)).tolist() == [
+        np.iinfo(np.int64).min, 1, 0]
     perm = torch.tensor([2, 0, 1], dtype=torch.int32)
     vals = torch.tensor([7, 8, 9], dtype=torch.int32)
     assert KX.pack_sort_key(None, [vals], [None],
-                            [(0, KX.SORT_SPAN, 0, 4)], 4,
-                            perm).tolist() == [9, 7, 8]
+                            [(0, KX.SORT_SPAN, 0, 4, 0)], 4,
+                            perm)[0].tolist() == [9, 7, 8]
 
 
 # ---------------------------------------------------------- the layout
@@ -247,48 +259,55 @@ def _fields(keys):
             DX._sort_layout(keys, 4)]
 
 
+def _bits(keys):
+    return [b for _f, b in DX._sort_layout(keys, 4)]
+
+
 def test_sort_layout_is_a_host_decision_from_bounds():
     """A key filled on the absent rows (a group-by's, a window
     partition's) takes its span; an ORDER BY or window order key, whose
     absent rows keep their values, takes its full width whatever its
     bounds; floats their full width in float order; a descending key at
-    its type's minimum its full width; words split at 64 bits and at
-    ``SORT_MAX_FIELDS`` fields; no sort of 2^31 - 1 rows or more."""
+    its type's minimum its full width; words of at most 32 bits and
+    ``SORT_MAX_FIELDS`` pieces, a wider field straddling two; no sort of
+    2^31 - 1 rows or more."""
     row = torch.ones(4, dtype=torch.bool)
     span, full, flt = KX.SORT_SPAN, KX.SORT_INT, KX.SORT_FLOAT
     assert _fields(DX._group_sort_keys(row, [_dv(torch.int32, 10, 20)])) \
-        == [[(span, 0, 1), (span, 0, 5)]]
+        == [[(span, 0, 1, 0), (span, 0, 5, 0)]]
     assert _fields(DX._group_sort_keys(row, [
         _dv(torch.int32, 5, 9, valid=True)])) == [
-        [(span, 0, 1), (span, 0, 1), (span, 0, 4)]]
+        [(span, 0, 1, 0), (span, 0, 1, 0), (span, 0, 4, 0)]]
     assert _fields(DX._order_keys(_dv(torch.int32, 10, 20), True, False)) \
-        == [[(full, 0, 32)]]
+        == [[(full, 0, 32, 0)]]
     assert _fields(DX._order_keys(_dv(torch.int64, 0, 5, valid=True), False,
-                                  True)) == [[(span, 0, 1), (full, 0, 32)]]
+                                  True)) == [[(span, 0, 1, 0)],
+                                             [(full, 0, 32, 0)]]
     assert _fields(DX._order_keys(_dv(torch.int64, 0, 1 << 40, valid=True),
-                                  False, True)) == [[(span, 0, 1)],
-                                                    [(full, 0, 64)]]
+                                  False, True)) == [
+        [(span, 0, 1, 0)], [(full, 0, 32, 32)], [(full, 0, 32, 0)]]
     assert _fields(DX._order_keys(_dv(torch.float64, 0, 1), True,
-                                  False)) == [[(flt, 0, 64)]]
+                                  False)) == [[(flt, 0, 32, 32)],
+                                              [(flt, 0, 32, 0)]]
     assert _fields(DX._order_keys(_dv(torch.bool), False, False)) == [
-        [(span, -1, 1)]]
+        [(span, -1, 1, 0)]]
     i32 = np.iinfo(np.int32)
     assert _fields([DX.SortKey(torch.zeros(4, dtype=torch.int32),
                                negate=True, lo=int(i32.min), hi=0)]) == [
-        [(full, 0, 32)]]
+        [(full, 0, 32, 0)]]
     assert _fields([DX.SortKey(torch.zeros(4, dtype=torch.int32),
                                negate=True, lo=-5, hi=3)]) == [
-        [(span, -3, 4)]]
+        [(span, -3, 4, 0)]]
     assert _fields([DX.SortKey(torch.zeros(4, dtype=torch.int32),
                                lo=int(i32.min) + 1, hi=int(i32.max) - 1)]) \
-        == [[(full, 0, 32)]]
+        == [[(full, 0, 32, 0)]]
     assert _fields([DX.SortKey(torch.zeros(4, dtype=torch.int64), lo=0,
                                hi=0)]) == []
     bools = [DX.SortKey(row) for _ in range(KX.SORT_MAX_FIELDS + 1)]
-    assert [len(f) for f in _fields(bools)] == [KX.SORT_MAX_FIELDS, 1]
+    assert [len(f) for f in _fields(bools)] == [1, KX.SORT_MAX_FIELDS]
     wide = [DX.SortKey(torch.zeros(4, dtype=torch.int32), lo=0,
                        hi=(1 << 30) - 1)] * 3
-    assert [b for _f, b in DX._sort_layout(wide, 4)] == [60, 30]
+    assert _bits(wide) == [30, 30, 30]
     with pytest.raises(DX.DeviceExecError):
         DX._sort_layout(bools, 2**31 - 1)
 
@@ -421,7 +440,8 @@ def test_sort_search_wrappers_count_no_launch_on_cpu():
     assert all(c == 0 for c in KX.launch_counts().values())
     meta = torch.zeros(4, dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="no kernel"):
-        KX.pack_sort_key(None, [meta], [None], [(0, KX.SORT_INT, 0, 32)], 32)
+        KX.pack_sort_key(None, [meta], [None], [(0, KX.SORT_INT, 0, 32, 0)],
+                         32)
     with pytest.raises(ValueError, match="no kernel"):
         KX.sorted_search(meta, meta)
     with pytest.raises(ValueError, match="no kernel"):
