@@ -2,7 +2,7 @@
 """Chip smoke of the PyTorch/CUDA port: the NDS-H and NDS power runs on one card.
 
     python3 chip_smoke.py [--sf 1.0] [--sf-ds 1.0] [--out results/smoke.json]
-                          [--parent DIR]
+                          [--parent DIR] [--l2-steps]
 
 Drives ``nds_tpu_torch`` (never ``jax``, never ``nds_tpu``) on the card:
 
@@ -13,10 +13,11 @@ Drives ``nds_tpu_torch`` (never ``jax``, never ``nds_tpu``) on the card:
    is touched: the workers inherit the tables and run only numpy;
 3. builds the CUDA C++ kernels from ``nds_tpu_torch/csrc`` with ``nvcc``
    (one process per source, all at once); the graph case: each look-back
-   layout, ``partition_sort`` and a multi-key sort of four words (an
+   layout, ``partition_sort``, a multi-key sort of four words (an
    operand straddling two at an odd bit, each word's digit counts from
-   its pack) captured in a CUDA graph and replayed three times with new
-   inputs, exact;
+   its pack) and L2's chain (the pack with its counts, the sort given
+   them, the group bounds) captured in a CUDA graph and replayed three
+   times with new inputs, exact;
 4. NDS-H leg at ``--sf`` (default SF1, ``bench.py``'s scale):
    ``Session.for_nds_h(make_device_factory())`` on ``cuda``;
    an untimed pass of the 22 queries captures each kernel's largest call;
@@ -62,14 +63,20 @@ Drives ``nds_tpu_torch`` (never ``jax``, never ``nds_tpu``) on the card:
    bounds beside bounded ones, several words, every row absent and none,
    empty builds, probes equal to the sentinel, builds at the edges of the
    search's shared-memory index, queries below and above every key and
-   counts no multiple of the queries a thread carries), and the
-   multi-key sort against ``_lexsort`` on them (``sort_chain_checks``);
-   with ``--parent DIR`` (another checkout of this repo, unpacked at
-   DIR), the sorts' and the probe's largest calls on the NDS-H and NDS
-   legs and the NDS leg's largest "left", "right" and "both" searches
-   run on that checkout's design beside this one's, on the same inputs,
-   in turns (parent, this, this, parent), the results held equal
-   (``parent_steps``);
+   counts no multiple of the queries a thread carries), the
+   multi-key sort against ``_lexsort`` on them (``sort_chain_checks``),
+   and L2's pack and group bounds on adversarial inputs
+   (``l2_adversarial_checks``: present counts at the group bounds'
+   tile edges, capacities of 1, the group count and n, three key
+   layouts, 12,000,007 rows; slices off alignment, 16 fields, int64
+   keys); with ``--parent DIR`` (another checkout of this repo, unpacked
+   at DIR), the sorts' and the probe's largest calls on the NDS-H and
+   NDS legs, the NDS leg's largest "left", "right" and "both" searches,
+   L3's build, the largest calls of ``partition_sort``, K6, K5's sum,
+   K7's scan and the running max, and L2's pack, sort and group bounds
+   at L2's largest call (``l2_steps``) run on that checkout's design
+   beside this one's, on the same inputs, in turns (parent, this, this,
+   parent), the results held equal (``parent_steps``);
 6. window path: whole-partition MIN/MAX and a running SUM under the
    default RANGE frame over ``store_sales`` at the NDS leg's scale (no NDS
    statement takes either form: the only path to
@@ -95,6 +102,11 @@ Drives ``nds_tpu_torch`` (never ``jax``, never ``nds_tpu``) on the card:
    over the timed runs, each kernel's numbers from the path that runs
    it), the card line, and as the last line
    ``{"ok": true, "device": {...}}``.
+
+``--l2-steps`` instead only builds the kernels and times L2's three steps
+(``l2_steps``) on seeded inputs shaped like their largest NDS call
+(``l2_padded_inputs``), beside ``--parent``'s design where given, and
+prints that record (no contract line).
 
 Kernel checks: integer, bool and min/max outputs must equal the plain
 version's exactly; a float sum (the segmented scan's "sum" on float
@@ -501,6 +513,12 @@ def work_of(name: str, args, out) -> tuple:
             moved += (a.numel() if ok is None else int(ok.sum())) \
                 * a.element_size()
         ops = arrs[0].numel()
+    if name == "group_bounds":
+        # the keys up to and including the first absent row (sorted, with
+        # presence on top: no row after it needs its key), every output
+        # written once (``bounds_bytes``)
+        keys, _pbit, G = args[:3]
+        moved = bounds_bytes(keys, int(out[0].sum()), G)[0]
     if name in DECODE_KERNELS:
         # a few integer operations per output row
         ops = out.numel()
@@ -628,7 +646,12 @@ def check_kernel(KX, name: str, args, label: str, dev,
     bound_ms, bound_by = bound(moved, ops)
     shapes = [list(a.shape) + [str(a.dtype).replace("torch.", "")]
               for a in _tensors(list(args) + list(kwargs.values()))]
-    rec = {"kernel": name, "case": label, "shapes": shapes,
+    extra = {}
+    if name == "group_bounds":
+        # the model that reads every key, for comparison
+        extra["bound_ms_all_keys"] = bound(
+            bounds_bytes(args[0], int(got[0].sum()), args[2])[1], ops)[0]
+    rec = {"kernel": name, "case": label, "shapes": shapes, **extra,
            "size": call_size(name, args, kwargs),
            "max_abs_err": err, "ms": ms, "device_ms": device_ms,
            "host_ms": host_ms,
@@ -965,6 +988,130 @@ def nds_adversarial_cases(dev) -> list:
                    dt(part_start), dt(pend)),
                   f"n={n} int32 min, partitions of about 60,000 rows"))
     return cases
+
+
+# the sorted packed keys of group_bounds' adversarial cases: presence bit
+# and stored type per layout (a 32-bit layout is int32, biased by -2^31)
+BOUNDS_LAYOUTS = {"int32, 21 bits": (20, "int32"),
+                  "int32, 32 bits biased": (31, "int32"),
+                  "int64, 41 bits": (40, "int64")}
+
+
+def sorted_group_keys(rng, n: int, present: int, layout: str,
+                      few_groups: bool):
+    """(keys, pbit) as ``partition_sort`` leaves a packed group key:
+    ``present`` rows of values below the presence bit (from a span of
+    about present / 50 values where ``few_groups``, so that groups span
+    tiles, else from the whole width), then the absent rows, their
+    presence bit set and the bits below it random, sorted."""
+    import numpy as np
+    import torch
+    pbit, dtype = BOUNDS_LAYOUTS[layout]
+    span = max(1, present // 50) if few_groups else 1 << pbit
+    packed = np.concatenate([
+        np.sort(rng.integers(0, span, present)),
+        np.sort(rng.integers(0, 1 << pbit, n - present)) | (1 << pbit)])
+    if pbit == 31:
+        packed = packed - (1 << 31)
+    return torch.as_tensor(packed.astype(dtype)), pbit
+
+
+def l2_adversarial_cases(KX, dev) -> tuple:
+    """(exact cases, timed cases) of L2's two kernels, each (kernel, args,
+    label). ``group_bounds``: present counts 0, 1, T - 1, T, T + 1, n - 1
+    and n (T its tile) over n = 100,003 rows, in each layout, at group
+    capacities 1, the group count and n; and at 12,000,007 rows, 2,099
+    present, G = n (L2's largest call cut in depth), in the 32-bit layout
+    and in int64. ``pack_group_key``: slices that start off 16-byte
+    alignment (each array by another offset), n no multiple of 16, every
+    row absent, every row present, 16 fields, and int64 keys; its counts
+    are held to the plain version's histogram."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(37)
+    exact, timed = [], []
+    T = KX._lib("seg_scan")[1].nds_group_bounds_tile() if \
+        dev.type == "cuda" else 4096
+    n = 100_003
+    for li, layout in enumerate(BOUNDS_LAYOUTS):
+        for pi, p in enumerate((0, 1, T - 1, T, T + 1, n - 1, n)):
+            keys, pbit = sorted_group_keys(rng, n, p, layout,
+                                           few_groups=(li + pi) % 2 == 0)
+            keys = keys.to(dev)
+            ng = int(torch.unique(keys[:p]).numel())
+            for G in sorted({1, max(ng, 1), n}):
+                exact.append(("group_bounds", (keys, pbit, G),
+                              f"n={n} {layout}, {p} present, {ng} groups, "
+                              f"G={G}"))
+    for layout in ("int32, 32 bits biased", "int64, 41 bits"):
+        n = 12_000_007
+        keys, pbit = sorted_group_keys(rng, n, 2_099, layout, True)
+        timed.append(("group_bounds", (keys.to(dev), pbit, n),
+                      f"n={n} {layout}, 2099 present, G=n"))
+
+    def dt(a):
+        return torch.as_tensor(np.ascontiguousarray(a)).to(dev)
+
+    def sliced(a, off):
+        # a contiguous view that starts ``off`` elements into its storage
+        return dt(np.concatenate([np.zeros(off, a.dtype), a]))[off:]
+    n = 1_000_003
+    row = rng.random(n) < 0.3
+    i32 = rng.integers(-1000, 1000, n).astype(np.int32)
+    v32 = rng.random(n) < 0.9
+    b = rng.random(n) < 0.5
+    i64 = rng.integers(-(1 << 40), 1 << 40, n)
+    v64 = rng.random(n) < 0.8
+    u20 = rng.integers(0, 1 << 20, n)
+    cases = [
+        ("slices off alignment, n % 16 = 3, an int32 key of 14 bits",
+         (sliced(row, 3), [sliced(i32, 5), sliced(b, 1)],
+          [sliced(v32, 7), None], [(True, -1000, 11), (False, 0, 1)])),
+        ("slices off alignment, an int64 key of 54 bits",
+         (sliced(row, 9), [sliced(i64, 1), sliced(i32, 2)],
+          [sliced(v64, 11), None], [(True, -(1 << 40), 41),
+                                    (False, -1000, 11)])),
+        ("every row absent, a 32-bit key",
+         (dt(np.zeros(n, bool)), [dt(i32), dt(u20)], [None, None],
+          [(False, -1000, 11), (False, 0, 20)])),
+        ("every row present, a 32-bit key",
+         (dt(np.ones(n, bool)), [dt(i32), dt(u20)], [None, None],
+          [(False, -1000, 11), (False, 0, 20)])),
+        ("16 fields: bools with validity, an int64 key of 33 bits",
+         (dt(row), [dt(rng.random(n) < 0.5) for _ in range(16)],
+          [dt(rng.random(n) < 0.9) for _ in range(16)],
+          [(True, 0, 1)] * 16)),
+    ]
+    for label, args in cases:
+        bits = 1 + sum(w + int(v) for v, _lo, w in args[3])
+        exact.append(("pack_group_key", (*args, bits), f"n={n}, {label}"))
+    timed.append(("pack_group_key",
+                  (dt(row), [dt(i32), dt(b)], [dt(v32), None],
+                   [(True, -1000, 11), (False, 0, 1)], 14),
+                  f"n={n}, 30% present, two keys, one nullable"))
+    return exact, timed
+
+
+def exact_check(KX, name: str, args, label: str) -> dict:
+    """A kernel against its plain version on one input, exactly, untimed."""
+    got = getattr(KX, name)(*args)
+    exp = getattr(KX, name + "_plain")(*args)
+    err, ok = agrees(name, args, got, exp)
+    if not ok:
+        raise SmokeError(f"{name} [{label}] differs from its plain "
+                         f"version: max_abs_err={err}")
+    return {"kernel": name, "case": label, "max_abs_err": err}
+
+
+def l2_adversarial_checks(KX, dev) -> list:
+    """Runs ``l2_adversarial_cases``: the exact ones untimed, the others
+    through ``check_kernel``."""
+    exact, timed = l2_adversarial_cases(KX, dev)
+    out = [exact_check(KX, *c) for c in exact]
+    log(json.dumps({"phase": "L2 adversarial cases", "cases": len(out),
+                    "max_abs_err": max(c["max_abs_err"] for c in out)}))
+    return out + [check_kernel(KX, name, args, label, dev)
+                  for name, args, label in timed]
 
 
 def adversarial_sort_keys(dev, n: int, seed: int) -> dict:
@@ -1525,9 +1672,12 @@ def library_step_checks(lib: Recorder, label: str, dev) -> list:
 def parent_steps(parent, lib: Recorder, rec: Recorder, label: str,
                  dev) -> list:
     """The sorts' and the probe's largest calls of a leg, and on the NDS
-    leg its largest "left", "right" and "both" searches, on the design of
-    another checkout (``parent``: ``load_parent``'s) beside this one's,
-    on the same inputs: both results must be equal; each design timed by
+    leg its largest "left", "right" and "both" searches; L3's build and the
+    largest calls of ``partition_sort``, K6, K5's sum, K7's scan and the
+    running max; and L2's pack, sort and group bounds at L2's largest call
+    (``l2_steps``), on the design of another checkout (``parent``:
+    ``load_parent``'s) beside this one's, on the same inputs: both results
+    must be equal; each design timed by
     the call method (``ms``) and by device ms (``device_ms``, a spin
     kernel hiding the host), median of 5 in turns (parent, this, this,
     parent; each the mean of its two turns), beside the bytes the call
@@ -1549,7 +1699,31 @@ def parent_steps(parent, lib: Recorder, rec: Recorder, label: str,
         if key in rec.largest:
             cases.append((key, rec.inputs(key)[0], KX.sorted_search,
                           pkx.sorted_search))
+    # the kernels this checkout leaves as they were, beside the parent's
+    if "build_lookup" in lib.largest:
+        cases.append(("build_lookup", lib.inputs("build_lookup")[0],
+                      lib.function("build_lookup"),
+                      pdx._Trace._build_lookup))
+    for key in ("partition_sort", "partitioned_mn_join",
+                "seg_reduce_at_ends[sum]", "seg_scan", "running_max"):
+        if key in rec.largest:
+            name = key.split("[")[0]
+            cases.append((key, rec.inputs(key)[0], getattr(KX, name),
+                          getattr(pkx, name)))
     out = []
+    # L2's packed route at its largest call: the pack, the sort and the
+    # group bounds on each design
+    if "pack_group_key" in lib.largest:
+        (row, keyvals, fields, bits), _kw = lib.inputs("pack_group_key")
+        G = dx._Trace._group_capacity(row.shape[0], keyvals)
+        r = {"step": "l2", "path": label, **l2_steps(
+            {"parent": pkx, "this": KX}, row,
+            [kv.arr.contiguous() for kv in keyvals],
+            [None if kv.valid is None else kv.valid.contiguous()
+             for kv in keyvals], fields, bits, G, dev)}
+        log(json.dumps({"phase": f"{label} beside the parent design", **r}))
+        out.append(r)
+        del row, keyvals
     for name, args, fn, pfn in cases:
         got, exp = fn(*args), pfn(*args)
         same = all(a.shape == b.shape and torch.equal(a.to(torch.int64),
@@ -1605,12 +1779,155 @@ def sort_passes(key) -> tuple:
     return moved, bits // 8
 
 
+def kernel_device_ms(fn, dev, reps: int = 5) -> dict:
+    """Device ms per call of each kernel (or copy, or memset) that ``fn``
+    launches, by its function's name without namespace or template
+    arguments, from ``torch.profiler`` over ``reps`` calls after one
+    warm-up (nothing on the CPU)."""
+    import re
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    if dev.type != "cuda":
+        return {}
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out: dict = {}
+    for ev in prof.events():
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        m = re.match(r"(?:void )?(?:\(anonymous namespace\)::)?([\w:]+?)"
+                     r"(?:<|\(|$)", ev.name)
+        name = m.group(1) if m else ev.name[:60]
+        out[name] = out.get(name, 0.0) + ev.time_range.elapsed_us() / 1000 \
+            / reps
+    return out
+
+
+# L2's largest NDS call at SF1 (PERF.md): 187,920,000 rows of
+# which 2,099 are present, keys that pack into 32 bits with no validity,
+# group capacity n. ``--l2-steps`` times the L2 steps on inputs of that
+# shape made from a seed: three int32 keys of 11, 10 and 10 bits
+L2_ROWS = 187_920_000
+L2_PRESENT = 2_099
+L2_FIELDS = [(False, 0, 11), (False, 0, 10), (False, 0, 10)]
+
+
+def l2_padded_inputs(dev) -> tuple:
+    """(row, arrs, valids, fields, bits) shaped like L2's largest NDS
+    call: L2_PRESENT of L2_ROWS rows present, at places drawn from a
+    seed, one int32 key per field of L2_FIELDS with values in its width
+    (absent rows hold values too, which the fill hides), no validity."""
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(31)
+    row = torch.zeros(L2_ROWS, dtype=torch.bool, device=dev)
+    row[torch.randperm(L2_ROWS, generator=gen,
+                       device=dev)[:L2_PRESENT]] = True
+    arrs = [torch.randint(0, 1 << w, (L2_ROWS,), generator=gen, device=dev,
+                          dtype=torch.int32) for _v, _lo, w in L2_FIELDS]
+    bits = 1 + sum(w for _v, _lo, w in L2_FIELDS)
+    return row, arrs, [None] * len(L2_FIELDS), L2_FIELDS, bits
+
+
+def bounds_bytes(keys, present_rows: int, G: int) -> tuple:
+    """(bytes by this run's data, bytes reading every key) that
+    ``group_bounds`` must move: the keys up to and including the first
+    absent row (the keys are sorted, presence on top, so the rows after
+    it are absent and need no key), every key in the second count; the
+    presence bytes, the int32 group ids, the int64 starts and the count
+    written once in both."""
+    n = keys.shape[0]
+    writes = n + 4 * n + 8 * G + 8
+    read = min(n, present_rows + 1) * keys.element_size()
+    return read + writes, n * keys.element_size() + writes
+
+
+def l2_steps(designs: dict, row, arrs, valids, fields, bits: int, G: int,
+             dev) -> dict:
+    """L2's packed route on each design of ``designs`` (name -> its
+    ``kernels`` module): the pack, ``partition_sort`` of the packed key
+    (given the pack's digit counts where the design's pack returns them)
+    and ``group_bounds``, on the same inputs; every step's results must
+    be equal across the designs. Per design and step: ms and device ms
+    (median of 5, in turns: the designs in order, then in reverse; the
+    mean of each design's two turns) and the device ms of each kernel the
+    step launches (``kernel_device_ms``); per step the bytes it must move
+    and their bound (for ``group_bounds`` also by the model that reads
+    every key)."""
+    import torch
+    n = row.shape[0]
+    iota = torch.arange(n, dtype=torch.int32, device=dev).view(1, n)
+    cnt = torch.full((1,), n, dtype=torch.int32, device=dev)
+    steps, first = {}, None
+    for who, kx in designs.items():
+        def pack(kx=kx):
+            return kx.pack_group_key(row, arrs, valids, fields, bits)
+        packed = pack()
+        # a design whose pack counts the key's digits returns (key, counts)
+        key, counts = packed if isinstance(packed, tuple) else (packed, None)
+
+        def sort(kx=kx, key=key, counts=counts):
+            return kx.partition_sort(key.view(1, n), iota, cnt,
+                                     *([] if counts is None else [counts]))
+        ks, perm = sort()
+
+        def bounds(kx=kx, ks=ks):
+            return kx.group_bounds(ks.view(n), bits - 1, G)
+        out = (key, ks, perm, *bounds())
+        if first is None:
+            first = out
+        elif not all(a.shape == b.shape and torch.equal(a, b)
+                     for a, b in zip(out, first)):
+            raise SmokeError(f"L2's steps on the {who} design differ from "
+                             f"the {next(iter(designs))} design's")
+        steps[who] = {"pack": pack, "sort": sort, "bounds": bounds}
+        del out, packed
+    key, ks, _perm, present_s, _gid, ngroups, _starts2 = first
+    moved_pack, _ops = work_of("pack_group_key",
+                               [row, arrs, valids, fields, bits], key)
+    moved_bounds, moved_all = bounds_bytes(ks.view(n), int(present_s.sum()),
+                                         G)
+    moved_sort = 2 * n * (key.element_size() + 4)
+    rec = {"rows": n, "present_rows": int(row.sum()), "groups_cap": G,
+           "ngroups": int(ngroups), "bits": bits,
+           "key_dtype": str(key.dtype).replace("torch.", ""),
+           "bytes": {"pack": moved_pack, "sort": moved_sort,
+                     "bounds": moved_bounds, "bounds_all_keys": moved_all},
+           "bound_ms": {s: b / HBM_BYTES_PER_S * 1000 for s, b in
+                        (("pack", moved_pack), ("sort", moved_sort),
+                         ("bounds", moved_bounds),
+                         ("bounds_all_keys", moved_all))}}
+    del first, key, ks, _perm, present_s, _gid, ngroups, _starts2
+    names = list(designs)
+    turns = {who: {s: [] for s in steps[who]} for who in names}
+    for who in names + names[::-1]:
+        for s, f in steps[who].items():
+            turns[who][s].append((time_ms(f, dev, reps=5, warm=1),
+                                  time_ms(f, dev, reps=5, warm=1,
+                                          spin=True)))
+    rec["designs"] = {
+        who: {s: {"ms": sum(t[0] for t in ts) / len(ts),
+                  "device_ms": sum(t[1] for t in ts) / len(ts),
+                  "turns": ts,
+                  "kernels": kernel_device_ms(steps[who][s], dev)}
+              for s, ts in turns[who].items()}
+        for who in names}
+    return rec
+
+
 def group_sort_record(KX, lib: Recorder, label: str, dev) -> "dict | None":
     """L2's group-id sort at its largest call that packs its keys: the
-    pack, ``partition_sort`` of the packed key and ``group_bounds``, each
-    timed, beside ``_lexsort`` of the reference's operands and
-    ``torch.sort`` of the packed key on the same rows; the perms must be
-    equal. Also the calls of each route in the untimed pass."""
+    pack, ``partition_sort`` of the packed key (given the pack's counts)
+    and ``group_bounds``, each timed by both methods with the device ms of
+    each kernel it launches (``l2_steps``), beside ``_lexsort`` of the
+    reference's operands and ``torch.sort`` of the packed key on the same
+    rows; the perms must be equal. Also the calls of each route in the
+    untimed pass."""
     import torch
     from nds_tpu_torch.engine import device_exec as dx
     routes = {"packed": lib.calls["pack_group_key"],
@@ -1623,36 +1940,26 @@ def group_sort_record(KX, lib: Recorder, label: str, dev) -> "dict | None":
     G = dx._Trace._group_capacity(n, keyvals)
     iota = torch.arange(n, dtype=torch.int32, device=dev).view(1, n)
     counts = torch.full((1,), n, dtype=torch.int32, device=dev)
-
-    def pack():
-        return dx._pack_group_key(row, keyvals, fields, bits)
-    key = pack()
+    key, hist = dx._pack_group_key(row, keyvals, fields, bits)
     lexsort = lib.function("lexsort")
     ops = dx._group_operands(row, keyvals)
-    ks, perm = KX.partition_sort(key.view(1, n), iota, counts)
+    _ks, perm = KX.partition_sort(key.view(1, n), iota, counts, hist)
     if not torch.equal(perm.view(n).to(torch.int64), lexsort(ops, n, dev)):
         raise SmokeError(f"{label}: the packed key's sort differs from "
                          f"_lexsort's at L2's largest call")
+    del _ks, perm
     moved, passes = sort_passes(key)
-    sort_bytes = 2 * n * (key.element_size() + 4)
-    rec = {"step": "group_sort", "path": label, "rows": n,
-           "present_rows": int(row.sum()), "groups_cap": G,
-           "keys": len(keyvals), "bits": bits, "key_dtype": str(key.dtype),
+    rec = {"step": "group_sort", "path": label, "keys": len(keyvals),
            "routes": routes, "passes_moved": moved, "passes": passes,
            "operands": [list(o.shape) + [str(o.dtype).replace("torch.", "")]
                         for o in ops],
-           "pack_ms": time_ms(pack, dev),
-           "sort_ms": time_ms(lambda: KX.partition_sort(key.view(1, n), iota,
-                                                        counts), dev),
-           "sort_device_ms": time_ms(lambda: KX.partition_sort(
-               key.view(1, n), iota, counts), dev, spin=True),
-           "bounds_ms": time_ms(lambda: KX.group_bounds(ks.view(n), bits - 1,
-                                                        G), dev),
+           **l2_steps({"this": KX}, row,
+                      [kv.arr.contiguous() for kv in keyvals],
+                      [None if kv.valid is None else kv.valid.contiguous()
+                       for kv in keyvals], fields, bits, G, dev),
            "torch_sort_ms": time_ms(lambda: torch.sort(key, stable=True),
                                     dev),
-           "lexsort_ms": time_ms(lambda: lexsort(ops, n, dev), dev),
-           "sort_bytes": sort_bytes,
-           "sort_bound_ms": sort_bytes / HBM_BYTES_PER_S * 1000}
+           "lexsort_ms": time_ms(lambda: lexsort(ops, n, dev), dev)}
     log(json.dumps({"phase": f"{label} group-id sort", **rec}))
     return rec
 
@@ -1661,9 +1968,10 @@ def graph_replay_cases(dev) -> list:
     """(kernel, make inputs, label[, function, plain version]) for the
     graph case: the scan layout (``seg_scan``, K5's sum, ``group_bounds``,
     ``running_max``), the count layout (K6, whose partition takes it),
-    ``partition_sort``, and the executor's multi-key sort of four words
+    ``partition_sort``, the executor's multi-key sort of four words
     (``_sort_perm``: four packs, each counting its word's digits, and four
-    sorts given those counts, against ``_lexsort``). Each
+    sorts given those counts, against ``_lexsort``), and L2's chain (the
+    pack with its counts, the sort given them, the group bounds). Each
     ``make(seed)`` gives a new set of inputs of one shape; the function
     is the kernel's wrapper unless the case names one."""
     import numpy as np
@@ -1741,6 +2049,33 @@ def graph_replay_cases(dev) -> list:
                 dt(np.where(row, rng.integers(0, 8, n), 1000)
                    .astype(np.int32)),
                 dt(rng.integers(-4, 4, n, dtype=np.int64) << 61))
+    # L2's chain: a 32-bit key of a bounded int32 and a nullable one, the
+    # pack's counts zeroed in the graph and given to the sort, then the
+    # group bounds at a capacity of n
+    l2_fields = [(False, 0, 11), (True, 0, 19)]
+
+    def l2_inputs(seed):
+        rng = np.random.default_rng(seed)
+        return (dt(rng.random(n) < 0.05),
+                dt(rng.integers(0, 1 << 11, n).astype(np.int32)),
+                dt(rng.integers(0, 1 << 19, n).astype(np.int32)),
+                dt(rng.random(n) < 0.9))
+
+    def l2_chain(row, a, b, vb, plain=False):
+        def step(name):
+            return getattr(dx.KX, name + ("_plain" if plain else ""))
+        key, hist = step("pack_group_key")(row, [a, b], [None, vb],
+                                           l2_fields, 32)
+        ks, perm = step("partition_sort")(
+            key.view(1, n),
+            torch.arange(n, dtype=torch.int32, device=dev).view(1, n),
+            torch.full((1,), n, dtype=torch.int32, device=dev), hist)
+        return (key, hist, ks, perm,
+                *step("group_bounds")(ks.view(n), 31, n))
+
+    def l2_chain_plain(*args):
+        return l2_chain(*args, plain=True)
+
     words = [b for _p, b in dx._sort_layout(chain_keys(
         torch.ones(1, dtype=torch.bool), torch.zeros(1, dtype=torch.int32),
         torch.zeros(1, dtype=torch.int32), torch.zeros(1, dtype=torch.int64)),
@@ -1756,7 +2091,11 @@ def graph_replay_cases(dev) -> list:
              f"n={n}, the multi-key sort of words of {words} bits, an "
              f"int32 straddling two: pack_sort_key (its counts zeroed in "
              f"the graph) and partition_sort given the counts", chain,
-             chain_plain)]
+             chain_plain),
+            ("pack_group_key", l2_inputs,
+             f"n={n}, L2's chain: pack_group_key of a 32-bit key (its counts "
+             f"zeroed in the graph), partition_sort given the counts, "
+             f"group_bounds at G=n", l2_chain, l2_chain_plain)]
 
 
 def reset_and_grow(KX, stream) -> list:
@@ -2198,6 +2537,7 @@ def run_leg(suite, KX, factory_of, dev, pool, record, path=None,
                                    + sort_search_cases(dev)):
             checks.append(check_kernel(KX, name, kargs, label, dev))
         checks += sort_chain_checks(dev)
+        checks += l2_adversarial_checks(KX, dev)
         if dev.type == "cuda":
             checks += check_lookback_layouts(KX, dev)
 
@@ -2662,6 +3002,10 @@ def main() -> int:
     ap.add_argument("--parent", default=None, metavar="DIR",
                     help="another checkout of this repo (git archive), "
                     "whose sorts and searches are timed beside this one's")
+    ap.add_argument("--l2-steps", action="store_true",
+                    help="only time L2's pack, sort and group bounds on "
+                    "inputs shaped like their largest NDS call (this "
+                    "design, and --parent's beside it), then exit")
     args = ap.parse_args()
 
     import torch
@@ -2684,6 +3028,23 @@ def main() -> int:
     def factory_of():
         return make_device_factory(device=None if dev.type == "cuda"
                                    else args.device)
+
+    if args.l2_steps:
+        if dev.type == "cuda":
+            cuda_build.build_all()
+        designs = {"this": KX}
+        if args.parent:
+            designs = {"parent": load_parent(args.parent, dev)[0], "this": KX}
+        row, arrs, valids, fields, bits = l2_padded_inputs(dev)
+        rec = {"card": card, "phase": "l2 steps", **l2_steps(
+            designs, row, arrs, valids, fields, bits, row.shape[0], dev)}
+        if args.out:
+            os.makedirs(os.path.dirname(os.path.abspath(args.out)),
+                        exist_ok=True)
+            with open(args.out, "w") as f:
+                json.dump(rec, f, indent=1)
+        print(json.dumps(rec))
+        return 0
 
     sf_ds_dist = min(args.sf_ds, SF_DS_DIST)
     record = {"card": card, "torch": torch.__version__,

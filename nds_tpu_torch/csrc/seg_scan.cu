@@ -10,8 +10,8 @@
 // searchsorted of the group starts: group_bounds), `_seg_sum`'s cumsum
 // differences (`:2139`, K5 with op +) and the windows' `lax.cummax`
 // (`:2464`, `:2485`, `:2487`: seg_scan with op max over one segment). One
-// scan kernel serves all of them, and the prefix of match counts inside
-// partitioned_join.cu's M:N join (K6) too.
+// scan kernel serves all of them but group_bounds, and the prefix of match
+// counts inside partitioned_join.cu's M:N join (K6) too.
 //
 // One pass with decoupled look-back (lookback.cuh): each block takes the next
 // tile of 2048 rows and the launch's epoch from the counter word, loads the
@@ -37,14 +37,6 @@
 //     many empty ones there, up to n), the last tile writes the first and a
 //     second launch of many blocks the rest, with its value (min, max) or 0
 //     (a sum: as `_seg_sum`'s differences give a group with no rows);
-//   group_bounds: the source reads the sorted packed key and its row before,
-//     and scans the first-row flags (present, and a key unlike the row
-//     before) with +; a 32-bit key comes as int32 biased by -2^31, so its
-//     presence bit is the sign bit, inverted; the store writes each row's presence and group id
-//     (the count minus one, clipped to [0, G - 1]), starts2[g] at each
-//     group's first row and the group count at the last row. A second small
-//     launch writes starts2 past the last group (n), which it reads the
-//     count for from the card;
 //   last_of_group: the tiles walk the rows from the end, scanning the next
 //     change position with min, and store clip(scan - 1, 0, n - 1);
 //   part_reduce_broadcast: a row's partition end can lie in a later tile, so
@@ -59,16 +51,19 @@
 //
 // Where the segment flags come from: K5 compares neighbouring group ids, the
 // window scans read a bool flag per row, K6's prefix restarts every `seg_len`
-// rows (the running max: seg_len = n, one segment), group_bounds has one
-// segment, and last_of_group has none (one segment, scanned from the end,
-// over the values "next change position" computed from the change flags).
+// rows (the running max: seg_len = n, one segment), and last_of_group has
+// none (one segment, scanned from the end, over the values "next change
+// position" computed from the change flags).
+//
+// group_bounds (the group ids after `_group_ids`' sort) has a kernel of its
+// own beside scan_kernel, on the same tile state and look-back, with tiles
+// of 4096 rows: see its note below.
 //
 // What bounds it on an H100: bytes. The function must read n values and n
 // flags and write n values (G for K5); this kernel moves those and, per tile
 // of 2048 rows, 16 bytes of tile state and the few words its look-back reads.
 // part_reduce_broadcast moves n values more (the stored scan, read again at
-// pend). group_bounds reads n keys and writes n presence bytes, n group ids
-// and G starts.
+// pend).
 //
 // The entry points launch on the given stream, allocate nothing (the caller
 // passes every output and scratch buffer) and return cudaGetLastError(). The
@@ -393,51 +388,6 @@ struct NextChangeSource {
   }
 };
 
-// group_bounds: the sorted packed group key; a row is present where its
-// presence bit (bit pbit, set for absent rows) is clear, and a group's
-// first row where it is present and its key differs from the row before
-// (row 0 always). `flip` undoes the bias of a 32-bit key (int32, biased by
-// -2^31: its sign bit flipped) before the presence bit is read; it is 0
-// for every other key. The scanned value is the first flag, as int32, in
-// one segment; the presence and first flags go to the sink as bits.
-struct GroupExtra {
-  unsigned present;
-  unsigned first;
-};
-
-template <typename K>
-struct GroupSource {
-  using Extra = GroupExtra;
-  const K* keys;
-  int pbit;
-  K flip;
-  bool vec;  // keys 16-byte aligned
-  __device__ void load(long long base, long long n, int32_t (&v)[kItems],
-                       bool (&f)[kItems], Extra& x) const {
-    K k_[kItems];
-    if (vec && base + kItems <= n) {
-      load_vec(keys + base, k_);
-    } else {
-#pragma unroll
-      for (int k = 0; k < kItems; ++k)
-        k_[k] = base + k < n ? keys[base + k] : K{};
-    }
-    K prev = base > 0 && base <= n ? keys[base - 1] : K{};
-    x.present = x.first = 0;
-#pragma unroll
-    for (int k = 0; k < kItems; ++k) {
-      const long long i = base + k;
-      const bool pr = i < n && (((k_[k] ^ flip) >> pbit) & 1) == 0;
-      const bool fi = pr && (i == 0 || k_[k] != prev);
-      x.present |= pr ? 1u << k : 0u;
-      x.first |= fi ? 1u << k : 0u;
-      v[k] = fi ? 1 : 0;
-      f[k] = i >= n;
-      prev = k_[k];
-    }
-  }
-};
-
 // ---- sinks: what a tile stores once its rows hold their final values
 
 struct NoShared {};
@@ -562,49 +512,6 @@ struct LastSink {
 #pragma unroll
     for (int k = 0; k < kItems; ++k)
       if (base + k < n) out[n - 1 - (base + k)] = w[kItems - 1 - k];
-  }
-};
-
-// group_bounds: per row its presence (bool) and its group id, the count of
-// first rows up to it minus one, clipped to [0, G - 1] (the executor's
-// clamp to the group capacity); each first row of a group g < G writes
-// starts2[g] = its row (int64); the last row writes the group count.
-struct GroupSink {
-  using Shared = NoShared;
-  uint8_t* present;
-  int32_t* gid;
-  int64_t* starts2;
-  long long* ngroups;
-  long long G;
-  bool vec;  // present 8-byte and gid 16-byte aligned
-  __device__ void begin(Shared&, long long, long long, int) const {}
-  __device__ void store(Shared&, long long r0, long long n,
-                        const int32_t (&v)[kItems],
-                        const GroupExtra& x) const {
-    const long long base = r0 + threadIdx.x * kItems;
-    int32_t g[kItems];
-    uint8_t pr[kItems];
-#pragma unroll
-    for (int k = 0; k < kItems; ++k) {
-      const long long c = static_cast<long long>(v[k]) - 1;
-      g[k] = static_cast<int32_t>(c < 0 ? 0 : (c > G - 1 ? G - 1 : c));
-      pr[k] = (x.present >> k) & 1u;
-      if (((x.first >> k) & 1u) && c < G) starts2[c] = base + k;
-      if (base + k == n - 1) *ngroups = v[k];
-    }
-    if (vec && base + kItems <= n) {
-      store_vec(gid + base, g);
-      uint2 w;
-      memcpy(&w, pr, sizeof(w));
-      *reinterpret_cast<uint2*>(present + base) = w;
-      return;
-    }
-#pragma unroll
-    for (int k = 0; k < kItems; ++k) {
-      if (base + k >= n) break;
-      gid[base + k] = g[k];
-      present[base + k] = pr[k];
-    }
   }
 };
 
@@ -739,16 +646,271 @@ __global__ void ends_tail(V* __restrict__ out, long long G,
     out[g] = v;
 }
 
-// group_bounds' second launch: the groups past the last, starts2[g] = n for
-// ngroups <= g < G (with no group at all, gid is 0 everywhere and
-// starts2[0] = 0), as searchsorted of g in the clipped group ids gives them
-__global__ void starts_tail(int64_t* __restrict__ starts2, long long G,
-                            const long long* __restrict__ ngroups,
-                            long long n) {
-  const long long ng = *ngroups;
-  for (long long g = ng + blockIdx.x * (long long)blockDim.x + threadIdx.x;
-       g < G; g += (long long)gridDim.x * blockDim.x)
-    starts2[g] = (ng == 0 && g == 0) ? 0 : n;
+// ---- group_bounds (L2): a kernel of its own, on the scan's tile state.
+//
+// The keys are sorted and the presence bit is their top bit (a 32-bit key
+// is biased by -2^31: its sign bit, flipped back here), so the present rows
+// come first and every row after the first absent row is absent: it has no
+// first flag, its group id is clip(ngroups - 1, 0, G - 1), and its key need
+// not be read. A tile of kGTile rows reads its first key (one load, by one
+// thread): where that row is absent the whole tile is, its count of first
+// rows is 0, and it reads no other key; else it loads its keys (16-byte
+// loads, 16 rows a thread) and the key before each thread's first row, and
+// counts its first rows. The tile's count goes to the tile state with the
+// same words and look-back as scan_kernel's (an int32 sum over one
+// segment), and the count before each row gives its group id.
+//
+// starts2[g], the first row of group g (n past the last group; 0 for g = 0
+// in every case: group 0, where there is one, starts at row 0, and with no
+// group searchsorted gives 0), is written in the same pass. A group's first
+// row lies at a row >= g, since every group before it holds a row, so tile
+// t owns the slots [t * kGTile, (t + 1) * kGTile) of starts2 below G: it
+// writes their defaults (n, or 0 at slot 0) before it publishes its count,
+// and only the tile of a group's first row, tile t or a later one, writes
+// the group's start, once its look-back is done. A start is stored after
+// the default of its slot: the defaults go to memory before the tile's word
+// (every thread's stores, a barrier, then a fence by the thread that
+// publishes), and a tile reads, directly or through a later tile's
+// inclusive prefix, the word of every tile before it before it stores a
+// start (each lane of the look-back fences after its loads, the warp meets,
+// the publishing lane fences again before it publishes the prefix, and the
+// block meets at a barrier before the starts are stored). A tile that
+// starts absent stores its presence bytes (0) and its group ids (one value)
+// with 16-byte stores, neighbouring threads on neighbouring bytes; a
+// present tile stores each thread's 16 rows with 16-byte stores, and each
+// first row its start. The tile holding row n - 1 writes the group count.
+//
+// What bounds it on an H100: bytes. It must read the keys up to and
+// including the first absent row and write n presence bytes, n int32 group
+// ids, G int64 starts and the count. At L2's largest NDS call (187,920,000
+// rows, 2,099 present, G = n) that is 2,443 MB, of which the starts are
+// 1,503 MB. Reading every key through scan_kernel and writing the starts
+// past the last group in a second launch, which could only start once the
+// scan had finished, took 2.15 ms there on an H100 (1.24 and 0.92).
+constexpr int kGItems = 16;
+constexpr int kGTile = kThreads * kGItems;
+
+template <typename K>
+struct GroupArgs {
+  const K* keys;
+  K flip;  // undoes a 32-bit key's bias (INT32_MIN), else 0
+  int pbit;
+  long long n;
+  long long G;
+  long long ntiles;
+  uint8_t* present;
+  int32_t* gid;
+  int64_t* starts2;
+  long long* ngroups;
+  bool vec;  // keys, present, gid and starts2 16-byte aligned
+};
+
+template <typename K>
+__device__ __forceinline__ bool is_absent(K k, const GroupArgs<K>& a) {
+  return (((k ^ a.flip) >> a.pbit) & 1) != 0;
+}
+
+// warp 0: the count of first rows before `tile` (tile > 0), from the tile
+// words of the tiles before it, 32 at a time, back to the nearest that
+// holds its inclusive prefix (tile 0 always does)
+__device__ int32_t count_before(const u64* st, long long tile,
+                                unsigned epoch, int lane) {
+  uint32_t acc = 0;
+  for (long long end = tile - 1;; end -= 32) {
+    const long long t = end - 31 + lane;
+    uint32_t v = 0;
+    bool stop = t < 0;
+    if (t >= 0) {
+      u64 w, b;
+      load_state<int32_t>(st, t, w, b);
+      while (!published(w, epoch)) {
+        __nanosleep(32);
+        load_state<int32_t>(st, t, w, b);
+      }
+      v = static_cast<uint32_t>(b);
+      stop = ((w >> 32) & 3u) == lookback::kPrefix;
+    }
+    const unsigned m = __ballot_sync(kFull, stop);
+    // the lanes from the last that holds a prefix on
+    const int from = m ? 31 - __clz(static_cast<int>(m)) : 0;
+    acc += __reduce_add_sync(kFull, lane >= from ? v : 0u);
+    if (m) return static_cast<int32_t>(acc);
+  }
+}
+
+template <typename K>
+__global__ void __launch_bounds__(kThreads, 6)
+    group_bounds_kernel(GroupArgs<K> a, u64* st, u64* ctr) {
+  __shared__ long long s_tile;
+  __shared__ unsigned s_epoch;
+  __shared__ bool s_absent;
+  __shared__ int32_t s_warp[kWarps];
+  __shared__ int32_t s_pre;
+  const int t = threadIdx.x;
+  const int lane = t & 31;
+  const int warp = t >> 5;
+  if (t == 0) {
+    const lookback::Draw d = lookback::take(ctr, a.ntiles - 1);
+    s_tile = d.id;
+    s_epoch = d.epoch;
+    s_absent = is_absent(a.keys[d.id * kGTile], a);
+  }
+  __syncthreads();
+  const long long tile = s_tile;
+  const unsigned epoch = s_epoch;
+  const bool absent = s_absent;
+  const long long n = a.n;
+  const long long r0 = tile * kGTile;
+  const long long base = r0 + static_cast<long long>(t) * kGItems;
+
+  // this thread's present and first rows (bit k: row base + k)
+  unsigned pres = 0, first = 0;
+  if (!absent) {
+    // a 16-byte load at a time, its keys taken at once
+    constexpr int kPer = 16 / sizeof(K);
+    const bool whole = a.vec && base + kGItems <= n;
+    K prev = base > 0 && base <= n ? a.keys[base - 1] : K{};
+#pragma unroll
+    for (int j = 0; j < kGItems / kPer; ++j) {
+      K kk[kPer];
+      if (whole) {
+        const uint4 w = reinterpret_cast<const uint4*>(a.keys + base)[j];
+        memcpy(kk, &w, sizeof(w));
+      } else {
+#pragma unroll
+        for (int i = 0; i < kPer; ++i) {
+          const long long r = base + j * kPer + i;
+          kk[i] = r < n ? a.keys[r] : K{};
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < kPer; ++i) {
+        const int k = j * kPer + i;
+        const long long r = base + k;
+        const bool pr = r < n && !is_absent(kk[i], a);
+        pres |= pr ? 1u << k : 0u;
+        first |= pr && (r == 0 || kk[i] != prev) ? 1u << k : 0u;
+        prev = kk[i];
+      }
+    }
+  }
+  // the tile's count of first rows and the count before this thread's rows
+  const int32_t mine = __popc(first);
+  int32_t x = mine;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int32_t y = __shfl_up_sync(kFull, x, d);
+    if (lane >= d) x += y;
+  }
+  if (lane == 31) s_warp[warp] = x;
+
+  // the defaults of this tile's slots of starts2: n, and 0 at slot 0
+  const long long s_hi = r0 + kGTile < a.G ? r0 + kGTile : a.G;
+  if (r0 < s_hi) {
+    constexpr int kPairs = kGTile / 2;  // two int64 slots a 16-byte store
+    for (int j = t; j < kPairs; j += kThreads) {
+      const long long s0 = r0 + 2 * j;
+      const long long v0 = s0 == 0 ? 0 : n;
+      if (a.vec && s0 + 1 < s_hi) {
+        const longlong2 v = make_longlong2(v0, n);
+        *reinterpret_cast<longlong2*>(a.starts2 + s0) = v;
+      } else if (s0 < s_hi) {
+        a.starts2[s0] = v0;
+      }
+    }
+  }
+  __syncthreads();
+  int32_t before = 0, agg = 0;
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) {
+    before += w < warp ? s_warp[w] : 0;
+    agg += s_warp[w];
+  }
+  before += x - mine;
+  if (t == 0) {
+    // the defaults reach memory before the tile's word
+    __threadfence();
+    publish(st, tile, epoch, tile == 0 ? lookback::kPrefix : lookback::kAgg,
+            agg, false);
+  }
+  if (warp == 0) {
+    int32_t pre = 0;
+    if (tile > 0) {
+      pre = count_before(st, tile, epoch, lane);
+      // what the words read publish, before anything this tile stores
+      __threadfence();
+      __syncwarp();
+      if (lane == 0) {
+        __threadfence();
+        publish(st, tile, epoch, lookback::kPrefix, pre + agg, false);
+      }
+    }
+    if (lane == 0) s_pre = pre;
+  }
+  __syncthreads();
+  const int32_t pre = s_pre;
+  const long long last = n - 1;
+  if (absent) {
+    // every row absent: presence 0, one group id
+    long long g = static_cast<long long>(pre) - 1;
+    g = g < 0 ? 0 : (g > a.G - 1 ? a.G - 1 : g);
+    const long long r1 = r0 + kGTile < n ? r0 + kGTile : n;
+    for (int j = t; j < kGTile / 16; j += kThreads) {
+      const long long i = r0 + 16 * j;
+      if (a.vec && i + 16 <= r1)
+        *reinterpret_cast<uint4*>(a.present + i) = make_uint4(0, 0, 0, 0);
+      else
+        for (long long k = i; k < r1 && k < i + 16; ++k) a.present[k] = 0;
+    }
+    const int32_t gv = static_cast<int32_t>(g);
+    for (int j = t; j < kGTile / 4; j += kThreads) {
+      const long long i = r0 + 4 * j;
+      if (a.vec && i + 4 <= r1)
+        *reinterpret_cast<int4*>(a.gid + i) = make_int4(gv, gv, gv, gv);
+      else
+        for (long long k = i; k < r1 && k < i + 4; ++k) a.gid[k] = gv;
+    }
+    if (t == 0 && r0 <= last && last < r0 + kGTile) *a.ngroups = pre;
+    return;
+  }
+  // each thread's rows, 4 at a time: their group ids (16-byte stores),
+  // their presence bytes (one 16-byte store), each first row's start
+  int32_t c = pre + before;
+  const bool whole = a.vec && base + kGItems <= n;
+  uint32_t pw[kGItems / 4];
+#pragma unroll
+  for (int q = 0; q < kGItems / 4; ++q) {
+    int32_t g4[4];
+    uint32_t pb = 0;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int k = 4 * q + i;
+      const bool fi = (first >> k) & 1u;
+      c += fi ? 1 : 0;
+      const long long cc = static_cast<long long>(c) - 1;
+      g4[i] = static_cast<int32_t>(cc < 0 ? 0 : (cc > a.G - 1 ? a.G - 1 : cc));
+      pb |= ((pres >> k) & 1u) << (8 * i);
+      if (fi && cc < a.G) a.starts2[cc] = base + k;
+      if (base + k == last) *a.ngroups = c;
+    }
+    pw[q] = pb;
+    if (whole) {
+      *reinterpret_cast<int4*>(a.gid + base + 4 * q) =
+          make_int4(g4[0], g4[1], g4[2], g4[3]);
+    } else {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const long long r = base + 4 * q + i;
+        if (r < n) {
+          a.gid[r] = g4[i];
+          a.present[r] = static_cast<uint8_t>((pb >> (8 * i)) & 1u);
+        }
+      }
+    }
+  }
+  if (whole)
+    *reinterpret_cast<uint4*>(a.present + base) =
+        make_uint4(pw[0], pw[1], pw[2], pw[3]);
 }
 
 unsigned grid_for(long long m) {
@@ -881,6 +1043,8 @@ int nds_seg_scan_tile() { return kTile; }
 
 int nds_seg_scan_state_words() { return kStateWords; }
 
+int nds_group_bounds_tile() { return kGTile; }
+
 // Every entry takes the tile state `words` (int64[nds_seg_scan_state_words()
 // * ceil(n / nds_seg_scan_tile())]) and the counter word `ctr` (int64[1]:
 // the next launch's epoch << 32, its tile id 0; each launch draws one epoch
@@ -941,12 +1105,12 @@ int nds_last_of_group(const void* change, long long n, void* out, void* words,
   return static_cast<int>(cudaGetLastError());
 }
 
-// L2 group_bounds. keys: the sorted packed group keys, int32 or int64
+// L2 group_bounds. keys: the packed group keys, sorted, int32 or int64
 // (key64) [n], the presence bit at pbit (set for absent rows); non-negative,
 // except a 32-bit key (int32, pbit 31), which is biased by -2^31. present:
-// bool[n]; gid: int32[n]; starts2: int64[G]; ngroups: int64[1].
-// 1 <= n < 2^31 - 1, 1 <= G <= n. Two launches: the scan, then the tail of
-// starts2.
+// bool[n]; gid: int32[n]; starts2: int64[G]; ngroups: int64[1]. words holds
+// the tile state of ceil(n / nds_group_bounds_tile()) tiles.
+// 1 <= n < 2^31 - 1, 1 <= G <= n. One launch.
 int nds_group_bounds(const void* keys, int key64, int pbit, long long n,
                      long long G, void* present, void* gid, void* starts2,
                      void* ngroups, void* words, void* ctr, void* stream) {
@@ -954,23 +1118,27 @@ int nds_group_bounds(const void* keys, int key64, int pbit, long long n,
       pbit > (key64 ? 62 : 31))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  GroupSink sink{static_cast<uint8_t*>(present), static_cast<int32_t*>(gid),
-                 static_cast<int64_t*>(starts2),
-                 static_cast<long long*>(ngroups), G,
-                 aligned(present, 8) && aligned(gid, 16)};
+  const long long ntiles = (n + kGTile - 1) / kGTile;
+  const bool vec = aligned(keys, 16) && aligned(present, 16) &&
+                   aligned(gid, 16) && aligned(starts2, 16);
+  uint8_t* pr = static_cast<uint8_t*>(present);
+  int32_t* gi = static_cast<int32_t*>(gid);
+  int64_t* st2 = static_cast<int64_t*>(starts2);
+  long long* ng = static_cast<long long*>(ngroups);
+  const State state = state_of(words, ctr);
   if (key64)
-    launch<int32_t, kSum>(
-        GroupSource<int64_t>{static_cast<const int64_t*>(keys), pbit, 0,
-                             aligned(keys, 16)},
-        sink, n, state_of(words, ctr), s);
+    group_bounds_kernel<int64_t>
+        <<<static_cast<unsigned>(ntiles), kThreads, 0, s>>>(
+            GroupArgs<int64_t>{static_cast<const int64_t*>(keys), 0, pbit, n,
+                               G, ntiles, pr, gi, st2, ng, vec},
+            state.words, state.ctr);
   else
-    launch<int32_t, kSum>(
-        GroupSource<int32_t>{static_cast<const int32_t*>(keys), pbit,
-                             pbit == 31 ? INT32_MIN : 0, aligned(keys, 16)},
-        sink, n, state_of(words, ctr), s);
-  starts_tail<<<fill_grid(G), kThreads, 0, s>>>(
-      static_cast<int64_t*>(starts2), G,
-      static_cast<const long long*>(ngroups), n);
+    group_bounds_kernel<int32_t>
+        <<<static_cast<unsigned>(ntiles), kThreads, 0, s>>>(
+            GroupArgs<int32_t>{static_cast<const int32_t*>(keys),
+                               pbit == 31 ? INT32_MIN : 0, pbit, n, G, ntiles,
+                               pr, gi, st2, ng, vec},
+            state.words, state.ctr);
   return static_cast<int>(cudaGetLastError());
 }
 

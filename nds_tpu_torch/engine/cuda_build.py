@@ -59,6 +59,7 @@ SIGNATURES = {
         "nds_part_reduce_broadcast": [_P, _I, _I, _P, _LL, _P, _I, _P, _P,
                                       _P, _P, _P],
         "nds_last_of_group": [_P, _LL, _P, _P, _P, _P],
+        "nds_group_bounds_tile": [],
         "nds_group_bounds": [_P, _I, _I, _LL, _LL, _P, _P, _P, _P, _P, _P,
                              _P],
     },
@@ -77,7 +78,7 @@ SIGNATURES = {
     "group_key": {
         "nds_pack_max_fields": [],
         "nds_pack_group_key": [_P, _LL, _I, _P, _P, _P, _P, _P, _I, _I, _P,
-                               _P],
+                               _P, _P],
     },
     "sort_key": {
         "nds_sort_max_fields": [],

@@ -642,11 +642,12 @@ def _pack_layout(keyvals, n: int):
 
 
 def _pack_group_key(row, keyvals, fields, bits: int):
-    """The group-id sort's operands as one key (``_pack_layout``): int32
-    for up to 32 bits (a key of 32 biased by -2^31, which keeps its
-    order), else int64; the presence bit (set where the row is not
-    present) at bit ``bits - 1``, then per key its validity bit (set where
-    NULL) and its filled value minus the span's low end, in one pass
+    """The group-id sort's operands as one key (``_pack_layout``), and the
+    counts of its 8-bit digits: ``(key, counts)``. The key is int32 for up
+    to 32 bits (a key of 32 biased by -2^31, which keeps its order), else
+    int64; the presence bit (set where the row is not present) at bit
+    ``bits - 1``, then per key its validity bit (set where NULL) and its
+    filled value minus the span's low end, in one pass
     (``kernels.pack_group_key``). The order of the keys is the
     lexicographic order of the operands. The values need no narrowing:
     they are the same in either width."""
@@ -1863,17 +1864,19 @@ class _Trace:
         sorted row of each of the G groups, n past the last). Present
         rows sort to the front. Where the keys' bounds pack them into one
         integer (``_pack_layout``, a host decision), the repo's radix sort
-        orders that key and ``group_bounds`` reads the groups off it in one
-        pass; else the multi-key sort of the operands as words
+        orders that key, given the digit counts the pack took (so the sort
+        launches no histogram pass), and ``group_bounds`` reads the groups
+        off it in one pass; else the multi-key sort of the operands as words
         (``_sort_perm``)."""
         n = ctx.n
         layout = _pack_layout(keyvals, n)
         if layout is not None:
             fields, bits = layout
-            key = _pack_group_key(ctx.row, keyvals, fields, bits)
+            key, hist = _pack_group_key(ctx.row, keyvals, fields, bits)
             counts = torch.full((1,), n, dtype=torch.int32, device=self.dev)
             ks, perm = KX.partition_sort(key.view(1, n),
-                                         self._arange(n).view(1, n), counts)
+                                         self._arange(n).view(1, n), counts,
+                                         hist)
             present_s, gid, ngroups, starts2 = KX.group_bounds(
                 ks.view(n), bits - 1, G)
             return perm.view(n), gid, present_s, ngroups, starts2

@@ -806,7 +806,8 @@ _BIAS32 = 1 << 31
 
 
 def pack_group_key_plain(row, arrs, valids, fields, bits: int):
-    """Plain version of ``pack_group_key``, in int64 elementwise ops."""
+    """Plain version of ``pack_group_key``, in int64 elementwise ops, the
+    counts a histogram of the key's digits (``sort_digit_counts_plain``)."""
     dev = row.device
     zero = torch.zeros((), dtype=torch.int64, device=dev)
     key = torch.where(row, zero, torch.full((), 1 << (bits - 1),
@@ -825,21 +826,26 @@ def pack_group_key_plain(row, arrs, valids, fields, bits: int):
             key |= val << shift
     if bits == 32:
         key -= _BIAS32
-    return key.to(torch.int32 if bits <= 32 else torch.int64)
+    key = key.to(torch.int32 if bits <= 32 else torch.int64)
+    return key, sort_digit_counts_plain(key)
 
 
 @_counted
 def pack_group_key(row, arrs, valids, fields, bits: int):
-    """The group-id sort's operands as one non-negative key: the presence
-    bit (set where ``row`` is False) at bit ``bits - 1``, then per key,
-    the most significant first, its validity bit (set where NULL; only
-    where ``fields`` gives it one, exactly where ``valids`` holds a mask)
-    and its value filled with 0 where not present or NULL, minus ``lo``,
-    in ``width`` bits (``fields``: one ``(has_valid, lo, width)`` per key,
-    from the executor's ``_pack_layout``). int32 for ``bits <= 32``, else
-    int64 (``bits <= 63``); a key of exactly 32 bits is biased by -2^31,
-    which keeps its order as int32. ``arrs``: int32, int64 or bool
-    values."""
+    """The group-id sort's operands as one non-negative key, and the
+    counts of its digits: the presence bit (set where ``row`` is False)
+    at bit ``bits - 1``, then per key, the most significant first, its
+    validity bit (set where NULL; only where ``fields`` gives it one,
+    exactly where ``valids`` holds a mask) and its value filled with 0
+    where not present or NULL, minus ``lo``, in ``width`` bits
+    (``fields``: one ``(has_valid, lo, width)`` per key, from the
+    executor's ``_pack_layout``). The key is int32 for ``bits <= 32``,
+    else int64 (``bits <= 63``); a key of exactly 32 bits is biased by
+    -2^31, which keeps its order as int32. Returns ``(key, counts)``:
+    the counts are ``sort_digit_counts_plain``'s (int32[4 * 256] for an
+    int32 key, [8 * 256] for an int64 one), which ``partition_sort``
+    takes in place of its own histogram pass. ``arrs``: int32, int64 or
+    bool values."""
     if not _launch_device(row, *arrs, *[v for v in valids if v is not None]):
         return pack_group_key_plain(row, arrs, valids, fields, bits)
     n = row.shape[0]
@@ -867,6 +873,9 @@ def pack_group_key(row, arrs, valids, fields, bits: int):
     key64 = int(bits > 32)
     out = torch.empty(n, dtype=torch.int64 if key64 else torch.int32,
                       device=row.device)
+    # zeroed on the stream, so that a graph's replays count from zero
+    counts = torch.zeros((8 if key64 else 4) * 256, dtype=torch.int32,
+                         device=row.device)
     err = lib.nds_pack_group_key(
         _ptr(row), n, k,
         (ctypes.c_void_p * m)(*[None if a is None else _ptr(a)
@@ -877,10 +886,10 @@ def pack_group_key(row, arrs, valids, fields, bits: int):
         (ctypes.c_int * m)(*[0 if a is None else _PACK_TYPES[a.dtype]
                              for a, _v, _l, _w in keep]),
         (ctypes.c_int * m)(*[w for _a, _v, _l, w in keep]),
-        bits, key64, _ptr(out), cb.stream_handle())
+        bits, key64, _ptr(out), _ptr(counts), cb.stream_handle())
     cb.check(err, "pack_group_key")
     LAUNCHES["pack_group_key"] += 1
-    return out
+    return out, counts
 
 
 def group_bounds_plain(keys, pbit: int, G: int):
@@ -914,7 +923,9 @@ def group_bounds(keys, pbit: int, G: int):
     clipped to ``[0, G - 1]``; starts2[g] is the first row whose gid is at
     least g (n for the groups past the last; 0 for group 0 when there is
     none), ``searchsorted`` of g in gid. An int32 key with ``pbit`` 31 is
-    a 32-bit key, biased by -2^31."""
+    a 32-bit key, biased by -2^31. The kernel (one launch) reads no key
+    past the first absent row, since the keys are sorted with presence on
+    top, and writes the starts in the same pass."""
     if not _launch_device(keys):
         return group_bounds_plain(keys, pbit, G)
     _require(keys, "keys", _KEY_DTYPES)
@@ -931,7 +942,9 @@ def group_bounds(keys, pbit: int, G: int):
     starts2 = torch.empty(G, dtype=torch.int64, device=dev)
     ngroups = torch.empty((), dtype=torch.int64, device=dev)
     stream = cb.stream_handle()
-    words, ctr = _scan_state(lib, n, dev, stream)
+    ntiles = -(-n // lib.nds_group_bounds_tile())
+    words, ctr = _lookback(dev, stream, "scan",
+                           ntiles * lib.nds_seg_scan_state_words())
     err = lib.nds_group_bounds(
         _ptr(keys), key64, int(pbit), n, int(G), _ptr(present), _ptr(gid),
         _ptr(starts2), _ptr(ngroups), _ptr(words), _ptr(ctr), stream)
@@ -994,14 +1007,16 @@ def _sort_field_plain(row, arr, valid, flags: int, mode: int, lo: int):
 
 
 def sort_digit_counts_plain(word):
-    """The counts of each 8-bit digit of an int32 word's order-preserving
-    unsigned bits (its sign bit flipped): int32[4 * 256], digit d's
-    counts at ``[d * 256, d * 256 + 256)``, as ``partition_sort`` reads
-    them for one partition."""
-    u = word.to(torch.int64) & 0xFFFFFFFF ^ 0x80000000
-    shifts = torch.arange(0, 32, 8, device=word.device)
-    at = ((u[:, None] >> shifts) & 0xFF) + shifts * 32  # d * 256 + digit
-    return torch.bincount(at.view(-1), minlength=4 * 256).to(torch.int32)
+    """The counts of each 8-bit digit of an int32 or int64 key's
+    order-preserving unsigned bits (its sign bit flipped): int32[passes *
+    256] (4 passes for int32, 8 for int64), digit d's counts at ``[d *
+    256, d * 256 + 256)``, as ``partition_sort`` reads them for one
+    partition."""
+    passes = word.element_size()
+    u = word.to(torch.int64)
+    u = (u & 0xFFFFFFFF) ^ 0x80000000 if passes == 4 else u ^ _I64_MIN
+    return torch.cat([torch.bincount((u >> (8 * d)) & 0xFF, minlength=256)
+                      for d in range(passes)]).to(torch.int32)
 
 
 def pack_sort_key_plain(row, arrs, valids, fields, bits: int, perm=None):

@@ -4,8 +4,9 @@ running max.
 
 ``DeviceExecutor._group_ids`` packs presence, each key's validity and
 its value into one integer where the keys' bounds allow
-(``device_exec._pack_layout``) and sorts it with ``partition_sort``;
-``group_bounds`` reads the group ids off the sorted key. Every case here
+(``device_exec._pack_layout``), with the counts of its 8-bit digits, and
+sorts it with ``partition_sort`` given those counts; ``group_bounds``
+reads the group ids off the sorted key. Every case here
 holds that route to the successive stable sorts it replaces
 (``_lexsort``) exactly, perm included, and both to the reference
 ``nds_tpu`` ``_group_ids`` on jax CPU (x64) for the same arrays, made
@@ -101,13 +102,26 @@ CASES = {
     "no_present_row": (100, 0.0, [(0, 5, np.int32), "bool"], [0.3, 0.3],
                        "packed"),
     "one_row": (1, 1.0, [(0, 5, np.int32)], [0.0], "packed"),
+    # a plan's static capacity: few rows present, the rest padding
+    "capacity_padded": (20_000, 0.01, [(0, 300, np.int32),
+                                       (-60, 60, np.int64)], [0.0, 0.2],
+                        "packed"),
+    "all_present": (3_000, 1.0, [(0, 40, np.int32), "bool"], [0.1, 0.0],
+                    "packed"),
+    # an int share: exactly that many rows present
+    "single_present_row": (5_000, 1, [(0, 9, np.int32), (-3, 3, np.int32)],
+                           [0.0, 0.5], "packed"),
 }
 
 
 def _case(name):
     n, share, kinds, nulls, route = CASES[name]
     rng = _rng("group", name)
-    row = rng.random(n) < share
+    if isinstance(share, int):
+        row = np.zeros(n, bool)
+        row[rng.choice(n, share, replace=False)] = True
+    else:
+        row = rng.random(n) < share
     keys = [_key(rng, n, k, z) for k, z in zip(kinds, nulls)]
     # rows outside their key's bounds where not present or NULL: the fill
     # must hide them
@@ -212,7 +226,7 @@ def test_group_ids_match_the_reference(name):
     layout = DX._pack_layout(_port_inputs(row, keys)[1], n)
     if layout is not None:
         ctx, kvs = _port_inputs(row, keys)
-        ks, _ = torch.sort(DX._pack_group_key(ctx.row, kvs, *layout),
+        ks, _ = torch.sort(DX._pack_group_key(ctx.row, kvs, *layout)[0],
                            stable=True)
         _same(present_s & torch.cat([torch.ones(1, dtype=torch.bool),
                                      ks[1:] != ks[:-1]]), rfirst)
@@ -244,7 +258,7 @@ def test_pack_layout_is_a_host_decision_from_bounds():
     assert DX._pack_layout([kv(torch.int32)], 4) is None
     assert DX._pack_layout([kv(torch.float64, 0, 1)], 4) is None
     assert DX._pack_layout([kv(torch.int32, 0, 1)], 2**31) is None
-    key = DX._pack_group_key(
+    key, _counts = DX._pack_group_key(
         torch.tensor([True, False, True, True]),
         [DX.DVal(torch.tensor([12, 11, 20, 99]),
                  torch.tensor([True, True, True, False]), None, 10, 20)],
@@ -254,7 +268,7 @@ def test_pack_layout_is_a_host_decision_from_bounds():
     top = (1 << 31) - 1
     assert DX._pack_layout([kv(torch.int64, 0, top)], 4) == (
         [(False, 0, 31)], 32)
-    key = DX._pack_group_key(
+    key, _counts = DX._pack_group_key(
         torch.tensor([True, False, True]),
         [DX.DVal(torch.tensor([5, 0, top]), None, None, 0, top)],
         [(False, 0, 31)], 32)
@@ -381,11 +395,16 @@ def test_group_wrappers_count_no_launch_on_cpu():
                           starts2)
     assert all(c == 0 for c in KX.launch_counts().values())
     row = torch.tensor([True, True, False, True])
-    key = KX.pack_group_key(row, [torch.tensor([3, -1, 7, 0])],
-                            [torch.tensor([True, True, True, False])],
-                            [(True, -1, 3)], 5)
+    key, counts = KX.pack_group_key(row, [torch.tensor([3, -1, 7, 0])],
+                                    [torch.tensor([True, True, True, False])],
+                                    [(True, -1, 3)], 5)
     assert key.dtype == torch.int32
     assert key.tolist() == [4, 0, (1 << 4) | 1, (1 << 3) | 1]
+    # the counts of the order-preserving digits (sign bit flipped)
+    assert counts.dtype == torch.int32 and counts.shape == (4 * 256,)
+    assert counts[:256].nonzero().flatten().tolist() == [0, 4, 9, 17]
+    assert counts[256:].tolist() == [4] + [0] * 255 + [4] + [0] * 255 + (
+        [0] * 128 + [4] + [0] * 127)
     assert all(c == 0 for c in KX.launch_counts().values())
     meta = torch.zeros(4, dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="no kernel"):
@@ -394,6 +413,97 @@ def test_group_wrappers_count_no_launch_on_cpu():
         KX.pack_group_key(meta.bool(), [meta], [None], [(False, 0, 3)], 4)
     with pytest.raises(ValueError, match="no kernel"):
         KX.running_max(meta)
+
+
+# ------------------------------------------------- the pack's digit counts
+
+# (fields, bits) of a packed key: up to 31 bits in int32, exactly 32 (int32,
+# biased by -2^31), and int64
+PACK_LAYOUTS = {
+    "int32_27_bits": ([(True, -3, 5), (False, 0, 20)], 27),
+    "int32_32_bits_biased": ([(False, -1000, 11), (False, 0, 20)], 32),
+    "int64_53_bits": ([(True, -(1 << 40), 41), (False, 0, 10)], 53),
+}
+
+
+def _packed(layout, n=4_000):
+    """A packed key of ``layout`` over ``n`` rows, 60% present, values
+    in each field's span, validity where the field has a bit."""
+    fields, bits = PACK_LAYOUTS[layout]
+    rng = _rng("pack", layout)
+    row = torch.as_tensor(rng.random(n) < 0.6)
+    arrs, valids = [], []
+    for has_valid, lo, width in fields:
+        hi = lo + (1 << width) - 1
+        arrs.append(torch.as_tensor(rng.integers(lo, hi + 1, n)))
+        valids.append(torch.as_tensor(rng.random(n) < 0.8) if has_valid
+                      else None)
+    return KX.pack_group_key(row, arrs, valids, fields, bits)
+
+
+def _digit_histogram(key):
+    """The counts of each 8-bit digit of the key's order-preserving
+    unsigned bits, in numpy."""
+    k = key.numpy()
+    u = (k.view(np.uint32) ^ np.uint32(1 << 31) if k.dtype == np.int32
+         else k.view(np.uint64) ^ np.uint64(1 << 63)).astype(np.uint64)
+    return np.concatenate([
+        np.bincount(((u >> np.uint64(8 * d)) & np.uint64(0xFF)).astype(
+            np.int64), minlength=256) for d in range(k.itemsize)])
+
+
+@pytest.mark.parametrize("layout", sorted(PACK_LAYOUTS))
+def test_pack_counts_are_the_histogram_of_the_key_digits(layout):
+    """The pack's counts equal a histogram of its key's order-preserving
+    8-bit digits: 4 passes for an int32 key (a 32-bit one biased by
+    -2^31), 8 for int64, each pass counting every row."""
+    key, counts = _packed(layout)
+    passes = 8 if PACK_LAYOUTS[layout][1] > 32 else 4
+    assert key.dtype == (torch.int64 if passes == 8 else torch.int32)
+    assert counts.dtype == torch.int32 and counts.shape == (passes * 256,)
+    np.testing.assert_array_equal(counts.numpy(), _digit_histogram(key))
+    assert (counts.view(passes, 256).sum(1) == key.shape[0]).all()
+
+
+@pytest.mark.parametrize("layout", sorted(PACK_LAYOUTS))
+def test_partition_sort_given_the_pack_counts_sorts_alike(layout):
+    """``partition_sort`` given the pack's counts (which digits move) gives
+    the same keys and rows as without them."""
+    key, counts = _packed(layout)
+    n = key.shape[0]
+    iota = torch.arange(n, dtype=torch.int32).view(1, n)
+    cnt = torch.full((1,), n, dtype=torch.int32)
+    got = KX.partition_sort_plain(key.view(1, n), iota, cnt, counts)
+    exp = KX.partition_sort_plain(key.view(1, n), iota, cnt)
+    for a, b in zip(got, exp):
+        assert torch.equal(a, b)
+    _s, order = torch.sort(key, stable=True)
+    assert torch.equal(got[1].view(n).to(torch.int64), order)
+
+
+def test_packed_route_hands_the_pack_counts_to_the_sort(monkeypatch):
+    """The packed route passes the pack's counts to ``partition_sort``
+    (so the sort takes no histogram pass of its own), one call a
+    group-by."""
+    row, keys, _route = _case("capacity_padded")
+    n = len(row)
+    seen = []
+    real_pack, real_sort = KX.pack_group_key, KX.partition_sort
+
+    def pack(*a, **k):
+        out = real_pack(*a, **k)
+        seen.append(("pack", out[1]))
+        return out
+
+    def sort(keys_, gidx, counts, hist=None):
+        seen.append(("sort", hist))
+        return real_sort(keys_, gidx, counts, hist)
+
+    monkeypatch.setattr(KX, "pack_group_key", pack)
+    monkeypatch.setattr(KX, "partition_sort", sort)
+    _group_ids(row, keys, _capacity(n, keys), "packed")
+    assert [s for s, _h in seen] == ["pack", "sort"]
+    assert seen[1][1] is seen[0][1]
 
 
 # ------------------------------------------------------ the executor's path
