@@ -2,7 +2,7 @@
 """Chip smoke of the PyTorch/CUDA port: the NDS-H and NDS power runs on one card.
 
     python3 chip_smoke.py [--sf 1.0] [--sf-ds 1.0] [--out results/smoke.json]
-                          [--parent DIR] [--l2-steps]
+                          [--parent DIR] [--steps STEP[,STEP]]
 
 Drives ``nds_tpu_torch`` (never ``jax``, never ``nds_tpu``) on the card:
 
@@ -15,17 +15,20 @@ Drives ``nds_tpu_torch`` (never ``jax``, never ``nds_tpu``) on the card:
    (one process per source, all at once); the graph case: each look-back
    layout, ``partition_sort``, a multi-key sort of four words (an
    operand straddling two at an odd bit, each word's digit counts from
-   its pack) and L2's chain (the pack with its counts, the sort given
-   them, the group bounds) captured in a CUDA graph and replayed three
-   times with new inputs, exact;
+   its pack), L2's chain (the pack with its counts, the sort given
+   them, the group bounds), K1 (its build and probe launched as
+   programmatic dependents) and K2 captured in a CUDA graph and replayed
+   three times with new inputs, exact;
 4. NDS-H leg at ``--sf`` (default SF1, ``bench.py``'s scale):
    ``Session.for_nds_h(make_device_factory())`` on ``cuda``;
    an untimed pass of the 22 queries captures each kernel's largest call;
    every kernel runs against its plain PyTorch version on those inputs
    and at the main path's join shapes built from the real columns
    (probe 6,001,215 rows at SF1; builds of 1,500,000, 200,000, 25 and 256
-   rows; the segmented scan at several group counts); launch counts set to
-   0, the 22 queries timed, the counts read; a pass under
+   rows; the segmented scan at several group counts) and K1 and K2 on
+   adversarial inputs (``join_adversarial_cases``, exact; K2's table
+   size held to its plain mirror's for every build size); launch counts
+   set to 0, the 22 queries timed, the counts read; a pass under
    ``torch.profiler`` for the card's busy time; every result checked
    against the CPU oracle by the validator's rules, in the worker pool;
    the steps that ran on torch library calls before the port gave them
@@ -72,8 +75,8 @@ Drives ``nds_tpu_torch`` (never ``jax``, never ``nds_tpu``) on the card:
    keys); with ``--parent DIR`` (another checkout of this repo, unpacked
    at DIR), the sorts' and the probe's largest calls on the NDS-H and
    NDS legs, the NDS leg's largest "left", "right" and "both" searches,
-   L3's build, the largest calls of ``partition_sort``, K6, K5's sum,
-   K7's scan and the running max, and L2's pack, sort and group bounds
+   L3's build, the largest calls of K1, K2, ``partition_sort``, K6, K5's
+   sum, K7's scan and the running max, and L2's pack, sort and group bounds
    at L2's largest call (``l2_steps``) run on that checkout's design
    beside this one's, on the same inputs, in turns (parent, this, this,
    parent), the results held equal (``parent_steps``);
@@ -103,10 +106,13 @@ Drives ``nds_tpu_torch`` (never ``jax``, never ``nds_tpu``) on the card:
    it), the card line, and as the last line
    ``{"ok": true, "device": {...}}``.
 
-``--l2-steps`` instead only builds the kernels and times L2's three steps
-(``l2_steps``) on seeded inputs shaped like their largest NDS call
-(``l2_padded_inputs``), beside ``--parent``'s design where given, and
-prints that record (no contract line).
+``--steps STEP[,STEP]`` instead only builds the kernels and, for each
+named step (a kernel wrapper, or ``l2``: L2's pack, sort and group
+bounds), replays its graph cases, holds it to its plain version on its
+adversarial cases and times this design beside ``--parent``'s
+(``design_steps``, ``time_designs``): a wrapper at each leg's largest call
+and at the NDS-H shapes, ``l2`` on seeded inputs shaped like its largest
+NDS call (``l2_padded_inputs``); it prints a summary (no contract line).
 
 Kernel checks: integer, bool and min/max outputs must equal the plain
 version's exactly; a float sum (the segmented scan's "sum" on float
@@ -463,14 +469,15 @@ def agrees(name: str, args, got, exp) -> tuple:
 def work_of(name: str, args, out) -> tuple:
     """(bytes the function must move, operations it does): each input
     read once, each output written once; the operations are one per
-    row handled, and one compare per (probe row, build row) pair for
-    the small-build probe."""
+    row handled, and for the small-build probe one lookup per probe row
+    (what the function needs, whatever implements it: the one-hot
+    product's (probe x build) compares are that formulation's work)."""
     tens = _tensors(list(args))
     moved = nbytes(tens) + nbytes(out)
     rows = sum(a.numel() for a in tens)
     ops = rows
     if name == "matmul_probe_join":
-        ops = args[2].numel() * args[0].numel()
+        ops = args[2].numel()
     if name == "partitioned_mn_join":
         # one step per input row and per output slot
         ops = rows + out[0].numel()
@@ -1114,6 +1121,206 @@ def l2_adversarial_checks(KX, dev) -> list:
                   for name, args, label in timed]
 
 
+def colliding_keys(rng, n: int, n_build: int, dtype, slot: int):
+    """``n`` distinct keys of ``dtype`` ("int32" or "int64") whose first
+    slot in K2's hash table for a build of ``n_build`` rows is ``slot``,
+    by the plain mirror of the kernel's hash (``matmul_probe_slots``),
+    drawn from a seed."""
+    import numpy as np
+    import torch
+    from nds_tpu_torch.engine import kernels as KX
+    out: list = []
+    info = np.iinfo(dtype)
+    while len(out) < n:
+        cand = rng.integers(info.min, info.max, 1 << 16, dtype=dtype,
+                            endpoint=True)
+        got = KX.matmul_probe_slots(torch.from_numpy(cand),
+                                    n_build).numpy()
+        out += [int(k) for k in cand[got == slot] if int(k) not in out]
+    return np.array(out[:n], dtype=dtype)
+
+
+def join_adversarial_cases(dev) -> list:
+    """(kernel, args, label) of K1 and K2, each held exactly to its plain
+    version. K1 (``direct_lookup_join``): probe keys below ``lo``, above
+    ``lo + dom - 1`` and at both ends and iinfo's; invalid build rows
+    (some with a valid row's key) and false ``pok``; probes of 1-17, 511-513
+    and 100,003 rows; every array a slice 1-15 elements into its storage;
+    int64 keys beyond 2^32 with ``lo`` near them (a key 2^32 above one in
+    the domain must miss); ``dom = DIRECT_MAX_DOMAIN``. K2
+    (``matmul_probe_join``): builds of 1, 64, 255 and 256 rows; duplicate
+    valid keys (the sum of their indices, clamped) and duplicates of which
+    some are invalid; keys that share one first slot of the hash
+    (``colliding_keys``), probed by members and by other keys of that
+    slot; int64 keys equal in their low 32 bits; negative keys; valid
+    keys that span as many values as the table has slots and one more;
+    every probe row absent; slices."""
+    import numpy as np
+    import torch
+    from nds_tpu_torch.engine import kernels as KX
+    rng = np.random.default_rng(41)
+
+    def dt(a):
+        return torch.as_tensor(np.ascontiguousarray(a)).to(dev)
+
+    def sliced(a, off):
+        # a contiguous view that starts ``off`` elements into its storage
+        return dt(np.concatenate([np.zeros(off, a.dtype), a]))[off:]
+
+    def k1_build(nb, lo, dom, kdt, valid=0.8):
+        keys = (rng.choice(dom, size=nb, replace=False).astype(np.int64)
+                + lo)
+        ok = rng.random(nb) < valid
+        # invalid rows carry junk: outside the domain, or a valid row's key
+        junk = np.where(rng.random(nb) < 0.5,
+                        rng.integers(lo - 3 * dom, lo + 4 * dom, nb),
+                        rng.permutation(keys))
+        return np.where(ok, keys, junk).astype(kdt), ok
+
+    def k1_probe(n, lo, dom, kdt, valid=0.9):
+        keys = rng.integers(lo - dom, lo + 2 * dom, n)
+        info = np.iinfo(kdt)
+        edges = np.array([lo - 1, lo, lo + dom - 1, lo + dom, info.min,
+                          info.max], dtype=np.int64)[:n]
+        keys[:len(edges)] = edges
+        return keys.astype(kdt), rng.random(n) < valid
+
+    cases = []
+    lo, dom = -1000, 200_000
+    bk, bo = k1_build(50_000, lo, dom, np.int32)
+    for n in (1, 2, 7, 15, 16, 17, 511, 512, 513, 100_003):
+        pk, po = k1_probe(n, lo, dom, np.int32)
+        cases.append(("direct_lookup_join",
+                      (dt(bk), dt(bo), dt(pk), dt(po), lo, dom),
+                      f"int32, np={n}, keys at and past the domain's ends"))
+    n = 1_000_003
+    pk, po = k1_probe(n, lo, dom, np.int32)
+    for offs in ((1, 3, 5, 7), (4, 2, 9, 15), (0, 0, 3, 0), (0, 0, 0, 1)):
+        cases.append(("direct_lookup_join",
+                      (sliced(bk, offs[0]), sliced(bo, offs[1]),
+                       sliced(pk, offs[2]), sliced(po, offs[3]), lo, dom),
+                      f"int32, np={n}, slices off by {offs} elements"))
+    lo, dom = (1 << 35) + 17, 3_000_000
+    bk, bo = k1_build(1_000_000, lo, dom, np.int64)
+    pk, po = k1_probe(n, lo, dom, np.int64)
+    # keys 2^32 above and below keys of the domain
+    pk[10:20_000] = bk[:19_990] + np.where(rng.random(19_990) < 0.5,
+                                           1 << 32, -(1 << 32))
+    cases.append(("direct_lookup_join",
+                  (dt(bk), dt(bo), dt(pk), dt(po), lo, dom),
+                  f"int64 keys near 2^35, np={n}, keys 2^32 off the domain"))
+    cases.append(("direct_lookup_join",
+                  (sliced(bk, 1), sliced(bo, 13), sliced(pk, 1),
+                   sliced(po, 6), lo, dom),
+                  f"int64 keys near 2^35, np={n}, slices off alignment"))
+    lo, dom = 5, KX.DIRECT_MAX_DOMAIN
+    bk, bo = k1_build(1_500_000, lo, dom, np.int32)
+    pk, po = k1_probe(3_000_001, lo, dom, np.int32)
+    cases.append(("direct_lookup_join",
+                  (dt(bk), dt(bo), dt(pk), dt(po), lo, dom),
+                  "int32, dom = DIRECT_MAX_DOMAIN"))
+    bk, bo = k1_build(1000, 0, 5000, np.int32, valid=0.0)
+    pk, po = k1_probe(20_000, 0, 5000, np.int32, valid=0.0)
+    cases.append(("direct_lookup_join",
+                  (dt(bk), dt(bo), dt(pk), dt(po), 0, 5000),
+                  "no valid build row, no valid probe row"))
+
+    def k2(label, bk, bo, pk, po, offs=(0, 0, 0, 0)):
+        cases.append(("matmul_probe_join",
+                      (sliced(bk, offs[0]), sliced(bo, offs[1]),
+                       sliced(pk, offs[2]), sliced(po, offs[3])), label))
+
+    def probe_of(bk, n, spread, kdt, absent=False):
+        keys = np.where(rng.random(n) < 0.6, rng.choice(bk, n),
+                        rng.integers(-spread, spread, n)).astype(kdt)
+        if absent:
+            keys = rng.integers(-spread, spread, n).astype(kdt)
+            keys = keys[~np.isin(keys, bk)]
+        return keys, rng.random(keys.shape[0]) < 0.9
+
+    for nb in (1, 64, 255, 256):
+        for kdt, spread in ((np.int32, 1 << 30), (np.int64, 1 << 50)):
+            bk = rng.choice(spread, nb, replace=False).astype(kdt)
+            bo = rng.random(nb) < 0.85
+            pk, po = probe_of(bk, 100_003, spread, kdt)
+            k2(f"nb={nb} {np.dtype(kdt).name}, keys over 2^"
+               f"{spread.bit_length() - 1}", bk, bo, pk, po)
+    for nb, valid in ((256, 1.0), (256, 0.5), (64, 0.7)):
+        bk = rng.integers(-20, 20, nb).astype(np.int32)
+        pk, po = probe_of(bk, 200_003, 30, np.int32)
+        k2(f"nb={nb}, duplicate keys, {valid:.0%} valid", bk,
+           rng.random(nb) < valid, pk, po)
+        bk = rng.choice(np.arange(-(1 << 40), (1 << 40), 1 << 33), nb)
+        pk, po = probe_of(bk, 200_003, 1 << 41, np.int64)
+        k2(f"nb={nb}, duplicate int64 keys spread wide, {valid:.0%} valid",
+           bk, rng.random(nb) < valid, pk, po)
+    for nb, kdt in ((64, np.int32), (256, np.int32), (64, np.int64),
+                    (255, np.int64)):
+        slot = int(rng.integers(0, 1 << KX.matmul_probe_slot_bits(nb)))
+        keys = colliding_keys(rng, nb + 40, nb, np.dtype(kdt).name, slot)
+        bk, others = keys[:nb], keys[nb:]
+        n = 100_003
+        pk = np.where(rng.random(n) < 0.5, rng.choice(bk, n),
+                      rng.choice(others, n)).astype(kdt)
+        k2(f"nb={nb} {np.dtype(kdt).name}, every key in hash slot {slot}",
+           bk, rng.random(nb) < 0.9, pk, rng.random(n) < 0.9)
+    low = int(rng.integers(0, 1 << 32))
+    for nb in (2, 64, 256):
+        keys = np.unique((rng.integers(-(1 << 31), 1 << 31, 2 * nb + 64)
+                          << 32) | low)[:2 * nb]
+        bk = rng.permutation(keys)[:nb]
+        pk = rng.choice(keys, 100_003)
+        k2(f"nb={nb} int64 keys equal in their low 32 bits", bk,
+           rng.random(nb) < 0.9, pk, rng.random(100_003) < 0.9)
+    bk = np.arange(-30, -5, dtype=np.int32)
+    pk, po = probe_of(bk, 100_003, 40, np.int32)
+    k2("nb=25 negative keys, a span of 25 values", bk,
+       rng.random(25) < 0.9, pk, po)
+    bk = -rng.choice(1 << 40, 200, replace=False).astype(np.int64) - 1
+    pk, po = probe_of(bk, 100_003, 1 << 40, np.int64)
+    k2("nb=200 negative int64 keys over 2^40", bk,
+       rng.random(200) < 0.9, pk, po)
+    slots = 1 << KX.matmul_probe_slot_bits(256)
+    for span in (slots, slots + 1):
+        bk = np.concatenate([[7, 7 + span - 1],
+                             7 + rng.choice(span, 254, replace=False)])
+        bk = bk.astype(np.int32)
+        pk, po = probe_of(bk, 100_003, 2 * slots, np.int32)
+        k2(f"nb=256, valid keys over {span} values ({slots} slots)", bk,
+           np.ones(256, bool), pk, po)
+    bk = rng.choice(1 << 20, 100, replace=False).astype(np.int32)
+    pk, po = probe_of(bk, 100_003, 1 << 20, np.int32, absent=True)
+    k2("nb=100, every probe row absent", bk, rng.random(100) < 0.9, pk, po)
+    bk = rng.choice(1 << 30, 256, replace=False).astype(np.int64)
+    pk, po = probe_of(bk, 300_007, 1 << 30, np.int64)
+    k2("nb=256 int64, slices off alignment", bk, rng.random(256) < 0.9, pk,
+       po, offs=(1, 5, 1, 11))
+    bk = rng.choice(64, 25, replace=False).astype(np.int32)
+    pk, po = probe_of(bk, 300_007, 64, np.int32)
+    k2("nb=25 int32 keys below 64, slices off alignment", bk,
+       rng.random(25) < 0.9, pk, po, offs=(3, 2, 7, 13))
+    return cases
+
+
+def join_adversarial_checks(KX, dev) -> list:
+    """Runs ``join_adversarial_cases``, exactly and untimed; on the card
+    first holds the plain mirror of K2's table size
+    (``matmul_probe_slot_bits``, which ``colliding_keys`` takes) to the
+    kernel's for every build size."""
+    if dev.type == "cuda":
+        lib = KX._lib("small_build_probe")[1]
+        bad = [nb for nb in range(1, lib.nds_small_build_max() + 1)
+               if lib.nds_small_build_slot_bits(nb)
+               != KX.matmul_probe_slot_bits(nb)]
+        if bad:
+            raise SmokeError(f"K2's table size differs from its plain "
+                             f"mirror's for builds of {bad[:5]} rows")
+    out = [exact_check(KX, *c) for c in join_adversarial_cases(dev)]
+    log(json.dumps({"phase": "K1/K2 adversarial cases", "cases": len(out),
+                    "max_abs_err": max(c["max_abs_err"] for c in out)}))
+    return out
+
+
 def adversarial_sort_keys(dev, n: int, seed: int) -> dict:
     """Sort keys of ``n`` rows (row mask, ``SortKey`` list) for the packed
     sort's adversarial cases: descending keys and NULLS FIRST and LAST
@@ -1673,9 +1880,9 @@ def parent_steps(parent, lib: Recorder, rec: Recorder, label: str,
                  dev) -> list:
     """The sorts' and the probe's largest calls of a leg, and on the NDS
     leg its largest "left", "right" and "both" searches; L3's build and the
-    largest calls of ``partition_sort``, K6, K5's sum, K7's scan and the
-    running max; and L2's pack, sort and group bounds at L2's largest call
-    (``l2_steps``), on the design of another checkout (``parent``:
+    largest calls of K1, K2, ``partition_sort``, K6, K5's sum, K7's scan
+    and the running max; and L2's pack, sort and group bounds at L2's
+    largest call (``l2_steps``), on the design of another checkout (``parent``:
     ``load_parent``'s) beside this one's, on the same inputs: both results
     must be equal; each design timed by
     the call method (``ms``) and by device ms (``device_ms``, a spin
@@ -1704,8 +1911,9 @@ def parent_steps(parent, lib: Recorder, rec: Recorder, label: str,
         cases.append(("build_lookup", lib.inputs("build_lookup")[0],
                       lib.function("build_lookup"),
                       pdx._Trace._build_lookup))
-    for key in ("partition_sort", "partitioned_mn_join",
-                "seg_reduce_at_ends[sum]", "seg_scan", "running_max"):
+    for key in ("direct_lookup_join", "matmul_probe_join", "partition_sort",
+                "partitioned_mn_join", "seg_reduce_at_ends[sum]", "seg_scan",
+                "running_max"):
         if key in rec.largest:
             name = key.split("[")[0]
             cases.append((key, rec.inputs(key)[0], getattr(KX, name),
@@ -1739,28 +1947,163 @@ def parent_steps(parent, lib: Recorder, rec: Recorder, label: str,
             moved = nbytes(list(args)) + nbytes(got)
             shapes = _tensors(list(args))
         del got, exp
-        turns: dict = {}
-        for who, f in (("parent", pfn), ("this", fn), ("this", fn),
-                       ("parent", pfn)):
-            turns.setdefault(who, []).append(
-                (time_ms(lambda: f(*args), dev, reps=5, warm=1),
-                 time_ms(lambda: f(*args), dev, reps=5, warm=1, spin=True)))
-        mean = {who: [sum(t[i] for t in ts) / len(ts) for i in (0, 1)]
-                for who, ts in turns.items()}
+        tm = time_designs({"parent": functools.partial(pfn, *args),
+                          "this": functools.partial(fn, *args)}, dev)
         bound_ms, bound_by = bound(moved, 0)
         r = {"step": name, "path": label,
              "shapes": [list(t.shape) + [str(t.dtype).replace("torch.", "")]
                         for t in shapes],
-             "ms": mean["this"][0], "device_ms": mean["this"][1],
-             "parent_ms": mean["parent"][0],
-             "parent_device_ms": mean["parent"][1],
-             "turns": turns, "bytes": moved, "bound_ms": bound_ms,
-             "bound_by": bound_by}
+             "ms": tm["this"]["ms"], "device_ms": tm["this"]["device_ms"],
+             "parent_ms": tm["parent"]["ms"],
+             "parent_device_ms": tm["parent"]["device_ms"],
+             "turns": {who: d["turns"] for who, d in tm.items()},
+             "bytes": moved, "bound_ms": bound_ms, "bound_by": bound_by}
         if name == "sort":
             r["words"] = sort_words(KX, dx, *args[:3])
             r["parent_words"] = sort_words(pkx, pdx, *args[:3])
         log(json.dumps({"phase": f"{label} beside the parent design", **r}))
         out.append(r)
+    return out
+
+
+# the gather joins, K1 and K2
+JOIN_KERNELS = ("direct_lookup_join", "matmul_probe_join")
+
+
+def join_data(name: str, args) -> dict:
+    """What a K1 or K2 call's time depends on beside its shapes: the
+    shares of valid build and probe rows; for K1 its domain and the share
+    of probe keys inside it, for K2 the distinct valid build keys and the
+    span of their values."""
+    import torch
+    bkey, bok, pkey, pok = args[:4]
+    out = {"build_valid": float(bok.float().mean()) if bok.numel() else 0.0,
+           "probe_valid": float(pok.float().mean()) if pok.numel() else 0.0}
+    if name == "direct_lookup_join":
+        lo, dom = args[4:6]
+        pos = pkey.to(torch.int64) - lo
+        out.update(lo=lo, dom=dom, probe_in_domain=float(
+            ((pos >= 0) & (pos < dom)).float().mean()))
+    else:
+        valid = bkey[bok].to(torch.int64)
+        out.update(distinct_keys=int(torch.unique(valid).numel()),
+                   span=int(valid.max() - valid.min() + 1)
+                   if valid.numel() else 0)
+    return out
+
+
+def time_designs(designs: dict, dev, profile: bool = False) -> dict:
+    """design -> its times, for each design (name -> a call of no
+    arguments) of one step on the same inputs: by the call method
+    (``ms``) and by device ms (``device_ms``), median of 5 each, in turns
+    (the designs in order, then in reverse: parent, this, this, parent),
+    each the mean of its two turns; with ``profile``, also the device ms
+    of each kernel the call launches (``kernel_device_ms``)."""
+    names = list(designs)
+    turns: dict = {}
+    for who in names + names[::-1]:
+        f = designs[who]
+        turns.setdefault(who, []).append(
+            (time_ms(f, dev, reps=5, warm=1),
+             time_ms(f, dev, reps=5, warm=1, spin=True)))
+    return {who: {"ms": sum(t[0] for t in ts) / len(ts),
+                  "device_ms": sum(t[1] for t in ts) / len(ts),
+                  "turns": ts,
+                  **({"kernels": kernel_device_ms(designs[who], dev)}
+                     if profile else {})}
+            for who, ts in turns.items()}
+
+
+# --steps: the checks that hold a step exactly beside its timing, and the
+# graph cases that replay it ("l2" is L2's pack, sort and group bounds)
+STEP_CHECKS = {"direct_lookup_join": "join", "matmul_probe_join": "join",
+               "l2": "l2"}
+STEP_GRAPHS = {"l2": ("pack_group_key", "group_bounds")}
+
+
+def design_steps(steps: list, designs: dict, factory_of, dev, sf: float,
+                 sf_ds: float) -> dict:
+    """``--steps``: each named step on each design of ``designs`` (name ->
+    a checkout's ``kernels`` module: "parent" where ``--parent`` is
+    given, then "this"). A step is a kernel wrapper of ``KERNELS``, or
+    "l2". First the step's graph cases (``graph_replays``) and its
+    adversarial checks (``STEP_CHECKS``) on this design, exactly. Then a
+    wrapper is timed (``time_designs``, with each kernel's device ms) at
+    each leg's largest call (captured in an untimed pass of the NDS-H leg
+    at ``sf`` and of the NDS leg at ``sf_ds``) and at the NDS-H shapes of
+    ``sf1_shape_cases``, every design held exactly to the plain version
+    first; "l2" on seeded inputs shaped like L2's largest NDS call
+    (``l2_padded_inputs``, ``l2_steps``)."""
+    import torch
+    KX = designs["this"]
+    wrappers = [n for n in steps if n != "l2"]
+    bad = [n for n in wrappers if n not in KERNELS]
+    if bad:
+        raise SmokeError(f"--steps: no step {bad}; a step is a kernel "
+                         f"wrapper or l2")
+    out: dict = {"steps": steps}
+    if dev.type == "cuda":
+        graphs = {g for n in steps for g in STEP_GRAPHS.get(n, (n,))}
+        out["graph_replays"] = graph_replays(KX, dev, graphs)
+    kinds = {STEP_CHECKS[n] for n in steps if n in STEP_CHECKS}
+    if "join" in kinds:
+        out["join_adversarial_cases"] = len(join_adversarial_checks(KX,
+                                                                    dev))
+    if "l2" in kinds:
+        out["l2_adversarial_cases"] = len(l2_adversarial_checks(KX, dev))
+    rows = []
+    if "l2" in steps:
+        row, arrs, valids, fields, bits = l2_padded_inputs(dev)
+        rows.append({"step": "l2", "case": "L2's largest NDS call's shape",
+                     **l2_steps(designs, row, arrs, valids, fields, bits,
+                                row.shape[0], dev)})
+        del row, arrs
+        release(dev)
+    for suite, scale in (("nds_h", sf), ("nds", sf_ds)) if wrappers else ():
+        tables = make_tables(suite, scale)
+        dsess = suite_session(suite, factory_of())
+        for t in tables.values():
+            dsess.register_table(t)
+        with Recorder({n: (KX, n) for n in wrappers}) as rec:
+            for _unit, stmts in suite_units(suite):
+                run_query(dsess, stmts)
+        del dsess
+        release(dev)
+        cases = [(n, rec.inputs(n)[0], f"{suite} main path")
+                 for n in wrappers if n in rec.largest]
+        if suite == "nds_h":
+            cases += [c for c in sf1_shape_cases(tables, dev)
+                      if c[0] in wrappers]
+        out[f"{suite}_calls"] = rec.calls
+        del rec, tables
+        for name, args, label in cases:
+            exp = getattr(KX, name + "_plain")(*args)
+            for who, kx in designs.items():
+                err, ok = agrees(name, args, getattr(kx, name)(*args), exp)
+                if not ok:
+                    raise SmokeError(f"{name} [{label}] on the {who} "
+                                     f"design differs from its plain "
+                                     f"version: max_abs_err={err}")
+            moved, ops = work_of(name, list(args), exp)
+            del exp
+            bound_ms, bound_by = bound(moved, ops)
+            r = {"step": name, "case": label,
+                 "shapes": [list(t.shape)
+                            + [str(t.dtype).replace("torch.", "")]
+                            for t in _tensors(list(args))],
+                 **({"data": join_data(name, args)}
+                    if name in JOIN_KERNELS else {}),
+                 "bytes": moved, "bound_ms": bound_ms, "bound_by": bound_by,
+                 "designs": time_designs(
+                     {who: functools.partial(getattr(kx, name), *args)
+                      for who, kx in designs.items()}, dev, profile=True)}
+            log(json.dumps(r))
+            rows.append(r)
+        del cases
+        release(dev)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    out["cases"] = rows
     return out
 
 
@@ -1811,7 +2154,7 @@ def kernel_device_ms(fn, dev, reps: int = 5) -> dict:
 
 # L2's largest NDS call at SF1 (PERF.md): 187,920,000 rows of
 # which 2,099 are present, keys that pack into 32 bits with no validity,
-# group capacity n. ``--l2-steps`` times the L2 steps on inputs of that
+# group capacity n. ``--steps l2`` times the L2 steps on inputs of that
 # shape made from a seed: three int32 keys of 11, 10 and 10 bits
 L2_ROWS = 187_920_000
 L2_PRESENT = 2_099
@@ -1853,10 +2196,9 @@ def l2_steps(designs: dict, row, arrs, valids, fields, bits: int, G: int,
     ``kernels`` module): the pack, ``partition_sort`` of the packed key
     (given the pack's digit counts where the design's pack returns them)
     and ``group_bounds``, on the same inputs; every step's results must
-    be equal across the designs. Per design and step: ms and device ms
-    (median of 5, in turns: the designs in order, then in reverse; the
-    mean of each design's two turns) and the device ms of each kernel the
-    step launches (``kernel_device_ms``); per step the bytes it must move
+    be equal across the designs. Per design and step its times and the
+    device ms of each kernel it launches (``time_designs``); per step the
+    bytes it must move
     and their bound (for ``group_bounds`` also by the model that reads
     every key)."""
     import torch
@@ -1903,20 +2245,11 @@ def l2_steps(designs: dict, row, arrs, valids, fields, bits: int, G: int,
                          ("bounds", moved_bounds),
                          ("bounds_all_keys", moved_all))}}
     del first, key, ks, _perm, present_s, _gid, ngroups, _starts2
-    names = list(designs)
-    turns = {who: {s: [] for s in steps[who]} for who in names}
-    for who in names + names[::-1]:
-        for s, f in steps[who].items():
-            turns[who][s].append((time_ms(f, dev, reps=5, warm=1),
-                                  time_ms(f, dev, reps=5, warm=1,
-                                          spin=True)))
-    rec["designs"] = {
-        who: {s: {"ms": sum(t[0] for t in ts) / len(ts),
-                  "device_ms": sum(t[1] for t in ts) / len(ts),
-                  "turns": ts,
-                  "kernels": kernel_device_ms(steps[who][s], dev)}
-              for s, ts in turns[who].items()}
-        for who in names}
+    timed = {s: time_designs({who: steps[who][s] for who in designs}, dev,
+                             profile=True)
+             for s in ("pack", "sort", "bounds")}
+    rec["designs"] = {who: {s: timed[s][who] for s in timed}
+                      for who in designs}
     return rec
 
 
@@ -1967,7 +2300,8 @@ def group_sort_record(KX, lib: Recorder, label: str, dev) -> "dict | None":
 def graph_replay_cases(dev) -> list:
     """(kernel, make inputs, label[, function, plain version]) for the
     graph case: the scan layout (``seg_scan``, K5's sum, ``group_bounds``,
-    ``running_max``), the count layout (K6, whose partition takes it),
+    ``running_max``), K1 (its build and probe launched as programmatic
+    dependents) and K2, the count layout (K6, whose partition takes it),
     ``partition_sort``, the executor's multi-key sort of four words
     (``_sort_perm``: four packs, each counting its word's digits, and four
     sorts given those counts, against ``_lexsort``), and L2's chain (the
@@ -2010,6 +2344,22 @@ def graph_replay_cases(dev) -> list:
         rng = np.random.default_rng(seed)
         return (dt(np.where(rng.random(n) < 1e-3, np.arange(n), 0)
                    .astype(np.int32)),)
+
+    def k1(seed):
+        rng = np.random.default_rng(seed)
+        nb, lo, dom = 600_000, 1000, 2_000_000
+        bk = rng.choice(dom, nb, replace=False) + lo
+        return (dt(bk.astype(np.int32)), dt(rng.random(nb) < 0.9),
+                dt(rng.integers(lo - 100, lo + dom + 100, n)
+                   .astype(np.int32)), dt(rng.random(n) < 0.9), lo, dom)
+
+    def k2(seed):
+        rng = np.random.default_rng(seed)
+        bk = rng.choice(1 << 30, 200, replace=False)
+        return (dt(bk), dt(rng.random(200) < 0.9),
+                dt(np.where(rng.random(n) < 0.5, rng.choice(bk, n),
+                            rng.integers(0, 1 << 30, n))),
+                dt(rng.random(n) < 0.9))
 
     def k6(seed):
         rng = np.random.default_rng(seed)
@@ -2085,6 +2435,10 @@ def graph_replay_cases(dev) -> list:
             ("seg_reduce_at_ends", groups, f"n={n} G={G} int32 sum"),
             ("group_bounds", bounds, f"n={n} int32 keys, G={G}"),
             ("running_max", cummax, f"n={n} int32"),
+            ("direct_lookup_join", k1,
+             f"600000 <- {n} int32, dom 2000000: the build and the probe "
+             f"launched as programmatic dependents"),
+            ("matmul_probe_join", k2, f"200 <- {n} int64"),
             ("partitioned_mn_join", k6, "2000000 x 1000000 int32"),
             ("partition_sort", sort, "4 x 1000000 int64"),
             ("pack_sort_key", chain_inputs,
@@ -2121,7 +2475,7 @@ def reset_and_grow(KX, stream) -> list:
     return junk
 
 
-def graph_replays(KX, dev) -> list:
+def graph_replays(KX, dev, names=None) -> list:
     """The graph case: each kernel of ``graph_replay_cases`` run once on a
     side stream (its look-back buffers are made there, outside the
     capture), captured in a ``torch.cuda.CUDAGraph`` on that stream, and
@@ -2136,6 +2490,8 @@ def graph_replays(KX, dev) -> list:
     import torch
     out = []
     for name, make, label, *fns in graph_replay_cases(dev):
+        if names is not None and name not in names:
+            continue
         fn, plain = fns or (getattr(KX, name), getattr(KX, name + "_plain"))
         static = make(0)
         stream = torch.cuda.Stream()
@@ -2239,13 +2595,32 @@ def no_library_sorts(profile: dict, path: str, dev) -> None:
                          f"search kernels: {ran}")
 
 
+def busy_ms(work) -> float:
+    """ms of the union of the intervals ``(start_us, ms, name)`` of
+    ``work``, sorted by start."""
+    total, end = 0.0, None
+    for t, ms, _n in work:
+        e = t + ms * 1000
+        if end is None or t >= end:
+            total += ms
+            end = e
+        elif e > end:
+            total += (e - end) / 1000
+            end = e
+    return total
+
+
 def profile_pass(dsess, units, dev, per_unit, label) -> dict:
     """One more pass of the units under torch.profiler. Each unit ends in
     its device->host copy, so the device work a unit launched runs inside
     its host range: per unit, the time the card spent in kernels and
-    copies that started in that range. The busy share is that device time
-    over the timed pass's wall clock (the profiler slows the host, not the
-    card); the kernels that hold the card longest are listed by name."""
+    copies that started in that range, as the union of their intervals
+    (a kernel launched as a programmatic dependent starts before the one
+    it waits for ends; the plain sum of their spans is kept beside it as
+    ``device_span_sum_ms``). The busy share is that device time over the
+    timed pass's wall clock (the profiler slows the host, not the card);
+    the kernels that hold the card longest are listed by name, each by
+    the sum of its spans."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
@@ -2272,12 +2647,13 @@ def profile_pass(dsess, units, dev, per_unit, label) -> dict:
                          ev.time_range.elapsed_us() / 1000, ev.name))
     work.sort()
     starts = [t for t, _ms, _n in work]
-    by_unit = {}
+    by_unit, span_sum = {}, {}
     import bisect
     for name, (s0, e0) in ranges.items():
         lo, hi = bisect.bisect_left(starts, s0), bisect.bisect_left(starts,
                                                                     e0)
-        by_unit[name] = sum(ms for _t, ms, _n in work[lo:hi])
+        span_sum[name] = sum(ms for _t, ms, _n in work[lo:hi])
+        by_unit[name] = busy_ms(work[lo:hi])
     by_name: dict = {}
     for _t, ms, name in work:
         tot, cnt = by_name.get(name, (0.0, 0))
@@ -2288,7 +2664,9 @@ def profile_pass(dsess, units, dev, per_unit, label) -> dict:
                       key=lambda e: -e.self_cpu_time_total)[:12]
     device_ms = sum(by_unit.values())
     wall_ms = sum(per_unit[n]["wall_ms"] for n, _ in units)
-    out = {"device_ms": device_ms, "timed_wall_ms": wall_ms,
+    out = {"device_ms": device_ms,
+           "device_span_sum_ms": sum(span_sum.values()),
+           "timed_wall_ms": wall_ms,
            "profiled_wall_ms": sum((e - s) / 1000
                                    for s, e in ranges.values()),
            "device_busy_share": device_ms / wall_ms if wall_ms else None,
@@ -2532,6 +2910,7 @@ def run_leg(suite, KX, factory_of, dev, pool, record, path=None,
     if suite == "nds_h" and raw is None:
         for name, kargs, label in sf1_shape_cases(tables, dev):
             checks.append(check_kernel(KX, name, kargs, label, dev))
+        checks += join_adversarial_checks(KX, dev)
     if path == "nds":
         for name, kargs, label in (nds_adversarial_cases(dev)
                                    + sort_search_cases(dev)):
@@ -3002,10 +3381,10 @@ def main() -> int:
     ap.add_argument("--parent", default=None, metavar="DIR",
                     help="another checkout of this repo (git archive), "
                     "whose sorts and searches are timed beside this one's")
-    ap.add_argument("--l2-steps", action="store_true",
-                    help="only time L2's pack, sort and group bounds on "
-                    "inputs shaped like their largest NDS call (this "
-                    "design, and --parent's beside it), then exit")
+    ap.add_argument("--steps", default=None, metavar="STEP[,STEP]",
+                    help="only check and time the named steps (kernel "
+                    "wrappers, or l2: L2's pack, sort and group bounds) on "
+                    "this design and --parent's beside it, then exit")
     args = ap.parse_args()
 
     import torch
@@ -3029,21 +3408,26 @@ def main() -> int:
         return make_device_factory(device=None if dev.type == "cuda"
                                    else args.device)
 
-    if args.l2_steps:
+    if args.steps:
         if dev.type == "cuda":
             cuda_build.build_all()
         designs = {"this": KX}
         if args.parent:
             designs = {"parent": load_parent(args.parent, dev)[0], "this": KX}
-        row, arrs, valids, fields, bits = l2_padded_inputs(dev)
-        rec = {"card": card, "phase": "l2 steps", **l2_steps(
-            designs, row, arrs, valids, fields, bits, row.shape[0], dev)}
+        rec = {"card": card, "phase": "steps", **design_steps(
+            args.steps.split(","), designs, factory_of, dev, args.sf,
+            args.sf_ds)}
         if args.out:
             os.makedirs(os.path.dirname(os.path.abspath(args.out)),
                         exist_ok=True)
             with open(args.out, "w") as f:
                 json.dump(rec, f, indent=1)
-        print(json.dumps(rec))
+        print(json.dumps([{"step": r["step"], "case": r["case"],
+                           "bound_ms": r["bound_ms"],
+                           **{who: d["device_ms"] if "device_ms" in d else
+                              {st: x["device_ms"] for st, x in d.items()}
+                              for who, d in r["designs"].items()}}
+                          for r in rec["cases"]]))
         return 0
 
     sf_ds_dist = min(args.sf_ds, SF_DS_DIST)

@@ -21,16 +21,35 @@
 // pairs) the table stays resident in the 50 MB L2 for the int32 and byte
 // tables, so the probe's random gathers mostly hit L2 and the traffic to HBM
 // is the streamed key/flag/output arrays. The design keeps every pass a
-// single coalesced stream over its rows (one thread per row, grid-stride) so
-// that the only non-sequential access is the table gather. The unique-build
+// single coalesced stream over its rows (K3 and K4 one thread per row,
+// grid-stride; K1 as below) so that the only non-sequential access is the
+// table gather. The unique-build
 // contract means at most one valid row per slot for K1, so its build is a
 // plain store; K4 uses atomicMin/atomicMax on 32- or 64-bit signed values.
+//
+// K1, redesigned for the card. The first version took one row a thread
+// with 1-byte loads and stores, one gather in flight a thread, and three
+// launches each waiting for the one before to drain. Now its build and probe
+// take 16 rows a lane (lane_rows.cuh: 16-byte loads of the keys, whole-group
+// loads and stores of the flags and outputs, streaming cache hints, the head
+// and tail in the kernel); the probe issues a lane's 16 table gathers before
+// it uses the first and loads its next chunk while it gathers; and the build
+// and the probe are launched as programmatic dependents (Hopper), so that
+// their launch and their first loads overlap the kernel before. The fill
+// stays: a table kept across calls, its slots tagged with the call's epoch,
+// needs 8-byte slots, whose bytes in the build and the probe cost more than
+// the fill's 4 bytes a slot (measured on an H100: PERF.md's findings on K1).
+// Where the probe's keys fall at random over a table larger than L1 (part <-
+// lineitem), each gather moves a 32-byte sector from L2, and L2 rather than
+// HBM bounds it.
 //
 // Every entry point launches on the stream it is given, allocates nothing
 // (the caller passes the table as scratch) and returns cudaGetLastError().
 
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "lane_rows.cuh"
 
 namespace {
 
@@ -43,47 +62,238 @@ inline unsigned grid_for(long long n) {
   return static_cast<unsigned>(g);
 }
 
-template <typename T>
-__global__ void fill_kernel(T* __restrict__ t, long long n, T v) {
-  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < n;
-       i += (long long)gridDim.x * blockDim.x)
-    t[i] = v;
-}
-
 __device__ __forceinline__ long long clamp_slot(long long pos, long long dom) {
   return pos < 0 ? 0 : (pos >= dom ? dom - 1 : pos);
 }
 
 // ------------------------------------------------------------------ K1
+//
+// Three launches: the fill in 16-byte stores, then the build and the probe,
+// each launched as a programmatic dependent of the kernel before it: it is
+// scheduled while that kernel runs, loads its first keys and flags, and
+// waits for it only before it touches the table. The build and the probe
+// take 16 rows a lane through lane_rows.cuh, and the probe runs on a grid of
+// the blocks the SMs hold at once: each warp loads its next chunk's keys and
+// flags before it issues the current chunk's 16 gathers a lane, all of them
+// through the read-only path before it uses the first.
 
+using lane_rows::kRows;
+using lane_rows::Plan;
+
+constexpr int kWarps = kThreads / 32;
+
+// Enough blocks for one chunk a warp, and for the rows taken one a thread.
+inline long long chunk_blocks(const Plan& p) {
+  long long b = (p.chunks + kWarps - 1) / kWarps;
+  const long long r = (lane_rows::rest_rows(p) + kThreads - 1) / kThreads;
+  if (b < r) b = r;
+  if (b < 1) b = 1;
+  return b;
+}
+
+inline unsigned chunk_grid(const Plan& p) {
+  const long long b = chunk_blocks(p);
+  return static_cast<unsigned>(b > 0x7fffffffLL ? 0x7fffffffLL : b);
+}
+
+// key - lo, wrapping as the plain version's int64 subtraction does
 template <typename K>
-__global__ void direct_build(const K* __restrict__ bkey,
-                             const uint8_t* __restrict__ bok, long long nb,
-                             long long lo, long long dom,
-                             int32_t* __restrict__ tbl) {
-  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < nb;
-       i += (long long)gridDim.x * blockDim.x) {
-    if (!bok[i]) continue;
-    long long s = static_cast<long long>(bkey[i]) - lo;
-    if (s < 0 || s >= dom) continue;
-    tbl[s] = static_cast<int32_t>(i);
-  }
+__device__ __forceinline__ long long key_pos(K k, long long lo) {
+  return static_cast<long long>(
+      static_cast<unsigned long long>(static_cast<long long>(k)) -
+      static_cast<unsigned long long>(lo));
+}
+
+// Programmatic dependent launch (Hopper): a kernel launched with
+// launch_after may be scheduled once every block of the kernel before it
+// has signalled (allow_dependents); it reads what does not depend on that
+// kernel (what came before it on the stream is complete by then: that
+// kernel started after it), then waits for that kernel to complete and its
+// writes to be visible (await_prerequisites).
+__device__ __forceinline__ void allow_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
+}
+
+__device__ __forceinline__ void await_prerequisites() {
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+}
+
+template <typename... Params, typename... Args>
+cudaError_t launch_after(void (*kernel)(Params...), unsigned grid,
+                         cudaStream_t s, Args... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(grid);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kernel, args...);
+}
+
+// The tables' fill: every element of t[0, n) set to v, in 16-byte stores
+// from the first 16-byte boundary on, the elements around them one a thread.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    fill_kernel(T* __restrict__ t, long long n, T v) {
+  constexpr int V = 16 / static_cast<int>(sizeof(T));
+  allow_dependents();
+  const long long stride = static_cast<long long>(gridDim.x) * kThreads;
+  const long long first = blockIdx.x * static_cast<long long>(kThreads) +
+                          threadIdx.x;
+  const unsigned mis =
+      static_cast<unsigned>(reinterpret_cast<uintptr_t>(t) & 15u);
+  long long head = mis ? (16 - mis) / static_cast<long long>(sizeof(T)) : 0;
+  if (head > n) head = n;
+  const long long nv = (n - head) / V;
+  union {
+    T e[V];
+    int4 w;
+  } u;
+#pragma unroll
+  for (int i = 0; i < V; ++i) u.e[i] = v;
+  int4* tv = reinterpret_cast<int4*>(t + head);
+  for (long long i = first; i < nv; i += stride) tv[i] = u.w;
+  for (long long i = first; i < n - nv * V; i += stride)
+    t[i < head ? i : i + nv * V] = v;
+}
+
+// Launches fill_kernel<T> on a grid of at most the blocks the SMs hold at
+// once.
+template <typename T>
+int fill(T* t, long long n, T v, cudaStream_t s) {
+  static int per_sm = 0;
+  long long cap = 0;
+  const int e = lane_rows::resident_blocks(fill_kernel<T>, kThreads, per_sm,
+                                           &cap);
+  if (e != 0) return e;
+  long long g = (n / (16 / static_cast<long long>(sizeof(T))) + kThreads - 1) /
+                kThreads;
+  if (g > cap) g = cap;
+  if (g < 1) g = 1;
+  fill_kernel<T><<<static_cast<unsigned>(g), kThreads, 0, s>>>(t, n, v);
+  return 0;
 }
 
 template <typename K>
-__global__ void direct_probe(const K* __restrict__ pkey,
-                             const uint8_t* __restrict__ pok, long long np,
-                             long long lo, long long dom,
-                             const int32_t* __restrict__ tbl,
-                             int32_t* __restrict__ ridx,
-                             uint8_t* __restrict__ hit) {
-  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < np;
-       i += (long long)gridDim.x * blockDim.x) {
-    long long pos = static_cast<long long>(pkey[i]) - lo;
-    bool inb = pos >= 0 && pos < dom;
-    int32_t r = tbl[clamp_slot(pos, dom)];
-    hit[i] = (pok[i] && inb && r >= 0) ? 1 : 0;
-    ridx[i] = r < 0 ? 0 : r;
+__global__ void __launch_bounds__(kThreads)
+    direct_build(const K* __restrict__ bkey, const uint8_t* __restrict__ bok,
+                 Plan p, long long lo, long long dom,
+                 int32_t* __restrict__ tbl) {
+  constexpr int R = lane_rows::Groups<K>::R, G = lane_rows::Groups<K>::G;
+  allow_dependents();
+  const int lane = threadIdx.x & 31;
+  const long long warp = (blockIdx.x * static_cast<long long>(kThreads) +
+                          threadIdx.x) >> 5;
+  const long long nwarps = static_cast<long long>(gridDim.x) * kWarps;
+  bool waited = false;
+  for (long long c = warp; c < p.chunks; c += nwarps) {
+    K k[kRows];
+    unsigned fw[G];
+    lane_rows::load_keys<K>(bkey, p, c, lane, k);
+    lane_rows::load_flags<K>(bok, p, c, lane, fw);
+    if (!waited) {
+      await_prerequisites();  // the fill
+      waited = true;
+    }
+#pragma unroll
+    for (int i = 0; i < kRows; ++i) {
+      const long long s = key_pos(k[i], lo);
+      if (lane_rows::flag_of<K>(fw, i) && s >= 0 && s < dom)
+        tbl[s] = static_cast<int32_t>(
+            lane_rows::group_row<K>(p, c, i / R, lane) + i % R);
+    }
+  }
+  if (!waited) await_prerequisites();
+  const long long rest = lane_rows::rest_rows(p);
+  for (long long i = blockIdx.x * static_cast<long long>(kThreads) +
+                     threadIdx.x;
+       i < rest; i += static_cast<long long>(gridDim.x) * kThreads) {
+    const long long row = lane_rows::rest_row(p, i);
+    const long long s = key_pos(bkey[row], lo);
+    if (bok[row] && s >= 0 && s < dom) tbl[s] = static_cast<int32_t>(row);
+  }
+}
+
+// One chunk of the probe from its keys and flag words.
+template <typename K>
+__device__ __forceinline__ void probe_chunk(
+    const K (&k)[kRows], const unsigned (&fw)[lane_rows::Groups<K>::G],
+    const Plan& p, long long c, int lane, long long lo, long long dom,
+    const int32_t* __restrict__ tbl, int32_t* __restrict__ ridx,
+    uint8_t* __restrict__ hit) {
+  constexpr int R = lane_rows::Groups<K>::R, G = lane_rows::Groups<K>::G;
+  int32_t v[kRows];
+  unsigned inb = 0;
+#pragma unroll
+  for (int i = 0; i < kRows; ++i) {
+    const long long pos = key_pos(k[i], lo);
+    inb |= static_cast<unsigned>(pos >= 0 && pos < dom) << i;
+    v[i] = __ldg(tbl + clamp_slot(pos, dom));
+  }
+  unsigned hw[G];
+#pragma unroll
+  for (int g = 0; g < G; ++g) hw[g] = 0;
+#pragma unroll
+  for (int i = 0; i < kRows; ++i) {
+    const bool h = lane_rows::flag_of<K>(fw, i) && ((inb >> i) & 1u) &&
+                   v[i] >= 0;
+    hw[i / R] |= static_cast<unsigned>(h) << (8 * (i % R));
+    v[i] = v[i] < 0 ? 0 : v[i];
+  }
+  lane_rows::store_rows<K>(ridx, hit, p, c, lane, v, hw);
+}
+
+// On a grid of the blocks the SMs hold at once, each warp loads its next
+// chunk's keys and flags before it gathers for the current one (and its
+// first before it waits for the build).
+template <typename K>
+__global__ void __launch_bounds__(kThreads)
+    direct_probe(const K* __restrict__ pkey, const uint8_t* __restrict__ pok,
+                 Plan p, long long lo, long long dom,
+                 const int32_t* __restrict__ tbl, int32_t* __restrict__ ridx,
+                 uint8_t* __restrict__ hit) {
+  constexpr int G = lane_rows::Groups<K>::G;
+  const int lane = threadIdx.x & 31;
+  const long long warp = (blockIdx.x * static_cast<long long>(kThreads) +
+                          threadIdx.x) >> 5;
+  const long long nwarps = static_cast<long long>(gridDim.x) * kWarps;
+  K k[kRows];
+  unsigned fw[G];
+  long long c = warp;
+  if (c < p.chunks) {
+    lane_rows::load_keys<K>(pkey, p, c, lane, k);
+    lane_rows::load_flags<K>(pok, p, c, lane, fw);
+  }
+  await_prerequisites();  // the build
+  while (c < p.chunks) {
+    const long long next = c + nwarps;
+    K kn[kRows];
+    unsigned fn[G];
+    if (next < p.chunks) {
+      lane_rows::load_keys<K>(pkey, p, next, lane, kn);
+      lane_rows::load_flags<K>(pok, p, next, lane, fn);
+    }
+    probe_chunk<K>(k, fw, p, c, lane, lo, dom, tbl, ridx, hit);
+#pragma unroll
+    for (int i = 0; i < kRows; ++i) k[i] = kn[i];
+#pragma unroll
+    for (int g = 0; g < G; ++g) fw[g] = fn[g];
+    c = next;
+  }
+  const long long rest = lane_rows::rest_rows(p);
+  for (long long i = blockIdx.x * static_cast<long long>(kThreads) +
+                     threadIdx.x;
+       i < rest; i += static_cast<long long>(gridDim.x) * kThreads) {
+    const long long row = lane_rows::rest_row(p, i);
+    const long long pos = key_pos(pkey[row], lo);
+    const bool inb = pos >= 0 && pos < dom;
+    const int32_t x = __ldg(tbl + clamp_slot(pos, dom));
+    hit[row] = (pok[row] && inb && x >= 0) ? 1 : 0;
+    ridx[row] = x < 0 ? 0 : x;
   }
 }
 
@@ -175,15 +385,28 @@ int direct_join_t(const void* bkey, const void* bok, long long nb,
                   const void* pkey, const void* pok, long long np,
                   long long lo, long long dom, void* tbl, void* ridx,
                   void* hit, cudaStream_t s) {
-  fill_kernel<int32_t><<<grid_for(dom), kThreads, 0, s>>>(
-      static_cast<int32_t*>(tbl), dom, -1);
-  direct_build<K><<<grid_for(nb), kThreads, 0, s>>>(
-      static_cast<const K*>(bkey), static_cast<const uint8_t*>(bok), nb, lo,
-      dom, static_cast<int32_t*>(tbl));
-  direct_probe<K><<<grid_for(np), kThreads, 0, s>>>(
-      static_cast<const K*>(pkey), static_cast<const uint8_t*>(pok), np, lo,
-      dom, static_cast<const int32_t*>(tbl), static_cast<int32_t*>(ridx),
-      static_cast<uint8_t*>(hit));
+  const Plan pb = lane_rows::plan_rows<K>(bkey, nb, bok, nullptr, nullptr);
+  const Plan pp = lane_rows::plan_rows<K>(pkey, np, pok, ridx, hit);
+  static int per_sm = 0;
+  long long resident = 0;
+  const int e = lane_rows::resident_blocks(direct_probe<K>, kThreads, per_sm,
+                                           &resident);
+  if (e != 0) return e;
+  long long g = chunk_blocks(pp);
+  if (g > resident) g = resident;
+  int32_t* t = static_cast<int32_t*>(tbl);
+  const int fe = fill<int32_t>(t, dom, -1, s);
+  if (fe != 0) return fe;
+  cudaError_t err = launch_after(
+      direct_build<K>, chunk_grid(pb), s, static_cast<const K*>(bkey),
+      static_cast<const uint8_t*>(bok), pb, lo, dom, t);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = launch_after(direct_probe<K>, static_cast<unsigned>(g), s,
+                     static_cast<const K*>(pkey),
+                     static_cast<const uint8_t*>(pok), pp, lo, dom,
+                     static_cast<const int32_t*>(t),
+                     static_cast<int32_t*>(ridx), static_cast<uint8_t*>(hit));
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -191,8 +414,8 @@ template <typename K>
 int bitmask_t(const void* bkey, const void* bok, long long nb,
               const void* pkey, const void* pok, long long np, long long lo,
               long long dom, void* bm, void* out, cudaStream_t s) {
-  fill_kernel<uint8_t><<<grid_for(dom), kThreads, 0, s>>>(
-      static_cast<uint8_t*>(bm), dom, 0);
+  const int e = fill<uint8_t>(static_cast<uint8_t*>(bm), dom, 0, s);
+  if (e != 0) return e;
   bitmask_build<K><<<grid_for(nb), kThreads, 0, s>>>(
       static_cast<const K*>(bkey), static_cast<const uint8_t*>(bok), nb, lo,
       dom, static_cast<uint8_t*>(bm));
@@ -207,12 +430,10 @@ int minmax_t(const void* bkey, const void* bok, const void* bval, long long nb,
              const void* pkey, const void* pok, const void* pval, long long np,
              long long lo, long long dom, void* mn, void* mx, void* present,
              void* out, V vmax, V vmin, cudaStream_t s) {
-  fill_kernel<V><<<grid_for(dom), kThreads, 0, s>>>(static_cast<V*>(mn), dom,
-                                                    vmax);
-  fill_kernel<V><<<grid_for(dom), kThreads, 0, s>>>(static_cast<V*>(mx), dom,
-                                                    vmin);
-  fill_kernel<uint8_t><<<grid_for(dom), kThreads, 0, s>>>(
-      static_cast<uint8_t*>(present), dom, 0);
+  int e = fill<V>(static_cast<V*>(mn), dom, vmax, s);
+  if (e == 0) e = fill<V>(static_cast<V*>(mx), dom, vmin, s);
+  if (e == 0) e = fill<uint8_t>(static_cast<uint8_t*>(present), dom, 0, s);
+  if (e != 0) return e;
   minmax_build<K, V><<<grid_for(nb), kThreads, 0, s>>>(
       static_cast<const K*>(bkey), static_cast<const uint8_t*>(bok),
       static_cast<const V*>(bval), nb, lo, dom, static_cast<V*>(mn),

@@ -48,6 +48,7 @@ SIGNATURES = {
     },
     "small_build_probe": {
         "nds_small_build_max": [],
+        "nds_small_build_slot_bits": [_I],
         "nds_matmul_probe_join": [_P, _P, _I, _P, _P, _LL, _I, _P, _P, _P],
     },
     "seg_scan": {

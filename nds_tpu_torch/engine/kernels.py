@@ -375,6 +375,36 @@ def matmul_probe_join_plain(bkey, bok, pkey, pok):
     return ridx.clamp(0, n_build - 1), hit
 
 
+# K2's hash (csrc/small_build_probe.cu): a key's first slot of 2^bits is
+# the top ``bits`` bits of the low 32 bits of its mixed key times
+# _SMALL_HASH_MUL; an int64 key is mixed as lo ^ (hi * _SMALL_HASH_MIX)
+_SMALL_HASH_MUL = 0x9E3779B1
+_SMALL_HASH_MIX = 0x85EBCA6B
+
+
+def matmul_probe_slot_bits(n_build: int) -> int:
+    """log2 of the slots of K2's table for a build of ``n_build`` rows:
+    the least power of two >= 4 x n_build, at least 16."""
+    return max(4, (4 * n_build - 1).bit_length())
+
+
+def _mul32(x, m: int):
+    # (x * m) mod 2^32 for x in [0, 2^32), in int64 without overflow
+    return (x * (m & 0xFFFF) + ((x * (m >> 16)) & 0xFFFF) * 65536) \
+        & 0xFFFFFFFF
+
+
+def matmul_probe_slots(keys, n_build: int):
+    """Plain mirror of K2's hash: the first slot of each key (an int32 or
+    int64 tensor) in the hash table of a build of ``n_build`` rows."""
+    k = keys.to(torch.int64)
+    x = k & 0xFFFFFFFF
+    if keys.dtype == torch.int64:
+        x = x ^ _mul32((k >> 32) & 0xFFFFFFFF, _SMALL_HASH_MIX)
+    return _mul32(x, _SMALL_HASH_MUL) >> (32 - matmul_probe_slot_bits(
+        n_build))
+
+
 @_counted
 def matmul_probe_join(bkey, bok, pkey, pok):
     """Unique-build equi-join for builds of at most 256 rows: the sum of
