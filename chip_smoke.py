@@ -16,9 +16,10 @@ Drives ``nds_tpu_torch`` (never ``jax``, never ``nds_tpu``) on the card:
    layout, ``partition_sort``, a multi-key sort of four words (an
    operand straddling two at an odd bit, each word's digit counts from
    its pack), L2's chain (the pack with its counts, the sort given
-   them, the group bounds), K1 (its build and probe launched as
-   programmatic dependents) and K2 captured in a CUDA graph and replayed
-   three times with new inputs, exact;
+   them, the group bounds), K1 and K3 (their builds and probes launched
+   as programmatic dependents), K2 and the compactor (its counts'
+   look-back words, its write pass a dependent launch) captured in a
+   CUDA graph and replayed three times with new inputs, exact;
 4. NDS-H leg at ``--sf`` (default SF1, ``bench.py``'s scale):
    ``Session.for_nds_h(make_device_factory())`` on ``cuda``;
    an untimed pass of the 22 queries captures each kernel's largest call;
@@ -27,7 +28,9 @@ Drives ``nds_tpu_torch`` (never ``jax``, never ``nds_tpu``) on the card:
    (probe 6,001,215 rows at SF1; builds of 1,500,000, 200,000, 25 and 256
    rows; the segmented scan at several group counts) and K1 and K2 on
    adversarial inputs (``join_adversarial_cases``, exact; K2's table
-   size held to its plain mirror's for every build size); launch counts
+   size held to its plain mirror's for every build size), and K3 and the
+   compactor on theirs (``semi_compact_case_makers``, each measured
+   option of their designs too); launch counts
    set to 0, the 22 queries timed, the counts read; a pass under
    ``torch.profiler`` for the card's busy time; every result checked
    against the CPU oracle by the validator's rules, in the worker pool;
@@ -111,8 +114,10 @@ named step (a kernel wrapper, or ``l2``: L2's pack, sort and group
 bounds), replays its graph cases, holds it to its plain version on its
 adversarial cases and times this design beside ``--parent``'s
 (``design_steps``, ``time_designs``): a wrapper at each leg's largest call
-and at the NDS-H shapes, ``l2`` on seeded inputs shaped like its largest
-NDS call (``l2_padded_inputs``); it prints a summary (no contract line).
+and at the NDS-H shapes (the compactor also on 6,480,001 seeded rows),
+the plain version's and the library call's times and, for K1-K3, the
+data's shares; ``l2`` on seeded inputs shaped like its largest NDS call
+(``l2_padded_inputs``); it prints a summary (no contract line).
 
 Kernel checks: integer, bool and min/max outputs must equal the plain
 version's exactly; a float sum (the segmented scan's "sum" on float
@@ -468,10 +473,13 @@ def agrees(name: str, args, got, exp) -> tuple:
 
 def work_of(name: str, args, out) -> tuple:
     """(bytes the function must move, operations it does): each input
-    read once, each output written once; the operations are one per
-    row handled, and for the small-build probe one lookup per probe row
-    (what the function needs, whatever implements it: the one-hot
-    product's (probe x build) compares are that formulation's work)."""
+    read once, each output written once, an input that the data does not
+    need not at all (the sorts' operands of absent rows, the group
+    bounds' keys past the first absent row, K3's build keys of invalid
+    rows); the operations are one per row handled, and for the
+    small-build probe one lookup per probe row (what the function needs,
+    whatever implements it: the one-hot product's (probe x build)
+    compares are that formulation's work)."""
     tens = _tensors(list(args))
     moved = nbytes(tens) + nbytes(out)
     rows = sum(a.numel() for a in tens)
@@ -526,6 +534,11 @@ def work_of(name: str, args, out) -> tuple:
         # written once (``bounds_bytes``)
         keys, _pbit, G = args[:3]
         moved = bounds_bytes(keys, int(out[0].sum()), G)[0]
+    if name == "bitmask_semi":
+        # a build key only where its row is valid (no other build row
+        # needs its key: the build loads none of an invalid vector)
+        bkey, bok = args[:2]
+        moved -= (bkey.numel() - int(bok.sum())) * bkey.element_size()
     if name in DECODE_KERNELS:
         # a few integer operations per output row
         ops = out.numel()
@@ -533,6 +546,19 @@ def work_of(name: str, args, out) -> tuple:
         # a hash, a rank and a copy per row, a store per output slot
         ops = rows + sum(t.numel() for t in _tensors(out))
     return moved, ops
+
+
+def all_keys_bound(name: str, args, out, ops: int) -> dict:
+    """For the kernels whose bound counts only the keys their data needs
+    (``group_bounds``, K3), the bound that reads every key, for
+    comparison; {} for the others."""
+    if name == "group_bounds":
+        return {"bound_ms_all_keys": bound(
+            bounds_bytes(args[0], int(out[0].sum()), args[2])[1], ops)[0]}
+    if name == "bitmask_semi":
+        return {"bound_ms_all_keys": bound(
+            nbytes(list(args)) + nbytes(out), ops)[0]}
+    return {}
 
 
 def bound(moved: int, ops: int) -> tuple:
@@ -604,6 +630,12 @@ def library_call(name: str, args):
         # the stable sort of the 0/1 key that the compactor replaced
         row = args[0]
         return lambda: torch.sort((~row).to(torch.int32), stable=True)
+    if name == "bitmask_semi":
+        # membership of the probe keys in the valid build keys, compacted
+        # beforehand (the caller ANDs pok in: ``library_agrees``)
+        _bkey, _bok, pkey = args[:3]
+        valid = _bkey[_bok]
+        return lambda: torch.isin(pkey, valid)
     if name == "keyed_minmax_semi":
         bkey, bok, bval, _pk, _po, _pv, lo, dom = args
         idx = torch.where(bok, bkey.to(torch.int64) - lo,
@@ -612,6 +644,22 @@ def library_call(name: str, args):
         return lambda: tbl.fill_(torch.iinfo(bval.dtype).max).scatter_reduce_(
             0, idx, bval, "amin", include_self=True)
     return None
+
+
+def library_agrees(name: str, args, got, lib_out) -> None:
+    """Raises where a library call that computes the kernel's function
+    disagrees with the kernel's output ``got``: K3's ``torch.isin`` ANDed
+    with ``pok``, and the compactor's stable sort's indices."""
+    import torch
+    if name == "bitmask_semi":
+        same = torch.equal(lib_out & args[3], got)
+    elif name == "compact_perm":
+        same = torch.equal(lib_out[1].to(torch.int32), got[0])
+    else:
+        return
+    if not same:
+        raise SmokeError(f"{name}: the library call differs from the "
+                         f"kernel")
 
 
 def check_kernel(KX, name: str, args, label: str, dev,
@@ -640,12 +688,16 @@ def check_kernel(KX, name: str, args, label: str, dev,
     plain_ms = (plain_first_s * 1000 if plain_first_s > 1.0 else
                 time_ms(lambda: plain(*args), dev, reps=3, warm=1))
     lib = library_call(name, args)
+    lib_out = None
     try:
         if lib is not None:
-            lib()
+            lib_out = lib()
     except RuntimeError as exc:  # a library call that takes no such input
         log(f"{name} [{label}]: no library call: {exc}")
         lib = None
+    if lib is not None:
+        library_agrees(name, args, got, lib_out)
+    del lib_out
     library_ms = time_ms(lib, dev) if lib is not None else None
     library_device_ms = (time_ms(lib, dev, spin=True) if lib is not None
                          else None)
@@ -654,10 +706,7 @@ def check_kernel(KX, name: str, args, label: str, dev,
     shapes = [list(a.shape) + [str(a.dtype).replace("torch.", "")]
               for a in _tensors(list(args) + list(kwargs.values()))]
     extra = {}
-    if name == "group_bounds":
-        # the model that reads every key, for comparison
-        extra["bound_ms_all_keys"] = bound(
-            bounds_bytes(args[0], int(got[0].sum()), args[2])[1], ops)[0]
+    extra.update(all_keys_bound(name, args, got, ops))
     rec = {"kernel": name, "case": label, "shapes": shapes, **extra,
            "size": call_size(name, args, kwargs),
            "max_abs_err": err, "ms": ms, "device_ms": device_ms,
@@ -1321,6 +1370,180 @@ def join_adversarial_checks(KX, dev) -> list:
     return out
 
 
+# the compactor's tile (csrc/compact.cu: 4,096 rows, 16 bytes a thread) and
+# the tiles its count pass takes a block
+COMPACT_TILE = 4096
+COMPACT_SPAN_TILES = 8
+
+
+def semi_compact_case_makers() -> list:
+    """(kernel, label, make) of K3 (``bitmask_semi``) and L1
+    (``compact_perm``): ``make(dev)`` gives the case's args, drawn from a
+    seed of its own, so that a test can build one case alone. The card
+    holds each kernel exactly to its plain version on them, and
+    ``tests/test_torch_semi_compact.py`` each plain version to the JAX
+    reference on the CPU. K3: builds dense with duplicates (40 rows a key),
+    with most rows invalid (a plan's padded capacity: a few valid rows,
+    then invalid ones) and with every row invalid; probe keys below ``lo``,
+    above ``lo + dom - 1`` and at iinfo's ends, and build keys there only
+    on invalid rows (the executor's domain holds every valid key of both
+    sides; the reference would wrap a valid build key outside it into the
+    table); the domain's ends as valid build keys; int64 keys beyond 2^32
+    with ``lo`` near them (keys 2^32 off the domain's must miss); probes of
+    1-17 and 511-513 rows; every array a slice 1-15 elements into its
+    storage; ``dom = DIRECT_MAX_DOMAIN``. L1: n = 1, and a tile
+    (``COMPACT_TILE``) and a span of the count pass's tiles each less one,
+    itself, one more and twice it plus one; every row present, none, a
+    third, runs of 300 and runs across the tiles' edges; masks sliced 1-15
+    bytes into their storage (the tiles are cut at the mask's 16-byte
+    boundaries, so a slice moves their edges); a million rows, and
+    5,000,011 (1,221 tiles: more blocks than the card holds at once)."""
+    import zlib
+
+    import numpy as np
+    import torch
+    from nds_tpu_torch.engine import kernels as KX
+
+    def rng_of(label):
+        return np.random.default_rng([53, zlib.crc32(label.encode())])
+
+    def on(dev, a, off=0):
+        # a contiguous view that starts ``off`` elements into its storage
+        a = np.ascontiguousarray(a)
+        t = torch.as_tensor(np.concatenate([np.zeros(off, a.dtype), a]))
+        return t.to(dev)[off:]
+
+    def build(rng, nb, lo, dom, kdt, valid, valid_rows=None):
+        keys = rng.integers(0, dom, nb) + lo
+        ok = rng.random(nb) < valid
+        if valid_rows is not None:
+            ok[valid_rows:] = False
+        if valid > 0:
+            keys[:2] = [lo, lo + dom - 1]
+            ok[:2] = True
+        # invalid rows carry junk: below and above the domain, iinfo's ends,
+        # keys 2^32 off the domain's (int64), or a valid row's key
+        info = np.iinfo(kdt)
+        r = rng.random(nb)
+        junk = np.where(r < 0.25, rng.integers(lo - 3 * dom, lo, nb),
+                        np.where(r < 0.5, rng.integers(lo + dom,
+                                                       lo + 4 * dom, nb),
+                                 rng.permutation(keys)))
+        junk[r > 0.95] = info.min
+        junk[r > 0.97] = info.max
+        if kdt == np.int64:
+            off = np.where(rng.random(nb) < 0.5, 1 << 32, -(1 << 32))
+            junk = np.where((r > 0.5) & (r < 0.7), keys + off, junk)
+        return np.where(ok, keys, junk).astype(kdt), ok
+
+    def probe(rng, n, lo, dom, kdt, valid=0.9):
+        keys = rng.integers(lo - dom, lo + 2 * dom, n)
+        info = np.iinfo(kdt)
+        if kdt == np.int64:
+            off = np.where(rng.random(n) < 0.5, 1 << 32, -(1 << 32))
+            keys = np.where(rng.random(n) < 0.2, keys + off, keys)
+        edges = np.array([lo - 1, lo, lo + dom - 1, lo + dom, info.min,
+                          info.max], dtype=np.int64)
+        keys[:min(n, len(edges))] = edges[:n]
+        return keys.astype(kdt), rng.random(n) < valid
+
+    makers = []
+
+    def k3(label, nb, np_, lo, dom, kdt, valid=0.9, valid_rows=None,
+           offs=(0, 0, 0, 0)):
+        def make(dev):
+            rng = rng_of(label)
+            bk, bo = build(rng, nb, lo, dom, kdt, valid, valid_rows)
+            pk, po = probe(rng, np_, lo, dom, kdt)
+            return (on(dev, bk, offs[0]), on(dev, bo, offs[1]),
+                    on(dev, pk, offs[2]), on(dev, po, offs[3]), lo, dom)
+        makers.append(("bitmask_semi", label, make))
+
+    for n in list(range(1, 18)) + [511, 512, 513]:
+        k3(f"int32, dense build of 200003 rows over 5000 keys, np={n}",
+           200_003, n, -1000, 5000, np.int32)
+    for n in (1, 2, 3, 15, 16, 17, 511, 513):
+        k3(f"int64 keys near 2^35, np={n}", 60_001, n, (1 << 35) + 17,
+           30_000, np.int64)
+    k3("int32, dense build of 200003 rows over 5000 keys, np=100003",
+       200_003, 100_003, -1000, 5000, np.int32)
+    k3("int32, padded build: 1000003 rows, 3% valid then invalid",
+       1_000_003, 300_007, 7, 50_000, np.int32, valid=0.6,
+       valid_rows=50_000)
+    k3("int64, padded build: 1000003 rows, 1% valid then invalid",
+       1_000_003, 300_007, -(1 << 40), 50_000, np.int64, valid=0.2,
+       valid_rows=50_000)
+    k3("int32, every build row invalid", 100_000, 100_003, 0, 5000,
+       np.int32, valid=0.0)
+    k3("int64 keys near 2^35, keys 2^32 off the domain, np=1000003",
+       500_000, 1_000_003, (1 << 35) + 17, 300_000, np.int64, valid=0.7)
+    for offs in ((1, 3, 5, 7), (4, 2, 9, 15), (0, 0, 3, 0), (13, 11, 1, 6)):
+        k3(f"int32, slices off by {offs} elements", 200_003, 300_007, -1000,
+           20_000, np.int32, offs=offs)
+    k3("int64, slices off by (1, 13, 1, 6) elements", 200_003, 300_007,
+       (1 << 35) + 17, 20_000, np.int64, offs=(1, 13, 1, 6))
+    k3("int32, dom = DIRECT_MAX_DOMAIN", 1_000_000, 1_000_003, 5,
+       KX.DIRECT_MAX_DOMAIN, np.int32, valid=0.8)
+
+    def rows_of(rng, n, what):
+        i = np.arange(n)
+        return {"all": np.ones(n, bool), "none": np.zeros(n, bool),
+                "a third": rng.random(n) < 1 / 3,
+                "runs of 300": (i // 300) % 2 == 0,
+                # present within 40 rows of every multiple of 4,096
+                "runs across the tiles' edges": (i + 40) % 4096 < 80}[what]
+
+    def l1(label, n, what, off=0):
+        def make(dev):
+            return (on(dev, rows_of(rng_of(label), n, what), off),)
+        makers.append(("compact_perm", label, make))
+
+    l1("n=1, present", 1, "all")
+    l1("n=1, absent", 1, "none")
+    for tile in (COMPACT_TILE, COMPACT_TILE * COMPACT_SPAN_TILES):
+        for n in (tile - 1, tile, tile + 1, 2 * tile + 1):
+            for what in ("all", "none", "a third", "runs of 300",
+                         "runs across the tiles' edges"):
+                l1(f"n={n}, {what} present", n, what)
+    for off in (1, 7, 8, 15):
+        for n in (COMPACT_TILE + 1, 2 * COMPACT_TILE * COMPACT_SPAN_TILES
+                  + 1):
+            for what in ("a third", "runs across the tiles' edges"):
+                l1(f"n={n}, {what} present, sliced {off} bytes in", n, what,
+                   off)
+    l1("n=1000003, a third present", 1_000_003, "a third")
+    l1("n=1000003, runs across the tiles' edges, sliced 5 bytes in",
+       1_000_003, "runs across the tiles' edges", 5)
+    l1("n=5000011, runs of 300 present, sliced 9 bytes in", 5_000_011,
+       "runs of 300", 9)
+    return makers
+
+
+def semi_compact_adversarial_cases(dev) -> list:
+    """(kernel, args, label) of ``semi_compact_case_makers`` on ``dev``."""
+    return [(name, make(dev), label)
+            for name, label, make in semi_compact_case_makers()]
+
+
+def semi_compact_adversarial_checks(designs: dict, dev) -> list:
+    """Runs ``semi_compact_adversarial_cases``, exactly and untimed, on
+    each design of ``designs`` (name -> a checkout's ``kernels``)."""
+    KX = designs["this"]
+    out = []
+    for name, args, label in semi_compact_adversarial_cases(dev):
+        exp = getattr(KX, name + "_plain")(*args)
+        for who, kx in designs.items():
+            err, ok = agrees(name, args, getattr(kx, name)(*args), exp)
+            if not ok:
+                raise SmokeError(f"{name} [{label}] on {who} differs from "
+                                 f"its plain version: max_abs_err={err}")
+            out.append({"kernel": name, "design": who, "case": label,
+                        "max_abs_err": err})
+    log(json.dumps({"phase": "K3/L1 adversarial cases", "cases": len(out),
+                    "max_abs_err": max(c["max_abs_err"] for c in out)}))
+    return out
+
+
 def adversarial_sort_keys(dev, n: int, seed: int) -> dict:
     """Sort keys of ``n`` rows (row mask, ``SortKey`` list) for the packed
     sort's adversarial cases: descending keys and NULLS FIRST and LAST
@@ -1966,24 +2189,30 @@ def parent_steps(parent, lib: Recorder, rec: Recorder, label: str,
     return out
 
 
-# the gather joins, K1 and K2
-JOIN_KERNELS = ("direct_lookup_join", "matmul_probe_join")
+# the kernels whose time depends on their data's shares (``join_data``):
+# the gather joins K1 and K2, and K3
+DATA_KERNELS = ("direct_lookup_join", "matmul_probe_join", "bitmask_semi")
 
 
 def join_data(name: str, args) -> dict:
-    """What a K1 or K2 call's time depends on beside its shapes: the
-    shares of valid build and probe rows; for K1 its domain and the share
-    of probe keys inside it, for K2 the distinct valid build keys and the
-    span of their values."""
+    """What a K1, K2 or K3 call's time depends on beside its shapes: the
+    shares of valid build and probe rows; for K1 and K3 the domain and the
+    share of probe keys inside it, and for K3 the distinct valid build keys
+    over the domain; for K2 the distinct valid build keys and the span of
+    their values."""
     import torch
     bkey, bok, pkey, pok = args[:4]
     out = {"build_valid": float(bok.float().mean()) if bok.numel() else 0.0,
            "probe_valid": float(pok.float().mean()) if pok.numel() else 0.0}
-    if name == "direct_lookup_join":
+    if name in ("direct_lookup_join", "bitmask_semi"):
         lo, dom = args[4:6]
         pos = pkey.to(torch.int64) - lo
         out.update(lo=lo, dom=dom, probe_in_domain=float(
             ((pos >= 0) & (pos < dom)).float().mean()))
+        if name == "bitmask_semi":
+            slots = bkey[bok].to(torch.int64) - lo
+            slots = slots[(slots >= 0) & (slots < dom)]
+            out["distinct_over_dom"] = int(torch.unique(slots).numel()) / dom
     else:
         valid = bkey[bok].to(torch.int64)
         out.update(distinct_keys=int(torch.unique(valid).numel()),
@@ -2017,8 +2246,59 @@ def time_designs(designs: dict, dev, profile: bool = False) -> dict:
 # --steps: the checks that hold a step exactly beside its timing, and the
 # graph cases that replay it ("l2" is L2's pack, sort and group bounds)
 STEP_CHECKS = {"direct_lookup_join": "join", "matmul_probe_join": "join",
+               "bitmask_semi": "semi_compact", "compact_perm": "semi_compact",
                "l2": "l2"}
-STEP_GRAPHS = {"l2": ("pack_group_key", "group_bounds")}
+STEP_GRAPHS = {"l2": ("pack_group_key", "group_bounds"),
+               "bitmask_semi": ("bitmask_semi",),
+               "compact_perm": ("compact_perm",)}
+# --steps: a seeded call of a step beside the legs' own (the compactor at
+# the row count of NDS's largest compactor call and one more, a third of
+# the rows present)
+STEP_SEEDED_ROWS = 6_480_001
+
+
+def design_step_row(name: str, args, label: str, designs: dict,
+                    dev) -> dict:
+    """One call of ``--steps``: each design held exactly to the plain
+    version, then timed in turns with each kernel's device ms
+    (``time_designs``); beside them the bytes and bound, the plain
+    version's time and the library call's (``library_call``, held to the
+    kernel where it computes the same thing), and for K1-K3 the data's
+    shares (``join_data``)."""
+    KX = designs["this"]
+    plain = functools.partial(getattr(KX, name + "_plain"), *args)
+    t0 = time.perf_counter()
+    exp = plain()
+    plain_first_s = time.perf_counter() - t0
+    calls = {who: functools.partial(getattr(kx, name), *args)
+             for who, kx in designs.items()}
+    for who, call in calls.items():
+        err, ok = agrees(name, args, call(), exp)
+        if not ok:
+            raise SmokeError(f"{name} [{label}] on {who} differs from its "
+                             f"plain version: max_abs_err={err}")
+    moved, ops = work_of(name, list(args), exp)
+    bound_ms, bound_by = bound(moved, ops)
+    all_keys = all_keys_bound(name, args, exp, ops)
+    lib = library_call(name, args)
+    if lib is not None:
+        library_agrees(name, args, exp, lib())
+    del exp
+    r = {"step": name, "case": label,
+         "shapes": [list(t.shape) + [str(t.dtype).replace("torch.", "")]
+                    for t in _tensors(list(args))],
+         **({"data": join_data(name, args)} if name in DATA_KERNELS
+            else {}),
+         "bytes": moved, "bound_ms": bound_ms, "bound_by": bound_by,
+         **all_keys,
+         "plain_ms": (plain_first_s * 1000 if plain_first_s > 1.0 else
+                      time_ms(plain, dev, reps=3, warm=1)),
+         "library_ms": time_ms(lib, dev) if lib is not None else None,
+         "library_device_ms": (time_ms(lib, dev, spin=True)
+                               if lib is not None else None),
+         "designs": time_designs(calls, dev, profile=True)}
+    log(json.dumps(r))
+    return r
 
 
 def design_steps(steps: list, designs: dict, factory_of, dev, sf: float,
@@ -2027,13 +2307,16 @@ def design_steps(steps: list, designs: dict, factory_of, dev, sf: float,
     a checkout's ``kernels`` module: "parent" where ``--parent`` is
     given, then "this"). A step is a kernel wrapper of ``KERNELS``, or
     "l2". First the step's graph cases (``graph_replays``) and its
-    adversarial checks (``STEP_CHECKS``) on this design, exactly. Then a
-    wrapper is timed (``time_designs``, with each kernel's device ms) at
+    adversarial checks (``STEP_CHECKS``), exactly: on this design, and
+    K3's and L1's on every design. Then a wrapper is timed
+    (``design_step_row``: each design, with each kernel's device ms) at
     each leg's largest call (captured in an untimed pass of the NDS-H leg
-    at ``sf`` and of the NDS leg at ``sf_ds``) and at the NDS-H shapes of
-    ``sf1_shape_cases``, every design held exactly to the plain version
-    first; "l2" on seeded inputs shaped like L2's largest NDS call
+    at ``sf`` and of the NDS leg at ``sf_ds``), at the NDS-H shapes of
+    ``sf1_shape_cases`` and, for the compactor, on ``STEP_SEEDED_ROWS``
+    seeded rows, every design held exactly to the plain version first;
+    "l2" on seeded inputs shaped like L2's largest NDS call
     (``l2_padded_inputs``, ``l2_steps``)."""
+    import numpy as np
     import torch
     KX = designs["this"]
     wrappers = [n for n in steps if n != "l2"]
@@ -2049,6 +2332,9 @@ def design_steps(steps: list, designs: dict, factory_of, dev, sf: float,
     if "join" in kinds:
         out["join_adversarial_cases"] = len(join_adversarial_checks(KX,
                                                                     dev))
+    if "semi_compact" in kinds:
+        out["semi_compact_adversarial_cases"] = len(
+            semi_compact_adversarial_checks(designs, dev))
     if "l2" in kinds:
         out["l2_adversarial_cases"] = len(l2_adversarial_checks(KX, dev))
     rows = []
@@ -2074,31 +2360,15 @@ def design_steps(steps: list, designs: dict, factory_of, dev, sf: float,
         if suite == "nds_h":
             cases += [c for c in sf1_shape_cases(tables, dev)
                       if c[0] in wrappers]
+            if "compact_perm" in wrappers:
+                rng = np.random.default_rng(59)
+                cases.append(("compact_perm", (torch.as_tensor(
+                    rng.random(STEP_SEEDED_ROWS) < 1 / 3).to(dev),),
+                    f"n={STEP_SEEDED_ROWS}, a third present, seeded"))
         out[f"{suite}_calls"] = rec.calls
         del rec, tables
         for name, args, label in cases:
-            exp = getattr(KX, name + "_plain")(*args)
-            for who, kx in designs.items():
-                err, ok = agrees(name, args, getattr(kx, name)(*args), exp)
-                if not ok:
-                    raise SmokeError(f"{name} [{label}] on the {who} "
-                                     f"design differs from its plain "
-                                     f"version: max_abs_err={err}")
-            moved, ops = work_of(name, list(args), exp)
-            del exp
-            bound_ms, bound_by = bound(moved, ops)
-            r = {"step": name, "case": label,
-                 "shapes": [list(t.shape)
-                            + [str(t.dtype).replace("torch.", "")]
-                            for t in _tensors(list(args))],
-                 **({"data": join_data(name, args)}
-                    if name in JOIN_KERNELS else {}),
-                 "bytes": moved, "bound_ms": bound_ms, "bound_by": bound_by,
-                 "designs": time_designs(
-                     {who: functools.partial(getattr(kx, name), *args)
-                      for who, kx in designs.items()}, dev, profile=True)}
-            log(json.dumps(r))
-            rows.append(r)
+            rows.append(design_step_row(name, args, label, designs, dev))
         del cases
         release(dev)
     if dev.type == "cuda":
@@ -2300,8 +2570,9 @@ def group_sort_record(KX, lib: Recorder, label: str, dev) -> "dict | None":
 def graph_replay_cases(dev) -> list:
     """(kernel, make inputs, label[, function, plain version]) for the
     graph case: the scan layout (``seg_scan``, K5's sum, ``group_bounds``,
-    ``running_max``), K1 (its build and probe launched as programmatic
-    dependents) and K2, the count layout (K6, whose partition takes it),
+    ``running_max``), K1 and K3 (their builds and probes launched as
+    programmatic dependents) and K2, the count layout (K6, whose partition
+    takes it, and the compactor, whose write pass is a dependent launch),
     ``partition_sort``, the executor's multi-key sort of four words
     (``_sort_perm``: four packs, each counting its word's digits, and four
     sorts given those counts, against ``_lexsort``), and L2's chain (the
@@ -2360,6 +2631,20 @@ def graph_replay_cases(dev) -> list:
                 dt(np.where(rng.random(n) < 0.5, rng.choice(bk, n),
                             rng.integers(0, 1 << 30, n))),
                 dt(rng.random(n) < 0.9))
+
+    def k3(seed):
+        # a padded build: many valid rows a key, then only invalid ones
+        rng = np.random.default_rng(seed)
+        nb, lo, dom = 4_000_000, -50, 700_000
+        ok = rng.random(nb) < 0.5
+        ok[nb // 4 + seed * 10_000:] = False
+        return (dt(rng.integers(lo, lo + dom, nb).astype(np.int32)), dt(ok),
+                dt(rng.integers(lo - 100, lo + dom + 100, n)
+                   .astype(np.int32)), dt(rng.random(n) < 0.9), lo, dom)
+
+    def l1(seed):
+        rng = np.random.default_rng(seed)
+        return (dt(rng.random(n) < 0.1 + 0.2 * seed),)
 
     def k6(seed):
         rng = np.random.default_rng(seed)
@@ -2439,6 +2724,13 @@ def graph_replay_cases(dev) -> list:
              f"600000 <- {n} int32, dom 2000000: the build and the probe "
              f"launched as programmatic dependents"),
             ("matmul_probe_join", k2, f"200 <- {n} int64"),
+            ("bitmask_semi", k3,
+             f"4000000 (a quarter of them valid at most) <- {n} int32, dom "
+             f"700000: the build and the probe launched as programmatic "
+             f"dependents"),
+            ("compact_perm", l1,
+             f"n={n}, a tenth to seven tenths present: the counts' "
+             f"look-back words, the write pass a programmatic dependent"),
             ("partitioned_mn_join", k6, "2000000 x 1000000 int32"),
             ("partition_sort", sort, "4 x 1000000 int64"),
             ("pack_sort_key", chain_inputs,
@@ -2911,6 +3203,7 @@ def run_leg(suite, KX, factory_of, dev, pool, record, path=None,
         for name, kargs, label in sf1_shape_cases(tables, dev):
             checks.append(check_kernel(KX, name, kargs, label, dev))
         checks += join_adversarial_checks(KX, dev)
+        checks += semi_compact_adversarial_checks({"this": KX}, dev)
     if path == "nds":
         for name, kargs, label in (nds_adversarial_cases(dev)
                                    + sort_search_cases(dev)):

@@ -20,28 +20,37 @@
 // 2^23 entries, so at most 32 MiB for int32 and 64 MiB for int64 min/max
 // pairs) the table stays resident in the 50 MB L2 for the int32 and byte
 // tables, so the probe's random gathers mostly hit L2 and the traffic to HBM
-// is the streamed key/flag/output arrays. The design keeps every pass a
-// single coalesced stream over its rows (K3 and K4 one thread per row,
-// grid-stride; K1 as below) so that the only non-sequential access is the
-// table gather. The unique-build
+// is the streamed key/flag/output arrays. Where the probe's keys fall at
+// random over a table larger than L1 (part <- lineitem), each gather moves a
+// 32-byte sector from L2, and L2 rather than HBM bounds it. The unique-build
 // contract means at most one valid row per slot for K1, so its build is a
-// plain store; K4 uses atomicMin/atomicMax on 32- or 64-bit signed values.
+// plain store; K4 (one thread per row, grid-stride) uses atomicMin/atomicMax
+// on 32- or 64-bit signed values.
 //
-// K1, redesigned for the card. The first version took one row a thread
-// with 1-byte loads and stores, one gather in flight a thread, and three
-// launches each waiting for the one before to drain. Now its build and probe
-// take 16 rows a lane (lane_rows.cuh: 16-byte loads of the keys, whole-group
-// loads and stores of the flags and outputs, streaming cache hints, the head
-// and tail in the kernel); the probe issues a lane's 16 table gathers before
-// it uses the first and loads its next chunk while it gathers; and the build
-// and the probe are launched as programmatic dependents (Hopper), so that
-// their launch and their first loads overlap the kernel before. The fill
-// stays: a table kept across calls, its slots tagged with the call's epoch,
-// needs 8-byte slots, whose bytes in the build and the probe cost more than
-// the fill's 4 bytes a slot (measured on an H100: PERF.md's findings on K1).
-// Where the probe's keys fall at random over a table larger than L1 (part <-
-// lineitem), each gather moves a 32-byte sector from L2, and L2 rather than
-// HBM bounds it.
+// K1 and K3 share one design, templated over what a slot holds (K1 the
+// build row, int32; K3 a membership byte): the first versions took one row
+// a thread with 1-byte loads and stores, one gather in flight a thread, and
+// three launches each waiting for the one before to drain. Now the build and
+// the probe take 16 rows a lane (lane_rows.cuh: 16-byte loads of the keys,
+// whole-group loads and stores of the flags and outputs, streaming cache
+// hints, the head and tail in the kernel); the probe issues a lane's 16
+// table gathers before it uses the first and loads its next chunk while it
+// gathers; and the build and the probe are launched as programmatic
+// dependents (dependent_launch.cuh), so that their launch and their first
+// loads overlap the kernel before. The fill stays: a table kept across
+// calls, its slots tagged with the call's epoch, needs 8-byte slots, whose
+// bytes in the build and the probe cost more than the fill's 4 bytes a slot
+// (measured on an H100: PERF.md's findings on K1).
+//
+// K3's build is its larger half where the build side is a plan's padded
+// capacity (NDS SF1: 184,162,304 build rows, 4.6% of them valid, into a
+// table of 71,939 bytes, probed by 719,384 rows). So K3's build loads a
+// lane's flags first and no key vector whose rows are all invalid: it
+// reads every flag and only the key sectors that hold a valid row (the key
+// loads wait on the flags). Measured on an H100 (PERF.md, K3): at the NDS
+// call this halves the build, and at NDS-H's calls it loses nothing; a
+// build that read a slot and stored only into one that still read 0 lost
+// at NDS-H's call and went.
 //
 // Every entry point launches on the stream it is given, allocates nothing
 // (the caller passes the table as scratch) and returns cudaGetLastError().
@@ -49,6 +58,7 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "dependent_launch.cuh"
 #include "lane_rows.cuh"
 
 namespace {
@@ -66,7 +76,11 @@ __device__ __forceinline__ long long clamp_slot(long long pos, long long dom) {
   return pos < 0 ? 0 : (pos >= dom ? dom - 1 : pos);
 }
 
-// ------------------------------------------------------------------ K1
+using dependent_launch::allow_dependents;
+using dependent_launch::await_prerequisites;
+using dependent_launch::launch_after;
+
+// ------------------------------------------------------------- K1 and K3
 //
 // Three launches: the fill in 16-byte stores, then the build and the probe,
 // each launched as a programmatic dependent of the kernel before it: it is
@@ -81,6 +95,31 @@ using lane_rows::kRows;
 using lane_rows::Plan;
 
 constexpr int kWarps = kThreads / 32;
+
+// What a table slot holds. K1: the build row of its key (int32; the fill's
+// -1 for none), and the probe writes that row beside the hit. K3: whether a
+// valid build row has its key (a byte; the fill's 0 for none), the probe
+// writes the hit alone, and the build loads no key of an invalid vector
+// (kSkip).
+struct RowSlot {
+  using T = int32_t;
+  static constexpr bool kWritesRow = true;
+  static constexpr bool kSkip = false;
+  static constexpr T kNone = -1;
+  __device__ static void set(T* t, long long row) {
+    *t = static_cast<int32_t>(row);
+  }
+  __device__ static bool hit(T v) { return v >= 0; }
+};
+
+struct MemberSlot {
+  using T = uint8_t;
+  static constexpr bool kWritesRow = false;
+  static constexpr bool kSkip = true;
+  static constexpr T kNone = 0;
+  __device__ static void set(T* t, long long) { *t = 1; }
+  __device__ static bool hit(T v) { return v != 0; }
+};
 
 // Enough blocks for one chunk a warp, and for the rows taken one a thread.
 inline long long chunk_blocks(const Plan& p) {
@@ -102,36 +141,6 @@ __device__ __forceinline__ long long key_pos(K k, long long lo) {
   return static_cast<long long>(
       static_cast<unsigned long long>(static_cast<long long>(k)) -
       static_cast<unsigned long long>(lo));
-}
-
-// Programmatic dependent launch (Hopper): a kernel launched with
-// launch_after may be scheduled once every block of the kernel before it
-// has signalled (allow_dependents); it reads what does not depend on that
-// kernel (what came before it on the stream is complete by then: that
-// kernel started after it), then waits for that kernel to complete and its
-// writes to be visible (await_prerequisites).
-__device__ __forceinline__ void allow_dependents() {
-  asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
-}
-
-__device__ __forceinline__ void await_prerequisites() {
-  asm volatile("griddepcontrol.wait;" ::: "memory");
-}
-
-template <typename... Params, typename... Args>
-cudaError_t launch_after(void (*kernel)(Params...), unsigned grid,
-                         cudaStream_t s, Args... args) {
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(grid);
-  cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = 0;
-  cfg.stream = s;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
-  attr[0].val.programmaticStreamSerializationAllowed = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  return cudaLaunchKernelEx(&cfg, kernel, args...);
 }
 
 // The tables' fill: every element of t[0, n) set to v, in 16-byte stores
@@ -178,11 +187,17 @@ int fill(T* t, long long n, T v, cudaStream_t s) {
   return 0;
 }
 
-template <typename K>
+// One chunk a warp. With S::kSkip, a lane's flags come first and its key
+// vectors whose rows are all invalid are not loaded, nor the key of an
+// invalid head or tail row. (Measured on an H100, PERF.md: the order of
+// the head and tail's loads sets the int32 build's registers, 40 with the
+// flag first and 48 without, and each slot's calls ran faster with its
+// own.)
+template <typename K, typename S>
 __global__ void __launch_bounds__(kThreads)
     direct_build(const K* __restrict__ bkey, const uint8_t* __restrict__ bok,
                  Plan p, long long lo, long long dom,
-                 int32_t* __restrict__ tbl) {
+                 typename S::T* __restrict__ tbl) {
   constexpr int R = lane_rows::Groups<K>::R, G = lane_rows::Groups<K>::G;
   allow_dependents();
   const int lane = threadIdx.x & 31;
@@ -193,8 +208,13 @@ __global__ void __launch_bounds__(kThreads)
   for (long long c = warp; c < p.chunks; c += nwarps) {
     K k[kRows];
     unsigned fw[G];
-    lane_rows::load_keys<K>(bkey, p, c, lane, k);
-    lane_rows::load_flags<K>(bok, p, c, lane, fw);
+    if constexpr (S::kSkip) {
+      lane_rows::load_flags<K>(bok, p, c, lane, fw);
+      lane_rows::load_flagged_keys<K>(bkey, p, c, lane, fw, k);
+    } else {
+      lane_rows::load_keys<K>(bkey, p, c, lane, k);
+      lane_rows::load_flags<K>(bok, p, c, lane, fw);
+    }
     if (!waited) {
       await_prerequisites();  // the fill
       waited = true;
@@ -203,8 +223,7 @@ __global__ void __launch_bounds__(kThreads)
     for (int i = 0; i < kRows; ++i) {
       const long long s = key_pos(k[i], lo);
       if (lane_rows::flag_of<K>(fw, i) && s >= 0 && s < dom)
-        tbl[s] = static_cast<int32_t>(
-            lane_rows::group_row<K>(p, c, i / R, lane) + i % R);
+        S::set(tbl + s, lane_rows::group_row<K>(p, c, i / R, lane) + i % R);
     }
   }
   if (!waited) await_prerequisites();
@@ -213,20 +232,23 @@ __global__ void __launch_bounds__(kThreads)
                      threadIdx.x;
        i < rest; i += static_cast<long long>(gridDim.x) * kThreads) {
     const long long row = lane_rows::rest_row(p, i);
+    if constexpr (S::kSkip) {
+      if (!bok[row]) continue;
+    }
     const long long s = key_pos(bkey[row], lo);
-    if (bok[row] && s >= 0 && s < dom) tbl[s] = static_cast<int32_t>(row);
+    if (bok[row] && s >= 0 && s < dom) S::set(tbl + s, row);
   }
 }
 
 // One chunk of the probe from its keys and flag words.
-template <typename K>
+template <typename K, typename S>
 __device__ __forceinline__ void probe_chunk(
     const K (&k)[kRows], const unsigned (&fw)[lane_rows::Groups<K>::G],
     const Plan& p, long long c, int lane, long long lo, long long dom,
-    const int32_t* __restrict__ tbl, int32_t* __restrict__ ridx,
+    const typename S::T* __restrict__ tbl, int32_t* __restrict__ ridx,
     uint8_t* __restrict__ hit) {
   constexpr int R = lane_rows::Groups<K>::R, G = lane_rows::Groups<K>::G;
-  int32_t v[kRows];
+  typename S::T v[kRows];
   unsigned inb = 0;
 #pragma unroll
   for (int i = 0; i < kRows; ++i) {
@@ -237,25 +259,30 @@ __device__ __forceinline__ void probe_chunk(
   unsigned hw[G];
 #pragma unroll
   for (int g = 0; g < G; ++g) hw[g] = 0;
+  int32_t r[kRows];  // the rows of K1's slots, clamped to >= 0
 #pragma unroll
   for (int i = 0; i < kRows; ++i) {
     const bool h = lane_rows::flag_of<K>(fw, i) && ((inb >> i) & 1u) &&
-                   v[i] >= 0;
+                   S::hit(v[i]);
     hw[i / R] |= static_cast<unsigned>(h) << (8 * (i % R));
-    v[i] = v[i] < 0 ? 0 : v[i];
+    if constexpr (S::kWritesRow) r[i] = v[i] < 0 ? 0 : v[i];
   }
-  lane_rows::store_rows<K>(ridx, hit, p, c, lane, v, hw);
+  if constexpr (S::kWritesRow)
+    lane_rows::store_rows<K>(ridx, hit, p, c, lane, r, hw);
+  else
+    lane_rows::store_hits<K>(hit, p, c, lane, hw);
 }
 
 // On a grid of the blocks the SMs hold at once, each warp loads its next
 // chunk's keys and flags before it gathers for the current one (and its
-// first before it waits for the build).
-template <typename K>
+// first before it waits for the build). ridx is written where the slot
+// holds a row (K1) and is null for K3.
+template <typename K, typename S>
 __global__ void __launch_bounds__(kThreads)
     direct_probe(const K* __restrict__ pkey, const uint8_t* __restrict__ pok,
                  Plan p, long long lo, long long dom,
-                 const int32_t* __restrict__ tbl, int32_t* __restrict__ ridx,
-                 uint8_t* __restrict__ hit) {
+                 const typename S::T* __restrict__ tbl,
+                 int32_t* __restrict__ ridx, uint8_t* __restrict__ hit) {
   constexpr int G = lane_rows::Groups<K>::G;
   const int lane = threadIdx.x & 31;
   const long long warp = (blockIdx.x * static_cast<long long>(kThreads) +
@@ -277,7 +304,7 @@ __global__ void __launch_bounds__(kThreads)
       lane_rows::load_keys<K>(pkey, p, next, lane, kn);
       lane_rows::load_flags<K>(pok, p, next, lane, fn);
     }
-    probe_chunk<K>(k, fw, p, c, lane, lo, dom, tbl, ridx, hit);
+    probe_chunk<K, S>(k, fw, p, c, lane, lo, dom, tbl, ridx, hit);
 #pragma unroll
     for (int i = 0; i < kRows; ++i) k[i] = kn[i];
 #pragma unroll
@@ -291,40 +318,42 @@ __global__ void __launch_bounds__(kThreads)
     const long long row = lane_rows::rest_row(p, i);
     const long long pos = key_pos(pkey[row], lo);
     const bool inb = pos >= 0 && pos < dom;
-    const int32_t x = __ldg(tbl + clamp_slot(pos, dom));
-    hit[row] = (pok[row] && inb && x >= 0) ? 1 : 0;
-    ridx[row] = x < 0 ? 0 : x;
+    const typename S::T x = __ldg(tbl + clamp_slot(pos, dom));
+    hit[row] = (pok[row] && inb && S::hit(x)) ? 1 : 0;
+    if constexpr (S::kWritesRow) ridx[row] = x < 0 ? 0 : x;
   }
 }
 
-// ------------------------------------------------------------------ K3
-
-template <typename K>
-__global__ void bitmask_build(const K* __restrict__ bkey,
-                              const uint8_t* __restrict__ bok, long long nb,
-                              long long lo, long long dom,
-                              uint8_t* __restrict__ bm) {
-  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < nb;
-       i += (long long)gridDim.x * blockDim.x) {
-    if (!bok[i]) continue;
-    long long s = static_cast<long long>(bkey[i]) - lo;
-    if (s < 0 || s >= dom) continue;
-    bm[s] = 1;
-  }
-}
-
-template <typename K>
-__global__ void bitmask_probe(const K* __restrict__ pkey,
-                              const uint8_t* __restrict__ pok, long long np,
-                              long long lo, long long dom,
-                              const uint8_t* __restrict__ bm,
-                              uint8_t* __restrict__ out) {
-  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < np;
-       i += (long long)gridDim.x * blockDim.x) {
-    long long pos = static_cast<long long>(pkey[i]) - lo;
-    bool inb = pos >= 0 && pos < dom;
-    out[i] = (pok[i] && inb && bm[clamp_slot(pos, dom)]) ? 1 : 0;
-  }
+// The fill, the build and the probe of K1 (RowSlot) or K3 (MemberSlot).
+template <typename K, typename S>
+int dense_t(const void* bkey, const void* bok, long long nb, const void* pkey,
+            const void* pok, long long np, long long lo, long long dom,
+            void* tbl, void* ridx, void* hit, cudaStream_t s) {
+  using T = typename S::T;
+  const Plan pb = lane_rows::plan_rows<K>(bkey, nb, bok, nullptr, nullptr);
+  const Plan pp = lane_rows::plan_rows<K>(pkey, np, pok, ridx, hit);
+  static int per_sm = 0;
+  long long resident = 0;
+  const int e = lane_rows::resident_blocks(direct_probe<K, S>, kThreads,
+                                           per_sm, &resident);
+  if (e != 0) return e;
+  long long g = chunk_blocks(pp);
+  if (g > resident) g = resident;
+  T* t = static_cast<T*>(tbl);
+  const int fe = fill<T>(t, dom, S::kNone, s);
+  if (fe != 0) return fe;
+  cudaError_t err = launch_after(
+      direct_build<K, S>, chunk_grid(pb), kThreads, s,
+      static_cast<const K*>(bkey), static_cast<const uint8_t*>(bok), pb, lo,
+      dom, t);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = launch_after(direct_probe<K, S>, static_cast<unsigned>(g), kThreads,
+                     s, static_cast<const K*>(pkey),
+                     static_cast<const uint8_t*>(pok), pp, lo, dom,
+                     static_cast<const T*>(t), static_cast<int32_t*>(ridx),
+                     static_cast<uint8_t*>(hit));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // ------------------------------------------------------------------ K4
@@ -380,51 +409,6 @@ __global__ void minmax_probe(const K* __restrict__ pkey,
   }
 }
 
-template <typename K>
-int direct_join_t(const void* bkey, const void* bok, long long nb,
-                  const void* pkey, const void* pok, long long np,
-                  long long lo, long long dom, void* tbl, void* ridx,
-                  void* hit, cudaStream_t s) {
-  const Plan pb = lane_rows::plan_rows<K>(bkey, nb, bok, nullptr, nullptr);
-  const Plan pp = lane_rows::plan_rows<K>(pkey, np, pok, ridx, hit);
-  static int per_sm = 0;
-  long long resident = 0;
-  const int e = lane_rows::resident_blocks(direct_probe<K>, kThreads, per_sm,
-                                           &resident);
-  if (e != 0) return e;
-  long long g = chunk_blocks(pp);
-  if (g > resident) g = resident;
-  int32_t* t = static_cast<int32_t*>(tbl);
-  const int fe = fill<int32_t>(t, dom, -1, s);
-  if (fe != 0) return fe;
-  cudaError_t err = launch_after(
-      direct_build<K>, chunk_grid(pb), s, static_cast<const K*>(bkey),
-      static_cast<const uint8_t*>(bok), pb, lo, dom, t);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = launch_after(direct_probe<K>, static_cast<unsigned>(g), s,
-                     static_cast<const K*>(pkey),
-                     static_cast<const uint8_t*>(pok), pp, lo, dom,
-                     static_cast<const int32_t*>(t),
-                     static_cast<int32_t*>(ridx), static_cast<uint8_t*>(hit));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <typename K>
-int bitmask_t(const void* bkey, const void* bok, long long nb,
-              const void* pkey, const void* pok, long long np, long long lo,
-              long long dom, void* bm, void* out, cudaStream_t s) {
-  const int e = fill<uint8_t>(static_cast<uint8_t*>(bm), dom, 0, s);
-  if (e != 0) return e;
-  bitmask_build<K><<<grid_for(nb), kThreads, 0, s>>>(
-      static_cast<const K*>(bkey), static_cast<const uint8_t*>(bok), nb, lo,
-      dom, static_cast<uint8_t*>(bm));
-  bitmask_probe<K><<<grid_for(np), kThreads, 0, s>>>(
-      static_cast<const K*>(pkey), static_cast<const uint8_t*>(pok), np, lo,
-      dom, static_cast<const uint8_t*>(bm), static_cast<uint8_t*>(out));
-  return static_cast<int>(cudaGetLastError());
-}
-
 template <typename K, typename V>
 int minmax_t(const void* bkey, const void* bok, const void* bval, long long nb,
              const void* pkey, const void* pok, const void* pval, long long np,
@@ -456,10 +440,10 @@ int nds_direct_lookup_join(const void* bkey, const void* bok, long long nb,
                            int key64, long long lo, long long dom, void* tbl,
                            void* ridx, void* hit, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return key64 ? direct_join_t<int64_t>(bkey, bok, nb, pkey, pok, np, lo, dom,
-                                        tbl, ridx, hit, s)
-               : direct_join_t<int32_t>(bkey, bok, nb, pkey, pok, np, lo, dom,
-                                        tbl, ridx, hit, s);
+  return key64 ? dense_t<int64_t, RowSlot>(bkey, bok, nb, pkey, pok, np, lo,
+                                           dom, tbl, ridx, hit, s)
+               : dense_t<int32_t, RowSlot>(bkey, bok, nb, pkey, pok, np, lo,
+                                           dom, tbl, ridx, hit, s);
 }
 
 // K3. bm: uint8[dom] scratch; out: uint8[np].
@@ -468,10 +452,10 @@ int nds_bitmask_semi(const void* bkey, const void* bok, long long nb,
                      int key64, long long lo, long long dom, void* bm,
                      void* out, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return key64 ? bitmask_t<int64_t>(bkey, bok, nb, pkey, pok, np, lo, dom, bm,
-                                    out, s)
-               : bitmask_t<int32_t>(bkey, bok, nb, pkey, pok, np, lo, dom, bm,
-                                    out, s);
+  return key64 ? dense_t<int64_t, MemberSlot>(bkey, bok, nb, pkey, pok, np,
+                                              lo, dom, bm, nullptr, out, s)
+               : dense_t<int32_t, MemberSlot>(bkey, bok, nb, pkey, pok, np,
+                                              lo, dom, bm, nullptr, out, s);
 }
 
 // K4. mn, mx: value-typed [dom] scratch; present: uint8[dom] scratch;

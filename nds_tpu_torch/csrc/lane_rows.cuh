@@ -1,6 +1,6 @@
-// Sixteen rows a lane: the streamed I/O of the gather joins (K1's build and
-// probe in dense_domain.cu, K2's probe in small_build_probe.cu), and the
-// size of their grids of resident blocks.
+// Sixteen rows a lane: the streamed I/O of the gather joins (K1's and K3's
+// builds and probes in dense_domain.cu, K2's probe in small_build_probe.cu),
+// and the size of their grids of resident blocks.
 //
 // A warp takes a chunk of 512 rows. Its keys are read as 16-byte vectors,
 // lane l taking vectors l, l + 32, l + 64, ... of the chunk, so that every
@@ -132,6 +132,33 @@ __device__ __forceinline__ void load_keys(const K* __restrict__ keys,
   }
 }
 
+// load_keys, but a group whose flags are all 0 (`fw[g]`, as load_flags
+// gives them) loads no keys: its rows are taken as 0. A warp then reads only
+// the key sectors that hold a flagged row.
+template <typename K>
+__device__ __forceinline__ void load_flagged_keys(
+    const K* __restrict__ keys, const Plan& p, long long c, int lane,
+    const unsigned (&fw)[Groups<K>::G], K (&k)[kRows]) {
+  constexpr int R = Groups<K>::R, G = Groups<K>::G;
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    const K* q = keys + group_row<K>(p, c, g, lane);
+    if constexpr (R == 4) {
+      int4 v = make_int4(0, 0, 0, 0);
+      if (fw[g] != 0) v = __ldcs(reinterpret_cast<const int4*>(q));
+      k[g * 4 + 0] = v.x;
+      k[g * 4 + 1] = v.y;
+      k[g * 4 + 2] = v.z;
+      k[g * 4 + 3] = v.w;
+    } else {
+      longlong2 v = make_longlong2(0, 0);
+      if (fw[g] != 0) v = __ldcs(reinterpret_cast<const longlong2*>(q));
+      k[g * 2 + 0] = v.x;
+      k[g * 2 + 1] = v.y;
+    }
+  }
+}
+
 // The flags of a lane's rows, one word a group: byte t of word g is row t of
 // group g.
 template <typename K>
@@ -166,8 +193,39 @@ __device__ __forceinline__ bool flag_of(const unsigned (&w)[Groups<K>::G],
   return ((w[i / R] >> (8 * (i % R))) & 0xffu) != 0;
 }
 
-// Writes a lane's 16 int32 outputs and its 16 byte outputs, the bytes
-// packed as the flags are (one word a group).
+// Writes the byte outputs of the group at `row`, packed as the flags are
+// (one word).
+template <typename K>
+__device__ __forceinline__ void store_hit_group(uint8_t* __restrict__ hit,
+                                                const Plan& p, long long row,
+                                                unsigned hw) {
+  constexpr int R = Groups<K>::R;
+  if (p.vhit) {
+    if constexpr (R == 4)
+      __stcs(reinterpret_cast<unsigned*>(hit + row), hw);
+    else
+      __stcs(reinterpret_cast<unsigned short*>(hit + row),
+             static_cast<unsigned short>(hw));
+  } else {
+#pragma unroll
+    for (int t = 0; t < R; ++t)
+      __stcs(hit + row + t, static_cast<uint8_t>(hw >> (8 * t)));
+  }
+}
+
+// Writes a lane's 16 byte outputs, one word a group.
+template <typename K>
+__device__ __forceinline__ void store_hits(uint8_t* __restrict__ hit,
+                                           const Plan& p, long long c,
+                                           int lane,
+                                           const unsigned (&hw)[Groups<K>::G]) {
+#pragma unroll
+  for (int g = 0; g < Groups<K>::G; ++g)
+    store_hit_group<K>(hit, p, group_row<K>(p, c, g, lane), hw[g]);
+}
+
+// Writes a lane's 16 int32 outputs and its 16 byte outputs, a group's
+// beside each other.
 template <typename K>
 __device__ __forceinline__ void store_rows(int32_t* __restrict__ ridx,
                                            uint8_t* __restrict__ hit,
@@ -190,17 +248,7 @@ __device__ __forceinline__ void store_rows(int32_t* __restrict__ ridx,
 #pragma unroll
       for (int t = 0; t < R; ++t) __stcs(ridx + row + t, r[g * R + t]);
     }
-    if (p.vhit) {
-      if constexpr (R == 4)
-        __stcs(reinterpret_cast<unsigned*>(hit + row), hw[g]);
-      else
-        __stcs(reinterpret_cast<unsigned short*>(hit + row),
-               static_cast<unsigned short>(hw[g]));
-    } else {
-#pragma unroll
-      for (int t = 0; t < R; ++t)
-        __stcs(hit + row + t, static_cast<uint8_t>(hw[g] >> (8 * t)));
-    }
+    store_hit_group<K>(hit, p, row, hw[g]);
   }
 }
 

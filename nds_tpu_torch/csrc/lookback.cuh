@@ -1,4 +1,5 @@
-// Decoupled look-back, shared by seg_scan.cu and partitioned_join.cu.
+// Decoupled look-back, shared by seg_scan.cu, partitioned_join.cu and
+// compact.cu.
 //
 // A single-pass scan over tiles (Merrill and Garland, "Single-pass
 // Parallel Prefix Scan with Decoupled Look-back", 2016): each block takes
@@ -77,10 +78,11 @@ __device__ __forceinline__ Draw take(u64* ctr, long long last) {
 }
 
 // ---- count words: [epoch (30 bits) | kind (2) | count (32)], one per
-// (tile, bin), for the partition and the radix sort's digit offsets. The
-// epoch is taken modulo 2^30 where it is stored and compared, so that a
-// counter run past the range (the wrapper resets it before) reads and
-// writes the same field rather than waiting on a word it can never match.
+// (tile, bin), for the partition and the radix sort's digit offsets and the
+// compactor's offsets (one bin). The epoch is taken modulo 2^30 where it is
+// stored and compared, so that a counter run past the range (the wrapper
+// resets it before) reads and writes the same field rather than waiting on
+// a word it can never match.
 
 constexpr unsigned kCountEpochMask = (1u << 30) - 1;
 

@@ -93,7 +93,7 @@ SIGNATURES = {
     },
     "compact": {
         "nds_compact_tile": [],
-        "nds_compact_perm": [_P, _LL, _P, _P, _P, _P],
+        "nds_compact_perm": [_P, _LL, _P, _P, _P, _P, _P, _P],
     },
     "columnar_decode": {
         "nds_bitpack_decode": [_P, _LL, _I, _LL, _I, _I, _P, _P],

@@ -63,12 +63,13 @@ them), so a run can show that it went through the kernels.
 
 All twenty are bound by bytes on the card: the source files say how
 many, and what their design does about it. The scans, the group bounds,
-the M:N join's partition and its build sort are single-pass kernels with
-decoupled look-back (``csrc/lookback.cuh``); their tile words live in
-buffers kept across calls, one per device, stream and word layout
-(``_lookback``), and each launch draws an epoch of its own from a counter
-word on the card, so nothing is zeroed between calls and a CUDA graph's
-replays do not repeat an epoch.
+the M:N join's partition and its build sort, and the compactor's counts
+are single-pass kernels with decoupled look-back
+(``csrc/lookback.cuh``); their tile words live in buffers kept across
+calls, one per device, stream and word layout (``_lookback``), and each
+launch draws an epoch of its own from a counter word on the card, so
+nothing is zeroed between calls and a CUDA graph's replays do not
+repeat an epoch.
 """
 
 from __future__ import annotations
@@ -571,17 +572,17 @@ _SCAN_VTYPES = {torch.int32: 0, torch.int64: 1, torch.float32: 2,
                 torch.float64: 3}
 
 # The tile words of the decoupled look-back kernels (seg_scan.cu,
-# partitioned_join.cu) and their counter word, kept across calls: one set
-# per (device, stream, layout). The two layouts never share words, so a
-# word is only ever read in the layout it was written in: "scan" holds
-# seg_scan.cu's tile state (a status word tagged with the epoch at bit 35,
-# beside a raw value), "count" the count words of lookback.cuh (tagged at
-# bit 34) of the partition and the radix sort. The epoch lives on the card:
-# the counter word holds the next launch's epoch above its tile counter,
-# and each launch (each pass of the sort) draws one, so nothing is zeroed
-# between calls and the host passes no epoch, which a CUDA graph would
-# replay. Launches on one stream run in order; another stream gets words
-# and a counter of its own.
+# partitioned_join.cu, compact.cu) and their counter word, kept across
+# calls: one set per (device, stream, layout). The two layouts never share
+# words, so a word is only ever read in the layout it was written in: "scan"
+# holds seg_scan.cu's tile state (a status word tagged with the epoch at bit
+# 35, beside a raw value), "count" the count words of lookback.cuh (tagged
+# at bit 34) of the partition, the radix sort and the compactor. The epoch
+# lives on the card: the counter word holds the next launch's epoch above
+# its tile counter, and each launch (each pass of the sort) draws one, so
+# nothing is zeroed between calls and the host passes no epoch, which a
+# CUDA graph would replay. Launches on one stream run in order; another
+# stream gets words and a counter of its own.
 #
 # The range: a status word holds 29 bits of the epoch (a count word 30).
 # The host cannot read the card's epoch without a synchronize, so it counts
@@ -1216,11 +1217,21 @@ def compact_perm_plain(row):
     return perm.to(torch.int32), row.sum()
 
 
+def compact_tiles(n: int, tile: int) -> int:
+    """The tiles of the compactor's scratch for ``n`` rows: its tiles are
+    cut at the mask's 16-byte boundaries, so the rows start up to 15 bytes
+    into the first tile."""
+    return -(-(n + 15) // tile)
+
+
 @_counted
 def compact_perm(row):
     """The stable partition of the rows by ``row``: ``(perm int32[n],
     count int64 scalar)``, the present rows' ids in row order, then the
-    absent rows' ids in row order, and the present count, on the card."""
+    absent rows' ids in row order, and the present count, on the card.
+    Two launches: the tiles' counts with their offsets by decoupled
+    look-back (its words kept across calls, ``_lookback``'s "count"
+    layout), then the ids, launched as a programmatic dependent."""
     if not _launch_device(row):
         return compact_perm_plain(row)
     _require(row, "row", (torch.bool,))
@@ -1229,12 +1240,14 @@ def compact_perm(row):
         raise ValueError(f"compact_perm: n={n}")
     cb, lib = _lib("compact")
     dev = row.device
+    tiles = compact_tiles(n, lib.nds_compact_tile())
     perm = torch.empty(n, dtype=torch.int32, device=dev)
     count = torch.empty((), dtype=torch.int64, device=dev)
-    tiles = torch.empty(-(-n // lib.nds_compact_tile()), dtype=torch.int32,
-                        device=dev)
-    err = lib.nds_compact_perm(_ptr(row), n, _ptr(tiles), _ptr(perm),
-                               _ptr(count), cb.stream_handle())
+    offs = torch.empty(tiles, dtype=torch.int32, device=dev)
+    stream = cb.stream_handle()
+    words, ctr = _lookback(dev, stream, "count", tiles)
+    err = lib.nds_compact_perm(_ptr(row), n, _ptr(offs), _ptr(perm),
+                               _ptr(count), _ptr(words), _ptr(ctr), stream)
     cb.check(err, "compact_perm")
     LAUNCHES["compact_perm"] += 1
     return perm, count
