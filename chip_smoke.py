@@ -16,10 +16,10 @@ Drives ``nds_tpu_torch`` (never ``jax``, never ``nds_tpu``) on the card:
    layout, ``partition_sort``, a multi-key sort of four words (an
    operand straddling two at an odd bit, each word's digit counts from
    its pack), L2's chain (the pack with its counts, the sort given
-   them, the group bounds), K1 and K3 (their builds and probes launched
-   as programmatic dependents), K2 and the compactor (its counts'
-   look-back words, its write pass a dependent launch) captured in a
-   CUDA graph and replayed three times with new inputs, exact;
+   them, the group bounds), K1, K3 and K4 (their builds and probes
+   launched as programmatic dependents), K2, K9 and the compactor (its
+   counts' look-back words, its write pass a dependent launch) captured
+   in a CUDA graph and replayed three times with new inputs, exact;
 4. NDS-H leg at ``--sf`` (default SF1, ``bench.py``'s scale):
    ``Session.for_nds_h(make_device_factory())`` on ``cuda``;
    an untimed pass of the 22 queries captures each kernel's largest call;
@@ -28,9 +28,9 @@ Drives ``nds_tpu_torch`` (never ``jax``, never ``nds_tpu``) on the card:
    (probe 6,001,215 rows at SF1; builds of 1,500,000, 200,000, 25 and 256
    rows; the segmented scan at several group counts) and K1 and K2 on
    adversarial inputs (``join_adversarial_cases``, exact; K2's table
-   size held to its plain mirror's for every build size), and K3 and the
-   compactor on theirs (``semi_compact_case_makers``, each measured
-   option of their designs too); launch counts
+   size held to its plain mirror's for every build size), K3 and the
+   compactor on theirs (``semi_compact_case_makers``), and K4 and K9 on
+   theirs (``minmax_rle_case_makers``); launch counts
    set to 0, the 22 queries timed, the counts read; a pass under
    ``torch.profiler`` for the card's busy time; every result checked
    against the CPU oracle by the validator's rules, in the worker pool;
@@ -78,7 +78,7 @@ Drives ``nds_tpu_torch`` (never ``jax``, never ``nds_tpu``) on the card:
    keys); with ``--parent DIR`` (another checkout of this repo, unpacked
    at DIR), the sorts' and the probe's largest calls on the NDS-H and
    NDS legs, the NDS leg's largest "left", "right" and "both" searches,
-   L3's build, the largest calls of K1, K2, ``partition_sort``, K6, K5's
+   L3's build, the largest calls of K1-K4, ``partition_sort``, K6, K5's
    sum, K7's scan and the running max, and L2's pack, sort and group bounds
    at L2's largest call (``l2_steps``) run on that checkout's design
    beside this one's, on the same inputs, in turns (parent, this, this,
@@ -114,10 +114,13 @@ named step (a kernel wrapper, or ``l2``: L2's pack, sort and group
 bounds), replays its graph cases, holds it to its plain version on its
 adversarial cases and times this design beside ``--parent``'s
 (``design_steps``, ``time_designs``): a wrapper at each leg's largest call
-and at the NDS-H shapes (the compactor also on 6,480,001 seeded rows),
-the plain version's and the library call's times and, for K1-K3, the
-data's shares; ``l2`` on seeded inputs shaped like its largest NDS call
-(``l2_padded_inputs``); it prints a summary (no contract line).
+and at the NDS-H shapes (the compactor also on 6,480,001 seeded rows; the
+decodes, which run only under the columnar store, at the largest calls of
+each leg under ``columnar.set_mode("auto")`` and at the RLE cases of
+``decode_sweep_cases``), the plain version's and the library call's times
+and, for K1-K3, the data's shares; ``l2`` on seeded inputs shaped like its
+largest NDS call (``l2_padded_inputs``); it prints a summary (no contract
+line).
 
 Kernel checks: integer, bool and min/max outputs must equal the plain
 version's exactly; a float sum (the segmented scan's "sum" on float
@@ -539,6 +542,11 @@ def work_of(name: str, args, out) -> tuple:
         # needs its key: the build loads none of an invalid vector)
         bkey, bok = args[:2]
         moved -= (bkey.numel() - int(bok.sum())) * bkey.element_size()
+    if name == "keyed_minmax_semi":
+        # a build key and value only where the row is valid, as K3's
+        bkey, bok, bval = args[:3]
+        moved -= (bkey.numel() - int(bok.sum())) * (bkey.element_size()
+                                                     + bval.element_size())
     if name in DECODE_KERNELS:
         # a few integer operations per output row
         ops = out.numel()
@@ -548,16 +556,30 @@ def work_of(name: str, args, out) -> tuple:
     return moved, ops
 
 
+def minmax_table_bytes(args) -> int:
+    """The bytes of K4's dense table beside its streamed arrays: the fill
+    of its ``dom`` {min, max} slots and one slot read a probe row."""
+    _bk, _bo, bval, pkey = args[:4]
+    slot = 2 * bval.element_size()
+    return args[7] * slot + pkey.numel() * slot
+
+
 def all_keys_bound(name: str, args, out, ops: int) -> dict:
     """For the kernels whose bound counts only the keys their data needs
     (``group_bounds``, K3), the bound that reads every key, for
-    comparison; {} for the others."""
+    comparison; for K4 the table's bytes and the bound with them added
+    (``minmax_table_bytes``), so that its gap splits between the streamed
+    arrays and the table; {} for the others."""
     if name == "group_bounds":
         return {"bound_ms_all_keys": bound(
             bounds_bytes(args[0], int(out[0].sum()), args[2])[1], ops)[0]}
     if name == "bitmask_semi":
         return {"bound_ms_all_keys": bound(
             nbytes(list(args)) + nbytes(out), ops)[0]}
+    if name == "keyed_minmax_semi":
+        table = minmax_table_bytes(args)
+        return {"table_bytes": table, "bound_ms_with_table": bound(
+            work_of(name, args, out)[0] + table, ops)[0]}
     return {}
 
 
@@ -636,13 +658,8 @@ def library_call(name: str, args):
         _bkey, _bok, pkey = args[:3]
         valid = _bkey[_bok]
         return lambda: torch.isin(pkey, valid)
-    if name == "keyed_minmax_semi":
-        bkey, bok, bval, _pk, _po, _pv, lo, dom = args
-        idx = torch.where(bok, bkey.to(torch.int64) - lo,
-                          torch.full_like(bkey, dom, dtype=torch.int64))
-        tbl = torch.empty(dom + 1, dtype=bval.dtype, device=bval.device)
-        return lambda: tbl.fill_(torch.iinfo(bval.dtype).max).scatter_reduce_(
-            0, idx, bval, "amin", include_self=True)
+    # K4: none (the min table's scatter_reduce_ alone is a quarter of its
+    # function)
     return None
 
 
@@ -1370,6 +1387,25 @@ def join_adversarial_checks(KX, dev) -> list:
     return out
 
 
+def case_rng(seed: int, label: str):
+    """A numpy generator of one adversarial case, from a seed and the
+    case's label, so that a test can build one case alone."""
+    import zlib
+
+    import numpy as np
+    return np.random.default_rng([seed, zlib.crc32(label.encode())])
+
+
+def view_on(dev, a, off: int = 0):
+    """The numpy array ``a`` on ``dev`` as a contiguous view that starts
+    ``off`` elements into its storage."""
+    import numpy as np
+    import torch
+    a = np.ascontiguousarray(a)
+    t = torch.as_tensor(np.concatenate([np.zeros(off, a.dtype), a]))
+    return t.to(dev)[off:]
+
+
 # the compactor's tile (csrc/compact.cu: 4,096 rows, 16 bytes a thread) and
 # the tiles its count pass takes a block
 COMPACT_TILE = 4096
@@ -1398,20 +1434,13 @@ def semi_compact_case_makers() -> list:
     bytes into their storage (the tiles are cut at the mask's 16-byte
     boundaries, so a slice moves their edges); a million rows, and
     5,000,011 (1,221 tiles: more blocks than the card holds at once)."""
-    import zlib
-
     import numpy as np
-    import torch
     from nds_tpu_torch.engine import kernels as KX
 
     def rng_of(label):
-        return np.random.default_rng([53, zlib.crc32(label.encode())])
+        return case_rng(53, label)
 
-    def on(dev, a, off=0):
-        # a contiguous view that starts ``off`` elements into its storage
-        a = np.ascontiguousarray(a)
-        t = torch.as_tensor(np.concatenate([np.zeros(off, a.dtype), a]))
-        return t.to(dev)[off:]
+    on = view_on
 
     def build(rng, nb, lo, dom, kdt, valid, valid_rows=None):
         keys = rng.integers(0, dom, nb) + lo
@@ -1519,18 +1548,15 @@ def semi_compact_case_makers() -> list:
     return makers
 
 
-def semi_compact_adversarial_cases(dev) -> list:
-    """(kernel, args, label) of ``semi_compact_case_makers`` on ``dev``."""
-    return [(name, make(dev), label)
-            for name, label, make in semi_compact_case_makers()]
-
-
-def semi_compact_adversarial_checks(designs: dict, dev) -> list:
-    """Runs ``semi_compact_adversarial_cases``, exactly and untimed, on
-    each design of ``designs`` (name -> a checkout's ``kernels``)."""
+def maker_checks(makers: list, phase: str, designs: dict, dev) -> list:
+    """Runs the cases of ``makers`` (``semi_compact_case_makers``,
+    ``minmax_rle_case_makers``), one on the card at a time, exactly and
+    untimed, on each design of ``designs`` (name -> a checkout's
+    ``kernels``)."""
     KX = designs["this"]
     out = []
-    for name, args, label in semi_compact_adversarial_cases(dev):
+    for name, label, make in makers:
+        args = make(dev)
         exp = getattr(KX, name + "_plain")(*args)
         for who, kx in designs.items():
             err, ok = agrees(name, args, getattr(kx, name)(*args), exp)
@@ -1539,9 +1565,240 @@ def semi_compact_adversarial_checks(designs: dict, dev) -> list:
                                  f"its plain version: max_abs_err={err}")
             out.append({"kernel": name, "design": who, "case": label,
                         "max_abs_err": err})
-    log(json.dumps({"phase": "K3/L1 adversarial cases", "cases": len(out),
+        del args, exp
+    log(json.dumps({"phase": phase, "cases": len(out),
                     "max_abs_err": max(c["max_abs_err"] for c in out)}))
     return out
+
+
+# K9's tiles (csrc/columnar_decode.cu: 32 KB of output, 4,096 int64 rows or
+# 8,192 int32): the cases put starts at the multiples of the smaller, which
+# hold those of the larger, and runs longer than the larger
+RLE_TILE = 4096
+
+
+def minmax_rle_case_makers() -> list:
+    """(kernel, label, make) of K4 (``keyed_minmax_semi``) and K9
+    (``rle_decode``), in the pattern of ``semi_compact_case_makers``: each
+    ``make(dev)`` draws its case from a seed of its own with numpy. The
+    card holds each kernel exactly to its plain version on them, and
+    ``tests/test_torch_minmax_rle.py`` each plain version to the JAX
+    reference on the CPU. K4: keys whose only build value is iinfo.max or
+    iinfo.min (the slot's presence is min <= max), values at both ends,
+    every build row invalid, no build rows, ``dom = 1``, build and probe
+    keys below ``lo`` and at or past ``lo + dom`` (a valid build key below
+    ``lo`` in a case of its own), probes mostly with ``pok`` false, keys
+    with one value repeated and with two values, clustered and shuffled
+    keys, row counts of 1-17 and 511-513, values at another alignment than
+    their keys, int32 keys with int64 values and int64 keys (near 2^35)
+    with int32 values, ``dom = DIRECT_MAX_DOMAIN``. K9: one run, runs of
+    one row, runs longer than a tile, starts on each side of a tile's
+    edges, a padded view, runs that start past ``n``, ``n`` below one
+    16-byte vector and no multiple of it, runs of about 4 rows over a
+    million rows, values at iinfo's ends; int32 and int64 values."""
+    import numpy as np
+    from nds_tpu_torch.engine import kernels as KX
+
+    def rng_of(label):
+        return case_rng(61, label)
+
+    on = view_on
+    makers = []
+
+    def values_of(rng, n, vdt, how):
+        info = np.iinfo(vdt)
+        if how == "ends":
+            return rng.choice(np.array([info.min, info.min + 1, -1, 0, 1,
+                                        info.max - 1, info.max], vdt), n)
+        return rng.integers(info.min, info.max, n, dtype=np.int64
+                            if vdt == np.int64 else np.int32,
+                            endpoint=True).astype(vdt)
+
+    def k4(label, nb, np_, lo, dom, kdt=np.int32, vdt=np.int32, valid=0.8,
+           order="clustered", vals="spread", below=False, pok=0.9,
+           offs=(0,) * 6):
+        """Build keys over the domain, ``order``: "clustered" (runs of 1-7
+        rows a key, sorted, as lineitem by orderkey), "shuffled", "one
+        value" (clustered, one value a key) or "two values" (clustered,
+        two values a key); invalid rows carry junk keys (below ``lo``, past
+        the domain, iinfo's ends) and values; with ``below``, a tenth of
+        the valid rows have keys below ``lo``. Probe keys: half the build's
+        keys, the rest over and around the domain and at iinfo's ends; a
+        probe value is its key's first build value half the time."""
+        def make(dev):
+            rng = rng_of(label)
+            kinfo = np.iinfo(kdt)
+            lens = rng.integers(1, 8, nb + 1)
+            keys = np.repeat(rng.integers(0, dom, nb + 1), lens)[:nb]
+            keys = (rng.permutation(keys) if order == "shuffled"
+                    else np.sort(keys))
+            v = values_of(rng, nb, vdt, vals)
+            if order in ("one value", "two values"):
+                per_key = values_of(rng, dom, vdt, vals)
+                v = per_key[keys]
+                if order == "two values":
+                    other = values_of(rng, dom, vdt, vals)[keys]
+                    v = np.where(rng.random(nb) < 0.5, v, other)
+            keys = keys + lo
+            ok = rng.random(nb) < valid
+            r = rng.random(nb)
+            junk = np.where(r < 0.4, rng.integers(lo - 3 * dom, lo, nb),
+                            rng.integers(lo + dom, lo + 4 * dom, nb))
+            junk[r > 0.9] = kinfo.min
+            junk[r > 0.95] = kinfo.max
+            bkey = np.where(ok, keys, junk)
+            # valid build keys at or past the domain's end: skipped
+            past = ok & (rng.random(nb) < 0.05)
+            bkey = np.where(past, rng.integers(lo + dom, lo + 4 * dom, nb),
+                            bkey)
+            if below:
+                bkey = np.where(ok & (rng.random(nb) < 0.1),
+                                rng.integers(lo - 3 * dom, lo, nb), bkey)
+            bval = np.where(ok, v, values_of(rng, nb, vdt, "ends"))
+            pick = rng.integers(0, max(nb, 1), np_)
+            pk = np.where((rng.random(np_) < 0.5) & (nb > 0),
+                          np.concatenate([keys, [lo]])[pick],
+                          rng.integers(lo - dom - 2, lo + 2 * dom + 2, np_))
+            edges = np.array([lo - 1, lo, lo + dom - 1, lo + dom, kinfo.min,
+                              kinfo.max], dtype=np.int64)
+            pk[:min(np_, len(edges))] = edges[:np_]
+            pv = np.where((rng.random(np_) < 0.5) & (nb > 0),
+                          np.concatenate([bval, [0]]).astype(vdt)[pick],
+                          values_of(rng, np_, vdt, vals))
+            po = rng.random(np_) < pok
+            arrs = (bkey.astype(kdt), ok, bval.astype(vdt), pk.astype(kdt),
+                    po, pv.astype(vdt))
+            return (*(on(dev, a, o) for a, o in zip(arrs, offs)), lo, dom)
+        makers.append(("keyed_minmax_semi", label, make))
+
+    def k4_only_value(label, kdt, vdt, lo):
+        """64 keys, each with one valid build row (or none: keys 48-63)
+        whose value is iinfo.max, iinfo.min or 7, among invalid rows of
+        every key; each key probed with its value, with another, and with
+        iinfo.max and iinfo.min."""
+        def make(dev):
+            info = np.iinfo(vdt)
+            rng = rng_of(label)
+            dom = 64
+            keys = np.arange(48)
+            v = np.array([info.max, info.min, 7], vdt)[keys % 3]
+            jk = rng.integers(0, dom, 200)
+            bkey = np.concatenate([keys, jk]) + lo
+            bok = np.concatenate([np.ones(48, bool), np.zeros(200, bool)])
+            bval = np.concatenate([v, values_of(rng, 200, vdt, "ends")])
+            perm = rng.permutation(len(bkey))
+            pk = np.tile(np.arange(dom), 4) + lo
+            own = np.concatenate([v, np.full(16, 7, vdt)])
+            other = np.where(own == info.min, own + 1, own - 1)
+            pv = np.concatenate([own, other, np.full(dom, info.max, vdt),
+                                 np.full(dom, info.min, vdt)]).astype(vdt)
+            arrs = (bkey[perm].astype(kdt), bok[perm], bval[perm],
+                    pk.astype(kdt), np.ones(len(pk), bool), pv)
+            return (*(on(dev, a) for a in arrs), lo, dom)
+        makers.append(("keyed_minmax_semi", label, make))
+
+    for kdt, vdt, lo in ((np.int32, np.int32, -5), (np.int32, np.int64, 11),
+                         (np.int64, np.int64, (1 << 35) + 17)):
+        k4_only_value(f"{np.dtype(kdt)} keys, {np.dtype(vdt)} values: keys "
+                      f"whose only build value is iinfo.max or iinfo.min",
+                      kdt, vdt, lo)
+    k4("int32 keys, int64 values at both ends, clustered keys", 200_003,
+       200_011, 0, 40_000, vdt=np.int64, vals="ends")
+    k4("int64 keys near 2^35, int32 values at both ends", 200_003, 200_011,
+       (1 << 35) + 17, 40_000, kdt=np.int64, vals="ends")
+    k4("every build row invalid", 100_000, 100_003, 0, 5000, valid=0.0)
+    k4("no build rows", 0, 10_007, 0, 5000)
+    k4("no build rows, int64 keys and values", 0, 513, -9, 77,
+       kdt=np.int64, vdt=np.int64)
+    k4("dom = 1", 50_001, 50_003, 3, 1)
+    k4("dom = 1, int64 values at both ends", 1001, 1003, -2**31, 1,
+       vdt=np.int64, vals="ends")
+    k4("build and probe keys below lo and at or past lo + dom", 300_007,
+       300_011, -1000, 20_000, valid=0.6)
+    k4("valid build keys below lo", 300_007, 300_011, 100, 20_000,
+       below=True)
+    k4("valid build keys below lo, int64 keys and values", 100_003, 100_007,
+       (1 << 35) + 17, 20_000, kdt=np.int64, vdt=np.int64, below=True)
+    k4("probe rows mostly with pok false", 200_003, 200_011, 0, 40_000,
+       pok=0.1)
+    k4("keys with one value repeated", 400_009, 400_013, 5, 100_000,
+       order="one value")
+    k4("keys with one value repeated, int64 values at both ends", 400_009,
+       400_013, 5, 100_000, vdt=np.int64, order="one value", vals="ends")
+    k4("keys with two values", 400_009, 400_013, 5, 100_000,
+       order="two values")
+    k4("keys with two values at both ends, int64 keys and values", 400_009,
+       400_013, -(1 << 40), 100_000, kdt=np.int64, vdt=np.int64,
+       order="two values", vals="ends")
+    k4("clustered keys, 1000003 rows", 1_000_003, 1_000_003, 0, 250_000,
+       valid=0.63)
+    k4("shuffled keys, 1000003 rows", 1_000_003, 1_000_003, 0, 250_000,
+       valid=0.63, order="shuffled")
+    for n in list(range(1, 18)) + [511, 512, 513]:
+        k4(f"int32 keys and values, nb = np = {n}", n, n, -3, 64)
+    for n in (1, 2, 3, 15, 16, 17, 511, 513):
+        k4(f"int64 keys and values, nb = np = {n}", n, n, (1 << 35) + 17, 64,
+           kdt=np.int64, vdt=np.int64)
+    for kdt, vdt, offs in ((np.int32, np.int32, (0, 0, 1, 0, 0, 3)),
+                           (np.int32, np.int32, (1, 3, 2, 5, 7, 1)),
+                           (np.int32, np.int64, (0, 0, 1, 0, 0, 1)),
+                           (np.int32, np.int64, (4, 4, 2, 4, 4, 2)),
+                           (np.int64, np.int32, (0, 0, 1, 0, 0, 3)),
+                           (np.int64, np.int64, (1, 13, 0, 1, 6, 1))):
+        k4(f"{np.dtype(kdt)} keys, {np.dtype(vdt)} values at other "
+           f"alignments, slices off by {offs} elements", 200_003, 300_007,
+           -1000, 20_000, kdt=kdt, vdt=vdt, offs=offs)
+    k4("int32 keys with int64 values, clustered, 1000003 rows", 1_000_003,
+       1_000_003, 0, 250_000, vdt=np.int64, valid=0.63)
+    k4("int64 keys with int32 values, clustered, 1000003 rows", 1_000_003,
+       1_000_003, (1 << 35) + 17, 250_000, kdt=np.int64, valid=0.63)
+    k4("dom = DIRECT_MAX_DOMAIN", 1_000_000, 1_000_003, 5,
+       KX.DIRECT_MAX_DOMAIN, order="shuffled")
+
+    def k9(label, n, starts, vdt, vals="spread"):
+        """``starts``: a function of the case's rng giving the run starts
+        (int32, strictly increasing from 0)."""
+        def make(dev):
+            rng = rng_of(label)
+            st = np.asarray(starts(rng), dtype=np.int32)
+            return (on(dev, values_of(rng, len(st), vdt, vals)), on(dev, st),
+                    n)
+        makers.append(("rle_decode", label, make))
+
+    def spread(count, hi):
+        # ``count`` distinct starts in [1, hi), with 0 first
+        return lambda rng: np.concatenate(
+            [[0], np.sort(rng.choice(np.arange(1, hi), count,
+                                     replace=False))])
+
+    edges = sorted({e + d for e in (RLE_TILE, 2 * RLE_TILE, 3 * RLE_TILE,
+                                    4 * RLE_TILE) for d in (-1, 0, 1)})
+    for vdt in (np.int32, np.int64):
+        t = np.dtype(vdt).name
+        k9(f"one run, n=100003, {t}", 100_003, lambda rng: [0], vdt)
+        k9(f"every run one row, n=20011, {t}", 20_011,
+           lambda rng: np.arange(20_011), vdt)
+        k9(f"runs longer than a tile, n=300007, {t}", 300_007,
+           lambda rng: np.concatenate([[0], np.cumsum(
+               rng.integers(2 * RLE_TILE + 1, 8 * RLE_TILE, 40))[:-1]]), vdt)
+        k9(f"starts on each side of a tile's edges, n={5 * RLE_TILE + 3}, "
+           f"{t}", 5 * RLE_TILE + 3, lambda rng: [0] + edges, vdt)
+        k9(f"starts on each side of a tile's edges among runs of 3 rows, "
+           f"n={5 * RLE_TILE}, {t}", 5 * RLE_TILE,
+           lambda rng: sorted(set(range(0, 5 * RLE_TILE, 3)) | set(edges)),
+           vdt)
+        k9(f"a padded view: the runs of 70001 rows decoded to 131072, {t}",
+           131_072, spread(17_000, 70_001), vdt)
+        k9(f"runs starting past n: 3000 runs over 90000 rows decoded to "
+           f"50000, {t}", 50_000, spread(2_999, 90_000), vdt)
+        for n in (1, 2, 3, 5, 6, 7, 9, 4097, 8195):
+            k9(f"n={n}, runs of 1-3 rows, {t}", n, spread(
+                max(0, min(n - 1, (n + 1) // 2)), max(n, 2)), vdt)
+        k9(f"runs of about 4 rows, n=1000003, {t}", 1_000_003,
+           spread(250_000, 1_000_003), vdt)
+        k9(f"values at iinfo's ends, n=65537, {t}", 65_537,
+           spread(9_000, 65_537), vdt, vals="ends")
+    return makers
 
 
 def adversarial_sort_keys(dev, n: int, seed: int) -> dict:
@@ -2103,7 +2360,7 @@ def parent_steps(parent, lib: Recorder, rec: Recorder, label: str,
                  dev) -> list:
     """The sorts' and the probe's largest calls of a leg, and on the NDS
     leg its largest "left", "right" and "both" searches; L3's build and the
-    largest calls of K1, K2, ``partition_sort``, K6, K5's sum, K7's scan
+    largest calls of K1-K4, ``partition_sort``, K6, K5's sum, K7's scan
     and the running max; and L2's pack, sort and group bounds at L2's
     largest call (``l2_steps``), on the design of another checkout (``parent``:
     ``load_parent``'s) beside this one's, on the same inputs: both results
@@ -2134,9 +2391,9 @@ def parent_steps(parent, lib: Recorder, rec: Recorder, label: str,
         cases.append(("build_lookup", lib.inputs("build_lookup")[0],
                       lib.function("build_lookup"),
                       pdx._Trace._build_lookup))
-    for key in ("direct_lookup_join", "matmul_probe_join", "partition_sort",
-                "partitioned_mn_join", "seg_reduce_at_ends[sum]", "seg_scan",
-                "running_max"):
+    for key in ("direct_lookup_join", "matmul_probe_join", "bitmask_semi",
+                "keyed_minmax_semi", "partition_sort", "partitioned_mn_join",
+                "seg_reduce_at_ends[sum]", "seg_scan", "running_max"):
         if key in rec.largest:
             name = key.split("[")[0]
             cases.append((key, rec.inputs(key)[0], getattr(KX, name),
@@ -2247,10 +2504,13 @@ def time_designs(designs: dict, dev, profile: bool = False) -> dict:
 # graph cases that replay it ("l2" is L2's pack, sort and group bounds)
 STEP_CHECKS = {"direct_lookup_join": "join", "matmul_probe_join": "join",
                "bitmask_semi": "semi_compact", "compact_perm": "semi_compact",
+               "keyed_minmax_semi": "minmax_rle", "rle_decode": "minmax_rle",
                "l2": "l2"}
 STEP_GRAPHS = {"l2": ("pack_group_key", "group_bounds"),
                "bitmask_semi": ("bitmask_semi",),
-               "compact_perm": ("compact_perm",)}
+               "compact_perm": ("compact_perm",),
+               "keyed_minmax_semi": ("keyed_minmax_semi",),
+               "rle_decode": ("rle_decode",)}
 # --steps: a seeded call of a step beside the legs' own (the compactor at
 # the row count of NDS's largest compactor call and one more, a third of
 # the rows present)
@@ -2308,12 +2568,14 @@ def design_steps(steps: list, designs: dict, factory_of, dev, sf: float,
     given, then "this"). A step is a kernel wrapper of ``KERNELS``, or
     "l2". First the step's graph cases (``graph_replays``) and its
     adversarial checks (``STEP_CHECKS``), exactly: on this design, and
-    K3's and L1's on every design. Then a wrapper is timed
+    K3's, L1's, K4's and K9's on every design. Then a wrapper is timed
     (``design_step_row``: each design, with each kernel's device ms) at
     each leg's largest call (captured in an untimed pass of the NDS-H leg
-    at ``sf`` and of the NDS leg at ``sf_ds``), at the NDS-H shapes of
-    ``sf1_shape_cases`` and, for the compactor, on ``STEP_SEEDED_ROWS``
-    seeded rows, every design held exactly to the plain version first;
+    at ``sf`` and of the NDS leg at ``sf_ds``; the decodes' in a pass of
+    each under ``columnar.set_mode("auto")``), at the NDS-H shapes of
+    ``sf1_shape_cases``, for the compactor on ``STEP_SEEDED_ROWS`` seeded
+    rows and for K9 at the RLE cases of ``decode_sweep_cases``, every
+    design held exactly to the plain version first;
     "l2" on seeded inputs shaped like L2's largest NDS call
     (``l2_padded_inputs``, ``l2_steps``)."""
     import numpy as np
@@ -2333,8 +2595,13 @@ def design_steps(steps: list, designs: dict, factory_of, dev, sf: float,
         out["join_adversarial_cases"] = len(join_adversarial_checks(KX,
                                                                     dev))
     if "semi_compact" in kinds:
-        out["semi_compact_adversarial_cases"] = len(
-            semi_compact_adversarial_checks(designs, dev))
+        out["semi_compact_adversarial_cases"] = len(maker_checks(
+            semi_compact_case_makers(), "K3/L1 adversarial cases", designs,
+            dev))
+    if "minmax_rle" in kinds:
+        out["minmax_rle_adversarial_cases"] = len(maker_checks(
+            minmax_rle_case_makers(), "K4/K9 adversarial cases", designs,
+            dev))
     if "l2" in kinds:
         out["l2_adversarial_cases"] = len(l2_adversarial_checks(KX, dev))
     rows = []
@@ -2345,18 +2612,36 @@ def design_steps(steps: list, designs: dict, factory_of, dev, sf: float,
                                 row.shape[0], dev)})
         del row, arrs
         release(dev)
+    from nds_tpu_torch import columnar
     for suite, scale in (("nds_h", sf), ("nds", sf_ds)) if wrappers else ():
         tables = make_tables(suite, scale)
-        dsess = suite_session(suite, factory_of())
-        for t in tables.values():
-            dsess.register_table(t)
-        with Recorder({n: (KX, n) for n in wrappers}) as rec:
-            for _unit, stmts in suite_units(suite):
-                run_query(dsess, stmts)
-        del dsess
-        release(dev)
-        cases = [(n, rec.inputs(n)[0], f"{suite} main path")
-                 for n in wrappers if n in rec.largest]
+        cases = []
+        calls = {}
+        # the decodes run only under the columnar store: their calls are
+        # captured from the leg under "auto", the others' with it off
+        for mode, names in ((None, [n for n in wrappers
+                                    if n not in DECODE_KERNELS]),
+                            ("auto", [n for n in wrappers
+                                      if n in DECODE_KERNELS])):
+            if not names:
+                continue
+            columnar.set_mode(mode)
+            try:
+                dsess = suite_session(suite, factory_of())
+                for t in tables.values():
+                    dsess.register_table(t)
+                with Recorder({n: (KX, n) for n in names}) as rec:
+                    for _unit, stmts in suite_units(suite):
+                        run_query(dsess, stmts)
+            finally:
+                columnar.set_mode(None)
+            del dsess
+            release(dev)
+            calls.update(rec.calls)
+            cases += [(n, rec.inputs(n)[0], f"{suite} main path"
+                       + (f", columnar {mode}" if mode else ""))
+                      for n in names if n in rec.largest]
+            del rec
         if suite == "nds_h":
             cases += [c for c in sf1_shape_cases(tables, dev)
                       if c[0] in wrappers]
@@ -2365,8 +2650,11 @@ def design_steps(steps: list, designs: dict, factory_of, dev, sf: float,
                 cases.append(("compact_perm", (torch.as_tensor(
                     rng.random(STEP_SEEDED_ROWS) < 1 / 3).to(dev),),
                     f"n={STEP_SEEDED_ROWS}, a third present, seeded"))
-        out[f"{suite}_calls"] = rec.calls
-        del rec, tables
+        if suite == "nds" and "rle_decode" in wrappers:
+            cases += [c for c in decode_sweep_cases(dev)
+                      if c[0] == "rle_decode"]
+        out[f"{suite}_calls"] = calls
+        del tables
         for name, args, label in cases:
             rows.append(design_step_row(name, args, label, designs, dev))
         del cases
@@ -2570,8 +2858,8 @@ def group_sort_record(KX, lib: Recorder, label: str, dev) -> "dict | None":
 def graph_replay_cases(dev) -> list:
     """(kernel, make inputs, label[, function, plain version]) for the
     graph case: the scan layout (``seg_scan``, K5's sum, ``group_bounds``,
-    ``running_max``), K1 and K3 (their builds and probes launched as
-    programmatic dependents) and K2, the count layout (K6, whose partition
+    ``running_max``), K1, K3 and K4 (their builds and probes launched as
+    programmatic dependents), K2 and K9, the count layout (K6, whose partition
     takes it, and the compactor, whose write pass is a dependent launch),
     ``partition_sort``, the executor's multi-key sort of four words
     (``_sort_perm``: four packs, each counting its word's digits, and four
@@ -2645,6 +2933,23 @@ def graph_replay_cases(dev) -> list:
     def l1(seed):
         rng = np.random.default_rng(seed)
         return (dt(rng.random(n) < 0.1 + 0.2 * seed),)
+
+    def k4(seed):
+        # lineitem against itself, clustered by key as q21's
+        rng = np.random.default_rng(seed)
+        dom = 750_000
+        keys = dt(np.sort(rng.integers(0, dom, n)).astype(np.int32))
+        vals = dt(rng.integers(0, 10_000, n).astype(np.int32))
+        return (keys, dt(rng.random(n) < 0.6), vals, keys.clone(),
+                dt(rng.random(n) < 0.9), vals.clone(), 0, dom)
+
+    def rle(seed):
+        # runs of about 4 rows, decoded 5 rows past the last run's start
+        rng = np.random.default_rng(seed)
+        runs = 700_001
+        starts = np.concatenate([[0], np.sort(rng.choice(
+            np.arange(1, n), runs - 1, replace=False))]).astype(np.int32)
+        return (dt(rng.integers(-2**40, 2**40, runs)), dt(starts), n + 5)
 
     def k6(seed):
         rng = np.random.default_rng(seed)
@@ -2731,6 +3036,10 @@ def graph_replay_cases(dev) -> list:
             ("compact_perm", l1,
              f"n={n}, a tenth to seven tenths present: the counts' "
              f"look-back words, the write pass a programmatic dependent"),
+            ("keyed_minmax_semi", k4,
+             f"{n} <- {n} int32, clustered keys, dom 750000: the build and "
+             f"the probe launched as programmatic dependents"),
+            ("rle_decode", rle, f"700001 int64 runs into {n + 5} rows"),
             ("partitioned_mn_join", k6, "2000000 x 1000000 int32"),
             ("partition_sort", sort, "4 x 1000000 int64"),
             ("pack_sort_key", chain_inputs,
@@ -3203,7 +3512,10 @@ def run_leg(suite, KX, factory_of, dev, pool, record, path=None,
         for name, kargs, label in sf1_shape_cases(tables, dev):
             checks.append(check_kernel(KX, name, kargs, label, dev))
         checks += join_adversarial_checks(KX, dev)
-        checks += semi_compact_adversarial_checks({"this": KX}, dev)
+        checks += maker_checks(semi_compact_case_makers(),
+                               "K3/L1 adversarial cases", {"this": KX}, dev)
+        checks += maker_checks(minmax_rle_case_makers(),
+                               "K4/K9 adversarial cases", {"this": KX}, dev)
     if path == "nds":
         for name, kargs, label in (nds_adversarial_cases(dev)
                                    + sort_search_cases(dev)):

@@ -1,6 +1,6 @@
-// Sixteen rows a lane: the streamed I/O of the gather joins (K1's and K3's
-// builds and probes in dense_domain.cu, K2's probe in small_build_probe.cu),
-// and the size of their grids of resident blocks.
+// Sixteen rows a lane: the streamed I/O of the gather joins (K1's, K3's and
+// K4's builds and probes in dense_domain.cu, K2's probe in
+// small_build_probe.cu), and the size of their grids of resident blocks.
 //
 // A warp takes a chunk of 512 rows. Its keys are read as 16-byte vectors,
 // lane l taking vectors l, l + 32, l + 64, ... of the chunk, so that every
@@ -222,6 +222,68 @@ __device__ __forceinline__ void store_hits(uint8_t* __restrict__ hit,
 #pragma unroll
   for (int g = 0; g < Groups<K>::G; ++g)
     store_hit_group<K>(hit, p, group_row<K>(p, c, g, lane), hw[g]);
+}
+
+// Whether a streamed array of V beside the keys K takes whole-group loads:
+// a group's R values are R * sizeof(V) bytes (8, 16 or 32), read as one
+// 8-byte or one or two 16-byte loads where the array is aligned to that at
+// the plan's first chunk row.
+template <typename K, typename V>
+inline int values_aligned(const void* vals, const Plan& p) {
+  constexpr int B = Groups<K>::R * static_cast<int>(sizeof(V));
+  return vals != nullptr &&
+         aligned_at(vals, p.head, static_cast<int>(sizeof(V)),
+                    B < 16 ? B : 16);
+}
+
+// One int32 or int64 element, streamed.
+template <typename V>
+__device__ __forceinline__ V ldcs_one(const V* q) {
+  if constexpr (sizeof(V) == 4)
+    return static_cast<V>(__ldcs(reinterpret_cast<const int*>(q)));
+  else
+    return static_cast<V>(__ldcs(reinterpret_cast<const long long*>(q)));
+}
+
+// The values (int32 or int64) of a lane's 16 rows, beside its keys: a
+// group's whole where `vec` (values_aligned), else one at a time. With
+// kSkip, a group whose flags are all 0 (`fw[g]`) loads none: its values are
+// taken as 0.
+template <typename K, typename V, bool kSkip>
+__device__ __forceinline__ void load_values(
+    const V* __restrict__ vals, const Plan& p, long long c, int lane, int vec,
+    const unsigned (&fw)[Groups<K>::G], V (&v)[kRows]) {
+  constexpr int R = Groups<K>::R, G = Groups<K>::G;
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    if (kSkip && fw[g] == 0) {
+#pragma unroll
+      for (int t = 0; t < R; ++t) v[g * R + t] = 0;
+      continue;
+    }
+    const V* q = vals + group_row<K>(p, c, g, lane);
+    if (!vec) {
+#pragma unroll
+      for (int t = 0; t < R; ++t) v[g * R + t] = ldcs_one(q + t);
+    } else if constexpr (sizeof(V) == 4 && R == 4) {
+      const int4 w = __ldcs(reinterpret_cast<const int4*>(q));
+      v[g * 4 + 0] = w.x;
+      v[g * 4 + 1] = w.y;
+      v[g * 4 + 2] = w.z;
+      v[g * 4 + 3] = w.w;
+    } else if constexpr (sizeof(V) == 4) {
+      const int2 w = __ldcs(reinterpret_cast<const int2*>(q));
+      v[g * 2 + 0] = w.x;
+      v[g * 2 + 1] = w.y;
+    } else {
+#pragma unroll
+      for (int h = 0; h < R / 2; ++h) {
+        const longlong2 w = __ldcs(reinterpret_cast<const longlong2*>(q) + h);
+        v[g * R + 2 * h] = w.x;
+        v[g * R + 2 * h + 1] = w.y;
+      }
+    }
+  }
 }
 
 // Writes a lane's 16 int32 outputs and its 16 byte outputs, a group's

@@ -44,7 +44,7 @@ SIGNATURES = {
         "nds_bitmask_semi": [_P, _P, _LL, _P, _P, _LL, _I, _LL, _LL, _P,
                              _P, _P],
         "nds_keyed_minmax_semi": [_P, _P, _P, _LL, _P, _P, _P, _LL, _I, _I,
-                                  _LL, _LL, _P, _P, _P, _P, _P],
+                                  _LL, _LL, _P, _P, _P],
     },
     "small_build_probe": {
         "nds_small_build_max": [],

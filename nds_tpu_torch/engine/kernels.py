@@ -503,15 +503,13 @@ def keyed_minmax_semi(bkey, bok, bval, pkey, pok, pval, lo: int,
     cb, lib = _lib("dense_domain")
     dev = pkey.device
     np_ = pkey.shape[0]
-    mn = torch.empty(dom, dtype=bval.dtype, device=dev)
-    mx = torch.empty(dom, dtype=bval.dtype, device=dev)
-    present = torch.empty(dom, dtype=torch.uint8, device=dev)
+    # one {min, max} slot a key
+    tbl = torch.empty(2 * dom, dtype=bval.dtype, device=dev)
     out = torch.empty(np_, dtype=torch.bool, device=dev)
     err = lib.nds_keyed_minmax_semi(
         _ptr(bkey), _ptr(bok), _ptr(bval), bkey.shape[0], _ptr(pkey),
         _ptr(pok), _ptr(pval), np_, key64, int(bval.dtype == torch.int64),
-        lo, dom, _ptr(mn), _ptr(mx), _ptr(present), _ptr(out),
-        cb.stream_handle())
+        lo, dom, _ptr(tbl), _ptr(out), cb.stream_handle())
     cb.check(err, "keyed_minmax_semi")
     LAUNCHES["keyed_minmax_semi"] += 1
     return out
