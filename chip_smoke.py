@@ -17,8 +17,9 @@ Drives ``nds_tpu_torch`` (never ``jax``, never ``nds_tpu``) on the card:
    operand straddling two at an odd bit, each word's digit counts from
    its pack), L2's chain (the pack with its counts, the sort given
    them, the group bounds), K1, K3 and K4 (their builds and probes
-   launched as programmatic dependents), K2, K9 and the compactor (its
-   counts' look-back words, its write pass a dependent launch) captured
+   launched as programmatic dependents), K2, K9, K8's mask unpack and
+   the compactor (its counts' look-back words, its write pass a dependent
+   launch) captured
    in a CUDA graph and replayed three times with new inputs, exact;
 4. NDS-H leg at ``--sf`` (default SF1, ``bench.py``'s scale):
    ``Session.for_nds_h(make_device_factory())`` on ``cuda``;
@@ -29,8 +30,9 @@ Drives ``nds_tpu_torch`` (never ``jax``, never ``nds_tpu``) on the card:
    rows; the segmented scan at several group counts) and K1 and K2 on
    adversarial inputs (``join_adversarial_cases``, exact; K2's table
    size held to its plain mirror's for every build size), K3 and the
-   compactor on theirs (``semi_compact_case_makers``), and K4 and K9 on
-   theirs (``minmax_rle_case_makers``); launch counts
+   compactor on theirs (``semi_compact_case_makers``), K4 and K9 on
+   theirs (``minmax_rle_case_makers``) and K8's mask unpack on its
+   (``mask_case_makers``); launch counts
    set to 0, the 22 queries timed, the counts read; a pass under
    ``torch.profiler`` for the card's busy time; every result checked
    against the CPU oracle by the validator's rules, in the worker pool;
@@ -104,7 +106,13 @@ Drives ``nds_tpu_torch`` (never ``jax``, never ``nds_tpu``) on the card:
    beside the mode-off legs', and each leg's power total timed in turns
    (mode off, auto, auto, mode off; the last two through fresh
    executors);
-8. prints the kernels line (one entry per kernel wrapper: launches summed
+8. bench phase: the port's bench entry (``python -m nds_tpu_torch.bench``,
+   what its users run) in a process of its own on both legs at a cut of
+   depth (NDS-H SF``BENCH_SMOKE_SF``, NDS SF``BENCH_SMOKE_SF_DS``), its data
+   in a temporary directory, within ``BENCH_SMOKE_TIMEOUT_S``: exit 0, 125
+   of 125 units, ``platform`` "cuda" and this card in its last line
+   (``bench_phase``);
+9. prints the kernels line (one entry per kernel wrapper: launches summed
    over the timed runs, each kernel's numbers from the path that runs
    it), the card line, and as the last line
    ``{"ok": true, "device": {...}}``.
@@ -116,11 +124,12 @@ adversarial cases and times this design beside ``--parent``'s
 (``design_steps``, ``time_designs``): a wrapper at each leg's largest call
 and at the NDS-H shapes (the compactor also on 6,480,001 seeded rows; the
 decodes, which run only under the columnar store, at the largest calls of
-each leg under ``columnar.set_mode("auto")`` and at the RLE cases of
+each leg under ``columnar.set_mode("auto")`` and at their cases of
 ``decode_sweep_cases``), the plain version's and the library call's times
 and, for K1-K3, the data's shares; ``l2`` on seeded inputs shaped like its
 largest NDS call (``l2_padded_inputs``); it prints a summary (no contract
-line).
+line). The step ``bench`` runs the bench phase at ``--sf`` and ``--sf-ds``
+(SF1 both by default, as users run it) after the other steps.
 
 Kernel checks: integer, bool and min/max outputs must equal the plain
 version's exactly; a float sum (the segmented scan's "sum" on float
@@ -266,6 +275,16 @@ GROUP_SUM_SEQ_ROWS = 4096
 # the single-device leg's (on an H100, q67 peaks near 42 GiB at SF0.2 and
 # the leg takes about 100 s, a sixth of the whole smoke)
 SF_DS_DIST = 0.2
+# the bench phase of the full smoke: the port's bench entry
+# (``python -m nds_tpu_torch.bench``) on both legs at a cut of depth, under
+# a time limit of its own (the rest of the smoke takes 700-900 s of its
+# 1,200 on an H100); ``--steps bench`` runs it at ``--sf``/``--sf-ds``
+BENCH_SMOKE_SF = 0.1
+BENCH_SMOKE_SF_DS = 0.01
+BENCH_SMOKE_TIMEOUT_S = 180
+BENCH_STEP_TIMEOUT_S = 1500
+# the bench's units: 22 NDS-H queries and 103 NDS statements
+BENCH_UNITS = 125
 
 # the window path: no NDS statement takes a whole-partition MIN/MAX or a
 # running aggregate under the default RANGE frame; each is wrapped in an
@@ -550,6 +569,9 @@ def work_of(name: str, args, out) -> tuple:
     if name in DECODE_KERNELS:
         # a few integer operations per output row
         ops = out.numel()
+    if name == "unpack_mask":
+        # the words that hold the n rows (the rest are never read)
+        moved = 4 * -(-args[1] // 32) + nbytes(out)
     if name == "exchange_pack":
         # a hash, a rank and a copy per row, a store per output slot
         ops = rows + sum(t.numel() for t in _tensors(out))
@@ -1801,6 +1823,71 @@ def minmax_rle_case_makers() -> list:
     return makers
 
 
+# the mask unpack's tile (csrc/columnar_decode.cu: 512 words, 16,384 rows, a
+# block) and its largest columnar call (NDS under "auto")
+MASK_TILE_ROWS = 16_384
+MASK_LARGEST_ROWS = 11_745_000
+
+
+def mask_case_makers() -> list:
+    """(kernel, label, make) of K8's mask unpack (``unpack_mask``), in the
+    pattern of ``semi_compact_case_makers``: each ``make(dev)`` gives
+    ``(words, n)``, drawn from a seed of its own with numpy. The card holds
+    the kernel exactly to its plain version on them, and
+    ``tests/test_torch_unpack_mask.py`` the plain version to the JAX
+    reference on the CPU. ``n`` of 0, 1, 15-17, 31-33, 511-513, around a
+    tile's edge and the largest columnar call's 11,745,000 (no multiple of
+    16 among many); words all zero, all one, alternating bits both ways,
+    only the sign bit and random; words sliced 1, 2 and 3 words into their
+    storage (not 16-byte aligned, the kernel's one-word loads) beside
+    aligned ones; more words than ``n`` needs, with bits set past ``n``."""
+    import numpy as np
+
+    makers = []
+    fills = {"zero": 0, "one": -1, "0x55555555": 0x55555555,
+             "0xAAAAAAAA": 0xAAAAAAAA - (1 << 32),
+             "sign bit": -(1 << 31)}
+
+    def mask(label, n, pattern="random", off=0, extra=0):
+        """``extra`` words past the ``n`` rows' own, all bits set, and the
+        unused bits of the last needed word set too."""
+        def make(dev):
+            need = -(-n // 32)
+            if pattern == "random":
+                rng = case_rng(67, label)
+                w = rng.integers(-2**31, 2**31, need + extra,
+                                 dtype=np.int64).astype(np.int32)
+            else:
+                w = np.full(need + extra, fills[pattern], np.int32)
+            if extra:
+                w[need:] = -1
+                if n % 32:
+                    w[need - 1] |= np.int32(-(1 << (n % 32)))
+            return (view_on(dev, w, off), n)
+        makers.append(("unpack_mask", label, make))
+
+    edges = (0, 1, 15, 16, 17, 31, 32, 33, 511, 512, 513,
+             MASK_TILE_ROWS - 1, MASK_TILE_ROWS, MASK_TILE_ROWS + 15,
+             MASK_TILE_ROWS + 16, 3 * MASK_TILE_ROWS + 17, MASK_LARGEST_ROWS)
+    for n in edges:
+        mask(f"n={n}, random words", n)
+    for pattern in fills:
+        for n in (33, 513, MASK_TILE_ROWS + 17, 1_000_003):
+            mask(f"n={n}, words {pattern}", n, pattern)
+    for off in (1, 2, 3):
+        for n in (17, 513, MASK_TILE_ROWS + 15, 1_000_003, MASK_LARGEST_ROWS):
+            mask(f"n={n}, random words sliced {off} words in", n, off=off)
+        mask(f"n=31, words one sliced {off} words in", 31, "one", off)
+    for n, extra in ((1, 1), (15, 3), (17, 2), (513, 5),
+                     (MASK_TILE_ROWS + 1, 600), (1_000_003, 7)):
+        for off in (0, 1):
+            mask(f"n={n}, {extra} words more than it needs, bits set past "
+                 f"n, sliced {off} words in", n, off=off, extra=extra)
+    mask(f"n={MASK_LARGEST_ROWS}, words zero, 4 words more than it needs",
+         MASK_LARGEST_ROWS, "zero", extra=4)
+    return makers
+
+
 def adversarial_sort_keys(dev, n: int, seed: int) -> dict:
     """Sort keys of ``n`` rows (row mask, ``SortKey`` list) for the packed
     sort's adversarial cases: descending keys and NULLS FIRST and LAST
@@ -2505,7 +2592,7 @@ def time_designs(designs: dict, dev, profile: bool = False) -> dict:
 STEP_CHECKS = {"direct_lookup_join": "join", "matmul_probe_join": "join",
                "bitmask_semi": "semi_compact", "compact_perm": "semi_compact",
                "keyed_minmax_semi": "minmax_rle", "rle_decode": "minmax_rle",
-               "l2": "l2"}
+               "unpack_mask": "mask", "l2": "l2"}
 STEP_GRAPHS = {"l2": ("pack_group_key", "group_bounds"),
                "bitmask_semi": ("bitmask_semi",),
                "compact_perm": ("compact_perm",),
@@ -2574,7 +2661,9 @@ def design_steps(steps: list, designs: dict, factory_of, dev, sf: float,
     at ``sf`` and of the NDS leg at ``sf_ds``; the decodes' in a pass of
     each under ``columnar.set_mode("auto")``), at the NDS-H shapes of
     ``sf1_shape_cases``, for the compactor on ``STEP_SEEDED_ROWS`` seeded
-    rows and for K9 at the RLE cases of ``decode_sweep_cases``, every
+    rows, for K9 and the mask unpack at their cases of
+    ``decode_sweep_cases`` (the mask unpack also at its largest call's
+    size from words off 16-byte alignment), every
     design held exactly to the plain version first;
     "l2" on seeded inputs shaped like L2's largest NDS call
     (``l2_padded_inputs``, ``l2_steps``)."""
@@ -2585,7 +2674,7 @@ def design_steps(steps: list, designs: dict, factory_of, dev, sf: float,
     bad = [n for n in wrappers if n not in KERNELS]
     if bad:
         raise SmokeError(f"--steps: no step {bad}; a step is a kernel "
-                         f"wrapper or l2")
+                         f"wrapper, l2 or bench")
     out: dict = {"steps": steps}
     if dev.type == "cuda":
         graphs = {g for n in steps for g in STEP_GRAPHS.get(n, (n,))}
@@ -2602,6 +2691,9 @@ def design_steps(steps: list, designs: dict, factory_of, dev, sf: float,
         out["minmax_rle_adversarial_cases"] = len(maker_checks(
             minmax_rle_case_makers(), "K4/K9 adversarial cases", designs,
             dev))
+    if "mask" in kinds:
+        out["mask_adversarial_cases"] = len(maker_checks(
+            mask_case_makers(), "K8 mask adversarial cases", designs, dev))
     if "l2" in kinds:
         out["l2_adversarial_cases"] = len(l2_adversarial_checks(KX, dev))
     rows = []
@@ -2650,9 +2742,19 @@ def design_steps(steps: list, designs: dict, factory_of, dev, sf: float,
                 cases.append(("compact_perm", (torch.as_tensor(
                     rng.random(STEP_SEEDED_ROWS) < 1 / 3).to(dev),),
                     f"n={STEP_SEEDED_ROWS}, a third present, seeded"))
-        if suite == "nds" and "rle_decode" in wrappers:
-            cases += [c for c in decode_sweep_cases(dev)
-                      if c[0] == "rle_decode"]
+        if suite == "nds":
+            cases += [c for c in decode_sweep_cases(dev) if c[0] in wrappers
+                      and c[0] in ("rle_decode", "unpack_mask")]
+        if suite == "nds" and "unpack_mask" in wrappers:
+            # the largest call's size from words that are not 16-byte
+            # aligned (the kernel's one-word loads)
+            rng = np.random.default_rng(67)
+            w = rng.integers(-2**31, 2**31, -(-MASK_LARGEST_ROWS // 32),
+                             dtype=np.int64).astype(np.int32)
+            cases.append(("unpack_mask", (view_on(dev, w, 1),
+                                          MASK_LARGEST_ROWS),
+                          f"n={MASK_LARGEST_ROWS}, seeded words sliced one "
+                          f"word in"))
         out[f"{suite}_calls"] = calls
         del tables
         for name, args, label in cases:
@@ -2859,14 +2961,14 @@ def graph_replay_cases(dev) -> list:
     """(kernel, make inputs, label[, function, plain version]) for the
     graph case: the scan layout (``seg_scan``, K5's sum, ``group_bounds``,
     ``running_max``), K1, K3 and K4 (their builds and probes launched as
-    programmatic dependents), K2 and K9, the count layout (K6, whose partition
-    takes it, and the compactor, whose write pass is a dependent launch),
-    ``partition_sort``, the executor's multi-key sort of four words
-    (``_sort_perm``: four packs, each counting its word's digits, and four
-    sorts given those counts, against ``_lexsort``), and L2's chain (the
-    pack with its counts, the sort given them, the group bounds). Each
-    ``make(seed)`` gives a new set of inputs of one shape; the function
-    is the kernel's wrapper unless the case names one."""
+    programmatic dependents), K2, K9 and K8's mask unpack, the count layout
+    (K6, whose partition takes it, and the compactor, whose write pass is a
+    dependent launch), ``partition_sort``, the executor's multi-key sort of
+    four words (``_sort_perm``: four packs, each counting its word's
+    digits, and four sorts given those counts, against ``_lexsort``), and
+    L2's chain (the pack with its counts, the sort given them, the group
+    bounds). Each ``make(seed)`` gives a new set of inputs of one shape;
+    the function is the kernel's wrapper unless the case names one."""
     import numpy as np
     import torch
     from nds_tpu_torch.engine import device_exec as dx
@@ -2950,6 +3052,13 @@ def graph_replay_cases(dev) -> list:
         starts = np.concatenate([[0], np.sort(rng.choice(
             np.arange(1, n), runs - 1, replace=False))]).astype(np.int32)
         return (dt(rng.integers(-2**40, 2**40, runs)), dt(starts), n + 5)
+
+    def mask(seed):
+        # 16-byte aligned words, as the executor uploads them; n is no
+        # multiple of 16, so the last block writes a row alone
+        rng = np.random.default_rng(seed)
+        return (dt(rng.integers(-2**31, 2**31, -(-n // 32) + 1)
+                   .astype(np.int32)), n)
 
     def k6(seed):
         rng = np.random.default_rng(seed)
@@ -3040,6 +3149,7 @@ def graph_replay_cases(dev) -> list:
              f"{n} <- {n} int32, clustered keys, dom 750000: the build and "
              f"the probe launched as programmatic dependents"),
             ("rle_decode", rle, f"700001 int64 runs into {n + 5} rows"),
+            ("unpack_mask", mask, f"{-(-n // 32) + 1} words into {n} rows"),
             ("partitioned_mn_join", k6, "2000000 x 1000000 int32"),
             ("partition_sort", sort, "4 x 1000000 int64"),
             ("pack_sort_key", chain_inputs,
@@ -3516,6 +3626,8 @@ def run_leg(suite, KX, factory_of, dev, pool, record, path=None,
                                "K3/L1 adversarial cases", {"this": KX}, dev)
         checks += maker_checks(minmax_rle_case_makers(),
                                "K4/K9 adversarial cases", {"this": KX}, dev)
+        checks += maker_checks(mask_case_makers(),
+                               "K8 mask adversarial cases", {"this": KX}, dev)
     if path == "nds":
         for name, kargs, label in (nds_adversarial_cases(dev)
                                    + sort_search_cases(dev)):
@@ -3939,6 +4051,84 @@ def run_distributed(KX, dev, pool, record, paths) -> None:
     log(json.dumps(summary))
 
 
+def bench_phase(card: str, dev, sf: float, sf_ds: float,
+                timeout_s: float) -> dict:
+    """The port's bench entry, ``python -m nds_tpu_torch.bench``, run as
+    its users run it, in a process of its own on this checkout: both legs
+    at NDS-H ``sf`` and NDS ``sf_ds``, its data root in a new temporary
+    directory, on ``dev``'s type (``BENCH_DEVICE``). Its last line must
+    show every one of the 125 units completed, on the platform asked for
+    and, on the card, this card (``device``, as nvidia-smi gives it), and
+    it must exit 0 within ``timeout_s`` (past it, the bench is sent
+    SIGTERM, which prints its partial line, then killed). Returns the
+    record: the last line, exit code, seconds and the stderr's tail."""
+    import shutil
+    import tempfile
+    root = os.path.dirname(os.path.abspath(__file__))
+    data = tempfile.mkdtemp(prefix="nds_bench_")
+    env = {**os.environ, "BENCH_DATA": data, "BENCH_SF": f"{sf:g}",
+           "BENCH_NDS_SF": f"{sf_ds:g}", "BENCH_LEGS": "nds_h,nds",
+           "BENCH_DEVICE": dev.type}
+    t0 = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, "-m", "nds_tpu_torch.bench"],
+                            cwd=root, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    timed_out = False
+    try:
+        out, err = proc.communicate(timeout=timeout_s)
+    except subprocess.TimeoutExpired:
+        timed_out = True
+        proc.terminate()
+        try:
+            out, err = proc.communicate(timeout=60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            out, err = proc.communicate()
+    finally:
+        shutil.rmtree(data, ignore_errors=True)
+    seconds = time.perf_counter() - t0
+    lines = out.strip().splitlines()
+    try:
+        last = json.loads(lines[-1]) if lines else None
+    except ValueError:
+        last = None
+    rec = {"phase": "bench", "sf": sf, "sf_ds": sf_ds, "seconds": seconds,
+           "timeout_s": timeout_s, "rc": proc.returncode,
+           "timed_out": timed_out, "last_line": last,
+           "stderr_tail": err[-6000:]}
+    summary = {k: rec[k] for k in ("phase", "sf", "sf_ds", "seconds", "rc",
+                                   "timed_out")}
+    if isinstance(last, dict):
+        summary.update({k: last.get(k) for k in (
+            "metric", "value", "vs_baseline", "queries_completed",
+            "queries_total", "platform", "device")})
+        summary["legs"] = {m: {k: leg.get(k) for k in (
+            "value", "vs_baseline", "queries_completed")}
+            for m, leg in (last.get("legs") or {}).items()}
+    log(json.dumps(summary))
+    why = []
+    if timed_out:
+        why.append(f"no end within {timeout_s} s")
+    if proc.returncode != 0:
+        why.append(f"exit {proc.returncode}")
+    if not isinstance(last, dict):
+        why.append("no JSON last line")
+    else:
+        if not (last.get("queries_completed") == last.get("queries_total")
+                == BENCH_UNITS):
+            why.append(f"{last.get('queries_completed')} of "
+                       f"{last.get('queries_total')} units completed, "
+                       f"{BENCH_UNITS} expected")
+        if last.get("platform") != dev.type:
+            why.append(f"platform {last.get('platform')!r}")
+        if dev.type == "cuda" and last.get("device") != card:
+            why.append(f"device {last.get('device')!r}, not {card!r}")
+    if why:
+        raise SmokeError(f"the bench entry failed: {'; '.join(why)}; "
+                         f"stderr ends: {err[-2000:]}")
+    return rec
+
+
 def kernels_line(paths: dict) -> list:
     """One entry per kernel wrapper: launches summed over the timed runs
     of the paths (each read between its own reset and its end), the
@@ -3989,7 +4179,9 @@ def main() -> int:
     ap.add_argument("--steps", default=None, metavar="STEP[,STEP]",
                     help="only check and time the named steps (kernel "
                     "wrappers, or l2: L2's pack, sort and group bounds) on "
-                    "this design and --parent's beside it, then exit")
+                    "this design and --parent's beside it, and with "
+                    "bench, run the port's bench entry at --sf and "
+                    "--sf-ds, then exit")
     args = ap.parse_args()
 
     import torch
@@ -4019,9 +4211,16 @@ def main() -> int:
         designs = {"this": KX}
         if args.parent:
             designs = {"parent": load_parent(args.parent, dev)[0], "this": KX}
-        rec = {"card": card, "phase": "steps", **design_steps(
-            args.steps.split(","), designs, factory_of, dev, args.sf,
-            args.sf_ds)}
+        steps = args.steps.split(",")
+        kernel_steps = [n for n in steps if n != "bench"]
+        rec = {"card": card, "phase": "steps", "cases": []}
+        if kernel_steps:
+            rec.update(design_steps(kernel_steps, designs, factory_of, dev,
+                                    args.sf, args.sf_ds))
+            release(dev)
+        if "bench" in steps:
+            rec["bench"] = bench_phase(card, dev, args.sf, args.sf_ds,
+                                       BENCH_STEP_TIMEOUT_S)
         if args.out:
             os.makedirs(os.path.dirname(os.path.abspath(args.out)),
                         exist_ok=True)
@@ -4032,7 +4231,9 @@ def main() -> int:
                            **{who: d["device_ms"] if "device_ms" in d else
                               {st: x["device_ms"] for st, x in d.items()}
                               for who, d in r["designs"].items()}}
-                          for r in rec["cases"]]))
+                          for r in rec["cases"]]
+                         + ([rec["bench"]["last_line"]] if "bench" in rec
+                            else [])))
         return 0
 
     sf_ds_dist = min(args.sf_ds, SF_DS_DIST)
@@ -4086,6 +4287,10 @@ def main() -> int:
         del dsess
         release(dev)
         run_columnar(KX, factory_of, dev, pool, record, paths)
+        release(dev)
+        record["bench"] = bench_phase(card, dev, BENCH_SMOKE_SF,
+                                      BENCH_SMOKE_SF_DS,
+                                      BENCH_SMOKE_TIMEOUT_S)
         line = kernels_line(paths)
         record["kernels"] = line
         pool.close()

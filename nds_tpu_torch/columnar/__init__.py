@@ -25,8 +25,9 @@ Layout: ``encodings.py`` plans and encodes on the host (numpy only,
 byte-identical to the reference's); ``device.py`` decodes on the
 executor's device. ``fingerprint_token()`` (encoder version + mode) keys
 the per-column spec memo, as in the reference. The manifest helpers of
-the reference (``manifest_set_encodings``/``manifest_encodings``) come
-with the table-cache slice.
+the reference (``manifest_set_encodings``/``manifest_encodings``) are
+trimmed, and so are their hooks in the table cache
+(``io/table_cache.py``): each column's encoding is derived at upload.
 """
 
 from __future__ import annotations

@@ -1,7 +1,9 @@
-// Decode of the compressed columnar store: bitpack (K8) and RLE (K9).
+// Decode of the compressed columnar store: bitpack and the mask unpack (K8),
+// and RLE (K9).
 //
-// Replaces nds_tpu/columnar/device.py: `_unpack_words` and `unpack_mask` with
-// the bitpack branch of `decode` (K8), and the RLE branch of `decode` (K9).
+// Replaces nds_tpu/columnar/device.py: `_unpack_words` with the bitpack
+// branch of `decode` and `unpack_mask` (K8), and the RLE branch of `decode`
+// (K9).
 // The host encoder (nds_tpu_torch/columnar/encodings.py, byte-identical to
 // the reference's) writes:
 //   bitpack: int32 words holding 32/bits fields of `bits` bits each, low
@@ -21,10 +23,27 @@
 // in int32 (the reference's native-width path; the sum cannot overflow
 // there), else in int64; bits = 32 is a sign-extending widen plus the bias in
 // int64. The result is cast to the column's type (int32 or int64), modulo
-// 2^32 where an int64 sum narrows, as XLA's convert does; a mask field becomes
-// a bool. One thread per output row: a warp's 32 rows read one to a few words
-// (the same cache line) and write 32 neighbouring outputs, so every store is
-// coalesced.
+// 2^32 where an int64 sum narrows, as XLA's convert does. One thread per
+// output row: a warp's 32 rows read one to a few words (the same cache line)
+// and write 32 neighbouring outputs, so every store is coalesced.
+//
+// The mask unpack (bits = 1, a bool a row) is a kernel of its own. Run as
+// the decode above, a thread stored one byte, so a warp's store instruction
+// moved 32 bytes and the card issued 16 times the store instructions that
+// 16-byte vectors need for the same bytes (0.8 TB/s where the 4- and 8-byte
+// outputs reach 2.1-2.2). Here a thread writes 16 rows at a time, half a
+// word's bits turned into 16 bytes of 0 or 1 in registers (a multiply and a
+// mask a nibble: (x * 0x00204081) & 0x01010101 puts bit k of x at bit 8k),
+// with one streaming store; lane l's vector is half l & 1 of word l / 2 of
+// the warp's 16, so one warp store covers 512 contiguous bytes (a lane's own
+// run of 32 bytes would make each store touch half sectors). A warp takes 64
+// words (2,048 rows) in four such stores, a block of 8 warps 512 words (16 KB
+// of output), sized to the rows with 32-bit offsets inside its tile. Where
+// the words are 16-byte aligned, 16 lanes read the warp's 64 words with one
+// 16-byte load each and pass them on by shuffles; words sliced at another
+// 4-byte offset are read one a lane. The rows after the last whole vector
+// (fewer than 16) are written one a thread by the last block; nothing is
+// written at or past n.
 //
 // K9 works by row rather than by run. Run lengths are skewed (l_orderkey
 // has about 4 rows a run, a sorted date column thousands), so one block or
@@ -46,8 +65,10 @@
 // vector one a thread. No atomics in device memory, no scratch, and no value
 // depends on an order of execution.
 //
-// What bounds both on an H100: bytes. K8 at 6,001,215 rows writes 24 MB
-// (int32) or 48 MB (int64) from 0.75-24 MB of words: 8-22 us at 3.35 TB/s.
+// What bounds all three on an H100: bytes. K8 at 6,001,215 rows writes 24 MB
+// (int32) or 48 MB (int64) from 0.75-24 MB of words: 8-22 us at 3.35 TB/s;
+// the mask unpack at its largest columnar call (367,032 words into 11,745,000
+// rows) reads 1.5 MB and writes 11.7 MB, 4 us.
 // K9 reads the runs (12 bytes each for int64 values) and writes n values;
 // l_orderkey at SF1, 1.5M runs into 6.0M int64 rows, is about 66 MB, 20 us;
 // the largest columnar call (653 int32 runs into 11.7M rows) writes 47 MB,
@@ -70,7 +91,6 @@ constexpr int kThreads = 256;
 // out kinds of nds_bitpack_decode
 constexpr int kOutI32 = 0;
 constexpr int kOutI64 = 1;
-constexpr int kOutBool = 2;
 
 template <typename T>
 __device__ __forceinline__ T narrow(long long v);
@@ -85,11 +105,6 @@ __device__ __forceinline__ int32_t narrow<int32_t>(long long v) {
 template <>
 __device__ __forceinline__ int64_t narrow<int64_t>(long long v) {
   return static_cast<int64_t>(v);
-}
-
-template <>
-__device__ __forceinline__ uint8_t narrow<uint8_t>(long long v) {
-  return v != 0 ? 1 : 0;
 }
 
 // One thread per output row. log2bits in 0..5 (bits 1..32); kWide adds the
@@ -145,6 +160,81 @@ int launch_bitpack(const void* words, long long n, int log2bits, long long lo,
     bitpack_decode<T, false><<<grid_for(n), kThreads, 0, s>>>(w, n, log2bits,
                                                               lo, o);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The mask unpack. 16 bits (the low half of `h`) as 16 bytes of 0 or 1, row
+// 0 in the lowest byte: bit k of a nibble x lands at bit 8k of
+// x * 0x00204081 (x, x << 7, x << 14 and x << 21 do not overlap).
+__device__ __forceinline__ int4 bits_to_bytes(uint32_t h) {
+  constexpr uint32_t kSpread = 0x00204081u, kOnes = 0x01010101u;
+  return make_int4(static_cast<int>(((h & 0xFu) * kSpread) & kOnes),
+                   static_cast<int>((((h >> 4) & 0xFu) * kSpread) & kOnes),
+                   static_cast<int>((((h >> 8) & 0xFu) * kSpread) & kOnes),
+                   static_cast<int>((((h >> 12) & 0xFu) * kSpread) & kOnes));
+}
+
+constexpr int kMaskWarpWords = 64;                            // 4 stores
+constexpr int kMaskTileWords = kMaskWarpWords * kThreads / 32;  // 512
+
+// One block a tile of kMaskTileWords words (32 rows each); warp w takes the
+// tile's words [64w, 64w + 64) in four stores of 16 words (512 rows, 512
+// bytes), lane l the half l & 1 of word l / 2 of each. kVecLoad: `words` is
+// 16-byte aligned, and lanes 0-15 load the warp's 64 words as 16-byte
+// vectors that the stores take by shuffles; else each lane loads its word.
+// `out` is 16-byte aligned (the caller checks). The last block writes the
+// rows after the last whole 16-row vector, one a thread.
+template <bool kVecLoad>
+__global__ void __launch_bounds__(kThreads)
+    unpack_mask(const int32_t* __restrict__ words, long long n,
+                uint8_t* __restrict__ out) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const long long w_base = blockIdx.x * static_cast<long long>(kMaskTileWords);
+  // the tile's words that hold rows < n, and its whole 16-row vectors
+  const long long words_left = ((n + 31) >> 5) - w_base;
+  const long long vecs_left = (n >> 4) - 2 * w_base;
+  const int nwords = words_left < kMaskTileWords
+                         ? static_cast<int>(words_left) : kMaskTileWords;
+  const int nvecs = vecs_left < 2 * kMaskTileWords
+                        ? static_cast<int>(vecs_left) : 2 * kMaskTileWords;
+  const uint32_t* w = reinterpret_cast<const uint32_t*>(words) + w_base;
+  int4* o = reinterpret_cast<int4*>(out + w_base * 32);
+  const int w0 = warp * kMaskWarpWords;
+  uint4 q = make_uint4(0, 0, 0, 0);
+  if (kVecLoad && lane < kMaskWarpWords / 4) {
+    const int at = w0 + 4 * lane;
+    if (at + 4 <= nwords) {
+      q = __ldg(reinterpret_cast<const uint4*>(w + at));
+    } else {
+      if (at < nwords) q.x = __ldg(w + at);
+      if (at + 1 < nwords) q.y = __ldg(w + at + 1);
+      if (at + 2 < nwords) q.z = __ldg(w + at + 2);
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < kMaskWarpWords / 16; ++j) {
+    const int wi = w0 + 16 * j + (lane >> 1);  // the lane's word in the tile
+    uint32_t word;
+    if (kVecLoad) {
+      // word wi is component (lane >> 1) & 3 of lane 4j + (lane >> 3)'s q
+      const int src = 4 * j + (lane >> 3);
+      const uint32_t x = __shfl_sync(0xffffffffu, q.x, src);
+      const uint32_t y = __shfl_sync(0xffffffffu, q.y, src);
+      const uint32_t z = __shfl_sync(0xffffffffu, q.z, src);
+      const uint32_t u = __shfl_sync(0xffffffffu, q.w, src);
+      const int c = (lane >> 1) & 3;
+      word = c == 0 ? x : c == 1 ? y : c == 2 ? z : u;
+    } else {
+      word = wi < nwords ? __ldg(w + wi) : 0u;
+    }
+    const int v = 2 * wi + (lane & 1);  // the lane's vector in the tile
+    if (v < nvecs) __stcs(o + v, bits_to_bytes(word >> ((lane & 1) * 16)));
+  }
+  if (blockIdx.x == gridDim.x - 1) {
+    const long long r = (n & ~15LL) + threadIdx.x;
+    if (r < n)
+      out[r] = static_cast<uint8_t>(
+          (static_cast<uint32_t>(__ldg(words + (r >> 5))) >> (r & 31)) & 1u);
+  }
 }
 
 // K9. The last run whose start is <= x, found by one warp: each step tests
@@ -279,8 +369,8 @@ int launch_rle(const void* values, const int32_t* st, int runs, long long n,
 
 extern "C" {
 
-// K8. words: int32; out: int32, int64 or bool (uint8) of n rows, out_kind
-// 0, 1 or 2. log2bits in [0, 5]; wide = 1 adds the bias in int64.
+// K8. words: int32; out: int32 or int64 of n rows, out_kind 0 or 1.
+// log2bits in [0, 5]; wide = 1 adds the bias in int64.
 int nds_bitpack_decode(const void* words, long long n, int log2bits,
                        long long lo, int wide, int out_kind, void* out,
                        void* stream) {
@@ -294,11 +384,30 @@ int nds_bitpack_decode(const void* words, long long n, int log2bits,
       return launch_bitpack<int32_t>(words, n, log2bits, lo, wide, out, s);
     case kOutI64:
       return launch_bitpack<int64_t>(words, n, log2bits, lo, wide, out, s);
-    case kOutBool:
-      return launch_bitpack<uint8_t>(words, n, log2bits, lo, wide, out, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// The mask unpack. words: int32, at least (n + 31) / 32 of them, at any
+// 4-byte offset; out: n bools (uint8, 0 or 1), 16-byte aligned.
+int nds_unpack_mask(const void* words, long long n, void* out, void* stream) {
+  if (n < 0 || reinterpret_cast<uintptr_t>(out) % 16 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (n == 0) return static_cast<int>(cudaGetLastError());
+  const long long blocks =
+      ((n + 31) / 32 + kMaskTileWords - 1) / kMaskTileWords;
+  if (blocks > 0x7FFFFFFFLL) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int32_t* w = static_cast<const int32_t*>(words);
+  uint8_t* o = static_cast<uint8_t*>(out);
+  if (reinterpret_cast<uintptr_t>(words) % 16 == 0)
+    unpack_mask<true><<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(
+        w, n, o);
+  else
+    unpack_mask<false><<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(
+        w, n, o);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // K9. values: int32 (val64 = 0) or int64 (val64 = 1) of `runs`; starts: int32

@@ -97,6 +97,7 @@ SIGNATURES = {
     },
     "columnar_decode": {
         "nds_bitpack_decode": [_P, _LL, _I, _LL, _I, _I, _P, _P],
+        "nds_unpack_mask": [_P, _LL, _P, _P],
         "nds_rle_decode": [_P, _P, _I, _LL, _I, _P, _P],
     },
     "exchange": {

@@ -1560,7 +1560,7 @@ def partitioned_mn_join_steps(lkey, lok, rkey, rok, out_capacity: int,
 
 # payload widths of the bit-packed encoding (columnar/encodings.py)
 _PACK_BITS = (1, 2, 4, 8, 16, 32)
-_DECODE_OUT = {torch.int32: 0, torch.int64: 1, torch.bool: 2}
+_DECODE_OUT = {torch.int32: 0, torch.int64: 1}
 
 
 def _bias_fits_int32(lo: int, bits: int) -> bool:
@@ -1594,9 +1594,9 @@ def bitpack_decode_plain(words, n: int, bits: int, lo: int, dtype):
     return (field.to(torch.int64) + lo).to(dtype)
 
 
-def _bitpack_launch(name: str, words, n: int, bits: int, lo: int, dtype):
-    """One launch of the decode kernel of ``columnar_decode.cu`` into a
-    new tensor of ``n`` rows of ``dtype``."""
+def _packed_words(words, n: int, bits: int) -> None:
+    """Checks that the int32 ``words`` hold ``n`` fields of ``bits``
+    bits."""
     _require(words, "words", (torch.int32,))
     if bits not in _PACK_BITS:
         raise ValueError(f"bit width {bits} not in {_PACK_BITS}")
@@ -1604,20 +1604,6 @@ def _bitpack_launch(name: str, words, n: int, bits: int, lo: int, dtype):
     if n < 0 or words.shape[0] < need:
         raise ValueError(f"{words.shape[0]} words hold fewer than {n} "
                          f"fields of {bits} bits")
-    if dtype not in _DECODE_OUT:
-        raise TypeError(f"{name}: output dtype {dtype} not in "
-                        f"{tuple(_DECODE_OUT)}")
-    out = torch.empty(n, dtype=dtype, device=words.device)
-    if n == 0:
-        return out
-    wide = int(bits >= 32 or not _bias_fits_int32(lo, bits))
-    cb, lib = _lib("columnar_decode")
-    err = lib.nds_bitpack_decode(
-        _ptr(words), n, bits.bit_length() - 1, int(lo), wide,
-        _DECODE_OUT[dtype], _ptr(out), cb.stream_handle())
-    cb.check(err, name)
-    LAUNCHES[name] += 1
-    return out
 
 
 @_counted
@@ -1627,9 +1613,22 @@ def bitpack_decode(words, n: int, bits: int, lo: int, dtype):
     ``lo``, exactly as the reference's ``decode`` gives them."""
     if not _launch_device(words):
         return bitpack_decode_plain(words, n, bits, lo, dtype)
-    if dtype == torch.bool:
-        raise TypeError("bitpack_decode: a bool output is unpack_mask's")
-    return _bitpack_launch("bitpack_decode", words, n, bits, lo, dtype)
+    _packed_words(words, n, bits)
+    if dtype not in _DECODE_OUT:
+        raise TypeError(f"bitpack_decode: output dtype {dtype} not in "
+                        f"{tuple(_DECODE_OUT)} (a bool mask is "
+                        f"unpack_mask's)")
+    out = torch.empty(n, dtype=dtype, device=words.device)
+    if n == 0:
+        return out
+    wide = int(bits >= 32 or not _bias_fits_int32(lo, bits))
+    cb, lib = _lib("columnar_decode")
+    err = lib.nds_bitpack_decode(
+        _ptr(words), n, bits.bit_length() - 1, int(lo), wide,
+        _DECODE_OUT[dtype], _ptr(out), cb.stream_handle())
+    cb.check(err, "bitpack_decode")
+    LAUNCHES["bitpack_decode"] += 1
+    return out
 
 
 def unpack_mask_plain(words, n: int):
@@ -1640,11 +1639,22 @@ def unpack_mask_plain(words, n: int):
 @_counted
 def unpack_mask(words, n: int):
     """The validity mask of ``n`` rows packed at one bit per row, low
-    bit first: the bitpack decode kernel at ``bits = 1`` with a bool
-    output."""
+    bit first, from int32 ``words`` at any offset (more words than ``n``
+    needs are not read): its own kernel, 16 rows a thread as one 16-byte
+    store (``columnar_decode.cu``)."""
     if not _launch_device(words):
         return unpack_mask_plain(words, n)
-    return _bitpack_launch("unpack_mask", words, n, 1, 0, torch.bool)
+    _packed_words(words, n, 1)
+    # torch's allocator aligns a new tensor to 512 bytes, as the kernel's
+    # 16-byte stores need
+    out = torch.empty(n, dtype=torch.bool, device=words.device)
+    if n == 0:
+        return out
+    cb, lib = _lib("columnar_decode")
+    err = lib.nds_unpack_mask(_ptr(words), n, _ptr(out), cb.stream_handle())
+    cb.check(err, "unpack_mask")
+    LAUNCHES["unpack_mask"] += 1
+    return out
 
 
 def rle_decode_plain(values, starts, n: int):
