@@ -23,7 +23,8 @@ Drives ``nds_tpu_torch`` (never ``jax``, never ``nds_tpu``) on the card:
    in a CUDA graph and replayed three times with new inputs, exact;
 4. NDS-H leg at ``--sf`` (default SF1, ``bench.py``'s scale):
    ``Session.for_nds_h(make_device_factory())`` on ``cuda``;
-   an untimed pass of the 22 queries captures each kernel's largest call;
+   an untimed pass of the 22 queries, eager, captures each kernel's
+   largest call;
    every kernel runs against its plain PyTorch version on those inputs
    and at the main path's join shapes built from the real columns
    (probe 6,001,215 rows at SF1; builds of 1,500,000, 200,000, 25 and 256
@@ -32,9 +33,19 @@ Drives ``nds_tpu_torch`` (never ``jax``, never ``nds_tpu``) on the card:
    size held to its plain mirror's for every build size), K3 and the
    compactor on theirs (``semi_compact_case_makers``), K4 and K9 on
    theirs (``minmax_rle_case_makers``) and K8's mask unpack on its
-   (``mask_case_makers``); launch counts
-   set to 0, the 22 queries timed, the counts read; a pass under
-   ``torch.profiler`` for the card's busy time; every result checked
+   (``mask_case_makers``); a warm pass that captures each plan's CUDA
+   graph after its eager run (``engine/plan_graph.py``: every unit must
+   capture, one graph per plan entry; ``capture_pass``); launch counts
+   set to 0, the 22 queries timed from their graphs, the counts read; a
+   pass under ``torch.profiler`` for the card's busy time; no pass after
+   the warm one may capture a graph, build a kernel or load a library;
+   the timed pass then runs in turns eagerly (the executor's
+   ``use_graphs`` off), eagerly and from graphs again, each turn's rows,
+   kernel blocks and launches per kernel equal to the first pass's, and a
+   profiled eager pass: both modes' wall, host (the wall clock not covered
+   by device work) and device ms, busy share and launches, the warm
+   pass's ``compile_ms``, the graph pool's reserved GiB, the peak and the
+   pool resets (``plan_graph_record``); every result checked
    against the CPU oracle by the validator's rules, in the worker pool;
    the steps that ran on torch library calls before the port gave them
    hand kernels (the multi-key sort, the sort-merge build and probe, the
@@ -128,8 +139,13 @@ each leg under ``columnar.set_mode("auto")`` and at their cases of
 ``decode_sweep_cases``), the plain version's and the library call's times
 and, for K1-K3, the data's shares; ``l2`` on seeded inputs shaped like its
 largest NDS call (``l2_padded_inputs``); it prints a summary (no contract
-line). The step ``bench`` runs the bench phase at ``--sf`` and ``--sf-ds``
-(SF1 both by default, as users run it) after the other steps.
+line). The step ``plans`` runs the plan graphs' adversarial cases on NDS
+units at ``--sf-ds`` (``plan_cases``: a look-back reset and growth, a
+staged temp with other content, a table registered again, scan-view and
+memo evictions and an overflow forced, each between replays, every run
+against the CPU oracle). The step ``bench`` runs the bench phase at
+``--sf`` and ``--sf-ds`` (SF1 both by default, as users run it) after the
+other steps.
 
 Kernel checks: integer, bool and min/max outputs must equal the plain
 version's exactly; a float sum (the segmented scan's "sum" on float
@@ -2193,7 +2209,9 @@ class Recorder:
     copy of the inputs of its largest call, kept in host memory so that
     the copies do not crowd the card during the pass (``inputs`` puts
     them back). ``targets`` maps a name to the (owner, attribute) of the
-    function to wrap; a call's size is ``call_size``."""
+    function to wrap; a call's size is ``call_size``. Calls made while a
+    plan is captured into its graph are neither counted nor recorded: the
+    plan's eager run just before made the same calls."""
 
     def __init__(self, targets: dict):
         self.targets = targets
@@ -2226,7 +2244,13 @@ class Recorder:
                 _mapped(kwargs, lambda t: t.to(dev)))
 
     def _wrap(self, name, fn):
+        from nds_tpu_torch.engine import kernels
+
         def wrapper(*args, **kwargs):
+            if kernels.capturing():
+                # a plan's graph capture: its inputs are pool memory that
+                # the captured kernels have not written yet
+                return fn(*args, **kwargs)
             self.calls[name] += 1
             size = call_size(name, args, kwargs)
             keys = [k for k in (name, variant_of(name, args))
@@ -2400,12 +2424,27 @@ def replaced_step(name: str, args, lexsort, dev) -> tuple:
     return old, nbytes(row) + 4 * row.numel() + 8, extra
 
 
+def plain_route(KX, fn, args):
+    """``fn(*args)`` with every kernel wrapper it calls swapped for its
+    plain version, which then runs on the card's tensors."""
+    saved = {n: getattr(KX, n) for n in KERNELS}
+    try:
+        for n in KERNELS:
+            setattr(KX, n, getattr(KX, n + "_plain"))
+        return fn(*args)
+    finally:
+        for n, f in saved.items():
+            setattr(KX, n, f)
+
+
 def library_step_checks(lib: Recorder, label: str, dev) -> list:
     """Each former library step's largest call timed on the card (CUDA
     events, median of 7) by its route now (``ms``, ``device_ms``) and by
     the torch calls it replaced (``library_ms``, ``library_device_ms``),
-    with the bytes it must move and their bound; the two routes' results
-    must be equal."""
+    with the bytes it must move and their bound, and for the sorts and
+    L3's build by their plain route (``plain_route``: every kernel the
+    step launches swapped for its plain version, ``plain_ms``); the two
+    routes' results must be equal."""
     import torch
     from nds_tpu_torch.engine import kernels as KX
     out = []
@@ -2438,6 +2477,8 @@ def library_step_checks(lib: Recorder, label: str, dev) -> list:
                "library_device_ms": time_ms(old, dev, spin=True),
                "bytes": moved, "bound_ms": bound_ms, "bound_by": bound_by,
                **extra}
+        if name in ("sort", "build_lookup"):
+            rec["plain_ms"] = time_ms(lambda: plain_route(KX, fn, args), dev)
         log(json.dumps(rec))
         out.append(rec)
     return out
@@ -2646,6 +2687,116 @@ def design_step_row(name: str, args, label: str, designs: dict,
          "designs": time_designs(calls, dev, profile=True)}
     log(json.dumps(r))
     return r
+
+
+# the NDS units of ``--steps plans``: three plans over store_sales (q19
+# reads store and compares substrings through memoized dictionary
+# tables; q3 and q42 scan survivor-reduced views of date_dim and item),
+# and q5, a staged statement; q52 and q55 bring new view signatures
+PLAN_CASE_UNITS = ("3", "19", "42", "5")
+PLAN_EVICTING_UNITS = ("52", "55")
+
+
+def plan_cases(KX, factory_of, dev, sf: float) -> dict:
+    """``--steps plans``: the adversarial cases of the graph per plan, on
+    the NDS units of ``PLAN_CASE_UNITS`` at ``sf``. Each unit runs once
+    (eager, then captured) and then from its graph around each case, and
+    every run's rows must equal the CPU oracle's on the same tables: a
+    look-back reset and growth of the executor's stream between two
+    replays (``reset_and_grow``); a staged temp registered with other
+    content (the main plan's graph goes; the sub-plan's replay registers
+    the real result again); a table (store) registered again with half its
+    rows, against the oracle on the same half; scan-view and memo
+    evictions by the bounds set just under what the executor holds; an
+    overflow forced after a replay (the slack doubles, the plan runs
+    eagerly and captures again)."""
+    from nds_tpu_torch.io.host_table import HostColumn, HostTable
+    tables = make_tables("nds", sf)
+    units = dict(suite_units("nds"))
+    factory = factory_of()
+    sess, oracle = suite_session("nds", factory), suite_session("nds")
+    for t in tables.values():
+        sess.register_table(t)
+        oracle.register_table(t)
+    ex = factory(sess.tables)
+    graphs = ex._graphs
+    if graphs is None:
+        raise SmokeError("--steps plans: the executor has no plan graphs")
+    exp = {u: run_query(oracle, units[u]) for u in PLAN_CASE_UNITS}
+    cases = []
+
+    def halved(table, name=None):
+        k = max(table.nrows // 2, 1)
+        return HostTable(name or table.name, table.schema, {
+            c: HostColumn(col.dtype, col.values[:k], col.dictionary,
+                          None if col.null_mask is None
+                          else col.null_mask[:k])
+            for c, col in table.columns.items()})
+
+    def check(case: str, names=PLAN_CASE_UNITS) -> dict:
+        c0, r0 = graphs.captures, graphs.replays
+        bad = []
+        for u in names:
+            got = run_query(sess, units[u])
+            why = unit_mismatch(got.to_pandas(), exp[u].to_pandas(), u,
+                                "nds")
+            if why is not None:
+                bad.append(f"q{u}: {why}")
+        r = {"case": case, "units": list(names),
+             "captures": graphs.captures - c0,
+             "replays": graphs.replays - r0, "graphs": len(graphs.graphs),
+             "mismatches": bad}
+        log(json.dumps({"phase": "plan case", **r}))
+        if bad:
+            raise SmokeError(f"plan case {case!r}: " + "; ".join(bad))
+        cases.append(r)
+        return r
+
+    if check("first run: eager, then captured")["captures"] < len(
+            PLAN_CASE_UNITS):
+        raise SmokeError("plan cases: a unit captured no graph")
+    if check("replays")["captures"]:
+        raise SmokeError("plan cases: a replay captured")
+    junk = reset_and_grow(KX, graphs.stream)
+    check("look-back reset and growth between two replays")
+    del junk
+    temp = next(t for _o, split, _m in ex._stage_plans.values()
+                for _s, t in split)
+    ex._register_staged(temp, halved(ex.tables[temp]))
+    check("a staged temp whose content changed", ["5"])
+    half = halved(tables["store"])
+    sess.register_table(half)
+    oracle.register_table(half)
+    exp.update({u: run_query(oracle, units[u]) for u in PLAN_CASE_UNITS})
+    check("store registered again with half its rows")
+    ex.MAX_SCAN_VIEWS = len(ex._scan_views) - 1
+    ex.DICT_TABLES_MAX = len(ex._dict_tables) - 1
+    for u in PLAN_EVICTING_UNITS:
+        run_query(sess, units[u])
+    check("scan-view and memo evictions")
+    del ex.MAX_SCAN_VIEWS, ex.DICT_TABLES_MAX
+    check("the bounds restored")
+    if check("replays")["captures"]:
+        raise SmokeError("plan cases: a replay captured")
+    to_host, seen = ex._to_host, [graphs.replays]
+
+    def overflowed(*args):
+        if graphs.replays > seen[0]:
+            seen[0] = graphs.replays
+            return None
+        return to_host(*args)
+    ex._to_host = overflowed
+    try:
+        r = check("an overflow forced after a replay", ["3"])
+    finally:
+        del ex._to_host
+    if r["captures"] != 1 or ex.last_timings["slack_retries"] != 1:
+        raise SmokeError(f"plan cases: the forced overflow gave {r}")
+    out = {"sf": sf, "cases": cases, "graph_pool_resets": graphs.pool_resets,
+           "pool_reserved_gib": (graphs.pool_bytes() or 0) / 2**30}
+    del ex, sess, factory
+    release(dev)
+    return out
 
 
 def design_steps(steps: list, designs: dict, factory_of, dev, sf: float,
@@ -2952,6 +3103,8 @@ def group_sort_record(KX, lib: Recorder, label: str, dev) -> "dict | None":
                        for kv in keyvals], fields, bits, G, dev),
            "torch_sort_ms": time_ms(lambda: torch.sort(key, stable=True),
                                     dev),
+           "plain_sort_ms": time_ms(lambda: KX.partition_sort_plain(
+               key.view(1, n), iota, counts, hist), dev),
            "lexsort_ms": time_ms(lambda: lexsort(ops, n, dev), dev)}
     log(json.dumps({"phase": f"{label} group-id sort", **rec}))
     return rec
@@ -3497,6 +3650,7 @@ def timed_pass(dsess, ex, units, dev) -> tuple:
         results[name] = res
         lt = ex.last_timings
         per_unit[name] = {"wall_ms": ms,
+                          "compile_ms": lt.get("compile_ms"),
                           "execute_ms": lt.get("execute_ms"),
                           "materialize_ms": lt.get("materialize_ms"),
                           "slack_retries": lt.get("slack_retries"),
@@ -3534,6 +3688,127 @@ def rules_of(suite: str) -> str:
     return "nds_h" if suite == "nds_h" else "nds"
 
 
+def capture_pass(dsess, ex, units, dev, path) -> dict:
+    """On the card, the warm pass of the plan graphs: each unit once,
+    which captures its plans' graphs (each plan's first run from graphs:
+    eager, then captured); per unit its captures and ``compile_ms``."""
+    import torch
+    graphs = ex._graphs
+    if graphs is None:
+        return {}
+    out = {}
+    t0 = time.perf_counter()
+    for name, stmts in units:
+        c0 = graphs.captures
+        run_query(dsess, stmts)
+        out[name] = {"captures": graphs.captures - c0,
+                     "compile_ms": ex.last_timings.get("compile_ms", 0.0)}
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    log(json.dumps({"phase": f"{path} capture pass",
+                    "seconds": time.perf_counter() - t0,
+                    "captures": graphs.captures,
+                    "compile_ms": sum(u["compile_ms"] for u in out.values()),
+                    "cache_releases": graphs.cache_releases}))
+    return out
+
+
+def graph_state(ex) -> dict:
+    """The executor's graph counts and the kernels built and loaded so
+    far, to hold a later pass to."""
+    from nds_tpu_torch.engine import cuda_build
+    g = ex._graphs
+    return {"captures": g.captures if g is not None else 0,
+            "replays": g.replays if g is not None else 0,
+            "built": dict(cuda_build.BUILD_SECONDS),
+            "loaded": sorted(n for n in cuda_build.SIGNATURES
+                             if cuda_build.is_loaded(n))}
+
+
+def plan_graph_record(KX, dsess, ex, units, dev, path, timed, launches,
+                      profile, before, warm_graphs,
+                      eager_turns: bool) -> dict:
+    """The plan graphs of a leg run from graphs: every unit's capture pass
+    captured (one graph per plan and per staged sub-plan: as many graphs
+    as plan entries), and the timed and profiled passes captured nothing,
+    built no kernel and loaded no library. With ``eager_turns``, the
+    timed pass runs three more times in turns, eagerly (the executor's
+    ``use_graphs`` off), eagerly, from graphs: each turn's rows must equal
+    the first pass's, and its kernel blocks and launches per kernel too;
+    then a profiled eager pass. Returns both modes' wall, host (the wall
+    clock not covered by device work), device ms and busy share and
+    launches, the capture pass's total ``compile_ms``, the graph pool's
+    reserved bytes, the peak, the pool resets and the allocator cache
+    releases of captures that ran short of memory. An eager turn runs
+    each plan from the graphs' pool (``PlanGraphs.pool_run``)."""
+    import torch
+    graphs = ex._graphs
+    per_unit, results = timed
+    bad = [f"{path} {n}: its capture pass captured no graph"
+           for n, w in warm_graphs.items() if w["captures"] < 1]
+    if len(graphs.graphs) != len(ex._entries):
+        bad.append(f"{path}: {len(graphs.graphs)} graphs for "
+                   f"{len(ex._entries)} plan entries")
+    wall = sum(u["wall_ms"] for u in per_unit.values())
+    modes = {"graphs": {"wall_ms": [wall], "launches": launches,
+                        "device_ms": profile["device_ms"],
+                        "device_launches": profile["device_launches"]}}
+    turns = []
+    if eager_turns:
+        for mode in ("eager", "eager", "graphs"):
+            ex.use_graphs = mode == "graphs"
+            KX.reset_launches()
+            pu, res = timed_pass(dsess, ex, units, dev)
+            got = KX.launch_counts()
+            turns.append(mode)
+            m = modes.setdefault(mode, {"wall_ms": [], "launches": got})
+            m["wall_ms"].append(sum(u["wall_ms"] for u in pu.values()))
+            if got != launches:
+                bad.append(f"{path} {mode} turn: launches {got} != the "
+                           f"graph pass's {launches}")
+            for name, _ in units:
+                why = unit_mismatch(res[name].to_pandas(),
+                                    results[name].to_pandas(), name,
+                                    rules_of(path))
+                if why is None and pu[name]["kernels"] != per_unit[name][
+                        "kernels"]:
+                    why = (f"kernel block {pu[name]['kernels']} != "
+                           f"{per_unit[name]['kernels']}")
+                if why is not None:
+                    bad.append(f"{path} {name} ({mode} turn): {why}")
+            if mode == "eager" and "device_ms" not in m:
+                prof = profile_pass(dsess, units, dev, pu, f"{path} eager")
+                m["device_ms"] = prof["device_ms"]
+                m["device_launches"] = prof["device_launches"]
+                m["top_host_ops"] = prof["top_host_ops"][:6]
+        ex.use_graphs = True
+    after = graph_state(ex)
+    for k in ("captures", "built", "loaded"):
+        if after[k] != before[k]:
+            bad.append(f"{path}: the passes after the warm pass changed "
+                       f"{k}: {before[k]} -> {after[k]}")
+    for m in modes.values():
+        m["host_ms"] = m["wall_ms"][0] - m["device_ms"]
+        m["busy_share"] = m["device_ms"] / m["wall_ms"][0]
+        m["kernel_launches"] = sum(m.pop("launches").values())
+    pool = graphs.pool_bytes()
+    out = {"turns": ["graphs"] + turns, "modes": modes,
+           "graphs": len(graphs.graphs), "plan_entries": len(ex._entries),
+           "captures": after["captures"],
+           "replays": after["replays"] - before["replays"],
+           "compile_ms": sum(w["compile_ms"] for w in warm_graphs.values()),
+           "pool_reserved_gib": None if pool is None else pool / 2**30,
+           "max_memory_allocated_gib": (torch.cuda.max_memory_allocated()
+                                        / 2**30 if dev.type == "cuda"
+                                        else None),
+           "graph_pool_resets": graphs.pool_resets,
+           "cache_releases": graphs.cache_releases, "mismatches": bad}
+    log(json.dumps({"phase": f"{path} plan graphs", **out}))
+    if bad:
+        raise SmokeError("; ".join(bad))
+    return out
+
+
 def run_leg(suite, KX, factory_of, dev, pool, record, path=None,
             raw=None, check_names=None, required=None,
             same_kernels=True, parent=None) -> tuple:
@@ -3562,7 +3837,12 @@ def run_leg(suite, KX, factory_of, dev, pool, record, path=None,
     units = suite_units(suite)
 
     # untimed pass: uploads, host-side planning, captured kernel inputs;
-    # each unit's time and peak device memory logged as it ends
+    # each unit's time and peak device memory logged as it ends. It runs
+    # eagerly, so that the kernel checks below share the card with no
+    # graph pool; the warm pass after them captures the plans' graphs
+    ex = factory(dsess.tables)
+    graphs = ex._graphs
+    ex.use_graphs = False
     t0 = time.perf_counter()
     warm_peaks = {}
     with Recorder(kernel_targets(KX)) as rec, \
@@ -3577,6 +3857,7 @@ def run_leg(suite, KX, factory_of, dev, pool, record, path=None,
                 warm_peaks[name] = torch.cuda.max_memory_allocated()
             log(f"warm {path} {name} {time.perf_counter() - t1:.2f}s "
                 f"peak {warm_peaks.get(name, 0) / 2**30:.2f} GiB")
+    ex.use_graphs = True
     warm_s = time.perf_counter() - t0
     log(json.dumps({"phase": f"{path} warm pass", "seconds": warm_s,
                     "kernel_calls": rec.calls}))
@@ -3638,9 +3919,12 @@ def run_leg(suite, KX, factory_of, dev, pool, record, path=None,
             checks += check_lookback_layouts(KX, dev)
 
     checks_s = time.perf_counter() - t0 - warm_s
+    warm_graphs = capture_pass(dsess, ex, units, dev, path)
 
     # the timed run: counts at 0, every unit once, counts read
-    ex = factory(dsess.tables)
+    if factory(dsess.tables) is not ex:
+        raise SmokeError(f"the {path} factory made a second executor")
+    before = graph_state(ex)
     KX.reset_launches()
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats()
@@ -3654,6 +3938,12 @@ def run_leg(suite, KX, factory_of, dev, pool, record, path=None,
     t1 = time.perf_counter()
     profile = profile_pass(dsess, units, dev, per_unit, path)
     profile_s = time.perf_counter() - t1
+    plan_graphs = None
+    if graphs is not None:
+        plan_graphs = plan_graph_record(
+            KX, dsess, ex, units, dev, path, (per_unit, results), launches,
+            profile, before, warm_graphs,
+            eager_turns=path in ("nds_h", "nds"))
 
     if raw is None:
         bad, oracle_s = oracle_check(pool, suite, units, results, per_unit,
@@ -3690,6 +3980,7 @@ def run_leg(suite, KX, factory_of, dev, pool, record, path=None,
            "parent_steps": beside_parent,
            "group_sort": group_sort, "kernels_digest": kernels_digest,
            "warm_peak_device_bytes": warm_peaks,
+           "plan_graphs": plan_graphs,
            "mismatches": bad}
     record[path] = leg
     log(json.dumps({"phase": f"{path} main path",
@@ -4179,9 +4470,10 @@ def main() -> int:
     ap.add_argument("--steps", default=None, metavar="STEP[,STEP]",
                     help="only check and time the named steps (kernel "
                     "wrappers, or l2: L2's pack, sort and group bounds) on "
-                    "this design and --parent's beside it, and with "
-                    "bench, run the port's bench entry at --sf and "
-                    "--sf-ds, then exit")
+                    "this design and --parent's beside it; with plans, "
+                    "run the plan graphs' adversarial cases at --sf-ds; "
+                    "with bench, run the port's bench entry at --sf and "
+                    "--sf-ds; then exit")
     args = ap.parse_args()
 
     import torch
@@ -4212,12 +4504,14 @@ def main() -> int:
         if args.parent:
             designs = {"parent": load_parent(args.parent, dev)[0], "this": KX}
         steps = args.steps.split(",")
-        kernel_steps = [n for n in steps if n != "bench"]
+        kernel_steps = [n for n in steps if n not in ("bench", "plans")]
         rec = {"card": card, "phase": "steps", "cases": []}
         if kernel_steps:
             rec.update(design_steps(kernel_steps, designs, factory_of, dev,
                                     args.sf, args.sf_ds))
             release(dev)
+        if "plans" in steps:
+            rec["plans"] = plan_cases(KX, factory_of, dev, args.sf_ds)
         if "bench" in steps:
             rec["bench"] = bench_phase(card, dev, args.sf, args.sf_ds,
                                        BENCH_STEP_TIMEOUT_S)
@@ -4232,6 +4526,10 @@ def main() -> int:
                               {st: x["device_ms"] for st, x in d.items()}
                               for who, d in r["designs"].items()}}
                           for r in rec["cases"]]
+                         + ([{"plans": [[c["case"], c["captures"],
+                                          c["replays"]]
+                                         for c in rec["plans"]["cases"]]}]
+                            if "plans" in rec else [])
                          + ([rec["bench"]["last_line"]] if "bench" in rec
                             else [])))
         return 0

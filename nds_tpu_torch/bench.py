@@ -513,6 +513,9 @@ def _run_leg(leg: str) -> None:
                         print(f"[bench] {leg} q{qn}: transient warm-up "
                               f"error, retrying statement",
                               file=sys.stderr, flush=True)
+            # on the card the warm-up captured each plan's graph: its
+            # compile_ms (the timed run replays, at 0)
+            warm_tm = obs.query_timings(dev._executor_factory(dev.tables))
             # timed run, with transient retry (the whole statement list
             # replays; drops run first so re-created views don't collide)
             for attempt in range(3):
@@ -545,7 +548,8 @@ def _run_leg(leg: str) -> None:
             continue
         print(f"[bench] {leg} q{qn}: {DEVICE} {dev_s*1000:.0f} ms "
               f"(exec {tm.get('execute_ms', 0):.0f} "
-              f"mat {tm.get('materialize_ms', 0):.0f}) | "
+              f"mat {tm.get('materialize_ms', 0):.0f} "
+              f"compile {warm_tm.get('compile_ms', 0):.0f}) | "
               f"cpu {cpu_s*1000:.0f} ms"
               f"{' [banked]' if banked is not None else ''}",
               file=sys.stderr, flush=True)

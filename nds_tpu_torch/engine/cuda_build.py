@@ -177,6 +177,11 @@ def build_all() -> dict[str, float]:
     return built
 
 
+def is_loaded(name: str) -> bool:
+    """True once ``library(name)`` has loaded the source's library."""
+    return name in _LIBS
+
+
 def library(name: str) -> ctypes.CDLL:
     """The loaded library of one source (``dense_domain``,
     ``small_build_probe``, ``seg_scan``, ``partitioned_join``,

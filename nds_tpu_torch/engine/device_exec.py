@@ -3,7 +3,10 @@
 Port of ``nds_tpu/engine/device_exec.py`` for the plans of the NDS-H
 and NDS (TPC-DS) power runs. The reference traces each plan into one static-shape XLA
 program; this port runs the same dataflow eagerly with torch tensors on
-the executor's device (``cuda`` unless the caller asks for the CPU):
+the executor's device (``cuda`` unless the caller asks for the CPU), and
+on the card captures each plan's launches once into a CUDA graph that its
+later runs replay (``engine/plan_graph.py``, the counterpart of the
+reference's compile-once program):
 
 - **Masked fixed-capacity dataflow.** Every relation is a set of
   fixed-capacity tensors plus a boolean presence mask, with the
@@ -29,9 +32,10 @@ the executor's device (``cuda`` unless the caller asks for the CPU):
   group-id sort, INTERSECT/EXCEPT probe packed whole-row keys.
 - **Staging.** Plans heavier than ``STAGE_WEIGHT`` nodes split at the
   reference's cuts (``engine/staging.py``) into sub-plans whose results
-  become host temp tables. Eager torch compiles nothing, so the split
-  buys no compile time here; it is kept so that the staged statements
-  run with the reference's capacities, retries and kernel blocks.
+  become host temp tables, each sub-plan with a graph of its own. A
+  capture is no compile, so the split buys no compile time here; it is
+  kept so that the staged statements run with the reference's
+  capacities, retries and kernel blocks.
 - **Compressed columnar store.** Under an active ``columnar`` mode
   (``NDS_TPU_COLUMNAR`` or ``columnar.set_mode``; off by default) each
   scanned column uploads as its encoded buffer set (bit-packed words,
@@ -59,6 +63,7 @@ never runs on the CPU instead.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import hashlib
@@ -73,6 +78,7 @@ from nds_tpu_torch.device import resolve_device
 from nds_tpu_torch.engine import kernels as KX
 from nds_tpu_torch.engine import staging
 from nds_tpu_torch.engine.cpu_exec import ResultTable, like_mask
+from nds_tpu_torch.engine.plan_graph import PlanGraphs
 from nds_tpu_torch.engine.types import (
     DateType, DecimalType, DType, FloatType, IntType, StringType,
 )
@@ -700,16 +706,47 @@ def _expr_bindings(e: ir.IR) -> set:
     return {x.binding for x in ir.walk(e) if isinstance(x, ir.ColRef)}
 
 
+def _plan_label(planned: P.PlannedQuery) -> str:
+    """A plan's name in an error: its digest, tables and output
+    columns."""
+    tables = sorted({n.table for root in [planned.root,
+                                          *planned.scalar_subplans]
+                     for n in P.walk_plan(root) if isinstance(n, P.Scan)})
+    cols = planned.column_names or [n for n, _ in planned.root.output]
+    return (f"plan {staging.plan_digest(planned)} (tables "
+            f"{', '.join(tables)}; columns {', '.join(map(str, cols))})")
+
+
 class DeviceExecutor:
     """Executes logical plans with torch tensors on one device. One
     instance lives for a whole session: it owns the device buffer pool
-    (columns uploaded once, the load analog) and each plan's slack."""
+    (columns uploaded once, the load analog), each plan's slack and, on
+    the card, each plan's CUDA graph (``engine/plan_graph.py``): a plan's
+    first call runs eagerly and captures, later calls replay."""
 
     DEFAULT_SLACK = 2.0
+
+    # capture each plan into a CUDA graph on the card and replay it. The
+    # class's value decides whether an executor gets a graph runner (its
+    # stream and pool) at all; an instance may set it False to run its
+    # plans eagerly while its graphs stay
+    use_graphs = True
 
     def __init__(self, tables: dict[str, HostTable], device=None):
         self.tables = tables
         self.device = resolve_device(device)
+        # the graph runner: the executor's own stream, one graph memory
+        # pool and a graph per plan; only on the card (the CPU has nothing
+        # to capture)
+        self._graphs = (PlanGraphs(self.device)
+                        if self.use_graphs and self.device.type == "cuda"
+                        else None)
+        # the host table each table's device state was built from: a
+        # table registered again drops that state (``_check_table``)
+        self._table_src: dict[str, HostTable] = {}
+        # uploads so far: a replay must find every buffer of its graph
+        # resident
+        self._uploads = 0
         # the slack a plan's first run takes (each plan keeps its own,
         # doubled on overflow)
         self.slack = self.DEFAULT_SLACK
@@ -760,7 +797,10 @@ class DeviceExecutor:
         """Run one planned query; on M:N join overflow, retry with
         doubled slack (the slack is kept for the plan's later runs).
         ``key`` names the plan's state (its id by default; staged
-        sub-plans run under ``(key, "__stage__", i)``)."""
+        sub-plans run under ``(key, "__stage__", i)``). On the card the
+        plan's first call runs eagerly and then captures its launches
+        into a CUDA graph; later calls replay the graph (``compile_ms``
+        bills the capture). Everything runs on the executor's stream."""
         if not isinstance(planned, P.PlannedQuery):
             raise DeviceExecError(f"cannot execute {type(planned).__name__}")
         key = id(planned) if key is None else key
@@ -771,36 +811,67 @@ class DeviceExecutor:
             entry = {"slack": self.slack, "ref": planned}
             self._entries[key] = entry
             self._bound_entries(key)
+        with (self._graphs.on_stream() if self._graphs is not None
+              else contextlib.nullcontext()):
+            return self._execute(planned, key, entry)
+
+    def _execute(self, planned: P.PlannedQuery, key, entry: dict):
         planned, stage_bill = self._staged_effective(planned, key)
-        retries = 0
-        while True:
-            timings: dict = {}
-            t0 = time.perf_counter()
-            # bytes the query reads from its device-resident scan
-            # buffers (encoded ones under an active mode), uploading
-            # what is not resident yet, as the reference does at dispatch
-            bufs = self._collect_buffers(planned)
-            timings["bytes_scanned"] = float(
-                sum(t.numel() * t.element_size() for t in bufs.values()))
-            self._attach_compression(timings, bufs)
-            del bufs
-            tr = self._trace(entry["slack"])
-            row, outs, dicts = tr.run_query(planned)
-            host = self._to_host(row, outs, tr.total_overflow())
-            t1 = time.perf_counter()
-            if host is not None:
-                break
-            if retries >= self.MAX_RETRIES:
-                raise DeviceExecError("join expansion overflow after retries")
-            retries += 1
-            entry["slack"] *= 2
-        row_h, outs_h = host
-        out = self._materialize(planned, row_h, outs_h, dicts)
+        timings: dict = {"compile_ms": 0.0}
+        t0 = time.perf_counter()
+        # bytes the query reads from its device-resident scan buffers
+        # (encoded ones under an active mode), uploading what is not
+        # resident yet, as the reference does at dispatch
+        uploads = self._uploads
+        bufs = self._collect_buffers(planned)
+        timings["bytes_scanned"] = float(
+            sum(t.numel() * t.element_size() for t in bufs.values()))
+        self._attach_compression(timings, bufs)
+        del bufs
+        graphs = self._graphs if self.use_graphs else None
+        pg = None if graphs is None else graphs.get(key)
+        host, retries, t1 = None, 0, None
+        if (graphs is None and self._graphs is not None
+                and self._graphs.get(key) is not None):
+            # graphs off on an executor that holds this plan's graph: run
+            # it eagerly from the graphs' pool
+            with self._graphs.pool_run(self._label(entry, planned)):
+                host, side, retries, t1 = self._first_run(
+                    planned, key, entry, retries, timings, None)
+        elif pg is not None:
+            if (pg.plan is not planned or self._uploads != uploads
+                    or pg.side["bytes_scanned"] != timings["bytes_scanned"]):
+                raise DeviceExecError(
+                    f"the graph of {self._label(entry, planned)} would "
+                    f"read buffers other than those it was captured with")
+            host = self._to_host(*graphs.replay(pg))
+            if host is None:
+                # overflow after a replay: the reference's recompile
+                graphs.drop(key)
+                entry["slack"] *= 2
+                retries = 1
+            else:
+                side = pg.side
+        if host is None:
+            for attempt in (0, 1):
+                try:
+                    host, side, retries, t1 = self._first_run(
+                        planned, key, entry, retries, timings, graphs)
+                    break
+                except torch.cuda.OutOfMemoryError:
+                    if attempt or graphs is None or not graphs.graphs:
+                        raise
+                # outside the handler, so that the failed run's tensors
+                # are gone: drop every graph and the pool, then once more
+                graphs.reset()
         t2 = time.perf_counter()
-        timings["execute_ms"] = (t1 - t0) * 1000
-        timings["materialize_ms"] = (t2 - t1) * 1000
+        row_h, outs_h = host
+        out = self._materialize(planned, row_h, outs_h, side["dicts"])
+        t3 = time.perf_counter()
+        timings["execute_ms"] = ((t1 or t2) - t0) * 1000
+        timings["materialize_ms"] = (t3 - t2) * 1000
         timings["slack_retries"] = float(retries)
-        timings["__kernels"] = dict(tr.kernels)
+        timings["__kernels"] = dict(side["kernels"])
         if stage_bill:
             _merge_stage_bill(timings, stage_bill)
             bs = timings.get("bytes_scanned", 0.0)
@@ -810,6 +881,47 @@ class DeviceExecutor:
                     timings["bytes_scanned_raw"] / bs, 4)
         self.last_timings = timings
         return out
+
+    @staticmethod
+    def _label(entry: dict, planned) -> str:
+        """The plan's name in errors (``_plan_label``), once per entry."""
+        if "label" not in entry:
+            entry["label"] = _plan_label(planned)
+        return entry["label"]
+
+    def _first_run(self, planned, key, entry: dict, retries: int,
+                   timings: dict, graphs) -> tuple:
+        """The plan's eager run, retried with a doubled slack on overflow,
+        then, with ``graphs``, its capture at the slack that held (into
+        ``compile_ms``). Returns (host result, side, retries, the time
+        the eager run ended)."""
+        while True:
+            e0 = KX.lookback_epochs()
+            tr = self._trace(entry["slack"])
+            row, outs, dicts = tr.run_query(planned)
+            host = self._to_host(*self._on_device(row, outs,
+                                                  tr.total_overflow()))
+            if host is not None:
+                break
+            if retries >= self.MAX_RETRIES:
+                raise DeviceExecError("join expansion overflow after retries")
+            retries += 1
+            entry["slack"] *= 2
+        side = {"dicts": dicts, "kernels": dict(tr.kernels),
+                "bytes_scanned": timings["bytes_scanned"]}
+        del tr, row, outs
+        t1 = time.perf_counter()
+        if graphs is not None:
+            slack = entry["slack"]
+
+            def captured():
+                tr = self._trace(slack)
+                row, outs, _dicts = tr.run_query(planned)
+                return self._on_device(row, outs, tr.total_overflow())
+            graphs.capture(key, planned, self._label(entry, planned), e0,
+                           side, captured)
+            timings["compile_ms"] = (time.perf_counter() - t1) * 1000
+        return host, side, retries, t1
 
     def _trace(self, slack: float) -> "_Trace":
         return _Trace(self, slack)
@@ -849,6 +961,8 @@ class DeviceExecutor:
                 if d is self._stage_plans and old is not None:
                     for _sub, temp in old[1]:
                         self._unregister_staged(temp)
+                if d is self._entries and self._graphs is not None:
+                    self._graphs.drop(k)
 
     # ------------------------------------------------------------ staging
 
@@ -882,9 +996,9 @@ class DeviceExecutor:
             rt = self.execute(sub, key=(key, "__stage__", i))
             _merge_stage_bill(agg, {
                 k: v for k, v in self.last_timings.items()
-                if k in ("execute_ms", "materialize_ms", "slack_retries",
-                         "bytes_scanned", "bytes_scanned_raw",
-                         "__kernels")})
+                if k in ("compile_ms", "execute_ms", "materialize_ms",
+                         "slack_retries", "bytes_scanned",
+                         "bytes_scanned_raw", "__kernels")})
             self._register_staged(temp, staging.result_to_host_table(
                 temp, rt))
         if subs:
@@ -916,6 +1030,7 @@ class DeviceExecutor:
     def _drop_table_state(self, table: str) -> None:
         """Free one table's device buffers (its reduced scan views'
         too) with their encoding specs, host bounds and scan views."""
+        self._table_src.pop(table, None)
         self._drop_col_buffers(table + ".")
         for ck in [ck for ck in self._scan_views if ck[0] == table]:
             old = self._scan_views.pop(ck)
@@ -926,11 +1041,36 @@ class DeviceExecutor:
 
     def _drop_col_buffers(self, prefix: str) -> None:
         """Free every device buffer under a key prefix together with its
-        encoding bookkeeping: a stale EncSpec outliving its buffer would
-        mis-decode whatever uploads again under the same key."""
+        encoding bookkeeping (a stale EncSpec outliving its buffer would
+        mis-decode whatever uploads again under the same key) and the
+        graphs that read any of them."""
         for d in (self._buffers, self._enc_specs, self._raw_nbytes):
             for k in [k for k in d if k.startswith(prefix)]:
                 del d[k]
+        if self._graphs is not None:
+            self._graphs.drop_reading(prefix)
+
+    def _no_fill(self, cache: str) -> None:
+        """Raise if ``cache`` is about to be filled while a plan is being
+        captured, or run from the graphs' pool: the fill would not be in
+        the graph (an upload's pageable copy cannot even be captured), and
+        what it made would be pool memory that later replays overwrite."""
+        barring = None if self._graphs is None else self._graphs.barring
+        if barring is not None:
+            raise DeviceExecError(
+                f"{cache} would be filled while {barring}: the plan's "
+                f"eager run before its capture must have filled it")
+
+    def _check_table(self, table: str) -> None:
+        """Drop the device state of a table registered again since that
+        state was built (its buffers, bounds and views, and the graphs
+        that read them)."""
+        cur = self.tables[table]
+        src = self._table_src.get(table)
+        if src is not cur:
+            if src is not None:
+                self._drop_table_state(table)
+            self._table_src[table] = cur
 
     def _attach_compression(self, timings: dict, bufs: dict) -> None:
         """Under an active columnar mode, the raw bytes the query's scan
@@ -957,19 +1097,29 @@ class DeviceExecutor:
     # the copy to the host (the reference's COMPACT_MIN_ROWS)
     COMPACT_MIN_ROWS = 1 << 17
 
-    def _to_host(self, row, outs, overflow):
-        """The query's one device->host exchange: the overflow count
-        (None is returned on overflow, for the caller's retry) and the
-        result. Large results compact first: the compactor
-        (``kernels.compact_perm``) moves valid rows to the front and only a
-        power-of-two prefix covering them crosses to the host."""
-        n = row.shape[0]
-        if n >= self.COMPACT_MIN_ROWS and outs:
+    def _on_device(self, row, outs, overflow) -> tuple:
+        """The device half of the query's one device->host exchange, which
+        a plan's graph captures: ``(row, outs, perm, counts)``. Large
+        results compact (``kernels.compact_perm`` moves the valid rows to
+        the front: ``perm``, and ``counts`` holds their count and the
+        overflow); below ``COMPACT_MIN_ROWS``, ``perm`` is None and
+        ``counts`` the overflow alone."""
+        overflow = overflow.to(torch.int64)
+        if row.shape[0] >= self.COMPACT_MIN_ROWS and outs:
             perm, cnt = KX.compact_perm(row)
-            cnt_h, over_h = torch.stack(
-                [cnt, overflow.to(torch.int64)]).cpu().tolist()
+            return row, outs, perm, torch.stack([cnt, overflow])
+        return row, outs, None, overflow.reshape(1)
+
+    def _to_host(self, row, outs, perm, counts):
+        """The host half, run eagerly after each run or replay: the counts
+        in one copy (None is returned on overflow, for the caller's
+        retry), then the result; a compacted one only as the power-of-two
+        prefix that covers its valid rows."""
+        if perm is not None:
+            cnt_h, over_h = counts.cpu().tolist()
             if over_h:
                 return None
+            n = row.shape[0]
             C = 1
             while C < max(cnt_h, 1):
                 C <<= 1
@@ -978,7 +1128,7 @@ class DeviceExecutor:
             row = row.index_select(0, perm)
             outs = [(a.index_select(0, perm), v.index_select(0, perm))
                     for a, v in outs]
-        elif int(overflow.cpu()):
+        elif int(counts.cpu()[0]):
             return None
         return (row.cpu().numpy(),
                 [(a.cpu().numpy(), v.cpu().numpy()) for a, v in outs])
@@ -990,16 +1140,30 @@ class DeviceExecutor:
         holds the ids of the ``pins`` objects (dictionaries, plan
         nodes); the entry pins them, so a recycled id cannot serve a
         stale table."""
-        return _memo(self._dict_tables, self.DICT_TABLES_MAX, key, pins,
-                     build)
+        return self._memo_read("dict_table", self._dict_tables,
+                               self.DICT_TABLES_MAX, key, pins, build)
 
     def dict_union(self, lsd, rsd, build):
         """Memoized ``build()`` of the union of two string dictionaries,
         bounded by ``columnar.dict_union_cap()``
         (``NDS_TPU_DICT_UNION_CAP``, default 256), the reference's bound
         on its union memo."""
-        return _memo(self._union_cache, columnar.dict_union_cap(),
-                     (id(lsd), id(rsd)), (lsd, rsd), build)
+        return self._memo_read("dict_union", self._union_cache,
+                               columnar.dict_union_cap(), (id(lsd), id(rsd)),
+                               (lsd, rsd), build)
+
+    def _memo_read(self, cache: str, store: dict, cap: int, key: tuple,
+                   pins: tuple, build):
+        """``_memo`` for the executor's memos: a miss raises during a
+        capture, and a capture pins what it read, so a graph keeps the
+        values its launches read after the memo's FIFO evicts them."""
+        def fill():
+            self._no_fill(cache)
+            return build()
+        value = _memo(store, cap, key, pins, fill)
+        if self._graphs is not None:
+            self._graphs.pin(value)
+        return value
 
     # ------------------------------------------------------------ buffers
 
@@ -1012,17 +1176,19 @@ class DeviceExecutor:
         starts), uploaded once and pooled. Under an active columnar mode
         the set is the encoded one and ``_enc_specs[key]`` says how to
         decode it."""
-        if rv is None:
-            key = f"{table}.{name}"
-            if key not in self._buffers:
+        key = f"{table}.{name}" if rv is None else f"{rv.prefix}.{name}"
+        if key not in self._buffers:
+            self._no_fill("scan_buffers")
+            if rv is None:
                 self._upload(key, table, name)
-        else:
-            key = f"{rv.prefix}.{name}"
-            if key not in self._buffers:
+            else:
                 self._upload_reduced(key, rv, name)
-        return key, {key + sfx: self._buffers[key + sfx]
-                     for sfx in ("", "#v", "#x")
-                     if key + sfx in self._buffers}
+        bufs = {key + sfx: self._buffers[key + sfx]
+                for sfx in ("", "#v", "#x") if key + sfx in self._buffers}
+        if self._graphs is not None:
+            for k, t in bufs.items():
+                self._graphs.read(k, t)
+        return key, bufs
 
     def _encoding_on(self, table: str) -> bool:
         return columnar.enabled() and table not in self._no_encode
@@ -1032,6 +1198,7 @@ class DeviceExecutor:
         ``key``, with its spec and raw byte count when it is encoded."""
         for sfx, arr in host.items():
             self._buffers[key + sfx] = self._to_device(arr)
+        self._uploads += 1
         if spec is not None:
             self._enc_specs[key] = spec
             self._raw_nbytes[key] = float(raw)
@@ -1085,6 +1252,7 @@ class DeviceExecutor:
         for root in [planned.root, *planned.scalar_subplans]:
             for node in P.walk_plan(root):
                 if isinstance(node, P.Scan):
+                    self._check_table(node.table)
                     rv = self.scan_view(node)
                     for name, _dt in node.output:
                         bufs.update(self.scan_buffers(node.table, name,
@@ -1118,6 +1286,7 @@ class DeviceExecutor:
         hit = self._scan_views.get(ck)
         if hit is not None:
             return hit if isinstance(hit, _ReducedScan) else None
+        self._no_fill("scan_view")
         keep = self._host_keep_mask(node, t)
         s = 0 if keep is None else int(keep.sum())
         if keep is None or s > t.nrows * self.REDUCE_MAX_FRAC:
@@ -1243,6 +1412,7 @@ class _Trace:
         return torch.ones(n, dtype=torch.bool, device=self.dev)
 
     def _host(self, arr: np.ndarray):
+        self.ex._no_fill("an upload (_host)")
         return torch.as_tensor(np.ascontiguousarray(arr)).to(self.dev)
 
     def total_overflow(self):
@@ -1261,11 +1431,13 @@ class _Trace:
             ctx = self.result_ctx(sub)
             name, dt = sub.output[0]
             dv = ctx.cols[(sub.binding, name)]
-            pos = torch.argmax(ctx.row.to(torch.int32))
-            v = dv.arr[pos]
-            ok = ctx.row[pos]
+            # the first present row, gathered on the device (indexing by
+            # a 0-dim tensor would read it on the host)
+            pos = torch.argmax(ctx.row.to(torch.int32)).reshape(1)
+            v = dv.arr.index_select(0, pos).reshape(())
+            ok = ctx.row.index_select(0, pos).reshape(())
             if dv.valid is not None:
-                ok = ok & dv.valid[pos]
+                ok = ok & dv.valid.index_select(0, pos).reshape(())
             self.scalars[i] = (v, ok, dv.sdict, dt)
         ctx = self.result_ctx(planned.root)
         root = planned.root
@@ -1424,10 +1596,12 @@ class _Trace:
     def _dict_union(self, lsd, rsd):
         """Memoized string-dictionary union for one (left, right)
         dictionary pair. Returns (union, lmap, rmap), the maps on the
-        device."""
+        device. The union is the memo's own object array, so that every
+        run hands the same dictionary on (memos downstream key on its
+        identity)."""
         def build():
             union = np.union1d(lsd.astype(str), rsd.astype(str))
-            return (union,
+            return (union.astype(object),
                     self._host(np.searchsorted(union, lsd.astype(str))),
                     self._host(np.searchsorted(union, rsd.astype(str))))
         return self.ex.dict_union(lsd, rsd, build)
@@ -1885,7 +2059,7 @@ class _Trace:
                           self.dev)
         present_s = ctx.row.index_select(0, perm)
         diff = self._zeros(n, torch.bool)
-        diff[0] = True
+        diff[:1].fill_(True)
         for o in ops[1:]:
             o = o.index_select(0, perm)
             diff[1:] |= o[1:] != o[:-1]
@@ -2096,7 +2270,7 @@ class _Trace:
                       for i in part_ops + order_ops}
         present_s = ctx.row.index_select(0, perm)
         part_start = self._zeros(n, torch.bool)
-        part_start[0] = True
+        part_start[:1].fill_(True)
         for i in part_ops:
             part_start = part_start | self._changes(sorted_ops[i])
         start_pos = KX.running_max(torch.where(part_start, iota, zero_i))
@@ -2550,8 +2724,7 @@ class _Trace:
                 and np.array_equal(lv.sdict, rv.sdict)):
             return lv.arr, rv.arr, lv.sdict
         union, lmap, rmap = self._dict_union(lv.sdict, rv.sdict)
-        return (_take_codes(lmap, lv.arr), _take_codes(rmap, rv.arr),
-                union.astype(object))
+        return _take_codes(lmap, lv.arr), _take_codes(rmap, rv.arr), union
 
     def _eval_case(self, e: ir.CaseIR, ctx: DCtx) -> DVal:
         if isinstance(e.dtype, StringType):

@@ -74,6 +74,7 @@ repeat an epoch.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import os
 import threading
@@ -291,6 +292,11 @@ def _ptr(t: torch.Tensor) -> int:
 
 def _lib(name: str):
     from nds_tpu_torch.engine import cuda_build
+    if (capturing() or _POOL_RUNS[0]) and not cuda_build.is_loaded(name):
+        raise RuntimeError(
+            f"the kernel library {name!r} would be loaded during a graph "
+            f"capture or a run from its pool: run the launch once on the "
+            f"capturing stream first")
     return cuda_build, cuda_build.library(name)
 
 
@@ -311,6 +317,44 @@ def reset_launches() -> None:
 
 def launch_counts() -> dict:
     return dict(LAUNCHES)
+
+
+def count_launches(deltas: dict, sign: int = 1) -> None:
+    """Add ``sign`` times ``deltas`` ({wrapper: launches}) to the counts:
+    a CUDA graph's replay launches what its capture recorded without a
+    call of a wrapper, and a capture's calls launch nothing."""
+    for name, n in deltas.items():
+        LAUNCHES[name] += sign * n
+
+
+# plan captures, and eager runs from a graph pool, in progress
+# (``capture_scope``): while one runs, no cache that a captured launch
+# reads may be made or filled
+_CAPTURES = [0]
+_POOL_RUNS = [0]
+
+
+@contextlib.contextmanager
+def capture_scope(pool_run: bool = False):
+    """The span of one plan's graph capture (``engine/plan_graph.py``), or
+    with ``pool_run`` of one eager run that allocates from the graphs'
+    pool: no look-back buffer may be made and no library loaded in
+    either, and ``capturing()`` is true inside a capture."""
+    scope = _POOL_RUNS if pool_run else _CAPTURES
+    scope[0] += 1
+    try:
+        yield
+    finally:
+        scope[0] -= 1
+
+
+def capturing(dev=None) -> bool:
+    """True inside a plan's capture, or where the current CUDA stream of
+    ``dev`` (a CUDA device) captures a graph."""
+    if _CAPTURES[0]:
+        return True
+    return (dev is not None and dev.type == "cuda"
+            and torch.cuda.is_current_stream_capturing())
 
 
 # -------------------------------------------------------- join kernels
@@ -592,7 +636,9 @@ _SCAN_VTYPES = {torch.int32: 0, torch.int64: 1, torch.float32: 2,
 # replayed 2^28 / k times between two such resets, about 1.3M replays of a
 # graph of 200, and whoever replays graphs must count its replays' epochs
 # into the host's count before that (past the range a tile could read a
-# stale word of another epoch).
+# stale word of another epoch): ``engine/plan_graph.py`` reserves and
+# counts each replay's epochs (``lookback_reserve``, ``lookback_count``)
+# and takes back what its captures' calls counted.
 #
 # The lifetime: a captured graph holds the pointers of the buffer and the
 # counter word that its launches were given. So neither is ever freed or
@@ -606,6 +652,9 @@ _SCAN_VTYPES = {torch.int32: 0, torch.int64: 1, torch.float32: 2,
 # (device, stream, layout) -> (buffer, counter word, epochs the host's
 # calls drew since the last reset, retired (buffer, counter word) pairs)
 _LOOKBACK: dict = {}
+# (device, stream, layout) -> epochs counted since the process started,
+# resets or not (``lookback_epochs``)
+_DRAWN: dict = {}
 _LOOKBACK_LAYOUTS = ("scan", "count")
 _EPOCH_END = 1 << 29
 _EPOCH_HOST = 1 << 28
@@ -614,7 +663,21 @@ _LOOKBACK_LOCK = threading.Lock()
 
 
 def _capturing(dev) -> bool:
-    return dev.type == "cuda" and torch.cuda.is_current_stream_capturing()
+    return capturing(dev)
+
+
+def _reset_lookback(key) -> None:
+    """Zero every buffer of ``key`` in place and set its counter words
+    back to epoch 1, on the current stream (``key``'s own)."""
+    buf, ctr, _used, retired = _LOOKBACK[key]
+    if _capturing(key[0]):
+        raise RuntimeError(
+            f"the look-back {key[2]} buffer would be zeroed during a graph "
+            f"capture")
+    for b, c in retired + ((buf, ctr),):
+        b.zero_()
+        c.fill_(_EPOCH_FIRST)
+    _LOOKBACK[key] = (buf, ctr, 0, retired)
 
 
 def _lookback(dev, stream: int, layout: str, words: int,
@@ -628,16 +691,13 @@ def _lookback(dev, stream: int, layout: str, words: int,
     with _LOOKBACK_LOCK:
         buf, ctr, used, retired = _LOOKBACK.get(key, (None, None, 0, ()))
         grow = buf is None or buf.numel() < words
-        reset = used + epochs > _EPOCH_HOST
-        if (grow or reset) and _capturing(dev):
+        if grow and (_capturing(dev) or _POOL_RUNS[0]):
             raise RuntimeError(
-                f"the look-back {layout} buffer would be made or zeroed "
-                f"during a graph capture: run the launch once on the "
-                f"capturing stream first")
-        if reset:
-            for b, c in retired + ((buf, ctr),):
-                b.zero_()
-                c.fill_(_EPOCH_FIRST)
+                f"the look-back {layout} buffer would be made during a "
+                f"graph capture or a run from its pool: run the launch "
+                f"once on the capturing stream first")
+        if used + epochs > _EPOCH_HOST:
+            _reset_lookback(key)
             used = 0
         if grow:
             if buf is not None:
@@ -648,7 +708,43 @@ def _lookback(dev, stream: int, layout: str, words: int,
             ctr = torch.full((1,), _EPOCH_FIRST, dtype=torch.int64,
                              device=dev)
         _LOOKBACK[key] = (buf, ctr, used + epochs, retired)
+        _DRAWN[key] = _DRAWN.get(key, 0) + epochs
         return buf, ctr
+
+
+def lookback_epochs() -> dict:
+    """{(device, stream, layout): epochs counted for it since the process
+    started}: what a run drew is the difference of two of these."""
+    with _LOOKBACK_LOCK:
+        return dict(_DRAWN)
+
+
+def lookback_reserve(epochs: dict) -> None:
+    """Room for ``epochs`` ({key: epochs}, ``lookback_epochs``'
+    differences) before launches that draw them without a call of the
+    host: a graph's capture or replay. Where a key's count would pass
+    _EPOCH_HOST, its buffers are reset in place first, on the current
+    stream, which must be the key's; never during a capture."""
+    with _LOOKBACK_LOCK:
+        for key, n in epochs.items():
+            dev, stream, _layout = key
+            if dev.type == "cuda" and (
+                    stream != torch.cuda.current_stream(dev).cuda_stream):
+                raise RuntimeError(f"look-back {key}: reserved from "
+                                   f"another stream")
+            if _LOOKBACK[key][2] + n > _EPOCH_HOST:
+                _reset_lookback(key)
+
+
+def lookback_count(epochs: dict, sign: int = 1) -> None:
+    """Add ``sign`` times ``epochs`` to the host's counts: a replay draws
+    its capture's epochs on the card with no call of the host (reserve
+    them first), and a capture's calls drew none."""
+    with _LOOKBACK_LOCK:
+        for key, n in epochs.items():
+            buf, ctr, used, retired = _LOOKBACK[key]
+            _LOOKBACK[key] = (buf, ctr, used + sign * n, retired)
+            _DRAWN[key] += sign * n
 
 
 def _scan_state(lib, n: int, dev, stream: int) -> tuple:

@@ -3,7 +3,8 @@
 Port of a part of ``nds_tpu/obs/``. ``query_timings`` is the copy of
 ``nds_tpu/obs/__init__.py``'s without its span branch: the port's
 executors record no query spans yet, so it reads the executor's
-``last_timings`` (``DeviceExecutor.execute`` fills it: execute_ms,
+``last_timings`` (``DeviceExecutor.execute`` fills it: compile_ms, the
+capture of the plan's graph on its first call on the card, execute_ms,
 materialize_ms, bytes_scanned, slack_retries, staged_programs and the
 ``__kernels`` block). ``analyze`` holds ``diff_times`` alone. The rest
 of the reference's ``obs/`` (traces, metrics, memory and cost ledgers,

@@ -90,6 +90,10 @@ class DistributedExecutor(dx.DeviceExecutor):
     # packed words and run starts do not follow the shard layout
     COLUMNAR_UPLOAD = False
 
+    # eager on the caller's stream, as before plan graphs: capturing the
+    # NCCL collectives of a plan is later work
+    use_graphs = False
+
     # survivor cap for turning a sharded filtered scan into a replicated
     # reduced build side
     BROADCAST_ROWS = 1 << 18
