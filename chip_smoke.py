@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py [--sf 1.0] [--sf-ds 1.0] [--out results/smoke.json]
                           [--parent DIR] [--steps STEP[,STEP]]
+    python3 chip_smoke.py --steps power,bench --out results/power.json
 
 Drives ``nds_tpu_torch`` (never ``jax``, never ``nds_tpu``) on the card:
 
@@ -123,6 +124,13 @@ Drives ``nds_tpu_torch`` (never ``jax``, never ``nds_tpu``) on the card:
    in a temporary directory, within ``BENCH_SMOKE_TIMEOUT_S``: exit 0, 125
    of 125 units, ``platform`` "cuda" and this card in its last line
    (``bench_phase``);
+8b. power phase: the port's phase chain as its users run it, each CLI in a
+   process of its own, in a temporary directory: ``gen_data`` of NDS-H at
+   SF``POWER_SMOKE_SF`` (raw, a chunk per core up to 8), the power CLI on
+   the card, then on the CPU oracle (``--backend cpu``), then the validate
+   CLI over the two runs' result files: every statement completed, every
+   compared one a MATCH (``power_phase``); its ``Power Test Time`` printed
+   beside the bench entry's NDS-H total;
 9. prints the kernels line (one entry per kernel wrapper: launches summed
    over the timed runs, each kernel's numbers from the path that runs
    it), the card line, and as the last line
@@ -145,7 +153,16 @@ staged temp with other content, a table registered again, scan-view and
 memo evictions and an overflow forced, each between replays, every run
 against the CPU oracle). The step ``bench`` runs the bench phase at
 ``--sf`` and ``--sf-ds`` (SF1 both by default, as users run it) after the
-other steps.
+other steps. The step ``power`` runs the power phase on both suites at
+``--sf`` and ``--sf-ds`` (SF1 both by default): the power CLI on the card
+at ``--warmup 0`` (the reference's default: each plan's first run and
+capture are inside its timed query) and at ``--warmup 1``, then on the CPU
+oracle, each device run's results validated against the oracle's; with
+``bench`` too, each suite's ``Power Test Time`` is printed beside the bench
+entry's power total of the same leg. The step ``load`` reads both suites'
+raw warehouses at ``--sf`` and ``--sf-ds`` with the port's numpy reader
+and with the reference's pyarrow reader, holds their tables equal and
+prints each reader's seconds (``load_phase``).
 
 Kernel checks: integer, bool and min/max outputs must equal the plain
 version's exactly; a float sum (the segmented scan's "sum" on float
@@ -180,6 +197,7 @@ from __future__ import annotations
 import argparse
 import functools
 import hashlib
+import importlib
 import json
 import multiprocessing
 import os
@@ -301,6 +319,15 @@ BENCH_SMOKE_TIMEOUT_S = 180
 BENCH_STEP_TIMEOUT_S = 1500
 # the bench's units: 22 NDS-H queries and 103 NDS statements
 BENCH_UNITS = 125
+# the power phase: the port's phase chain (gen_data, the power CLI, the
+# validate CLI) run as its users run it, each CLI in a process of its own;
+# ``--steps power`` runs both suites at ``--sf``/``--sf-ds`` (SF1 by
+# default), the full smoke NDS-H alone at a cut of depth
+POWER_SMOKE_SF = 0.01
+POWER_CLI_TIMEOUT_S = 1500
+# the one recovered task failure a power run may report: an M:N join
+# that outgrew its capacity and ran again at a doubled slack
+SLACK_RETRY = "join expansion overflow: retry with slack "
 
 # the window path: no NDS statement takes a whole-partition MIN/MAX or a
 # running aggregate under the default RANGE frame; each is wrapped in an
@@ -4420,6 +4447,283 @@ def bench_phase(card: str, dev, sf: float, sf_ds: float,
     return rec
 
 
+def _cli(args: list, timeout_s: float) -> dict:
+    """``python -m <args>`` from this checkout; its exit code, seconds,
+    stdout and the stderr's tail."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.run([sys.executable, "-m", *args], cwd=root,
+                              capture_output=True, text=True,
+                              timeout=timeout_s)
+    except subprocess.TimeoutExpired as e:
+        raise SmokeError(f"{args[0]}: no end within {timeout_s} s") from e
+    return {"rc": proc.returncode, "seconds": time.perf_counter() - t0,
+            "stdout": proc.stdout, "stderr_tail": proc.stderr[-4000:]}
+
+
+def power_run(mod: str, raw: str, stream: str, units: list, out: str,
+              extra: list, timeout_s: float) -> dict:
+    """One run of the power CLI (``python -m <mod>.power``) over a raw
+    warehouse: its time log's ``Power Test Time``, the sum of its
+    ``CreateTempView`` rows (the numpy reader's load), its largest query,
+    the statuses and kernel blocks of its summaries (one digest over the
+    stream, as ``run_leg`` takes one over its units) and its captures'
+    ``compile_ms``. Every statement must complete; one that completed
+    after a slack retry (``CompletedWithTaskFailures``) counts apart and
+    makes the CLI exit 1, as the reference's does."""
+    from nds_tpu_torch.utils.timelog import TimeLog
+    tlog, jsons = os.path.join(out, "time.csv"), os.path.join(out, "json")
+    run = _cli([f"{mod}.power", raw, stream, tlog, "--input_format", "raw",
+                "--json_summary_folder", jsons, "--output_prefix",
+                os.path.join(out, "out"), *extra], timeout_s)
+    rec = {"args": extra, "rc": run["rc"], "seconds": run["seconds"]}
+    if not os.path.exists(tlog):
+        raise SmokeError(f"{mod}.power {extra}: exit {run['rc']}, no time "
+                         f"log; stderr ends: {run['stderr_tail'][-2000:]}")
+    rows = {q: ms for _a, q, ms in TimeLog.read(tlog)}
+    summaries = {}
+    for f in os.listdir(jsons):
+        with open(os.path.join(jsons, f)) as fh:
+            summary = json.load(fh)
+        summaries[summary["query"]] = summary
+    statuses = {q: (summaries.get(q) or {}).get("queryStatus", ["absent"])[-1]
+                for q in units}
+    retried = sorted(q for q, st in statuses.items()
+                     if st == "CompletedWithTaskFailures"
+                     and all(e.startswith(SLACK_RETRY)
+                             for e in summaries[q]["exceptions"]))
+    query_ms = {q: rows[q] for q in units if q in rows}
+    largest = max(query_ms, key=query_ms.get) if query_ms else None
+    rec.update({
+        # the loop's whole wall clock, warmup passes included (as the
+        # reference bills it), and the sum of the timed brackets alone
+        "power_test_ms": rows.get("Power Test Time"),
+        "queries_ms": sum(query_ms.values()),
+        "total_ms": rows.get("Total Time"),
+        "load_ms": sum(ms for q, ms in rows.items()
+                       if q.startswith("CreateTempView ")),
+        "largest": [largest, query_ms.get(largest)],
+        "completed": sum(st == "Completed" for st in statuses.values()),
+        "retried": retried, "statements": len(units),
+        "kernels_digest": hashlib.sha256(json.dumps(
+            [(q, (summaries.get(q) or {}).get("kernels")) for q in units],
+            sort_keys=True, default=str).encode()).hexdigest()[:16],
+        "kernel_blocks": sum("kernels" in (summaries.get(q) or {})
+                             for q in units),
+        "compile_ms": sum((summaries.get(q) or {}).get(
+            "engineTimings", {}).get("compile_ms", 0.0) for q in units),
+        "stderr_tail": run["stderr_tail"][-1500:]})
+    bad = [f"{q} {st}" for q, st in statuses.items()
+           if st != "Completed" and q not in retried]
+    if bad or rec["completed"] + len(retried) != len(units):
+        raise SmokeError(f"{mod}.power {extra}: {bad[:5]}; stderr ends: "
+                         f"{run['stderr_tail'][-2000:]}")
+    if run["rc"] != (1 if retried else 0):
+        raise SmokeError(f"{mod}.power {extra}: exit {run['rc']} with "
+                         f"{len(retried)} slack retries; stderr ends: "
+                         f"{run['stderr_tail'][-2000:]}")
+    return rec
+
+
+def power_phase(dev, legs: dict, warmups=(0, 1),
+                timeout_s: float = POWER_CLI_TIMEOUT_S) -> dict:
+    """The port's phase chain per suite (``legs``: {suite: scale factor}),
+    as its users run it, in a temporary directory: ``gen_data`` (raw,
+    ``parallel`` the machine's cores, at most 8), stream 0, the power CLI
+    on the device engine once per ``warmups`` entry (``--warmup 0``, the
+    reference's default, bills each plan's first run and capture to its
+    timed query), on the CPU oracle (``--backend cpu``), then the validate
+    CLI over each device run's result files and the oracle's: every
+    compared statement a MATCH, exit 0. The device runs' kernel blocks
+    must agree. Prints one line per suite."""
+    import shutil
+    import tempfile
+    tmp = tempfile.mkdtemp(prefix="nds_power_")
+    parallel = min(8, os.cpu_count() or 1)
+    out = {}
+    try:
+        for suite, sf in legs.items():
+            mod = f"nds_tpu_torch.{suite}"
+            raw = os.path.join(tmp, f"raw_{suite}")
+            gen = _cli([f"{mod}.gen_data", f"{sf:g}", str(parallel), raw],
+                       timeout_s)
+            if gen["rc"]:
+                raise SmokeError(f"{mod}.gen_data: exit {gen['rc']}; "
+                                 f"{gen['stderr_tail'][-2000:]}")
+            streams = importlib.import_module(f"{mod}.streams")
+            (stream,) = streams.generate_query_streams(
+                os.path.join(tmp, f"streams_{suite}"), 1)
+            units = list(streams.parse_query_stream(stream))
+            device = [] if dev.type == "cuda" else ["--device", dev.type]
+            runs = {f"gpu_warmup{w}": power_run(
+                mod, raw, stream, units, os.path.join(tmp, f"{suite}_{w}"),
+                device + ["--warmup", str(w)], timeout_s) for w in warmups}
+            runs["cpu"] = power_run(mod, raw, stream, units,
+                                    os.path.join(tmp, f"{suite}_cpu"),
+                                    ["--backend", "cpu"], timeout_s)
+            checks = {}
+            for w in warmups:
+                v = _cli([f"{mod}.validate",
+                          os.path.join(tmp, f"{suite}_cpu", "out"),
+                          os.path.join(tmp, f"{suite}_{w}", "out"), stream,
+                          "--ignore_ordering"], timeout_s)
+                lines = v["stdout"].splitlines()
+                checks[f"gpu_warmup{w}"] = {
+                    "rc": v["rc"], "seconds": v["seconds"],
+                    "match": sum(ln.endswith("-> MATCH ===") for ln in lines),
+                    "skipped": sum(ln.startswith("=== Skipping")
+                                   for ln in lines)}
+            rec = {"sf": sf, "parallel": parallel,
+                   "gen_data_s": gen["seconds"], "statements": len(units),
+                   "runs": runs, "validate": checks}
+            log(json.dumps({"phase": "power", "suite": suite, "sf": sf,
+                            "gen_data_s": gen["seconds"],
+                            **{k: {f: r[f] for f in (
+                                "power_test_ms", "queries_ms", "load_ms",
+                                "largest",
+                                "completed", "retried", "statements",
+                                "kernels_digest", "seconds")}
+                               for k, r in runs.items()},
+                            "validate": checks}))
+            why = [f"{k}: exit {c['rc']}, {c['match']} MATCH of "
+                   f"{len(units) - c['skipped']}"
+                   for k, c in checks.items()
+                   if c["rc"] or c["match"] != len(units) - c["skipped"]]
+            digests = {r["kernels_digest"] for k, r in runs.items()
+                       if k != "cpu"}
+            if len(digests) != 1 or not all(
+                    runs[k]["kernel_blocks"] for k in runs if k != "cpu"):
+                why.append(f"the device runs' kernel blocks differ or are "
+                           f"absent: {digests}")
+            if why:
+                raise SmokeError(f"power phase, {suite}: {'; '.join(why)}")
+            out[suite] = rec
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
+def power_beside_bench(power: dict, bench: dict) -> None:
+    """Print each suite's Power Test Time beside the bench entry's power
+    total of the same leg from the same call (the loop's own cost)."""
+    legs = ((bench or {}).get("last_line") or {}).get("legs") or {}
+    for suite, rec in power.items():
+        bench_s = {m: leg.get("value") for m, leg in legs.items()
+                   if m.startswith(f"{suite}_sf")}
+        log(json.dumps({"phase": "power beside bench", "suite": suite,
+                        "sf": rec["sf"],
+                        "power_test_ms": {k: r["power_test_ms"]
+                                          for k, r in rec["runs"].items()},
+                        "queries_ms": {k: r["queries_ms"]
+                                       for k, r in rec["runs"].items()},
+                        "bench_power_total_s": bench_s}))
+
+
+def read_tbl_arrow(paths: list, name: str, schema):
+    """The reference's raw reader (``nds_tpu/io/csv_io.py:42-79``:
+    ``pyarrow.csv`` with the schema's types, then ``from_arrow``), which
+    the load step times beside the port's numpy ``read_tbl``."""
+    import pyarrow as pa
+    import pyarrow.csv as pacsv
+    from nds_tpu_torch.io import csv_io
+    names = schema.names + ["_trailing"]
+    types = {f.name: csv_io._arrow_read_type(pa, f.dtype) for f in schema}
+    types["_trailing"] = pa.string()
+    tables = [pacsv.read_csv(
+        p, read_options=pacsv.ReadOptions(column_names=names),
+        parse_options=pacsv.ParseOptions(delimiter="|"),
+        convert_options=pacsv.ConvertOptions(column_types=types),
+    ).drop(["_trailing"]) for p in paths if os.path.getsize(p)]
+    if not tables:
+        tables = [pa.table({f.name: pa.array(
+            [], type=csv_io._arrow_read_type(pa, f.dtype)) for f in schema})]
+    return csv_io.from_arrow(name, schema, pa.concat_tables(tables))
+
+
+def same_table(a, b) -> bool:
+    """The same values, dictionaries and null masks, column by column."""
+    import numpy as np
+
+    def same(x, y):
+        return (x is None) == (y is None) and (
+            x is None or (x.dtype == y.dtype and np.array_equal(x, y)))
+    return list(a.columns) == list(b.columns) and all(
+        same(a.columns[c].values, b.columns[c].values)
+        and same(a.columns[c].dictionary, b.columns[c].dictionary)
+        and same(a.columns[c].null_mask, b.columns[c].null_mask)
+        for c in a.columns)
+
+
+def load_phase(legs: dict, timeout_s: float = POWER_CLI_TIMEOUT_S) -> dict:
+    """The raw warehouse's load, reader against reader: per suite
+    (``legs``: {suite: scale factor}) the port's ``gen_data`` (raw,
+    ``parallel`` the machine's cores, at most 8) in a temporary
+    directory, then every table read by the port's numpy ``read_tbl``
+    and by the reference's pyarrow reader, in the order numpy, pyarrow,
+    pyarrow, numpy (the files warm in the page cache from their
+    writing), each reader's best of its two reads kept. The two readers'
+    tables must be equal. Prints one line per suite: seconds and MB/s of
+    text for each reader."""
+    import shutil
+    import tempfile
+    from nds_tpu_torch.io import csv_io
+    from nds_tpu_torch.utils import power_core
+    from nds_tpu_torch.utils.config import EngineConfig
+    readers = {"numpy": csv_io.read_tbl, "pyarrow": read_tbl_arrow}
+    tmp = tempfile.mkdtemp(prefix="nds_load_")
+    parallel = min(8, os.cpu_count() or 1)
+    out = {}
+    try:
+        for suite, sf in legs.items():
+            mod = f"nds_tpu_torch.{suite}"
+            raw = os.path.join(tmp, f"raw_{suite}")
+            gen = _cli([f"{mod}.gen_data", f"{sf:g}", str(parallel), raw],
+                       timeout_s)
+            if gen["rc"]:
+                raise SmokeError(f"{mod}.gen_data: exit {gen['rc']}; "
+                                 f"{gen['stderr_tail'][-2000:]}")
+            power = importlib.import_module(f"{mod}.power")
+            schemas = power_core.suite_schemas(power.SUITE, EngineConfig())
+            secs = {r: {} for r in readers}
+            text_bytes, differ = 0, []
+            for name, schema in schemas.items():
+                tdir = os.path.join(raw, name)
+                paths = (sorted(os.path.join(tdir, f)
+                                for f in os.listdir(tdir)
+                                if not f.startswith("."))
+                         if os.path.isdir(tdir) else
+                         [os.path.join(raw, f"{name}{power.SUITE.raw_ext}")])
+                text_bytes += sum(os.path.getsize(p) for p in paths)
+                got = {}
+                for r in ("numpy", "pyarrow", "pyarrow", "numpy"):
+                    t0 = time.perf_counter()
+                    got[r] = readers[r](paths, name, schema)
+                    s = time.perf_counter() - t0
+                    secs[r][name] = min(s, secs[r].get(name, s))
+                if not same_table(got["numpy"], got["pyarrow"]):
+                    differ.append(name)
+                del got
+            rec = {"sf": sf, "parallel": parallel,
+                   "gen_data_s": gen["seconds"], "text_bytes": text_bytes,
+                   **{f"{r}_s": sum(s.values()) for r, s in secs.items()},
+                   "largest": {r: max(s.items(), key=lambda kv: kv[1])
+                               for r, s in secs.items()},
+                   "tables": secs}
+            for r in readers:
+                rec[f"{r}_MBps"] = text_bytes / 1e6 / rec[f"{r}_s"]
+            log(json.dumps({"phase": "load", "suite": suite,
+                            **{k: v for k, v in rec.items()
+                               if k != "tables"}}))
+            if differ:
+                raise SmokeError(f"load phase, {suite}: the readers' tables "
+                                 f"differ: {differ}")
+            out[suite] = rec
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
 def kernels_line(paths: dict) -> list:
     """One entry per kernel wrapper: launches summed over the timed runs
     of the paths (each read between its own reset and its end), the
@@ -4473,7 +4777,10 @@ def main() -> int:
                     "this design and --parent's beside it; with plans, "
                     "run the plan graphs' adversarial cases at --sf-ds; "
                     "with bench, run the port's bench entry at --sf and "
-                    "--sf-ds; then exit")
+                    "--sf-ds; with power, the port's gen_data, power and "
+                    "validate CLIs at --sf and --sf-ds; with load, the "
+                    "raw warehouse read by the numpy and the pyarrow "
+                    "readers at --sf and --sf-ds; then exit")
     args = ap.parse_args()
 
     import torch
@@ -4504,7 +4811,8 @@ def main() -> int:
         if args.parent:
             designs = {"parent": load_parent(args.parent, dev)[0], "this": KX}
         steps = args.steps.split(",")
-        kernel_steps = [n for n in steps if n not in ("bench", "plans")]
+        kernel_steps = [n for n in steps
+                        if n not in ("bench", "plans", "power", "load")]
         rec = {"card": card, "phase": "steps", "cases": []}
         if kernel_steps:
             rec.update(design_steps(kernel_steps, designs, factory_of, dev,
@@ -4512,9 +4820,16 @@ def main() -> int:
             release(dev)
         if "plans" in steps:
             rec["plans"] = plan_cases(KX, factory_of, dev, args.sf_ds)
+        if "power" in steps:
+            rec["power"] = power_phase(dev, {"nds_h": args.sf,
+                                             "nds": args.sf_ds})
+        if "load" in steps:
+            rec["load"] = load_phase({"nds_h": args.sf, "nds": args.sf_ds})
         if "bench" in steps:
             rec["bench"] = bench_phase(card, dev, args.sf, args.sf_ds,
                                        BENCH_STEP_TIMEOUT_S)
+        if "power" in rec:
+            power_beside_bench(rec["power"], rec.get("bench"))
         if args.out:
             os.makedirs(os.path.dirname(os.path.abspath(args.out)),
                         exist_ok=True)
@@ -4531,7 +4846,17 @@ def main() -> int:
                                          for c in rec["plans"]["cases"]]}]
                             if "plans" in rec else [])
                          + ([rec["bench"]["last_line"]] if "bench" in rec
-                            else [])))
+                            else [])
+                         + ([{"power": {
+                             suite: {k: r["power_test_ms"]
+                                     for k, r in p["runs"].items()}
+                             for suite, p in rec["power"].items()}}]
+                            if "power" in rec else [])
+                         + ([{"load": {
+                             suite: {r: l[f"{r}_s"]
+                                     for r in ("numpy", "pyarrow")}
+                             for suite, l in rec["load"].items()}}]
+                            if "load" in rec else [])))
         return 0
 
     sf_ds_dist = min(args.sf_ds, SF_DS_DIST)
@@ -4589,6 +4914,9 @@ def main() -> int:
         record["bench"] = bench_phase(card, dev, BENCH_SMOKE_SF,
                                       BENCH_SMOKE_SF_DS,
                                       BENCH_SMOKE_TIMEOUT_S)
+        record["power"] = power_phase(dev, {"nds_h": POWER_SMOKE_SF},
+                                      warmups=(0,))
+        power_beside_bench(record["power"], record["bench"])
         line = kernels_line(paths)
         record["kernels"] = line
         pool.close()

@@ -848,6 +848,7 @@ class DeviceExecutor:
             if host is None:
                 # overflow after a replay: the reference's recompile
                 graphs.drop(key)
+                _notify_overflow(entry)
                 entry["slack"] *= 2
                 retries = 1
             else:
@@ -906,6 +907,7 @@ class DeviceExecutor:
             if retries >= self.MAX_RETRIES:
                 raise DeviceExecError("join expansion overflow after retries")
             retries += 1
+            _notify_overflow(entry)
             entry["slack"] *= 2
         side = {"dicts": dicts, "kernels": dict(tr.kernels),
                 "bytes_scanned": timings["bytes_scanned"]}
@@ -2934,6 +2936,17 @@ def _np_cmp(op, vals, lit):
     if op == ">=":
         return vals >= lit
     raise DeviceExecError(op)
+
+
+def _notify_overflow(entry: dict) -> None:
+    """An M:N join outgrew its capacity and the plan runs again at a
+    doubled slack: a recovered task-level failure, which the power run's
+    report records (``CompletedWithTaskFailures``), with the reference's
+    message. Imported here, as in the reference: the engine does not
+    depend on the report layer to load."""
+    from nds_tpu_torch.utils.report import TaskFailureCollector
+    TaskFailureCollector.notify(
+        f"join expansion overflow: retry with slack {entry['slack'] * 2}")
 
 
 def make_device_factory(precision: str = "f64", device=None):

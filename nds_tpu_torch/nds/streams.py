@@ -13,8 +13,10 @@ Template coverage grows with the engine; TEMPLATES lists what is
 implemented so stream generation and the orchestrator agree on the set.
 
 Port copy of ``nds_tpu/nds/streams.py`` (``available_templates``,
-``random_params``, ``render_query`` and the 99 templates, byte for byte).
-Stream files and ``parse_query_stream`` wait for the throughput slice.
+``random_params``, ``render_query``, the 99 templates byte for byte, and
+the stream files: ``stream_order``, ``generate_query_streams`` and
+``parse_query_stream``), plus ``power_units``, the power run's units
+as the bench entry times them.
 """
 
 from __future__ import annotations
@@ -475,6 +477,68 @@ def render_query(template_number: int, params: dict | None = None) -> str:
     if params is None:
         params = QUALIFICATION.get(template_number, {})
     return tpl.format(**params)
+
+
+def stream_order(stream: int, rng_seed: int | None = None,
+                 templates: list[int] | None = None) -> list[int]:
+    order = list(templates if templates is not None
+                 else available_templates())
+    if stream == 0:
+        return order
+    rng = random.Random((rng_seed or 0) * 1000 + stream)
+    rng.shuffle(order)
+    return order
+
+
+def generate_query_streams(output_dir: str, streams: int,
+                           rng_seed: int | None = None,
+                           templates: list[int] | None = None,
+                           qualification: bool = True) -> list[str]:
+    """Write query_{i}.sql stream files (query_0.sql .. query_N.sql).
+
+    qualification=False redraws every template's substitution parameters
+    per stream from a (rng_seed, stream)-seeded generator (dsqgen's
+    ``-rngseed``), so throughput streams differ in bindings as well as
+    order."""
+    os.makedirs(output_dir, exist_ok=True)
+    paths = []
+    for i in range(streams):
+        rng = random.Random((rng_seed or 0) * 7919 + i)
+        parts = []
+        for qn in stream_order(i, rng_seed, templates):
+            params = None if qualification else random_params(qn, rng, i)
+            sql = render_query(qn, params)
+            parts.append(
+                f"-- start query {qn} in stream {i} using template "
+                f"query{qn}.tpl\n{sql}\n-- end query {qn} in stream {i} "
+                f"using template query{qn}.tpl\n")
+        path = os.path.join(output_dir, f"query_{i}.sql")
+        with open(path, "w") as f:
+            f.write("\n".join(parts))
+        paths.append(path)
+    return paths
+
+
+_MARKER_RE = re.compile(
+    r"-- start query (\d+) in stream \d+ using template "
+    r"query(\d+)\.tpl\n(.*?)-- end query \1 in stream",
+    re.DOTALL)
+
+
+def parse_query_stream(path: str) -> "OrderedDict[str, str]":
+    """Stream file -> {query_name: sql}, splitting multi-statement
+    templates into _part1/_part2."""
+    with open(path) as f:
+        stream = f.read()
+    queries: "OrderedDict[str, str]" = OrderedDict()
+    for _num, tpl, body in _MARKER_RE.findall(stream):
+        stmts = [s.strip() for s in body.split(";") if s.strip()]
+        if len(stmts) == 1:
+            queries[f"query{tpl}"] = stmts[0]
+        else:
+            for i, s in enumerate(stmts, 1):
+                queries[f"query{tpl}_part{i}"] = s
+    return queries
 
 
 def power_units(templates: "list[int] | None" = None) -> list:
