@@ -126,11 +126,13 @@ Drives ``nds_tpu_torch`` (never ``jax``, never ``nds_tpu``) on the card:
    (``bench_phase``);
 8b. power phase: the port's phase chain as its users run it, each CLI in a
    process of its own, in a temporary directory: ``gen_data`` of NDS-H at
-   SF``POWER_SMOKE_SF`` (raw, a chunk per core up to 8), the power CLI on
-   the card, then on the CPU oracle (``--backend cpu``), then the validate
-   CLI over the two runs' result files: every statement completed, every
-   compared one a MATCH (``power_phase``); its ``Power Test Time`` printed
-   beside the bench entry's NDS-H total;
+   SF``POWER_SMOKE_SF`` (raw, a chunk per core up to 8), ``transcode`` to
+   a parquet warehouse, the power CLI over that warehouse (its default
+   ``--input_format parquet``) on the card, then on the CPU oracle
+   (``--backend cpu``), then the validate CLI over the two runs' result
+   files: every statement completed, every compared one a MATCH
+   (``power_phase``); its ``Power Test Time`` printed beside the bench
+   entry's NDS-H total;
 9. prints the kernels line (one entry per kernel wrapper: launches summed
    over the timed runs, each kernel's numbers from the path that runs
    it), the card line, and as the last line
@@ -157,12 +159,15 @@ other steps. The step ``power`` runs the power phase on both suites at
 ``--sf`` and ``--sf-ds`` (SF1 both by default): the power CLI on the card
 at ``--warmup 0`` (the reference's default: each plan's first run and
 capture are inside its timed query) and at ``--warmup 1``, then on the CPU
-oracle, each device run's results validated against the oracle's; with
-``bench`` too, each suite's ``Power Test Time`` is printed beside the bench
-entry's power total of the same leg. The step ``load`` reads both suites'
-raw warehouses at ``--sf`` and ``--sf-ds`` with the port's numpy reader
-and with the reference's pyarrow reader, holds their tables equal and
-prints each reader's seconds (``load_phase``).
+oracle, each over the suite's parquet warehouse that the port's
+``transcode`` wrote, each device run's results validated against the
+oracle's; with ``bench`` too, each suite's ``Power Test Time`` is printed
+beside the bench entry's power total of the same leg. The step ``load``
+times, per suite at ``--sf`` and ``--sf-ds``, the raw reader
+(``read_tbl``, best of two reads), the ``transcode`` CLI to parquet and
+``load_warehouse`` over its warehouse, holds every table read back equal
+to the raw read and prints the seconds and MB/s of each
+(``load_phase``).
 
 Kernel checks: integer, bool and min/max outputs must equal the plain
 version's exactly; a float sum (the segmented scan's "sum" on float
@@ -4462,19 +4467,20 @@ def _cli(args: list, timeout_s: float) -> dict:
             "stdout": proc.stdout, "stderr_tail": proc.stderr[-4000:]}
 
 
-def power_run(mod: str, raw: str, stream: str, units: list, out: str,
+def power_run(mod: str, wh: str, stream: str, units: list, out: str,
               extra: list, timeout_s: float) -> dict:
-    """One run of the power CLI (``python -m <mod>.power``) over a raw
-    warehouse: its time log's ``Power Test Time``, the sum of its
-    ``CreateTempView`` rows (the numpy reader's load), its largest query,
-    the statuses and kernel blocks of its summaries (one digest over the
-    stream, as ``run_leg`` takes one over its units) and its captures'
-    ``compile_ms``. Every statement must complete; one that completed
-    after a slack retry (``CompletedWithTaskFailures``) counts apart and
-    makes the CLI exit 1, as the reference's does."""
+    """One run of the power CLI (``python -m <mod>.power``) over a parquet
+    warehouse (its default ``--input_format``): its time log's ``Power
+    Test Time``, the sum of its ``CreateTempView`` rows (the warehouse's
+    load), its largest query, the statuses and kernel blocks of its
+    summaries (one digest over the stream, as ``run_leg`` takes one over
+    its units) and its captures' ``compile_ms``. Every statement must
+    complete; one that completed after a slack retry
+    (``CompletedWithTaskFailures``) counts apart and makes the CLI exit
+    1, as the reference's does."""
     from nds_tpu_torch.utils.timelog import TimeLog
     tlog, jsons = os.path.join(out, "time.csv"), os.path.join(out, "json")
-    run = _cli([f"{mod}.power", raw, stream, tlog, "--input_format", "raw",
+    run = _cli([f"{mod}.power", wh, stream, tlog,
                 "--json_summary_folder", jsons, "--output_prefix",
                 os.path.join(out, "out"), *extra], timeout_s)
     rec = {"args": extra, "rc": run["rc"], "seconds": run["seconds"]}
@@ -4526,40 +4532,60 @@ def power_run(mod: str, raw: str, stream: str, units: list, out: str,
     return rec
 
 
+def load_chain(mod: str, sf: float, tmp: str, timeout_s: float) -> dict:
+    """The load phase as users run it, each CLI in a process of its own:
+    ``<mod>.gen_data`` (raw, ``parallel`` the machine's cores, at most 8)
+    into ``tmp``, then ``<mod>.transcode`` of that raw data to a parquet
+    warehouse. Returns the two directories, each CLI's seconds and the
+    load report's ``Total conversion time``."""
+    from nds_tpu_torch.utils.loadreport import get_load_time
+    suite = mod.rsplit(".", 1)[1]
+    raw = os.path.join(tmp, f"raw_{suite}")
+    wh = os.path.join(tmp, f"wh_{suite}")
+    report = os.path.join(tmp, f"load_{suite}.txt")
+    parallel = min(8, os.cpu_count() or 1)
+    gen = _cli([f"{mod}.gen_data", f"{sf:g}", str(parallel), raw], timeout_s)
+    if gen["rc"]:
+        raise SmokeError(f"{mod}.gen_data: exit {gen['rc']}; "
+                         f"{gen['stderr_tail'][-2000:]}")
+    tc = _cli([f"{mod}.transcode", raw, wh, report], timeout_s)
+    if tc["rc"]:
+        raise SmokeError(f"{mod}.transcode: exit {tc['rc']}; "
+                         f"{tc['stderr_tail'][-2000:]}")
+    return {"raw": raw, "wh": wh, "parallel": parallel,
+            "gen_data_s": gen["seconds"], "transcode_cli_s": tc["seconds"],
+            "transcode_s": get_load_time(report)}
+
+
 def power_phase(dev, legs: dict, warmups=(0, 1),
                 timeout_s: float = POWER_CLI_TIMEOUT_S) -> dict:
     """The port's phase chain per suite (``legs``: {suite: scale factor}),
-    as its users run it, in a temporary directory: ``gen_data`` (raw,
-    ``parallel`` the machine's cores, at most 8), stream 0, the power CLI
-    on the device engine once per ``warmups`` entry (``--warmup 0``, the
-    reference's default, bills each plan's first run and capture to its
-    timed query), on the CPU oracle (``--backend cpu``), then the validate
-    CLI over each device run's result files and the oracle's: every
-    compared statement a MATCH, exit 0. The device runs' kernel blocks
-    must agree. Prints one line per suite."""
+    as its users run it, in a temporary directory: ``gen_data`` and
+    ``transcode`` to parquet (``load_chain``), stream 0, the power CLI
+    over that warehouse on the device engine once per ``warmups`` entry
+    (``--warmup 0``, the reference's default, bills each plan's first run
+    and capture to its timed query), on the CPU oracle (``--backend
+    cpu``), then the validate CLI over each device run's result files and
+    the oracle's: every compared statement a MATCH, exit 0. The device
+    runs' kernel blocks must agree. Prints one line per suite."""
     import shutil
     import tempfile
     tmp = tempfile.mkdtemp(prefix="nds_power_")
-    parallel = min(8, os.cpu_count() or 1)
     out = {}
     try:
         for suite, sf in legs.items():
             mod = f"nds_tpu_torch.{suite}"
-            raw = os.path.join(tmp, f"raw_{suite}")
-            gen = _cli([f"{mod}.gen_data", f"{sf:g}", str(parallel), raw],
-                       timeout_s)
-            if gen["rc"]:
-                raise SmokeError(f"{mod}.gen_data: exit {gen['rc']}; "
-                                 f"{gen['stderr_tail'][-2000:]}")
+            load = load_chain(mod, sf, tmp, timeout_s)
+            wh = load["wh"]
             streams = importlib.import_module(f"{mod}.streams")
             (stream,) = streams.generate_query_streams(
                 os.path.join(tmp, f"streams_{suite}"), 1)
             units = list(streams.parse_query_stream(stream))
             device = [] if dev.type == "cuda" else ["--device", dev.type]
             runs = {f"gpu_warmup{w}": power_run(
-                mod, raw, stream, units, os.path.join(tmp, f"{suite}_{w}"),
+                mod, wh, stream, units, os.path.join(tmp, f"{suite}_{w}"),
                 device + ["--warmup", str(w)], timeout_s) for w in warmups}
-            runs["cpu"] = power_run(mod, raw, stream, units,
+            runs["cpu"] = power_run(mod, wh, stream, units,
                                     os.path.join(tmp, f"{suite}_cpu"),
                                     ["--backend", "cpu"], timeout_s)
             checks = {}
@@ -4574,11 +4600,12 @@ def power_phase(dev, legs: dict, warmups=(0, 1),
                     "match": sum(ln.endswith("-> MATCH ===") for ln in lines),
                     "skipped": sum(ln.startswith("=== Skipping")
                                    for ln in lines)}
-            rec = {"sf": sf, "parallel": parallel,
-                   "gen_data_s": gen["seconds"], "statements": len(units),
-                   "runs": runs, "validate": checks}
+            rec = {"sf": sf, **{k: v for k, v in load.items()
+                                if k not in ("raw", "wh")},
+                   "statements": len(units), "runs": runs, "validate": checks}
             log(json.dumps({"phase": "power", "suite": suite, "sf": sf,
-                            "gen_data_s": gen["seconds"],
+                            "gen_data_s": load["gen_data_s"],
+                            "transcode_s": load["transcode_s"],
                             **{k: {f: r[f] for f in (
                                 "power_test_ms", "queries_ms", "load_ms",
                                 "largest",
@@ -4620,27 +4647,6 @@ def power_beside_bench(power: dict, bench: dict) -> None:
                         "bench_power_total_s": bench_s}))
 
 
-def read_tbl_arrow(paths: list, name: str, schema):
-    """The reference's raw reader (``nds_tpu/io/csv_io.py:42-79``:
-    ``pyarrow.csv`` with the schema's types, then ``from_arrow``), which
-    the load step times beside the port's numpy ``read_tbl``."""
-    import pyarrow as pa
-    import pyarrow.csv as pacsv
-    from nds_tpu_torch.io import csv_io
-    names = schema.names + ["_trailing"]
-    types = {f.name: csv_io._arrow_read_type(pa, f.dtype) for f in schema}
-    types["_trailing"] = pa.string()
-    tables = [pacsv.read_csv(
-        p, read_options=pacsv.ReadOptions(column_names=names),
-        parse_options=pacsv.ParseOptions(delimiter="|"),
-        convert_options=pacsv.ConvertOptions(column_types=types),
-    ).drop(["_trailing"]) for p in paths if os.path.getsize(p)]
-    if not tables:
-        tables = [pa.table({f.name: pa.array(
-            [], type=csv_io._arrow_read_type(pa, f.dtype)) for f in schema})]
-    return csv_io.from_arrow(name, schema, pa.concat_tables(tables))
-
-
 def same_table(a, b) -> bool:
     """The same values, dictionaries and null masks, column by column."""
     import numpy as np
@@ -4655,69 +4661,100 @@ def same_table(a, b) -> bool:
         for c in a.columns)
 
 
+def in_warehouse_order(table, part_col: "str | None"):
+    """``table`` (a raw read) with its rows in the order a partitioned
+    fact's warehouse holds them: ``transcode`` writes one file per 30-day
+    band of ``part_col`` (NULL keys under ``__HIVE_DEFAULT_PARTITION__``),
+    each band's rows in their raw order, and ``load_warehouse`` reads
+    the files in the order of their paths, so in the order of the band
+    labels as strings."""
+    import numpy as np
+    from nds_tpu_torch.io.host_table import HostColumn, HostTable
+    if part_col is None or not table.nrows:
+        return table
+    col = table.columns[part_col]
+    band = (col.values // 30 if col.null_mask is None
+            else np.where(col.null_mask, col.values // 30, -1))
+    bands = np.unique(band)
+    labels = np.array(["__HIVE_DEFAULT_PARTITION__" if b < 0
+                       else str(int(b) * 30) for b in bands])
+    rank = np.empty(len(bands), dtype=np.int64)
+    rank[np.argsort(labels, kind="stable")] = np.arange(len(bands))
+    order = np.argsort(rank[np.searchsorted(bands, band)], kind="stable")
+    return HostTable(table.name, table.schema, {
+        n: HostColumn(c.dtype, c.values[order], c.dictionary,
+                      None if c.null_mask is None else c.null_mask[order])
+        for n, c in table.columns.items()})
+
+
 def load_phase(legs: dict, timeout_s: float = POWER_CLI_TIMEOUT_S) -> dict:
-    """The raw warehouse's load, reader against reader: per suite
-    (``legs``: {suite: scale factor}) the port's ``gen_data`` (raw,
-    ``parallel`` the machine's cores, at most 8) in a temporary
-    directory, then every table read by the port's numpy ``read_tbl``
-    and by the reference's pyarrow reader, in the order numpy, pyarrow,
-    pyarrow, numpy (the files warm in the page cache from their
-    writing), each reader's best of its two reads kept. The two readers'
-    tables must be equal. Prints one line per suite: seconds and MB/s of
-    text for each reader."""
+    """The load phase per suite (``legs``: {suite: scale factor}) in a
+    temporary directory: ``gen_data`` and ``transcode`` to parquet
+    (``load_chain``, the transcode's seconds from its load report), then
+    every table read from the raw text by ``read_tbl`` (twice, the best
+    kept; the files warm in the page cache from their writing) and from
+    the parquet warehouse by ``load_warehouse`` (twice, the best kept).
+    Every table read back must equal its raw read, a partitioned fact's
+    rows taken in the warehouse's order (``in_warehouse_order``). Prints
+    one line per suite: seconds and MB/s (of raw text) of each step, and
+    the raw reader's slowest tables."""
     import shutil
     import tempfile
     from nds_tpu_torch.io import csv_io
     from nds_tpu_torch.utils import power_core
     from nds_tpu_torch.utils.config import EngineConfig
-    readers = {"numpy": csv_io.read_tbl, "pyarrow": read_tbl_arrow}
     tmp = tempfile.mkdtemp(prefix="nds_load_")
-    parallel = min(8, os.cpu_count() or 1)
     out = {}
     try:
         for suite, sf in legs.items():
             mod = f"nds_tpu_torch.{suite}"
-            raw = os.path.join(tmp, f"raw_{suite}")
-            gen = _cli([f"{mod}.gen_data", f"{sf:g}", str(parallel), raw],
-                       timeout_s)
-            if gen["rc"]:
-                raise SmokeError(f"{mod}.gen_data: exit {gen['rc']}; "
-                                 f"{gen['stderr_tail'][-2000:]}")
+            load = load_chain(mod, sf, tmp, timeout_s)
             power = importlib.import_module(f"{mod}.power")
             schemas = power_core.suite_schemas(power.SUITE, EngineConfig())
-            secs = {r: {} for r in readers}
-            text_bytes, differ = 0, []
+            raw_s, text_bytes, tables = {}, 0, {}
             for name, schema in schemas.items():
-                tdir = os.path.join(raw, name)
+                tdir = os.path.join(load["raw"], name)
                 paths = (sorted(os.path.join(tdir, f)
                                 for f in os.listdir(tdir)
                                 if not f.startswith("."))
                          if os.path.isdir(tdir) else
-                         [os.path.join(raw, f"{name}{power.SUITE.raw_ext}")])
+                         [os.path.join(load["raw"],
+                                       f"{name}{power.SUITE.raw_ext}")])
                 text_bytes += sum(os.path.getsize(p) for p in paths)
-                got = {}
-                for r in ("numpy", "pyarrow", "pyarrow", "numpy"):
+                for _ in range(2):
                     t0 = time.perf_counter()
-                    got[r] = readers[r](paths, name, schema)
-                    s = time.perf_counter() - t0
-                    secs[r][name] = min(s, secs[r].get(name, s))
-                if not same_table(got["numpy"], got["pyarrow"]):
-                    differ.append(name)
-                del got
-            rec = {"sf": sf, "parallel": parallel,
-                   "gen_data_s": gen["seconds"], "text_bytes": text_bytes,
-                   **{f"{r}_s": sum(s.values()) for r, s in secs.items()},
-                   "largest": {r: max(s.items(), key=lambda kv: kv[1])
-                               for r, s in secs.items()},
-                   "tables": secs}
-            for r in readers:
-                rec[f"{r}_MBps"] = text_bytes / 1e6 / rec[f"{r}_s"]
+                    tables[name] = csv_io.read_tbl(paths, name, schema)
+                    secs = time.perf_counter() - t0
+                    raw_s[name] = min(secs, raw_s.get(name, secs))
+            parquet_s = None
+            for _ in range(2):
+                sess = power.SUITE.session_for(None)
+                t0 = time.perf_counter()
+                power_core.load_warehouse(power.SUITE, sess, load["wh"],
+                                          "parquet", schemas=schemas)
+                secs = time.perf_counter() - t0
+                parquet_s = min(secs, parquet_s or secs)
+            parts = getattr(importlib.import_module(f"{mod}.transcode"),
+                            "TABLE_PARTITIONING", {})
+            differ = [n for n in schemas if not same_table(
+                sess.tables[n], in_warehouse_order(tables[n], parts.get(n)))]
+            del sess, tables
+            rec = {"sf": sf, **{k: v for k, v in load.items()
+                                if k not in ("raw", "wh")},
+                   "text_bytes": text_bytes,
+                   "read_tbl_s": sum(raw_s.values()),
+                   "load_parquet_s": parquet_s,
+                   "slowest": sorted(raw_s.items(), key=lambda kv: -kv[1])[:4],
+                   "tables": raw_s}
+            for k in ("read_tbl_s", "transcode_s", "load_parquet_s"):
+                rec[k[:-2] + "_MBps"] = text_bytes / 1e6 / rec[k]
             log(json.dumps({"phase": "load", "suite": suite,
                             **{k: v for k, v in rec.items()
                                if k != "tables"}}))
             if differ:
-                raise SmokeError(f"load phase, {suite}: the readers' tables "
-                                 f"differ: {differ}")
+                raise SmokeError(f"load phase, {suite}: the parquet "
+                                 f"warehouse's tables differ from the raw "
+                                 f"reads: {differ}")
             out[suite] = rec
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -4777,10 +4814,10 @@ def main() -> int:
                     "this design and --parent's beside it; with plans, "
                     "run the plan graphs' adversarial cases at --sf-ds; "
                     "with bench, run the port's bench entry at --sf and "
-                    "--sf-ds; with power, the port's gen_data, power and "
-                    "validate CLIs at --sf and --sf-ds; with load, the "
-                    "raw warehouse read by the numpy and the pyarrow "
-                    "readers at --sf and --sf-ds; then exit")
+                    "--sf-ds; with power, the port's gen_data, transcode, "
+                    "power and validate CLIs at --sf and --sf-ds; with "
+                    "load, the raw read, the transcode and the parquet "
+                    "read-back at --sf and --sf-ds; then exit")
     args = ap.parse_args()
 
     import torch
@@ -4853,8 +4890,9 @@ def main() -> int:
                              for suite, p in rec["power"].items()}}]
                             if "power" in rec else [])
                          + ([{"load": {
-                             suite: {r: l[f"{r}_s"]
-                                     for r in ("numpy", "pyarrow")}
+                             suite: {k: l[k] for k in (
+                                 "read_tbl_s", "transcode_s",
+                                 "load_parquet_s")}
                              for suite, l in rec["load"].items()}}]
                             if "load" in rec else [])))
         return 0

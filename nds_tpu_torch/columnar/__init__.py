@@ -24,10 +24,10 @@ summary as it was):
 Layout: ``encodings.py`` plans and encodes on the host (numpy only,
 byte-identical to the reference's); ``device.py`` decodes on the
 executor's device. ``fingerprint_token()`` (encoder version + mode) keys
-the per-column spec memo, as in the reference. The manifest helpers of
-the reference (``manifest_set_encodings``/``manifest_encodings``) are
-trimmed, and so are their hooks in the table cache
-(``io/table_cache.py``): each column's encoding is derived at upload.
+the per-column spec memo, as in the reference. The table cache
+(``io/table_cache.py``) records each cached table's encodings in its
+manifest (``manifest_set_encodings``) and seeds them on load
+(``manifest_encodings``).
 """
 
 from __future__ import annotations
@@ -36,7 +36,8 @@ import os
 
 from nds_tpu_torch.columnar.encodings import (  # noqa: F401
     ENC_VERSION, EncSpec, chunk_spec, column_spec, encode_column,
-    encode_values, encoded_nbytes, plan_padded, plan_values, raw_nbytes,
+    encode_values, encoded_nbytes, manifest_encodings,
+    manifest_set_encodings, plan_padded, plan_values, raw_nbytes,
     scan_nbytes, seed_column_spec, spec_from_json, spec_to_json,
     table_compression, table_specs,
 )

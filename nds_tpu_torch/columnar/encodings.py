@@ -5,10 +5,8 @@ Port copy of ``nds_tpu/columnar/encodings.py``, imports rewritten to
 reference's for the same column and mode: selection is deterministic, and
 the kernels' inputs and ``bytes_scanned`` depend on it. Trimmed: the
 sanitizer's ``plan_verify`` check in ``encode_values`` (it returns with
-the sanitizer slice) and the manifest helpers ``manifest_set_encodings``
-and ``manifest_encodings`` (they need ``io/integrity.py`` and come with
-the table-cache slice). ``chunk_spec`` is kept for the chunked executor,
-which is not ported yet.
+the sanitizer slice, ROADMAP Queue 1 item 8). ``chunk_spec`` is kept for
+the chunked executor, which is not ported yet.
 
 The device engine is bandwidth-bound, so the cheapest large speedup is
 moving fewer bytes through device memory. This module picks a per-column
@@ -40,6 +38,8 @@ loads.
 
 from __future__ import annotations
 
+import json
+import os
 from dataclasses import asdict, dataclass, replace
 
 import numpy as np
@@ -402,3 +402,50 @@ def table_compression(table) -> dict:
         enc += r if spec is None else encoded_nbytes(spec)
     return {"raw_bytes": raw, "encoded_bytes": enc,
             "ratio": round(raw / enc, 4) if enc else 1.0}
+
+
+# -------------------------------------------- manifest metadata (io/)
+
+def manifest_set_encodings(dirpath: str, table: str,
+                           specs: dict) -> None:
+    """Record {column: spec-json|None} for a cached table into the
+    directory's ``_manifest.json`` (alongside the integrity digests),
+    so the encoding choice round-trips with the artifact."""
+    from nds_tpu_torch.io.integrity import MANIFEST_NAME, write_json_atomic
+    path = os.path.join(dirpath, MANIFEST_NAME)
+    doc: dict = {"version": 1, "files": {}}
+    try:
+        with open(path) as f:
+            loaded = json.load(f)
+        if isinstance(loaded, dict) and "files" in loaded:
+            doc = loaded
+    except (OSError, ValueError):
+        pass
+    from nds_tpu_torch import columnar
+    doc.setdefault("encodings", {})[table] = {
+        "v": ENC_VERSION, "mode": columnar.mode(),
+        "columns": {n: (spec_to_json(s) if s is not None else None)
+                    for n, s in specs.items()}}
+    write_json_atomic(path, doc)
+
+
+def manifest_encodings(dirpath: str, table: str) -> "dict | None":
+    """The persisted {column: EncSpec|None} for a cached table, or
+    None when absent / written by a different encoder version or
+    mode."""
+    from nds_tpu_torch.io.integrity import MANIFEST_NAME
+    from nds_tpu_torch import columnar
+    try:
+        with open(os.path.join(dirpath, MANIFEST_NAME)) as f:
+            doc = json.load(f)
+    except (OSError, ValueError):
+        return None
+    ent = (doc.get("encodings") or {}).get(table) \
+        if isinstance(doc, dict) else None
+    if (not isinstance(ent, dict) or ent.get("v") != ENC_VERSION
+            or ent.get("mode") != columnar.mode()):
+        return None
+    out = {}
+    for name, sj in (ent.get("columns") or {}).items():
+        out[name] = None if sj is None else spec_from_json(sj)
+    return out

@@ -1,313 +1,58 @@
-"""Raw '|'-delimited text IO (dbgen/dsdgen .tbl/.dat format) + Parquet.
+"""Raw '|'-delimited text IO (dbgen/dsdgen .tbl/.dat format) and the
+warehouse formats (parquet, orc, json, avro).
 
-Counterpart of ``nds_tpu/io/csv_io.py``. The raw reader, ``read_tbl``,
-is rewritten on numpy and the standard library, so that a ``raw``
-warehouse loads where pyarrow is absent; it gives exactly the
-``HostTable`` the reference's pyarrow reader gives (``pyarrow.csv`` with
-an explicit schema and its default conversion options):
+Port copy of ``nds_tpu/io/csv_io.py``, imports rewritten to
+``nds_tpu_torch``. The raw reader is the reference's: ``pyarrow.csv``
+with the schema's arrow types and a trailing ``_trailing`` column for
+dbgen's trailing '|', zero-byte chunks skipped (the fixed tables' empty
+chunks), an empty table when no chunk has rows. The chunk files are
+read on a pool of threads (pyarrow releases the interpreter's lock),
+and their tables concatenated in the order of ``paths``.
 
-- ints as int32 (int64 for 64-bit columns), floats as float64 (float32),
-  decimals as int64 scaled by the column's scale, parsed from the digits
-  and never through a float, dates as int32 days since 1970-01-01;
-- strings as int32 codes into a sorted dictionary of ``str`` (code order
-  is byte order, which for UTF-8 is code-point order, as numpy's unicode
-  sort in the reference);
-- an empty field, or one of pyarrow's null spellings ("NULL", "NA",
-  "nan", ...), is NULL in a numeric or date column: a null mask (True =
-  valid) and a 0 in the values. In a string column it is the string
-  itself, never NULL (pyarrow's ``strings_can_be_null`` is off);
-- empty lines are skipped; quoting is not read (the generators write no
-  quote characters): a field is its bytes between the delimiters.
+``from_arrow`` gives exactly the reference's ``HostTable`` for any arrow
+input. Its string step is native: the dictionary of a column (arrow's
+own, or from ``dictionary_encode``) is sorted by
+``pyarrow.compute.array_sort_indices``, whose binary order of UTF-8 is
+code-point order, the order of the reference's numpy unicode sort, and
+stable like it. Only the sorted dictionary becomes Python strings, once.
+The columns convert on a pool of threads, and a dictionary of 2**16
+entries or more sorts in buckets of its first two bytes, in parallel.
 
-``write_tbl`` is the reference's. ``read_parquet`` and ``read_table_fmt``
-read parquet through pyarrow, imported inside the function that needs it.
+``to_arrow`` (the writers' input) gives string columns as plain arrow
+strings where the reference gives dictionary arrays: parquet would
+repeat an arrow dictionary whole in every row group and in every
+partition band's file. Either package reads either file into the same
+table.
 
-Trimmed from the reference: the ``orc``, ``json`` and ``avro`` formats
-and the parquet and table writers (ROADMAP Queue 1, "transcode and the
-other warehouse formats"), the digest verification of ``io.integrity``
-and the ``faults`` points (the resilience layer, ROADMAP Queue 1).
+Reads verify digests first (``io/integrity.py``, gated by
+``NDS_TPU_VERIFY_DIGESTS`` or ``io.verify_digests``). Trimmed from the
+reference: the ``faults`` point and the watchdog heartbeat of the reads
+(ROADMAP Queue 1 item 15).
 """
 
 from __future__ import annotations
 
-import decimal
 import os
-import re
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
+import pyarrow as pa
+import pyarrow.compute as pc
+import pyarrow.csv as pacsv
+import pyarrow.parquet as pq
 
 from nds_tpu_torch.engine.types import (
     DateType, DecimalType, FloatType, IntType, Schema, StringType,
 )
-from nds_tpu_torch.io.host_table import HostColumn, HostTable
+from nds_tpu_torch.io import integrity
+from nds_tpu_torch.io.host_table import HostColumn, HostTable, from_arrays
 
 _EPOCH = np.datetime64("1970-01-01", "D")
-
-# pyarrow.csv's default null spellings: NULL in every column but strings
-NULL_VALUES = frozenset(
-    s.encode() for s in (
-        "", "#N/A", "#N/A N/A", "#NA", "-1.#IND", "-1.#QNAN", "-NaN",
-        "-nan", "1.#IND", "1.#QNAN", "N/A", "NA", "NULL", "NaN", "n/a",
-        "nan", "null"))
-
-# rows parsed at a time: bounds the (rows x field width) byte matrices
-_BLOCK_ROWS = 1 << 20
-# bytes of padding around a file's bytes: the widest field read
-_PAD = 4096
-
-_PIPE, _NL, _MINUS, _DOT, _ZERO = 124, 10, 45, 46, 48
+# threads of the chunk reads, the column conversions and the sorts
+_THREADS = max(1, min(8, os.cpu_count() or 1))
 
 
-def _numpy_dtype(dtype) -> np.dtype:
-    if isinstance(dtype, IntType):
-        return np.dtype(np.int64 if dtype.bits == 64 else np.int32)
-    if isinstance(dtype, FloatType):
-        return np.dtype(np.float64 if dtype.bits == 64 else np.float32)
-    if isinstance(dtype, DecimalType):
-        return np.dtype(np.int64)
-    if isinstance(dtype, DateType):
-        return np.dtype(np.int32)
-    raise TypeError(f"unsupported dtype {dtype}")
-
-
-def _split_fields(data: bytes, nfields: int, path: str):
-    """(bytes as uint8, starts, ends) of every field, each (nfields, rows):
-    field j of row r is ``buf[starts[j, r]:ends[j, r]]``."""
-    if data.startswith(b"\n") or b"\n\n" in data:
-        data = b"\n".join(ln for ln in data.split(b"\n") if ln) + b"\n"
-    if not data.endswith(b"\n"):
-        data += b"\n"
-    pad = bytes(_PAD)
-    buf = np.frombuffer(pad + data + pad, dtype=np.uint8)
-    sep = np.flatnonzero((buf == _PIPE) | (buf == _NL))
-    if len(sep) % nfields:
-        raise ValueError(f"{path}: the lines do not all have {nfields} "
-                         f"fields")
-    sep = sep.reshape(-1, nfields)
-    kinds = buf[sep]
-    if not ((kinds[:, -1] == _NL).all() and (kinds[:, :-1] == _PIPE).all()):
-        raise ValueError(f"{path}: the lines do not all have {nfields} "
-                         f"fields")
-    starts = np.empty_like(sep)
-    starts[:, 1:] = sep[:, :-1] + 1
-    starts[0, 0] = _PAD
-    starts[1:, 0] = sep[:-1, -1] + 1
-    # column-major: each column's starts and ends contiguous
-    return buf, np.ascontiguousarray(starts.T), np.ascontiguousarray(sep.T)
-
-
-def _windows(buf, st, en, right: bool):
-    """(rows, W) uint8 matrix of each field's bytes, W the widest field's
-    length, aligned left (``right`` False) or right; and the matrix of
-    which cells are inside the field (the others hold bytes around it).
-    ``buf`` is padded by ``_PAD`` bytes at both ends."""
-    ln = en - st
-    width = max(int(ln.max()), 1) if len(ln) else 1
-    if width > _PAD:
-        raise ValueError(f"a field of {width} bytes")
-    win = np.lib.stride_tricks.sliding_window_view(buf, width)
-    cells = win[(en - width) if right else st]
-    k = np.arange(width)
-    inside = (k >= (width - ln)[:, None]) if right else (k < ln[:, None])
-    return cells, inside
-
-
-def _null_rows(buf, st, en, bad, path, name, parse=None, out=None):
-    """NULL rows among ``bad``: those whose field is one of pyarrow's null
-    spellings. The others are parsed one by one by ``parse`` into
-    ``out``, or raise where there is no ``parse``."""
-    nulls = np.zeros(len(st), dtype=bool)
-    for r in np.flatnonzero(bad):
-        field = buf[st[r]:en[r]].tobytes()
-        if field in NULL_VALUES:
-            nulls[r] = True
-            continue
-        value = None if parse is None else parse(field)
-        if value is None:
-            raise ValueError(f"{path}: column {name!r}: cannot parse "
-                             f"{field!r}")
-        out[r] = value
-    return nulls
-
-
-_INT_RE = re.compile(rb"-?[0-9]+")
-_DEC_RE = re.compile(rb"-?([0-9]+(\.[0-9]*)?|\.[0-9]+)")
-
-
-def _parse_decimal(buf, st, en, scale, bits: int, path, name):
-    """Signed integers (``scale`` None) or decimals ("-12", "3.50") as
-    int64, decimals scaled by 10**scale, exactly; and the NULL rows.
-    The fields of the generators' form (no dot, or exactly ``scale``
-    digits after it) are read by whole-column operations; any other
-    field one by one."""
-    cells, inside = _windows(buf, st, en, right=True)
-    width = cells.shape[1]
-    ln = en - st
-    digit = cells - np.uint8(_ZERO)
-    is_digit = inside & (digit <= 9)
-    neg = buf[st] == _MINUS
-    # the generators' form: every cell a digit but the sign and, at
-    # ``scale`` digits from the end, the dot
-    power = np.zeros(width, dtype=np.int64)
-    if scale:
-        dot = width - 1 - scale
-        has_dot = ((cells[:, dot] == _DOT) & inside[:, dot] if dot >= 0
-                   else np.zeros(len(st), dtype=bool))
-        ndigits = is_digit.sum(axis=1)
-        fast = has_dot & (ndigits == ln - neg - 1)
-        if dot >= 0:
-            power[:dot] = 10 ** np.arange(width - 2, scale - 1, -1)
-            power[dot + 1:] = 10 ** np.arange(scale - 1, -1, -1)
-    else:
-        fast = (ln > neg) & (is_digit.sum(axis=1) == ln - neg)
-        power[:] = 10 ** np.arange(width - 1, -1, -1)
-    if width - (1 if scale else 0) > 18:
-        raise ValueError(f"{path}: column {name!r}: a value exceeds "
-                         f"18 digits")
-    digits = np.where(is_digit & fast[:, None], digit, np.uint8(0))
-    if width <= 15:
-        # exact in float64 (every partial sum below 2**53), and BLAS
-        vals = (digits.astype(np.float64) @ power.astype(np.float64)
-                ).astype(np.int64)
-    else:
-        vals = digits @ power
-    vals = np.where(neg, -vals, vals)
-
-    def parse(field):
-        m = (_DEC_RE if scale else _INT_RE).fullmatch(field)
-        if m is None:
-            return None
-        d = decimal.Decimal(field.decode()).scaleb(scale or 0)
-        if d != d.to_integral_value() or abs(d) >= 10**18:
-            raise ValueError(f"{path}: column {name!r}: cannot hold "
-                             f"{field!r} at scale {scale or 0}")
-        return int(d)
-    nulls = _null_rows(buf, st, en, ~fast, path, name, parse, vals)
-    if bits == 32 and ((vals < -2**31) | (vals >= 2**31)).any():
-        raise ValueError(f"{path}: column {name!r}: a value exceeds int32")
-    return vals, nulls
-
-
-_MONTH_DAYS = np.array([0, 31, 29, 31, 30, 31, 30, 31, 31, 30, 31, 30, 31])
-
-
-def _parse_date(buf, st, en, path, name):
-    """ISO dates ("1998-12-01") as days since 1970-01-01; NULL rows."""
-    ok = (en - st) == 10
-    cells = np.lib.stride_tricks.sliding_window_view(buf, 10)[st]
-    cells = cells.astype(np.int64) - _ZERO
-    digits = cells[:, [0, 1, 2, 3, 5, 6, 8, 9]]
-    ok &= ((digits >= 0) & (digits <= 9)).all(axis=1)
-    ok &= (cells[:, 4] == _MINUS - _ZERO) & (cells[:, 7] == _MINUS - _ZERO)
-    y = digits[:, :4] @ np.array([1000, 100, 10, 1])
-    m = digits[:, 4] * 10 + digits[:, 5]
-    d = digits[:, 6] * 10 + digits[:, 7]
-    leap = (y % 4 == 0) & ((y % 100 != 0) | (y % 400 == 0))
-    mdays = _MONTH_DAYS[np.clip(m, 0, 12)] - ((m == 2) & ~leap)
-    ok &= (m >= 1) & (m <= 12) & (d >= 1) & (d <= mdays)
-    nulls = _null_rows(buf, st, en, ~ok, path, name)
-    # days from the civil date (proleptic Gregorian)
-    yy = y - (m <= 2)
-    era = np.floor_divide(yy, 400)
-    yoe = yy - era * 400
-    doy = (153 * (m + np.where(m > 2, -3, 9)) + 2) // 5 + d - 1
-    doe = yoe * 365 + yoe // 4 - yoe // 100 + doy
-    days = era * 146097 + doe - 719468
-    return np.where(nulls, 0, days).astype(np.int32), nulls
-
-
-def _strings(buf, st, en):
-    """Each field's bytes as one fixed-width bytes array."""
-    cells, inside = _windows(buf, st, en, right=False)
-    cells = np.where(inside, cells, np.uint8(0))
-    return np.ascontiguousarray(cells).view(f"S{cells.shape[1]}").ravel()
-
-
-def _parse_float(buf, st, en, dtype, path, name):
-    text = _strings(buf, st, en)
-    # pyarrow's null spellings first; every other field must parse
-    nulls = np.zeros(len(st), dtype=bool)
-    for tok in NULL_VALUES:
-        nulls |= text == tok
-    vals = np.zeros(len(st), dtype=np.float64)
-    try:
-        vals[~nulls] = text[~nulls].astype(np.float64)
-    except ValueError as e:
-        raise ValueError(f"{path}: column {name!r}: {e}") from None
-    return vals.astype(dtype), nulls
-
-
-def _parse_column(f, buf, st, en, path):
-    """One column of one file: (values or string bytes, null rows)."""
-    dt = f.dtype
-    parts, nulls = [], []
-    for lo in range(0, len(st), _BLOCK_ROWS):
-        s, e = st[lo:lo + _BLOCK_ROWS], en[lo:lo + _BLOCK_ROWS]
-        if isinstance(dt, StringType):
-            parts.append(_strings(buf, s, e))
-            continue
-        if isinstance(dt, (IntType, DecimalType)):
-            scale = dt.scale if isinstance(dt, DecimalType) else None
-            bits = dt.bits if isinstance(dt, IntType) else 64
-            v, n = _parse_decimal(buf, s, e, scale, bits, path, f.name)
-            v = v.astype(_numpy_dtype(dt))
-        elif isinstance(dt, DateType):
-            v, n = _parse_date(buf, s, e, path, f.name)
-        elif isinstance(dt, FloatType):
-            v, n = _parse_float(buf, s, e, _numpy_dtype(dt), path, f.name)
-        else:
-            raise TypeError(f"unsupported dtype {dt}")
-        parts.append(v)
-        nulls.append(n)
-    return parts, nulls
-
-
-def _read_file(path: str, nfields: int):
-    with open(path, "rb") as fh:
-        return _split_fields(fh.read(), nfields, path)
-
-
-def _column(f, parts: list) -> HostColumn:
-    """One column from its parts, file by file."""
-    if isinstance(f.dtype, StringType):
-        text = (np.concatenate([v for vs, _ in parts for v in vs])
-                if parts else np.zeros(0, dtype="S1"))
-        uniq, codes = np.unique(text, return_inverse=True)
-        dictionary = np.empty(len(uniq), dtype=object)
-        dictionary[:] = [u.decode("utf-8") for u in uniq]
-        return HostColumn(f.dtype, codes.astype(np.int32), dictionary, None)
-    if not parts:
-        return HostColumn(f.dtype, np.zeros(0, dtype=_numpy_dtype(f.dtype)))
-    vals = np.concatenate([v for vs, _ in parts for v in vs])
-    null = np.concatenate([n for _, ns in parts for n in ns])
-    return HostColumn(f.dtype, vals, None, ~null if null.any() else None)
-
-
-def read_tbl(paths: list[str] | str, name: str, schema: Schema,
-             trailing_delimiter: bool = True) -> HostTable:
-    """Read one table from one or more '|'-delimited files, the files
-    and then their columns parsed by a pool of threads (the whole-column
-    numpy operations release the interpreter's lock)."""
-    if isinstance(paths, str):
-        paths = [paths]
-    nfields = len(schema) + (1 if trailing_delimiter else 0)
-    # zero-row chunks are legitimate (fixed tables)
-    files = [p for p in paths if os.path.getsize(p)]
-    with ThreadPoolExecutor(max(1, min(8, os.cpu_count() or 1))) as pool:
-        split = list(pool.map(lambda p: _read_file(p, nfields), files))
-        futures = [[pool.submit(_parse_column, f, buf, st[j], en[j], p)
-                    for j, f in enumerate(schema)]
-                   for p, (buf, st, en) in zip(files, split)]
-        parts = [[fut.result() for fut in row] for row in futures]
-        del split, futures
-        cols = list(pool.map(
-            lambda jf: _column(jf[1], [row[jf[0]] for row in parts]),
-            enumerate(schema)))
-    return HostTable(name, schema, dict(zip(schema.names, cols)))
-
-
-def _arrow_read_type(pa, dtype):
+def _arrow_read_type(dtype) -> pa.DataType:
     if isinstance(dtype, IntType):
         return pa.int64() if dtype.bits == 64 else pa.int32()
     if isinstance(dtype, FloatType):
@@ -321,60 +66,187 @@ def _arrow_read_type(pa, dtype):
     raise TypeError(f"unsupported dtype {dtype}")
 
 
-def from_arrow(name: str, schema: Schema, t) -> HostTable:
+def read_tbl(paths: list[str] | str, name: str, schema: Schema,
+             trailing_delimiter: bool = True) -> HostTable:
+    """Read one table from one or more '|'-delimited files."""
+    if isinstance(paths, str):
+        paths = [paths]
+    # a flipped bit in a raw chunk fails here with CorruptArtifact,
+    # instead of loading wrong rows
+    integrity.verify_paths(paths, name)
+    names = schema.names + (["_trailing"] if trailing_delimiter else [])
+    types = {f.name: _arrow_read_type(f.dtype) for f in schema}
+    if trailing_delimiter:
+        types["_trailing"] = pa.string()
+
+    def read(p):
+        t = pacsv.read_csv(
+            p,
+            read_options=pacsv.ReadOptions(column_names=names),
+            parse_options=pacsv.ParseOptions(delimiter="|"),
+            convert_options=pacsv.ConvertOptions(column_types=types),
+        )
+        return t.drop(["_trailing"]) if trailing_delimiter else t
+
+    # zero-row chunks are legitimate (fixed tables)
+    files = [p for p in paths if os.path.getsize(p)]
+    if not files:
+        empty = pa.table({f.name: pa.array([], type=_arrow_read_type(
+            f.dtype)) for f in schema})
+        return from_arrow(name, schema, empty)
+    with ThreadPoolExecutor(min(_THREADS, len(files))) as pool:
+        tables = list(pool.map(read, files))
+    return from_arrow(name, schema, pa.concat_tables(tables))
+
+
+# a dictionary this large is sorted in buckets of its first two bytes,
+# the buckets on a pool of threads (arrow's sort releases the lock)
+_BUCKETED_SORT_MIN = 1 << 16
+
+
+def _sort_indices(d: pa.Array) -> np.ndarray:
+    """Stable sort indices of a string array without NULL entries, in
+    the binary order of UTF-8 (code-point order)."""
+    n = len(d)
+    data = d.buffers()[2]
+    if n < _BUCKETED_SORT_MIN or data is None or not data.size:
+        return pc.array_sort_indices(d).to_numpy()
+    off_type = np.int64 if pa.types.is_large_string(d.type) else np.int32
+    offs = np.frombuffer(d.buffers()[1], dtype=off_type)[
+        d.offset:d.offset + n + 1]
+    data = np.frombuffer(data, dtype=np.uint8)
+    start, length = offs[:-1], np.diff(offs)
+    last = len(data) - 1
+    # the first two bytes, a missing one as 0: a smaller key is a
+    # smaller string, and equal strings share a key
+    key = np.where(length > 0, data[np.minimum(start, last)], 0).astype(
+        np.uint16) << 8
+    key |= np.where(length > 1, data[np.minimum(start + 1, last)], 0)
+    by_key = np.argsort(key, kind="stable")
+    ends = np.cumsum(np.bincount(key, minlength=1 << 16))
+    # about four buckets a thread, each cut at the end of a key's run
+    pieces = 4 * _THREADS
+    cuts = ends[np.searchsorted(ends, np.arange(1, pieces) * n // pieces)]
+    bounds = [0, *np.unique(cuts[cuts < n]).tolist(), n]
+
+    def sort_bucket(lo, hi):
+        idx = by_key[lo:hi]
+        return idx[pc.array_sort_indices(d.take(pa.array(idx))).to_numpy()]
+    with ThreadPoolExecutor(_THREADS) as pool:
+        return np.concatenate(list(pool.map(sort_bucket, bounds[:-1],
+                                            bounds[1:])))
+
+
+def _sorted_strings(arr) -> tuple[np.ndarray, np.ndarray]:
+    """(int32 codes, sorted object dictionary) of a string column,
+    codes in dictionary order: the reference's ``argsort`` of the
+    dictionary as numpy unicode, with a NULL slot's code taken from
+    arrow's dictionary entry 0 (``fill_null(0)``, then the remap)."""
+    if not pa.types.is_dictionary(arr.type):
+        arr = arr.dictionary_encode()
+    d = arr.dictionary
+    raw_codes = arr.indices.fill_null(0).to_numpy(
+        zero_copy_only=False).astype(np.int32)
+    # a NULL dictionary entry sorts where the reference's str() puts it
+    keys = d.fill_null("None") if d.null_count else d
+    data = keys.buffers()[2]
+    if data is not None and data.size and not np.frombuffer(
+            data, dtype=np.uint8).all():
+        # numpy's unicode order ignores trailing NULs ("a\x00" == "a")
+        keys = pc.utf8_rtrim(keys, characters="\x00")
+    order = _sort_indices(keys)
+    remap = np.empty(len(d), dtype=np.int32)
+    remap[order] = np.arange(len(d), dtype=np.int32)
+    codes = remap[raw_codes] if len(d) else raw_codes
+    return codes, d.take(pa.array(order)).to_numpy(zero_copy_only=False)
+
+
+def _host_column(f, arr) -> HostColumn:
+    mask = None
+    if arr.null_count:
+        mask = arr.is_valid().to_numpy(zero_copy_only=False)
+    if isinstance(f.dtype, StringType):
+        codes, dictionary = _sorted_strings(arr)
+        return HostColumn(f.dtype, codes, dictionary, mask)
+    if isinstance(f.dtype, DecimalType):
+        s = f.dtype.scale
+        if f.dtype.precision <= 15:
+            # float64 is exact for <= 15 significant digits: vectorized
+            as_f = arr.cast(pa.float64()).to_numpy(zero_copy_only=False)
+            ints = np.round(np.nan_to_num(as_f) * 10**s).astype(np.int64)
+        else:
+            ints = np.array(
+                [0 if v is None else int(v.scaleb(s))
+                 for v in arr.to_pylist()], dtype=np.int64)
+        return HostColumn(f.dtype, ints, None, mask)
+    if isinstance(f.dtype, DateType):
+        d = arr.cast(pa.int32()).fill_null(0)
+        return HostColumn(f.dtype, d.to_numpy(zero_copy_only=False), None,
+                          mask)
+    if isinstance(f.dtype, (IntType, FloatType)):
+        return HostColumn(f.dtype,
+                          arr.fill_null(0).to_numpy(zero_copy_only=False),
+                          None, mask)
+    return HostColumn(f.dtype, arr.to_numpy(zero_copy_only=False), None,
+                      mask)
+
+
+def from_arrow(name: str, schema: Schema, t: pa.Table) -> HostTable:
     """Arrow table -> HostTable, carrying arrow validity bitmaps over as
     engine null masks (True = valid). Null slots are filled with 0/"" in
-    the value arrays so downstream numpy code never sees NaN."""
-    import pyarrow as pa
-    cols: dict[str, HostColumn] = {}
-    for f in schema:
-        arr = t.column(f.name).combine_chunks()
-        mask = None
-        if arr.null_count:
-            mask = arr.is_valid().to_numpy(zero_copy_only=False)
-        if isinstance(f.dtype, StringType):
-            # arrow-native dictionary encode, then remap codes so the
-            # dictionary is sorted (code order == lexicographic order);
-            # only the (small) dictionary is ever sorted, not the column
-            if not pa.types.is_dictionary(arr.type):
-                arr = arr.dictionary_encode()
-            raw_dict = np.asarray(arr.dictionary.to_pylist(), dtype=object)
-            raw_codes = arr.indices.fill_null(0).to_numpy(
-                zero_copy_only=False).astype(np.int32)
-            order = np.argsort(raw_dict.astype(str), kind="stable")
-            remap = np.empty(len(raw_dict), dtype=np.int32)
-            remap[order] = np.arange(len(raw_dict), dtype=np.int32)
-            codes = remap[raw_codes] if len(raw_dict) else raw_codes
-            cols[f.name] = HostColumn(f.dtype, codes, raw_dict[order], mask)
+    the value arrays so downstream numpy code never sees NaN. The
+    columns convert on a pool of threads."""
+    with ThreadPoolExecutor(_THREADS) as pool:
+        cols = list(pool.map(
+            lambda f: _host_column(f, t.column(f.name).combine_chunks()),
+            schema))
+    return HostTable(name, schema, dict(zip(schema.names, cols)))
+
+
+def to_arrow(table: HostTable) -> pa.Table:
+    arrays, names = [], []
+    for f in table.schema:
+        col = table.columns[f.name]
+        names.append(f.name)
+        # arrow mask convention: True = NULL (inverse of the engine's)
+        amask = None if col.null_mask is None else ~col.null_mask
+        if col.is_string:
+            # plain strings, where the reference writes a dictionary
+            # array: parquet repeats an arrow dictionary whole in every
+            # row group and every partition band's file
+            arrays.append(pa.array(col.dictionary, type=pa.string()).take(
+                pa.array(col.values, type=pa.int32(), mask=amask)))
         elif isinstance(f.dtype, DecimalType):
             s = f.dtype.scale
+            target = pa.decimal128(max(f.dtype.precision, 18), s)
             if f.dtype.precision <= 15:
-                # float64 is exact for <= 15 significant digits: vectorized
-                as_f = arr.cast(pa.float64()).to_numpy(zero_copy_only=False)
-                ints = np.round(np.nan_to_num(as_f) * 10**s).astype(np.int64)
+                # exact: |value| < 10^15 so float64 round-trips the cents
+                as_f = col.values.astype(np.float64) / 10**s
+                arrays.append(
+                    pa.array(as_f, mask=amask).cast(target, safe=False))
             else:
-                ints = np.array(
-                    [0 if v is None else int(v.scaleb(s))
-                     for v in arr.to_pylist()], dtype=np.int64)
-            cols[f.name] = HostColumn(f.dtype, ints, None, mask)
+                from decimal import Decimal
+                vals = [Decimal(int(v)).scaleb(-s) for v in col.values]
+                if amask is not None:
+                    vals = [None if m else v
+                            for v, m in zip(vals, amask)]
+                arrays.append(pa.array(vals, type=target))
         elif isinstance(f.dtype, DateType):
-            d = arr.cast(pa.int32()).fill_null(0)
-            cols[f.name] = HostColumn(
-                f.dtype, d.to_numpy(zero_copy_only=False), None, mask)
-        elif isinstance(f.dtype, (IntType, FloatType)):
-            cols[f.name] = HostColumn(
-                f.dtype, arr.fill_null(0).to_numpy(zero_copy_only=False),
-                None, mask)
+            arrays.append(pa.array(col.values, type=pa.int32(),
+                                   mask=amask).cast(pa.date32()))
         else:
-            cols[f.name] = HostColumn(
-                f.dtype, arr.to_numpy(zero_copy_only=False), None, mask)
-    return HostTable(name, schema, cols)
+            arrays.append(pa.array(col.values, mask=amask))
+    return pa.Table.from_arrays(arrays, names=names)
+
+
+def write_parquet(table: HostTable, path: str, compression: str = "snappy",
+                  row_group_rows: int = 1 << 20) -> None:
+    write_arrow(to_arrow(table), path, "parquet", compression,
+                row_group_rows)
 
 
 def read_parquet(paths: list[str] | str, name: str,
                  schema: Schema) -> HostTable:
-    import pyarrow as pa
-    import pyarrow.parquet as pq
     if isinstance(paths, str):
         paths = [paths]
     # ParquetFile, not pq.read_table: read_table infers hive
@@ -385,19 +257,153 @@ def read_parquet(paths: list[str] | str, name: str,
                       pa.concat_tables(tables, promote_options="permissive"))
 
 
-# the warehouse formats read here; the reference's orc, json and avro
-# wait for the port of transcode
-FORMAT_EXT = {"parquet": ".parquet"}
+# the warehouse formats (the upstream transcode writes parquet, orc,
+# avro and json, `nds/nds_transcode.py:69-152`; avro through the
+# container codec of io/avro_io.py)
+FORMAT_EXT = {"parquet": ".parquet", "orc": ".orc", "json": ".json",
+              "avro": ".avro"}
+
+
+def write_arrow(t: pa.Table, path: str, fmt: str = "parquet",
+                compression: str = "snappy",
+                row_group_rows: int = 1 << 20) -> None:
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    if fmt == "parquet":
+        pq.write_table(t, path, compression=compression,
+                       row_group_size=row_group_rows)
+    elif fmt == "orc":
+        import pyarrow.orc as paorc
+        cols = []
+        for i, f in enumerate(t.schema):
+            c = t.column(i)
+            if pa.types.is_dictionary(f.type):
+                c = c.cast(pa.string())
+            cols.append(c)
+        paorc.write_table(pa.Table.from_arrays(cols,
+                                               names=t.column_names),
+                          path, compression=compression)
+    elif fmt == "json":
+        # JSON-lines records, the layout pyarrow.json reads back; dates
+        # as ISO strings, decimals as exact decimal strings
+        import json as _json
+        with open(path, "w") as f:
+            for row in t.to_pylist():
+                f.write(_json.dumps(row, default=str) + "\n")
+    elif fmt == "avro":
+        raise ValueError(
+            "avro writes go through write_table (HostTable input); "
+            "an arrow Table has no engine schema to map from")
+    else:
+        raise ValueError(f"unknown output format {fmt!r}")
+
+
+def write_table(table: HostTable, path: str, fmt: str = "parquet",
+                compression: str = "snappy") -> None:
+    if fmt == "avro":
+        from nds_tpu_torch.io import avro_io
+        if compression in (None, "none"):
+            codec = "null"
+        elif compression == "deflate":
+            codec = "deflate"
+        elif compression == "snappy":
+            # the CLI-wide default targets parquet; the container codec
+            # has no snappy, so substitute deflate audibly
+            from nds_tpu_torch.utils.report import TaskFailureCollector
+            TaskFailureCollector.notify(
+                "avro: no snappy codec in this environment, writing "
+                "deflate instead")
+            codec = "deflate"
+        else:
+            raise ValueError(
+                f"unsupported avro compression {compression!r} "
+                f"(available: none, deflate)")
+        avro_io.write_avro(table, path, table.schema, codec=codec)
+        return
+    write_arrow(to_arrow(table), path, fmt, compression)
+
+
+def read_paths_auto(paths: list[str], name: str, schema: Schema,
+                    default_fmt: str) -> HostTable:
+    """Read warehouse files whose formats may differ per file (a
+    warehouse in one format beside parquet files written later).
+    Buckets by extension, reads each bucket in its own format, and
+    rebuilds one table (string dictionaries re-encode across buckets)."""
+    ext_to_fmt = {ext: f for f, ext in FORMAT_EXT.items()}
+    groups: dict[str, list[str]] = {}
+    for p in paths:
+        ext = os.path.splitext(p)[1]
+        groups.setdefault(ext_to_fmt.get(ext, default_fmt),
+                          []).append(p)
+    if len(groups) == 1:
+        fmt, ps = next(iter(groups.items()))
+        return read_table_fmt(ps, name, schema, fmt)
+    parts = [read_table_fmt(ps, name, schema, fmt)
+             for fmt, ps in groups.items()]
+    arrays: dict[str, np.ndarray] = {}
+    for f in schema:
+        cols = [t.columns[f.name] for t in parts]
+        vals = np.concatenate([c.decode() if c.is_string else c.values
+                               for c in cols])
+        arrays[f.name] = vals
+        if f.nullable:
+            arrays[f.name + "#null"] = np.concatenate(
+                [c.null_mask if c.null_mask is not None
+                 else np.ones(len(c.values), dtype=bool) for c in cols])
+    return from_arrays(name, schema, arrays)
 
 
 def read_table_fmt(paths: list[str] | str, name: str, schema: Schema,
                    fmt: str) -> HostTable:
-    """Read a warehouse table written by the reference's ``write_table``
-    (parquet)."""
+    """Read a warehouse table written by ``write_table`` in any format.
+
+    When digest verification is on (io/integrity.py), every file is
+    re-hashed against its table's ``_manifest.json`` before parsing:
+    corruption surfaces as a CorruptArtifact naming the file and both
+    digests, never as silently wrong query output."""
+    if isinstance(paths, str):
+        paths = [paths]
+    integrity.verify_paths(paths, name)
     if fmt == "parquet":
         return read_parquet(paths, name, schema)
-    raise ValueError(f"unknown input format {fmt!r} (the port reads "
-                     f"raw and parquet)")
+    if fmt == "avro":
+        from nds_tpu_torch.io import avro_io
+        return avro_io.read_avro(paths, name, schema)
+    if fmt == "orc":
+        import pyarrow.orc as paorc
+        tables = [paorc.read_table(p) for p in paths]
+        return from_arrow(name, schema,
+                          pa.concat_tables(tables,
+                                           promote_options="permissive"))
+    if fmt == "json":
+        import pyarrow.json as pajson
+        # dates and decimals are ISO/decimal STRINGS in the json lines
+        # (json has no such types); read as string, cast after
+        read_types, casts = {}, {}
+        for f in schema:
+            t = _arrow_read_type(f.dtype)
+            if isinstance(f.dtype, (DateType, DecimalType)):
+                read_types[f.name] = pa.string()
+                casts[f.name] = t
+            else:
+                read_types[f.name] = t
+        want = pa.schema(read_types)
+        tables = []
+        for p in paths:
+            t = pajson.read_json(
+                p, parse_options=pajson.ParseOptions(
+                    explicit_schema=want))
+            cols = []
+            for i, fld in enumerate(t.schema):
+                c = t.column(i)
+                if fld.name in casts:
+                    c = c.cast(casts[fld.name])
+                cols.append(c)
+            tables.append(pa.Table.from_arrays(
+                cols, names=t.column_names))
+        return from_arrow(name, schema,
+                          pa.concat_tables(tables,
+                                           promote_options="permissive"))
+    raise ValueError(f"unknown input format {fmt!r}")
 
 
 def write_tbl(arrays: dict[str, np.ndarray], schema: Schema, path: str,

@@ -3,19 +3,12 @@
 Port copy of ``nds_tpu/io/table_cache.py``, imports rewritten to
 ``nds_tpu_torch``. Lets drivers generate a scale factor once and reuse
 it across runs: the port's ``bench.py`` never regenerates data it
-already has. Two hooks of the reference are trimmed, as the columnar
-copies trimmed ``manifest_encodings``:
-
-- the ``io/integrity.py`` digests (a save records the file's digest in
-  the directory's manifest, a load verifies it): the port has no
-  ``integrity`` module yet, so a file is read as it is;
-- the columnar store's manifest (a save under an active mode records the
-  table's encodings, a load seeds the per-column spec memo from them):
-  the port derives each column's encoding at upload, as the reference
-  does when the manifest has none.
-
-The files are the reference's: a table saved by either package loads in
-the other.
+already has. A save records the file's digest in the directory's
+``_manifest.json`` (``io/integrity.py``) and a load verifies it when
+verification is on; under an active columnar mode the same manifest
+carries the table's encodings, which a load seeds into the per-column
+spec memo. The files are the reference's: a table saved by either
+package loads in the other.
 """
 
 from __future__ import annotations
@@ -42,6 +35,19 @@ def save_table(dirpath: str, table: HostTable) -> str:
     with open(tmp, "wb") as f:
         np.savez_compressed(f, **payload)
     os.replace(tmp, path)
+    # digest into the cache dir's manifest so reuse across runs detects
+    # on-disk rot (io/integrity.py; verification gated on load)
+    from nds_tpu_torch.io import integrity
+    integrity.update_manifest(dirpath, [f"{table.name}.npz"])
+    # columnar encoding metadata rides the same manifest (columnar/):
+    # the load-time encoding choice round-trips with the
+    # artifact instead of being re-derived on every process start
+    from nds_tpu_torch import columnar
+    if columnar.enabled():
+        columnar.manifest_set_encodings(
+            dirpath, table.name,
+            columnar.table_specs(table))
+        integrity.clear_cache()  # the manifest just changed on disk
     return path
 
 
@@ -49,6 +55,8 @@ def load_table(dirpath: str, name: str, schema: Schema) -> HostTable | None:
     path = os.path.join(dirpath, f"{name}.npz")
     if not os.path.exists(path):
         return None
+    from nds_tpu_torch.io import integrity
+    integrity.verify_paths([path], name)
     data = np.load(path, allow_pickle=False)
     cols: dict[str, HostColumn] = {}
     for f in schema:
@@ -60,6 +68,17 @@ def load_table(dirpath: str, name: str, schema: Schema) -> HostTable | None:
             dictionary = data[f"{f.name}::dict"].astype(object)
         mask = data.get(f"{f.name}::mask")
         cols[f.name] = HostColumn(f.dtype, data[key], dictionary, mask)
+    # restore persisted encoding choices (written by save_table under
+    # an active columnar mode): seeds the per-column spec memo so the
+    # executors encode without re-deriving stats — and stale entries
+    # (row-count drift, other mode/version) are rejected per column
+    from nds_tpu_torch import columnar
+    if columnar.enabled():
+        persisted = columnar.manifest_encodings(dirpath, name)
+        if persisted:
+            for cname, spec in persisted.items():
+                if cname in cols:
+                    columnar.seed_column_spec(cols[cname], spec)
     return HostTable(name, schema, cols)
 
 

@@ -8,10 +8,11 @@ dimensions, ``--range`` regeneration, fanned out over a process pool. It
 writes the same bytes as the reference for the same scale, parallelism
 and chunk range (``dbgen_version`` records the day and time it ran).
 
-Trimmed: ``--update N`` (the refresh data sets) waits for the
-maintenance slice (ROADMAP Queue 1 item 5, ``datagen/tpcds_refresh.py``);
-the external ``dsdgen`` path (``--dsdgen_path``) waits with transcode
-(ROADMAP Queue 1, "transcode and the other warehouse formats").
+``--dsdgen_path`` runs the external TPC dsdgen binary instead
+(``datagen/toolwrap.py``: one process per chunk, the files then moved
+into per-table directories). Trimmed: ``--update N`` (the refresh data
+sets) waits for the maintenance slice (ROADMAP Queue 1 item 5,
+``datagen/tpcds_refresh.py``).
 
     python -m nds_tpu_torch.nds.gen_data 1 8 /data/nds/raw
 """
@@ -94,9 +95,8 @@ def generate_data_local(scale: float, parallel: int, data_dir: str,
 
 def main(argv=None) -> None:
     p = argparse.ArgumentParser(
-        description="generate NDS raw data (the port's builtin "
-                    "generator; --update and the external dsdgen path "
-                    "are not ported yet)")
+        description="generate NDS raw data (--update is not ported "
+                    "yet)")
     p.add_argument("scale", type=float, help="scale factor")
     p.add_argument("parallel", type=int, help="number of chunks")
     p.add_argument("data_dir", help="output directory")
@@ -106,9 +106,17 @@ def main(argv=None) -> None:
     p.add_argument("--overwrite_output", action="store_true")
     p.add_argument("--floats", action="store_true",
                    help="double columns instead of decimals")
+    p.add_argument("--dsdgen_path",
+                   help="use the external TPC dsdgen binary instead of "
+                        "the builtin generator")
     p.add_argument("--workers", type=int,
                    help="process-pool size (default: cpu count)")
     args = p.parse_args(argv)
+    if args.dsdgen_path:
+        from nds_tpu_torch.datagen.toolwrap import run_dsdgen
+        run_dsdgen(args.dsdgen_path, int(args.scale), args.parallel,
+                   args.data_dir)
+        return
     rng = None
     if args.chunk_range:
         lo, hi = (int(x) for x in args.chunk_range.split(","))

@@ -13,8 +13,8 @@ PRIMARY_KEYS drive the planner's unique-side join orientation; SIZES are
 the dsdgen row-count model used for greedy join ordering.
 
 Port copy of ``nds_tpu/nds/schema.py``: it imports nothing of
-``nds_tpu``. ``get_maintenance_schemas`` waits for the maintenance
-slice.
+``nds_tpu``. ``get_maintenance_schemas`` gives the refresh tables that
+``nds/transcode.py --update`` reads.
 """
 
 from __future__ import annotations
@@ -299,6 +299,112 @@ def get_schemas(use_decimal: bool = True) -> dict[str, Schema]:
         ("ss_ext_list_price", money()), ("ss_ext_tax", money()),
         ("ss_coupon_amt", money()), ("ss_net_paid", money()),
         ("ss_net_paid_inc_tax", money()), ("ss_net_profit", money()))
+    return s
+
+
+
+
+
+def get_maintenance_schemas(use_decimal: bool = True) -> dict[str, Schema]:
+    """The 12 refresh/staging tables feeding data maintenance
+    (role of `nds/nds_schema.py:570-716`, columns per the public TPC-DS
+    spec's s_* source schemas). Staging rows carry business IDs (char),
+    not surrogate keys — the LF_* refresh functions join them back to
+    dimensions. Dates that the refresh SQL compares against date_dim are
+    engine DATE (epoch days) rather than char(10): the builtin generator
+    owns the raw format, so the reference's ``cast(char as date)`` hop
+    is unnecessary here."""
+    dec = _dec_factory(use_decimal)
+
+    def money():
+        return dec(7, 2)
+
+    s: dict[str, Schema] = {}
+    s["s_purchase_lineitem"] = Schema.of(
+        ("plin_purchase_id", INT32, False),
+        ("plin_line_number", INT32, False),
+        ("plin_item_id", char(16)), ("plin_promotion_id", char(16)),
+        ("plin_quantity", INT32), ("plin_sale_price", money()),
+        ("plin_coupon_amt", money()), ("plin_comment", varchar(100)))
+    s["s_purchase"] = Schema.of(
+        ("purc_purchase_id", INT32, False), ("purc_store_id", char(16)),
+        ("purc_customer_id", char(16)), ("purc_purchase_date", DATE),
+        ("purc_purchase_time", INT32), ("purc_register_id", INT32),
+        ("purc_clerk_id", INT32), ("purc_comment", char(100)))
+    s["s_catalog_order"] = Schema.of(
+        ("cord_order_id", INT32, False),
+        ("cord_bill_customer_id", char(16)),
+        ("cord_ship_customer_id", char(16)),
+        ("cord_order_date", DATE), ("cord_order_time", INT32),
+        ("cord_ship_mode_id", char(16)),
+        ("cord_call_center_id", char(16)),
+        ("cord_order_comments", varchar(100)))
+    s["s_web_order"] = Schema.of(
+        ("word_order_id", INT32, False),
+        ("word_bill_customer_id", char(16)),
+        ("word_ship_customer_id", char(16)),
+        ("word_order_date", DATE), ("word_order_time", INT32),
+        ("word_ship_mode_id", char(16)), ("word_web_site_id", char(16)),
+        ("word_order_comments", char(100)))
+    s["s_catalog_order_lineitem"] = Schema.of(
+        ("clin_order_id", INT32, False), ("clin_line_number", INT32, False),
+        ("clin_item_id", char(16)), ("clin_promotion_id", char(16)),
+        ("clin_quantity", INT32), ("clin_sales_price", money()),
+        ("clin_coupon_amt", money()), ("clin_warehouse_id", char(16)),
+        ("clin_ship_date", DATE), ("clin_catalog_number", INT32),
+        ("clin_catalog_page_number", INT32), ("clin_ship_cost", money()))
+    s["s_web_order_lineitem"] = Schema.of(
+        ("wlin_order_id", INT32, False), ("wlin_line_number", INT32, False),
+        ("wlin_item_id", char(16)), ("wlin_promotion_id", char(16)),
+        ("wlin_quantity", INT32), ("wlin_sales_price", money()),
+        ("wlin_coupon_amt", money()), ("wlin_warehouse_id", char(16)),
+        ("wlin_ship_date", DATE), ("wlin_ship_cost", money()),
+        ("wlin_web_page_id", char(16)))
+    s["s_store_returns"] = Schema.of(
+        ("sret_store_id", char(16)), ("sret_purchase_id", char(16), False),
+        ("sret_line_number", INT32, False),
+        ("sret_item_id", char(16), False),
+        ("sret_customer_id", char(16)), ("sret_return_date", DATE),
+        ("sret_return_time", INT32), ("sret_ticket_number", INT64),
+        ("sret_return_qty", INT32), ("sret_return_amt", money()),
+        ("sret_return_tax", money()), ("sret_return_fee", money()),
+        ("sret_return_ship_cost", money()), ("sret_refunded_cash", money()),
+        ("sret_reversed_charge", money()), ("sret_store_credit", money()),
+        ("sret_reason_id", char(16)))
+    s["s_catalog_returns"] = Schema.of(
+        ("cret_call_center_id", char(16)), ("cret_order_id", INT32, False),
+        ("cret_line_number", INT32, False),
+        ("cret_item_id", char(16), False),
+        ("cret_return_customer_id", char(16)),
+        ("cret_refund_customer_id", char(16)),
+        ("cret_return_date", DATE), ("cret_return_time", INT32),
+        ("cret_return_qty", INT32), ("cret_return_amt", money()),
+        ("cret_return_tax", money()), ("cret_return_fee", money()),
+        ("cret_return_ship_cost", money()), ("cret_refunded_cash", money()),
+        ("cret_reversed_charge", money()),
+        ("cret_merchant_credit", money()), ("cret_reason_id", char(16)),
+        ("cret_shipmode_id", char(16)), ("cret_catalog_page_id", char(16)),
+        ("cret_warehouse_id", char(16)))
+    s["s_web_returns"] = Schema.of(
+        ("wret_web_page_id", char(16)), ("wret_order_id", INT32, False),
+        ("wret_line_number", INT32, False),
+        ("wret_item_id", char(16), False),
+        ("wret_return_customer_id", char(16)),
+        ("wret_refund_customer_id", char(16)),
+        ("wret_return_date", DATE), ("wret_return_time", INT32),
+        ("wret_return_qty", INT32), ("wret_return_amt", money()),
+        ("wret_return_tax", money()), ("wret_return_fee", money()),
+        ("wret_return_ship_cost", money()), ("wret_refunded_cash", money()),
+        ("wret_reversed_charge", money()), ("wret_account_credit", money()),
+        ("wret_reason_id", char(16)))
+    s["s_inventory"] = Schema.of(
+        ("invn_warehouse_id", char(16), False),
+        ("invn_item_id", char(16), False),
+        ("invn_date", DATE, False), ("invn_qty_on_hand", INT32))
+    s["delete"] = Schema.of(
+        ("date1", DATE, False), ("date2", DATE, False))
+    s["inventory_delete"] = Schema.of(
+        ("date1", DATE, False), ("date2", DATE, False))
     return s
 
 

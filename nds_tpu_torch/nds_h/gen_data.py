@@ -8,10 +8,11 @@ and region as single files, fanned out over a process pool. It writes
 the same bytes as the reference for the same scale, parallelism and
 chunk range.
 
-Trimmed: the external ``dbgen`` path (``--dbgen_path``): the port runs
-on machines that have no TPC tool binaries, and the builtin generator is
-the one both packages share (ROADMAP Queue 1, "transcode and the other
-warehouse formats", brings back the tool wrappers with transcode).
+``--dbgen_path`` runs the external TPC dbgen binary instead through
+``datagen/toolwrap.run_dbgen``: one process per chunk (``dbgen -s N -f
+-C P -S C`` with ``DSS_PATH`` the output directory), the chunk files then
+moved into per-table directories, the layout ``transcode`` reads (the
+reference's CLI shells out itself and leaves them flat).
 
     python -m nds_tpu_torch.nds_h.gen_data 1 8 /data/nds_h/raw
 """
@@ -74,9 +75,7 @@ def generate_data_local(scale: float, parallel: int, data_dir: str,
 
 
 def main(argv=None) -> None:
-    p = argparse.ArgumentParser(
-        description="generate NDS-H raw data (the port's builtin "
-                    "generator; the external dbgen path is not ported)")
+    p = argparse.ArgumentParser(description="generate NDS-H raw data")
     p.add_argument("scale", type=float, help="scale factor")
     p.add_argument("parallel", type=int, help="number of chunks")
     p.add_argument("data_dir", help="output directory")
@@ -84,9 +83,17 @@ def main(argv=None) -> None:
     p.add_argument("--range", dest="chunk_range",
                    help="'first,last' 1-based chunk subrange to (re)generate")
     p.add_argument("--overwrite_output", action="store_true")
+    p.add_argument("--dbgen_path",
+                   help="use the external TPC dbgen binary instead of the "
+                        "builtin generator")
     p.add_argument("--workers", type=int,
                    help="process-pool size (default: cpu count)")
     args = p.parse_args(argv)
+    if args.dbgen_path:
+        from nds_tpu_torch.datagen.toolwrap import run_dbgen
+        run_dbgen(args.dbgen_path, int(args.scale), args.parallel,
+                  args.data_dir)
+        return
     rng = None
     if args.chunk_range:
         lo, hi = (int(x) for x in args.chunk_range.split(","))

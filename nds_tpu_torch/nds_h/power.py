@@ -20,12 +20,16 @@ run (q15's view parts are never warmed); at 0, the default, a plan's
 first run (eager, then the capture of its CUDA graph) is inside its
 timed query.
 
+``--input_format`` is ``parquet`` (the default), ``orc``, ``json`` or
+``avro`` for a warehouse written by ``transcode``, or ``raw`` for
+``gen_data``'s text; the ``io.verify_digests`` config key verifies each
+file against its table's digest manifest before it is parsed.
+
 Not ported yet, each with its ROADMAP Queue 1 item: ``--placement``
 (item 4, the scheduler), ``--profile_dir`` and ``--trace`` (item 7,
 observability), ``--resume`` (the resilience layer), ``--cache_dir`` and
 ``--cache_readonly`` (no counterpart: a CUDA graph does not outlive its
-process); the ``orc``, ``json`` and ``avro`` input formats (with
-transcode).
+process).
 """
 
 from __future__ import annotations
@@ -51,14 +55,13 @@ SUITE = power_core.Suite(
 NOT_PORTED = ("not ported yet: --placement (ROADMAP Queue 1 item 4), "
               "--profile_dir and --trace (item 7), --resume (the "
               "resilience layer), --cache_dir and --cache_readonly (no "
-              "counterpart: a CUDA graph does not outlive its process); "
-              "input formats orc, json and avro (with transcode)")
+              "counterpart: a CUDA graph does not outlive its process)")
 
 
 def add_power_args(p) -> None:
     """The arguments both power CLIs take."""
-    p.add_argument("data_dir", help="warehouse directory (gen_data output "
-                   "with --input_format raw, or a parquet warehouse)")
+    p.add_argument("data_dir", help="warehouse directory (transcode "
+                   "output, or gen_data output with --input_format raw)")
     p.add_argument("query_stream", help="stream file")
     p.add_argument("time_log", help="output CSV time log path")
     p.add_argument("--backend", choices=list(power_core.BACKENDS),
@@ -69,7 +72,8 @@ def add_power_args(p) -> None:
     p.add_argument("--device", default=None,
                    help="the gpu backend's torch device (engine.device; "
                         "default cuda, the card; cpu runs it on the CPU)")
-    p.add_argument("--input_format", choices=["parquet", "raw"],
+    p.add_argument("--input_format",
+                   choices=["parquet", "orc", "json", "avro", "raw"],
                    default="parquet")
     p.add_argument("--extra_time_log",
                    help="write a second copy of the CSV time log here")
@@ -77,7 +81,7 @@ def add_power_args(p) -> None:
                    help="folder for per-query JSON summaries")
     p.add_argument("--output_prefix",
                    help="save each query's result under this directory "
-                        "(parquet: needs pyarrow)")
+                        "(one parquet file per query)")
     p.add_argument("--warmup", type=int, default=0,
                    help="untimed runs per query before the timed one")
     p.add_argument("--allow_failure", action="store_true",

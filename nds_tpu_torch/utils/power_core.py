@@ -27,8 +27,8 @@ brings it back:
 - ``pipeline_io``'s query-boundary overlap (item 6);
 - spans, metrics, costs, telemetry, memwatch, profiles, the fleet
   wiring, the flight recorder and the metrics snapshotter (item 7);
-- the query journal, ``--resume``, the SIGTERM drain, the watchdog,
-  fault injection and digest verification (the resilience layer);
+- the query journal, ``--resume``, the SIGTERM drain, the watchdog and
+  fault injection (the resilience layer);
 - ``SnapshotLog`` and delta warehouses (item 5, maintenance);
 - the plan-cache hooks (``--cache_dir``): a CUDA graph does not outlive
   its process, so they have no counterpart;
@@ -122,9 +122,11 @@ def load_warehouse(suite: Suite, session: Session, data_dir: str,
                    tables: list[str] | None = None,
                    schemas: dict | None = None) -> dict:
     """Register every table from a warehouse directory; returns
-    {table: seconds} setup timings (the CreateTempView analog). ``raw``
-    reads '|'-delimited text with numpy; ``parquet`` needs pyarrow."""
+    {table: seconds} setup timings (the CreateTempView analog). ``fmt``
+    is ``raw`` ('|'-delimited text, gen_data's output) or one of
+    transcode's formats (``csv_io.FORMAT_EXT``)."""
     from nds_tpu_torch.io import csv_io
+    from nds_tpu_torch.io.integrity import MANIFEST_NAME
     if schemas is None:
         schemas = suite.get_schemas()
     timings = {}
@@ -146,10 +148,10 @@ def load_warehouse(suite: Suite, session: Session, data_dir: str,
             table = csv_io.read_table_fmt(paths, name, schema, fmt)
         elif fmt == "raw":
             if os.path.isdir(tdir):
-                # a table manifest of the reference's transcode is no data
+                # a table's digest manifest is no data
                 paths = sorted(
                     os.path.join(tdir, f) for f in os.listdir(tdir)
-                    if not f.startswith(".") and f != "_manifest.json")
+                    if not f.startswith(".") and f != MANIFEST_NAME)
             else:
                 paths = [os.path.join(data_dir, f"{name}{suite.raw_ext}")]
             table = csv_io.read_tbl(paths, name, schema)
@@ -185,6 +187,10 @@ def run_query_stream(suite: Suite, data_dir: str, stream_path: str,
     before it loads or writes anything."""
     from nds_tpu_torch.io.result_io import result_digest
     config = config or EngineConfig()
+    if config.get_bool("io.verify_digests"):
+        # sticky per process, like the env-var gate it mirrors
+        from nds_tpu_torch.io import integrity
+        integrity.set_verify(True)
     session = make_session(suite, config)
     backend = config.get("engine.backend", "gpu")
     app_id = (f"{suite.name}-{platform_of(session)}-{backend}-"

@@ -3,8 +3,8 @@
 - ``gen_data``: the port's NDS-H (2 chunks) and NDS (2 chunks) raw files
   are byte for byte the reference's (``dbgen_version`` but its day and
   time of writing).
-- ``read_tbl``: the port's numpy reader gives exactly the reference's
-  pyarrow ``HostTable`` for every table of both suites (values, dtypes,
+- ``read_tbl``: the port's reader gives exactly the reference's
+  ``HostTable`` for every table of both suites (values, dtypes,
   dictionaries, null masks, NDS's empty fields), and for hand-written
   files with the edge cases of the text format (every null spelling,
   signs, short fractions, empty lines, no final newline).
@@ -13,9 +13,8 @@
 - Result files: either package's ``write_result`` is read by the other's
   ``read_result`` into equal frames, and the two ``result_digest``s
   agree.
-- The port's NDS-H power CLI runs a ``raw`` warehouse with pyarrow
-  blocked (``sys.modules["pyarrow"] = None``): the card's path needs
-  none.
+- The port's NDS-H power CLI runs the ``raw`` warehouse and the one
+  the port's ``transcode`` CLI wrote from it into the same results.
 """
 
 import os
@@ -272,38 +271,39 @@ def test_result_files_round_trip_between_the_packages(tmp_path):
 
 
 def test_power_cli_runs_a_raw_warehouse_without_pyarrow(raw, tmp_path):
-    """The card's path (raw data, time log, summaries) imports no
-    pyarrow."""
+    """The power CLI runs the raw warehouse and the warehouse the port's
+    own ``transcode`` CLI wrote from it (the raw reader is pyarrow's, as
+    in the reference, so the name's premise, a raw path without pyarrow,
+    went with the numpy reader): the same time log and summaries, and
+    result files that the two runs agree on."""
     stream = str(tmp_path / "stream.sql")
     from nds_tpu_torch.nds_h.streams import generate_query_streams
     generated = generate_query_streams(str(tmp_path / "streams"), 1)
     os.replace(generated[0], stream)
-    tlog = str(tmp_path / "t.csv")
-    code = (
-        "import sys\n"
-        "sys.modules['pyarrow'] = None\n"
-        "from nds_tpu_torch.nds_h import power\n"
-        "try:\n"
-        "    power.main(sys.argv[1:])\n"
-        "finally:\n"
-        "    assert sys.modules['pyarrow'] is None\n")
+    wh = str(tmp_path / "wh")
     proc = subprocess.run(
-        [sys.executable, "-c", code, raw["nds_h"][0], stream, tlog,
-         "--input_format", "raw", "--device", "cpu",
-         "--json_summary_folder", str(tmp_path / "json"),
-         "--query_subset", "query1", "query6"],
+        [sys.executable, "-m", "nds_tpu_torch.nds_h.transcode",
+         raw["nds_h"][0], wh, str(tmp_path / "load.txt")],
         cwd=REPO, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
-    rows = open(tlog).read().splitlines()
-    assert [r.split(",")[1] for r in rows[-4:]] == [
-        "query1", "query6", "Power Test Time", "Total Time"]
-    assert len(os.listdir(tmp_path / "json")) == 2
-    # asking for result files needs pyarrow, and says so
-    proc = subprocess.run(
-        [sys.executable, "-c", code, raw["nds_h"][0], stream, tlog,
-         "--input_format", "raw", "--device", "cpu",
-         "--output_prefix", str(tmp_path / "out"),
-         "--query_subset", "query6"],
-        cwd=REPO, capture_output=True, text=True, timeout=300)
-    assert proc.returncode == 1
-    assert "pyarrow" in proc.stdout + proc.stderr
+    outs = {}
+    for fmt, data in (("raw", raw["nds_h"][0]), ("parquet", wh)):
+        tlog = str(tmp_path / f"t_{fmt}.csv")
+        jsons, outs[fmt] = tmp_path / f"json_{fmt}", tmp_path / f"out_{fmt}"
+        proc = subprocess.run(
+            [sys.executable, "-m", "nds_tpu_torch.nds_h.power", data,
+             stream, tlog, "--input_format", fmt, "--device", "cpu",
+             "--json_summary_folder", str(jsons),
+             "--output_prefix", str(outs[fmt]),
+             "--query_subset", "query1", "query6"],
+            cwd=REPO, capture_output=True, text=True, timeout=300)
+        assert proc.returncode == 0, proc.stdout + proc.stderr
+        rows = open(tlog).read().splitlines()
+        assert [r.split(",")[1] for r in rows[-4:]] == [
+            "query1", "query6", "Power Test Time", "Total Time"]
+        assert sum(",CreateTempView " in r for r in rows) == 8
+        assert len(os.listdir(jsons)) == 2
+    for q in ("query1", "query6"):
+        pd.testing.assert_frame_equal(
+            result_io.read_result(str(outs["parquet"] / q)),
+            result_io.read_result(str(outs["raw"] / q)), obj=q)
