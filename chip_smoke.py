@@ -130,9 +130,21 @@ Drives ``nds_tpu_torch`` (never ``jax``, never ``nds_tpu``) on the card:
    a parquet warehouse, the power CLI over that warehouse (its default
    ``--input_format parquet``) on the card, then on the CPU oracle
    (``--backend cpu``), then the validate CLI over the two runs' result
-   files: every statement completed, every compared one a MATCH
-   (``power_phase``); its ``Power Test Time`` printed beside the bench
-   entry's NDS-H total;
+   files: every statement completed on ``device`` (on ``cpu`` in the
+   oracle's run) with 0 reschedules, every compared one a MATCH
+   (``power_phase``, ``power_run``); its ``Power Test Time`` printed
+   beside the bench entry's NDS-H total;
+8c. throughput phase, over the power phase's warehouse, three runs at
+   once: streams 1 and 2 through the NDS-H throughput CLI in subprocess
+   mode and in process (``--in_process``), every statement ``Completed``
+   on ``device`` with 0 reschedules and the power CLI's result (bit for
+   bit, float columns within 1e-9), and the power CLI with ``--backend
+   distributed`` (a world of one NCCL rank), every statement ``sharded``
+   with 0 reschedules and a MATCH against the oracle
+   (``throughput_phase``); and after the
+   NDS-H leg's timed passes, ``async_check``: the copies to the host of
+   ``execute`` against ``execute_async``, handles in flight resolved in
+   both orders, a recapture after every graph is dropped;
 9. prints the kernels line (one entry per kernel wrapper: launches summed
    over the timed runs, each kernel's numbers from the path that runs
    it), the card line, and as the last line
@@ -167,7 +179,14 @@ times, per suite at ``--sf`` and ``--sf-ds``, the raw reader
 (``read_tbl``, best of two reads), the ``transcode`` CLI to parquet and
 ``load_warehouse`` over its warehouse, holds every table read back equal
 to the raw read and prints the seconds and MB/s of each
-(``load_phase``).
+(``load_phase``). The step ``throughput`` runs the
+throughput CLIs at ``--sf`` and ``--sf-ds`` (``throughput_step``: NDS-H
+in both modes in turns, NDS in process, each held to the power CLI's
+stream 0 on the card, and one attempt at 2 NDS streams in subprocess
+mode, recorded as what it does); ``throughput_beyond`` runs that attempt
+alone; ``async`` runs ``async_check`` on the NDS-H units at ``--sf``;
+``overlap`` times the in-process streams and the captured plans' replays
+at 1 and 2 statements in flight (``overlap_step``).
 
 Kernel checks: integer, bool and min/max outputs must equal the plain
 version's exactly; a float sum (the segmented scan's "sum" on float
@@ -206,10 +225,14 @@ import importlib
 import json
 import multiprocessing
 import os
+import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+from collections import Counter
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
 F32_OPS_PER_S = 67e12          # H100 SXM float32 outside the tensor cores
@@ -4467,6 +4490,22 @@ def _cli(args: list, timeout_s: float) -> dict:
             "stdout": proc.stdout, "stderr_tail": proc.stderr[-4000:]}
 
 
+# the placement every statement of a power CLI run must report, by its
+# ``--backend``: the fast rung of the backend's universe
+BACKEND_PLACEMENT = {"gpu": "device", "distributed": "sharded", "cpu": "cpu"}
+
+
+def expected_placement(extra: list) -> str:
+    """The placement a power CLI run with the arguments ``extra`` must
+    put every statement on: its ``--placement`` pin, else its
+    ``--backend``'s fast placement (``gpu``, the card, by default)."""
+    if "--placement" in extra:
+        return extra[extra.index("--placement") + 1]
+    backend = (extra[extra.index("--backend") + 1] if "--backend" in extra
+               else "gpu")
+    return BACKEND_PLACEMENT[backend]
+
+
 def power_run(mod: str, wh: str, stream: str, units: list, out: str,
               extra: list, timeout_s: float) -> dict:
     """One run of the power CLI (``python -m <mod>.power``) over a parquet
@@ -4477,7 +4516,11 @@ def power_run(mod: str, wh: str, stream: str, units: list, out: str,
     its units) and its captures' ``compile_ms``. Every statement must
     complete; one that completed after a slack retry
     (``CompletedWithTaskFailures``) counts apart and makes the CLI exit
-    1, as the reference's does."""
+    1, as the reference's does. Every statement that reached an executor
+    must report the run's placement (``expected_placement``) with 0
+    reschedules: the pipeline walks a statement that runs the card out
+    of memory down to the CPU oracle, whose result would pass every
+    other check."""
     from nds_tpu_torch.utils.timelog import TimeLog
     tlog, jsons = os.path.join(out, "time.csv"), os.path.join(out, "json")
     run = _cli([f"{mod}.power", wh, stream, tlog,
@@ -4519,12 +4562,30 @@ def power_run(mod: str, wh: str, stream: str, units: list, out: str,
                              for q in units),
         "compile_ms": sum((summaries.get(q) or {}).get(
             "engineTimings", {}).get("compile_ms", 0.0) for q in units),
+        # each statement's result digest and where the execution
+        # pipeline placed it
+        "digests": {q: (summaries.get(q) or {}).get("result_digest")
+                    for q in units},
+        "placements": {q: [(summaries.get(q) or {}).get(k) for k in (
+            "placement", "reschedules", "retries")] for q in units},
+        "placement": expected_placement(extra),
         "stderr_tail": run["stderr_tail"][-1500:]})
+    # a statement that reaches no executor (a view's CREATE or DROP) has
+    # no placement, and no result
+    rec["misplaced"] = {
+        q: p for q, p in rec["placements"].items()
+        if (p[0] is not None or rec["digests"][q] is not None)
+        and (p[0] != rec["placement"] or p[1])}
     bad = [f"{q} {st}" for q, st in statuses.items()
            if st != "Completed" and q not in retried]
     if bad or rec["completed"] + len(retried) != len(units):
         raise SmokeError(f"{mod}.power {extra}: {bad[:5]}; stderr ends: "
                          f"{run['stderr_tail'][-2000:]}")
+    if rec["misplaced"]:
+        raise SmokeError(
+            f"{mod}.power {extra}: statements not on {rec['placement']} "
+            f"or rescheduled ([placement, reschedules, retries]): "
+            f"{dict(list(rec['misplaced'].items())[:8])}")
     if run["rc"] != (1 if retried else 0):
         raise SmokeError(f"{mod}.power {extra}: exit {run['rc']} with "
                          f"{len(retried)} slack retries; stderr ends: "
@@ -4557,8 +4618,24 @@ def load_chain(mod: str, sf: float, tmp: str, timeout_s: float) -> dict:
             "transcode_s": get_load_time(report)}
 
 
+def validate_run(mod: str, ref_out: str, out: str, stream: str,
+                 timeout_s: float) -> dict:
+    """The validate CLI over two power runs' result files
+    (``--ignore_ordering``): its exit code, seconds, the statements it
+    called a MATCH and how many it skipped."""
+    v = _cli([f"{mod}.validate", ref_out, out, stream, "--ignore_ordering"],
+             timeout_s)
+    lines = v["stdout"].splitlines()
+    matched = [ln.split("Comparing Query: ", 1)[1].split(" -> ")[0]
+               for ln in lines if ln.endswith("-> MATCH ===")]
+    return {"rc": v["rc"], "seconds": v["seconds"], "match": len(matched),
+            "matched": matched,
+            "skipped": sum(ln.startswith("=== Skipping") for ln in lines)}
+
+
 def power_phase(dev, legs: dict, warmups=(0, 1),
-                timeout_s: float = POWER_CLI_TIMEOUT_S) -> dict:
+                timeout_s: float = POWER_CLI_TIMEOUT_S,
+                tmp: "str | None" = None, streams_n: int = 1) -> dict:
     """The port's phase chain per suite (``legs``: {suite: scale factor}),
     as its users run it, in a temporary directory: ``gen_data`` and
     ``transcode`` to parquet (``load_chain``), stream 0, the power CLI
@@ -4567,10 +4644,16 @@ def power_phase(dev, legs: dict, warmups=(0, 1),
     and capture to its timed query), on the CPU oracle (``--backend
     cpu``), then the validate CLI over each device run's result files and
     the oracle's: every compared statement a MATCH, exit 0. The device
-    runs' kernel blocks must agree. Prints one line per suite."""
+    runs' kernel blocks must agree. Prints one line per suite. With
+    ``tmp`` (a directory the caller owns and removes), the warehouse, the
+    ``streams_n`` stream files (stream 0 is the one run) and the runs'
+    result directories stay there, named in each suite's record
+    (``wh``, ``streams``, ``out``), for the throughput phase."""
     import shutil
     import tempfile
-    tmp = tempfile.mkdtemp(prefix="nds_power_")
+    owned = tmp is None
+    if owned:
+        tmp = tempfile.mkdtemp(prefix="nds_power_")
     out = {}
     try:
         for suite, sf in legs.items():
@@ -4578,8 +4661,9 @@ def power_phase(dev, legs: dict, warmups=(0, 1),
             load = load_chain(mod, sf, tmp, timeout_s)
             wh = load["wh"]
             streams = importlib.import_module(f"{mod}.streams")
-            (stream,) = streams.generate_query_streams(
-                os.path.join(tmp, f"streams_{suite}"), 1)
+            paths = streams.generate_query_streams(
+                os.path.join(tmp, f"streams_{suite}"), streams_n)
+            stream = paths[0]
             units = list(streams.parse_query_stream(stream))
             device = [] if dev.type == "cuda" else ["--device", dev.type]
             runs = {f"gpu_warmup{w}": power_run(
@@ -4588,21 +4672,19 @@ def power_phase(dev, legs: dict, warmups=(0, 1),
             runs["cpu"] = power_run(mod, wh, stream, units,
                                     os.path.join(tmp, f"{suite}_cpu"),
                                     ["--backend", "cpu"], timeout_s)
-            checks = {}
-            for w in warmups:
-                v = _cli([f"{mod}.validate",
-                          os.path.join(tmp, f"{suite}_cpu", "out"),
-                          os.path.join(tmp, f"{suite}_{w}", "out"), stream,
-                          "--ignore_ordering"], timeout_s)
-                lines = v["stdout"].splitlines()
-                checks[f"gpu_warmup{w}"] = {
-                    "rc": v["rc"], "seconds": v["seconds"],
-                    "match": sum(ln.endswith("-> MATCH ===") for ln in lines),
-                    "skipped": sum(ln.startswith("=== Skipping")
-                                   for ln in lines)}
+            checks = {f"gpu_warmup{w}": validate_run(
+                mod, os.path.join(tmp, f"{suite}_cpu", "out"),
+                os.path.join(tmp, f"{suite}_{w}", "out"), stream, timeout_s)
+                for w in warmups}
             rec = {"sf": sf, **{k: v for k, v in load.items()
                                 if k not in ("raw", "wh")},
                    "statements": len(units), "runs": runs, "validate": checks}
+            if not owned:
+                rec.update(wh=wh, streams=paths, out={
+                    **{f"gpu_warmup{w}": os.path.join(tmp, f"{suite}_{w}",
+                                                      "out")
+                       for w in warmups},
+                    "cpu": os.path.join(tmp, f"{suite}_cpu", "out")})
             log(json.dumps({"phase": "power", "suite": suite, "sf": sf,
                             "gen_data_s": load["gen_data_s"],
                             "transcode_s": load["transcode_s"],
@@ -4612,7 +4694,9 @@ def power_phase(dev, legs: dict, warmups=(0, 1),
                                 "completed", "retried", "statements",
                                 "kernels_digest", "seconds")}
                                for k, r in runs.items()},
-                            "validate": checks}))
+                            "validate": {k: {f: c[f] for f in (
+                                "rc", "match", "skipped")}
+                                for k, c in checks.items()}}))
             why = [f"{k}: exit {c['rc']}, {c['match']} MATCH of "
                    f"{len(units) - c['skipped']}"
                    for k, c in checks.items()
@@ -4627,7 +4711,8 @@ def power_phase(dev, legs: dict, warmups=(0, 1),
                 raise SmokeError(f"power phase, {suite}: {'; '.join(why)}")
             out[suite] = rec
     finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+        if owned:
+            shutil.rmtree(tmp, ignore_errors=True)
     return out
 
 
@@ -4645,6 +4730,685 @@ def power_beside_bench(power: dict, bench: dict) -> None:
                         "queries_ms": {k: r["queries_ms"]
                                        for k, r in rec["runs"].items()},
                         "bench_power_total_s": bench_s}))
+
+
+# ``--steps throughput`` and the full smoke's throughput phase: the
+# throughput CLIs as users run them, each in a session of its own
+# (``_group_run``), every stream's statements held to the power CLI's
+# digests of the same statements
+THROUGHPUT_STREAMS = 2
+# the full smoke's phase: NDS-H over the power phase's SF0.01 warehouse
+THROUGHPUT_SMOKE_TIMEOUT_S = 300
+# the 2-stream NDS run in subprocess mode at SF1: each stream process
+# holds a CUDA context and a graph pool of its own (NDS's pool alone was
+# 51.71 GiB at SF1 on an 80 GB card), so it is an attempt, recorded as
+# what it does, never called a device run
+THROUGHPUT_BEYOND_TIMEOUT_S = 900
+
+
+def _group_run(cmd: list, timeout_s: float) -> dict:
+    """``cmd`` from this checkout in a session of its own, so that past
+    ``timeout_s`` its whole process group (a throughput CLI's stream
+    subprocesses too) is killed; its exit code, seconds, stdout and
+    stderr."""
+    import signal
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=root, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True,
+                            start_new_session=True)
+    timed_out = False
+    try:
+        out, err = proc.communicate(timeout=timeout_s)
+    except subprocess.TimeoutExpired:
+        timed_out = True
+        os.killpg(proc.pid, signal.SIGKILL)
+        out, err = proc.communicate()
+    finally:
+        # no stream subprocess outlives its CLI
+        try:
+            os.killpg(proc.pid, signal.SIGKILL)
+        except OSError:
+            pass
+    return {"rc": proc.returncode, "timed_out": timed_out,
+            "seconds": time.perf_counter() - t0, "stdout": out,
+            "stderr": err}
+
+
+def _memory_lines(text: str) -> list:
+    """The ``[memory]`` records (``obs/memwatch.process_record``) a port
+    process printed."""
+    return [json.loads(ln.split("[memory] ", 1)[1])
+            for ln in text.splitlines() if ln.startswith("[memory] ")]
+
+
+def throughput_run(mod: str, wh: str, streams: list, out: str, mode: str,
+                   extra: list, timeout_s: float,
+                   cmd: "list | None" = None) -> dict:
+    """One run of ``python -m <mod>.throughput`` over ``streams``
+    (``mode``: ``subprocess`` or ``in_process``; ``cmd``, a program that
+    runs them as that mode does, writing into ``out`` and saving results
+    under ``out/results``, in its place): its exit code, its
+    ``Throughput Time``, and per stream the time log's ``Power Test
+    Time`` and each statement's status, placement, reschedules, retries
+    and result digest (from the stream's per-query summaries in
+    subprocess mode, from its query journal in process), in the time
+    log's order; each process's ``[memory]`` record (peak allocated and
+    reserved GiB, graph pool GiB)."""
+    from nds_tpu_torch.utils.timelog import TimeLog
+    streams_mod = importlib.import_module(f"{mod}.streams")
+    if cmd is None:
+        cmd = [sys.executable, "-m", f"{mod}.throughput", wh, *streams,
+               "--out_dir", out, "--output_prefix",
+               os.path.join(out, "results"), *extra]
+        if mode == "in_process":
+            cmd.append("--in_process")
+    run = _group_run(cmd, timeout_s)
+    found = re.search(r"Throughput Time: ([0-9.]+) s", run["stdout"])
+    rec = {"mode": mode, "rc": run["rc"], "timed_out": run["timed_out"],
+           "seconds": run["seconds"], "results": os.path.join(out, "results"),
+           "elapse_s": float(found.group(1)) if found else None,
+           "streams": {}, "stderr_tail": run["stderr"][-3000:]}
+    if mode == "in_process":
+        rec["memory"] = _memory_lines(run["stderr"])
+    for sp in streams:
+        name = os.path.splitext(os.path.basename(sp))[0]
+        tlog = os.path.join(out, f"{name}_time.csv")
+        rows = ([(q, ms) for _a, q, ms in TimeLog.read(tlog)]
+                if os.path.exists(tlog) else [])
+        stmts = {}
+        if mode == "in_process":
+            path = os.path.join(out, f"{name}_queries.json")
+            entries = (json.load(open(path))["queries"]
+                       if os.path.exists(path) else {})
+            for q, e in entries.items():
+                stmts[q] = {"status": e.get("status"), "error": None,
+                            "placement": e.get("placement"),
+                            "reschedules": e.get("reschedules"),
+                            "retries": e.get("retries"),
+                            "digest": e.get("result_digest"),
+                            "slack_retried": False}
+        else:
+            jdir = os.path.join(out, f"{name}_json")
+            for f in sorted(os.listdir(jdir)) if os.path.isdir(jdir) else []:
+                with open(os.path.join(jdir, f)) as fh:
+                    summary = json.load(fh)
+                status = summary["queryStatus"][-1]
+                stmts[summary["query"]] = {
+                    "status": status,
+                    "error": ((summary.get("exceptions") or [None])[0]
+                              or "")[:300] or None,
+                    "placement": summary.get("placement"),
+                    "reschedules": summary.get("reschedules"),
+                    "retries": summary.get("retries"),
+                    "digest": summary.get("result_digest"),
+                    "slack_retried": (
+                        status == "CompletedWithTaskFailures"
+                        and all(e.startswith(SLACK_RETRY)
+                                for e in summary["exceptions"]))}
+            log_path = os.path.join(out, f"{name}.log")
+            text = open(log_path).read() if os.path.exists(log_path) else ""
+            rec["streams_memory"] = {**rec.get("streams_memory", {}),
+                                     name: _memory_lines(text)}
+            # the first tracebacks of the stream's failed statements
+            errors = re.findall(r"ERROR BEGIN\n(.*?)ERROR END", text, re.S)
+            rec.setdefault("stream_errors", {})[name] = {
+                "count": len(errors),
+                "first": [e[-2500:] for e in errors[:3]]}
+            rec.setdefault("rescheduled_lines", {})[name] = [
+                ln for ln in text.splitlines()
+                if ln.startswith("RESCHEDULED")][:20]
+        order = [q for q, _ms in rows
+                 if q not in ("Power Test Time", "Total Time")
+                 and not q.startswith("CreateTempView ")]
+        rec["streams"][name] = {
+            "expected": list(streams_mod.parse_query_stream(sp)),
+            "order": order,
+            "power_test_ms": dict(rows).get("Power Test Time"),
+            "statements": {q: stmts.get(q) for q in order},
+            "counts": dict(Counter(st["status"] for st in stmts.values())),
+            "placed": dict(Counter(str(st["placement"])
+                                   for st in stmts.values())),
+            "reschedules": sum(st["reschedules"] or 0
+                               for st in stmts.values()),
+            "retries": sum(st["retries"] or 0 for st in stmts.values())}
+    return rec
+
+
+def float_equal(ref_out: str, out: str, q: str) -> bool:
+    """Statement ``q``'s results under two result directories hold a
+    float column and agree row for row within ``FLOAT_SUM_RTOL``, the
+    other columns exactly (``validate_core.frames_equal``)."""
+    from nds_tpu_torch.io.result_io import read_result
+    from nds_tpu_torch.utils.validate_core import frames_equal
+    a = read_result(os.path.join(ref_out, q))
+    b = read_result(os.path.join(out, q))
+    return (any(a[c].dtype.kind == "f" for c in a.columns)
+            and frames_equal(a, b, epsilon=FLOAT_SUM_RTOL) is None)
+
+
+def throughput_faults(rec: dict, placement: str, digests: dict,
+                      matched: list, power_out: str) -> list:
+    """Why a device run's throughput record fails: no end, an exit code
+    other than 0 (1 where every statement that did not complete cleanly
+    was a slack retry, as the power CLI exits), a stream whose statements
+    are not its stream file's in order, a statement not ``Completed``
+    (or slack-retried), not placed at ``placement`` or rescheduled, or
+    whose result differs from the power CLI's of the same statement
+    (under ``power_out``; where the validate CLI called that result a
+    MATCH): its digest must be equal, or, for a result with a float
+    column, its values within ``FLOAT_SUM_RTOL`` (the card's float sums
+    add partial sums in the order their tiles publish them, so their last
+    bits may differ from run to run). Such statements are listed in
+    ``rec["float_order"]``."""
+    why = []
+    rec["float_order"] = {}
+    if rec["timed_out"]:
+        why.append("no end in time")
+    retried = any(st and st["slack_retried"]
+                  for s in rec["streams"].values()
+                  for st in s["statements"].values())
+    if rec["rc"] not in ((0, 1) if retried else (0,)):
+        why.append(f"exit {rec['rc']}")
+    if rec["elapse_s"] is None:
+        why.append("no Throughput Time")
+    for name, s in rec["streams"].items():
+        if s["order"] != s["expected"]:
+            why.append(f"{name}: statements {s['order'][:4]}... are not "
+                       f"its stream's {s['expected'][:4]}...")
+        for q, st in s["statements"].items():
+            if st is None:
+                why.append(f"{name}/{q}: no record")
+                continue
+            if st["status"] != "Completed" and not st["slack_retried"]:
+                why.append(f"{name}/{q}: {st['status']}")
+            # a statement that reaches no executor (a view's CREATE or
+            # DROP) has no placement, and no result
+            if ((st["placement"] is not None or st["digest"] is not None)
+                    and (st["placement"] != placement
+                         or st["reschedules"])):
+                why.append(f"{name}/{q}: placed {st['placement']}, "
+                           f"{st['reschedules']} reschedules")
+            if (q in matched and st["digest"] and digests.get(q)
+                    and st["digest"] != digests[q]):
+                if float_equal(power_out, os.path.join(rec["results"],
+                                                       name), q):
+                    rec["float_order"].setdefault(name, []).append(q)
+                else:
+                    why.append(f"{name}/{q}: digest {st['digest']} "
+                               f"against the power CLI's {digests[q]}")
+    return why[:20]
+
+
+def _throughput_line(suite: str, rec: dict) -> None:
+    log(json.dumps({"phase": "throughput", "suite": suite,
+                    **{k: rec.get(k) for k in (
+                        "mode", "rc", "timed_out", "seconds", "elapse_s",
+                        "memory", "streams_memory", "beyond_card",
+                        "float_order")},
+                    "streams": {n: {k: s[k] for k in (
+                        "power_test_ms", "counts", "placed", "reschedules",
+                        "retries")} for n, s in rec["streams"].items()},
+                    # the failed statements' errors, by their first words
+                    "errors": {n: dict(Counter(
+                        (st["error"] or "")[:160]
+                        for st in s["statements"].values()
+                        if st and st["status"] == "Failed"))
+                        for n, s in rec["streams"].items()}}))
+
+
+def stream0_on_card(prep: dict, tmp: str, device: list,
+                    timeout_s: float, out: dict) -> dict:
+    """Stream 0 of each suite of ``prep`` ({suite: (module, warehouse,
+    stream paths, statements)}) through the power CLI on the card
+    (``--warmup 0``) and on the CPU oracle (in the background, every
+    suite at once), then the validate CLI over the two: every compared
+    result a MATCH. Returns each suite's card run; ``out[suite]`` gets
+    the numbers and the statements called a MATCH (``matched``)."""
+    from concurrent.futures import ThreadPoolExecutor
+    with ThreadPoolExecutor(len(prep)) as pool:
+        oracles = {suite: pool.submit(
+            power_run, mod, wh, paths[0], units,
+            os.path.join(tmp, f"{suite}_cpu"), ["--backend", "cpu"],
+            timeout_s) for suite, (mod, wh, paths, units) in prep.items()}
+        power = {suite: power_run(
+            mod, wh, paths[0], units, os.path.join(tmp, f"{suite}_gpu"),
+            device + ["--warmup", "0"], timeout_s)
+            for suite, (mod, wh, paths, units) in prep.items()}
+        oracles = {suite: f.result() for suite, f in oracles.items()}
+    for suite, (mod, wh, paths, units) in prep.items():
+        v = validate_run(mod, os.path.join(tmp, f"{suite}_cpu", "out"),
+                         os.path.join(tmp, f"{suite}_gpu", "out"),
+                         paths[0], timeout_s)
+        out[suite].update(power={k: power[suite][k] for k in (
+            "power_test_ms", "load_ms", "completed", "retried",
+            "seconds")}, oracle_ms=oracles[suite]["power_test_ms"],
+            validate={k: v[k] for k in ("rc", "match", "skipped")})
+        log(json.dumps({"phase": "throughput power", "suite": suite,
+                        **out[suite]}))
+        if v["rc"] or v["match"] != len(units) - v["skipped"]:
+            raise SmokeError(f"throughput step, {suite}: the power CLI's "
+                             f"stream 0 on the card: {v['match']} MATCH of "
+                             f"{len(units) - v['skipped']}")
+        out[suite]["matched"] = v["matched"]
+    return power
+
+
+def throughput_step(dev, legs: dict,
+                    timeout_s: float = POWER_CLI_TIMEOUT_S,
+                    beyond_only: bool = False) -> dict:
+    """``--steps throughput``: per suite (``legs``: {suite: scale
+    factor}), in a temporary directory, ``gen_data`` and ``transcode`` to
+    parquet (``load_chain``) and 1 + ``THROUGHPUT_STREAMS`` streams. Stream
+    0 runs through the power CLI on the card (``--warmup 0``) and on the
+    CPU oracle (in the background, both suites at once), and the validate
+    CLI compares the two. Streams 1 and 2 (the qualification parameters:
+    the same statements as stream 0 in another order) then run through
+    the throughput CLI: NDS-H in subprocess and in-process modes in turns
+    (subprocess, in-process, in-process, subprocess), NDS in process,
+    each a device run that ``throughput_faults`` must pass; then one
+    attempt at NDS in subprocess mode, recorded as what it does (exit
+    code, statuses, placements, reschedules, each process's memory)
+    within ``THROUGHPUT_BEYOND_TIMEOUT_S``. Prints one line a run. With
+    ``beyond_only`` (``--steps throughput_beyond``) only the warehouses,
+    the streams and that attempt."""
+    import shutil
+    import tempfile
+    tmp = tempfile.mkdtemp(prefix="nds_tput_")
+    device = [] if dev.type == "cuda" else ["--device", dev.type]
+    out = {"runs": []}
+    try:
+        prep = {}
+        for suite, sf in legs.items():
+            mod = f"nds_tpu_torch.{suite}"
+            load = load_chain(mod, sf, tmp, timeout_s)
+            streams = importlib.import_module(f"{mod}.streams")
+            paths = streams.generate_query_streams(
+                os.path.join(tmp, f"streams_{suite}"), 1 + THROUGHPUT_STREAMS)
+            units = list(streams.parse_query_stream(paths[0]))
+            prep[suite] = (mod, load["wh"], paths, units)
+            out[suite] = {"sf": sf, **{k: v for k, v in load.items()
+                                       if k not in ("raw", "wh")}}
+        plan = [("nds_h", m, False) for m in ("subprocess", "in_process",
+                                              "in_process", "subprocess")]
+        plan += [("nds", "in_process", False), ("nds", "subprocess", True)]
+        plan = [p for p in plan if p[0] in prep and (p[2] or not beyond_only)]
+        power = ({} if beyond_only
+                 else stream0_on_card(prep, tmp, device, timeout_s, out))
+        for i, (suite, mode, beyond) in enumerate(plan):
+            mod, wh, paths, _units = prep[suite]
+            rec = throughput_run(
+                mod, wh, paths[1:], os.path.join(tmp, f"tput_{i}"), mode,
+                device, THROUGHPUT_BEYOND_TIMEOUT_S if beyond else timeout_s)
+            rec.update(suite=suite, beyond_card=beyond)
+            out["runs"].append(rec)
+            if beyond:
+                _throughput_line(suite, rec)
+                continue
+            why = throughput_faults(rec, "device", power[suite]["digests"],
+                                    out[suite]["matched"],
+                                    os.path.join(tmp, f"{suite}_gpu", "out"))
+            _throughput_line(suite, rec)
+            if why:
+                raise SmokeError(f"throughput step, {suite} {mode}: "
+                                 f"{'; '.join(why)}; stderr ends: "
+                                 f"{rec['stderr_tail'][-1500:]}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
+def throughput_phase(dev, power: dict, tmp: str,
+                     timeout_s: float = THROUGHPUT_SMOKE_TIMEOUT_S) -> dict:
+    """The full smoke's throughput phase over the power phase's NDS-H
+    warehouse (``power``: its record of NDS-H, made with ``tmp``), its
+    three runs at once (a check, not a measurement: ``--steps
+    throughput`` times the modes apart): streams 1 and 2 through the
+    throughput CLI in subprocess mode and in process, each a device run
+    that ``throughput_faults`` must pass against the power CLI's stream 0
+    on the card, and the power CLI over stream 0 with ``--backend
+    distributed`` (a world of one rank, NCCL on the card): every
+    statement ``Completed`` and placed ``sharded`` with 0 reschedules
+    (``power_run``), every compared result a MATCH against the power
+    phase's CPU oracle."""
+    from concurrent.futures import ThreadPoolExecutor
+    mod = "nds_tpu_torch.nds_h"
+    device = [] if dev.type == "cuda" else ["--device", dev.type]
+    wh, paths = power["wh"], power["streams"]
+    digests = power["runs"]["gpu_warmup0"]["digests"]
+    matched = power["validate"]["gpu_warmup0"]["matched"]
+    units = list(importlib.import_module(
+        f"{mod}.streams").parse_query_stream(paths[0]))
+    out = {"runs": []}
+    with ThreadPoolExecutor(3) as pool:
+        runs = {mode: pool.submit(
+            throughput_run, mod, wh, paths[1:],
+            os.path.join(tmp, f"tput_{mode}"), mode, device, timeout_s)
+            for mode in ("subprocess", "in_process")}
+        dist = pool.submit(power_run, mod, wh, paths[0], units,
+                           os.path.join(tmp, "dist"),
+                           device + ["--backend", "distributed"], timeout_s)
+        runs = {mode: f.result() for mode, f in runs.items()}
+        dist = dist.result()
+    for mode, rec in runs.items():
+        rec.update(suite="nds_h", beyond_card=False)
+        out["runs"].append(rec)
+        why = throughput_faults(rec, "device", digests, matched,
+                                power["out"]["gpu_warmup0"])
+        _throughput_line("nds_h", rec)
+        if why:
+            raise SmokeError(f"throughput phase, {mode}: {'; '.join(why)}; "
+                             f"stderr ends: {rec['stderr_tail'][-1500:]}")
+    v = validate_run(mod, power["out"]["cpu"],
+                     os.path.join(tmp, "dist", "out"), paths[0], timeout_s)
+    out["distributed"] = {k: dist[k] for k in (
+        "power_test_ms", "completed", "retried", "seconds", "placement")}
+    out["distributed"].update(validate={k: v[k] for k in (
+        "rc", "match", "skipped")})
+    log(json.dumps({"phase": "throughput distributed power",
+                    **out["distributed"]}))
+    if v["rc"] or v["match"] != len(units) - v["skipped"]:
+        raise SmokeError(f"throughput phase, the power CLI with --backend "
+                         f"distributed: {v['match']} MATCH of "
+                         f"{len(units) - v['skipped']}")
+    return out
+
+
+# ``--steps overlap``: the in-process streams with each number of
+# statements in flight (``engine.concurrent_tasks``), in turns
+OVERLAP_DEPTHS = (1, 2, 2, 1)
+# a turn's program: the throughput CLI's ``--in_process`` run with
+# ``engine.concurrent_tasks`` set (the CLI takes no property file)
+OVERLAP_CHILD = """
+import importlib, os, sys
+from nds_tpu_torch.nds.throughput import run_streams_inprocess
+from nds_tpu_torch.utils.config import EngineConfig
+suite, depth, device, wh, out, *streams = sys.argv[1:]
+elapse, failures = run_streams_inprocess(
+    wh, streams, out, suite=importlib.import_module(
+        f"nds_tpu_torch.{suite}.power").SUITE,
+    config=EngineConfig(overrides={"engine.concurrent_tasks": depth,
+                                   "engine.device": device}),
+    output_prefix=os.path.join(out, "results"))
+print(f"Throughput Time: {elapse} s over {len(streams)} streams")
+sys.exit(1 if any(failures) else 0)
+"""
+# passes over the captured one-statement units in a replay turn
+OVERLAP_PASSES = 3
+
+
+def same_result(got, exp) -> "str | None":
+    """None where ``got`` equals ``exp`` bit for bit (their digests);
+    ``float`` where they differ but hold a float column whose values
+    agree within ``FLOAT_SUM_RTOL`` (``validate_core.frames_equal``; the
+    card's float sums may round differently from run to run); else
+    ``differs``."""
+    from nds_tpu_torch.io.result_io import result_digest
+    from nds_tpu_torch.utils.validate_core import frames_equal
+    if result_digest(got) == result_digest(exp):
+        return None
+    if any(getattr(c, "dtype", None) is not None and c.dtype.kind == "f"
+           for c in exp.cols) and frames_equal(
+               got.to_pandas(), exp.to_pandas(),
+               epsilon=FLOAT_SUM_RTOL) is None:
+        return "float"
+    return "differs"
+
+
+def replay_passes(sess, units: list, depth: int, passes: int) -> tuple:
+    """``passes`` passes over ``units`` ((name, SQL) of one-statement
+    units whose plans are captured) through ``Session.sql_async`` with
+    ``depth`` statements in flight, as the in-process streams dispatch
+    them: the wall ms (from a synchronized card to one), the last pass's
+    results and the placements of every statement."""
+    import torch
+    inflight, results, placed = [], {}, Counter()
+
+    def finish():
+        name, h = inflight.pop(0)
+        results[name] = h.result()
+        placed[str((getattr(h, "sched", None) or {}).get("placement"))] += 1
+
+    def sync():
+        if torch.cuda.is_initialized():
+            torch.cuda.synchronize()
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(passes):
+        for name, sql in units:
+            inflight.append((name, sess.sql_async(sql)))
+            while len(inflight) >= depth:
+                finish()
+    while inflight:
+        finish()
+    sync()
+    return (time.perf_counter() - t0) * 1000, results, dict(placed)
+
+
+def overlap_step(dev, legs: dict,
+                 timeout_s: float = POWER_CLI_TIMEOUT_S) -> dict:
+    """``--steps overlap``: what dispatching ahead (``execute_async``,
+    ``engine.concurrent_tasks``) buys. Per suite (``legs``: {suite: scale
+    factor}), in a temporary directory, the parquet warehouse
+    (``load_chain``) and streams 1 and 2; the in-process throughput run
+    (``OVERLAP_CHILD``, a process a turn) at each depth of
+    ``OVERLAP_DEPTHS`` in turns, each a device run that
+    ``throughput_faults`` must pass with every stream's results equal to
+    the first turn's stream 1 (bit for bit, float columns within
+    ``FLOAT_SUM_RTOL``); then, in this process over the same warehouse
+    through the pipeline (``make_session``), the suite's one-statement
+    power units run twice (each plan's first run and capture, then a
+    replay) and replayed ``OVERLAP_PASSES`` times a turn at each depth
+    (``replay_passes``), every statement placed ``device`` and every
+    result equal to the first turn's (``same_result``). Prints one line a
+    suite."""
+    from nds_tpu_torch.utils import power_core
+    from nds_tpu_torch.utils.config import EngineConfig
+    tmp = tempfile.mkdtemp(prefix="nds_overlap_")
+    out = {}
+    try:
+        for suite, sf in legs.items():
+            mod = f"nds_tpu_torch.{suite}"
+            load = load_chain(mod, sf, tmp, timeout_s)
+            paths = importlib.import_module(
+                f"{mod}.streams").generate_query_streams(
+                    os.path.join(tmp, f"streams_{suite}"),
+                    1 + THROUGHPUT_STREAMS)[1:]
+            first = os.path.splitext(os.path.basename(paths[0]))[0]
+            rec = out[suite] = {"sf": sf, "turns": [], "replays": []}
+            digests, ref_out = None, None
+            for i, depth in enumerate(OVERLAP_DEPTHS):
+                run_dir = os.path.join(tmp, f"{suite}_{i}")
+                run = throughput_run(
+                    mod, load["wh"], paths, run_dir, "in_process", [],
+                    timeout_s, [sys.executable, "-c", OVERLAP_CHILD, suite,
+                                str(depth), dev.type, load["wh"], run_dir,
+                                *paths])
+                if digests is None:
+                    digests = {q: st["digest"] for q, st in run["streams"][
+                        first]["statements"].items() if st}
+                    ref_out = os.path.join(run["results"], first)
+                why = throughput_faults(run, "device", digests,
+                                        list(digests), ref_out)
+                rec["turns"].append({
+                    "depth": depth, "rc": run["rc"],
+                    "elapse_s": run["elapse_s"], "seconds": run["seconds"],
+                    "power_test_ms": {n: st["power_test_ms"]
+                                      for n, st in run["streams"].items()},
+                    "memory": run.get("memory"),
+                    "float_order": run["float_order"]})
+                if why:
+                    raise SmokeError(f"overlap step, {suite} depth {depth}: "
+                                     f"{'; '.join(why)}; stderr ends: "
+                                     f"{run['stderr_tail'][-1500:]}")
+            suite_obj = importlib.import_module(f"{mod}.power").SUITE
+            config = EngineConfig(overrides={"engine.device": dev.type})
+            sess = power_core.make_session(suite_obj, config)
+            power_core.load_warehouse(
+                suite_obj, sess, load["wh"], "parquet",
+                schemas=power_core.suite_schemas(suite_obj, config))
+            units = [(n, st[0]) for n, st in suite_units(suite)
+                     if len(st) == 1]
+            for _ in range(2):
+                for _n, sql in units:
+                    sess.sql(sql)
+            exp = None
+            for depth in OVERLAP_DEPTHS:
+                ms, got, placed = replay_passes(sess, units, depth,
+                                                OVERLAP_PASSES)
+                if exp is None:
+                    exp = got
+                differ = {n: same_result(got[n], exp[n]) for n in exp}
+                rec["replays"].append({
+                    "depth": depth, "ms": ms, "placed": placed,
+                    "float_order": sorted(n for n, d in differ.items()
+                                          if d == "float")})
+                bad = sorted(n for n, d in differ.items() if d == "differs")
+                if bad or set(placed) != {"device"}:
+                    raise SmokeError(f"overlap step, {suite} replays at "
+                                     f"depth {depth}: placed {placed}, "
+                                     f"results differ {bad}")
+            rec["units"] = len(units)
+            del sess
+            release(dev)
+            log(json.dumps({"phase": "overlap", "suite": suite, **rec}))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
+def _host_copies(calls: list, dev) -> dict:
+    """{name: copies from the card to the host} that each ``fn()`` of
+    ``calls`` ((name, fn) pairs, run in turn) makes: the ``Memcpy DtoH``
+    device events under one ``torch.profiler`` session that start inside
+    the call's host range (each call ends with its result on the host).
+    0 each off the card."""
+    if dev.type != "cuda":
+        for _name, fn in calls:
+            fn()
+        return {name: 0 for name, _fn in calls}
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for name, fn in calls:
+            with record_function(f"call:{name}"):
+                fn()
+        torch.cuda.synchronize()
+    ranges, starts = {}, []
+    for ev in prof.events():
+        on_dev = ev.device_type == DeviceType.CUDA
+        if ev.name.startswith("call:") and not on_dev:
+            ranges[ev.name[5:]] = (ev.time_range.start, ev.time_range.end)
+        elif on_dev and "DtoH" in ev.name:
+            starts.append(ev.time_range.start)
+    return {name: sum(1 for t in starts if s0 <= t < e0)
+            for name, (s0, e0) in ranges.items()}
+
+
+def async_check(dsess, units, dev) -> dict:
+    """The device executor's ``execute_async`` on the plans
+    of a leg's one-statement units, after their graphs are captured
+    (a replay queues its copies to the host into pinned buffers of its
+    own dispatch). Per unit: the copies to the host of one ``execute``
+    and of one ``execute_async(...).result()`` (``_host_copies``, each
+    way in one profiled pass over the units), which must be as many; two
+    handles of the unit's plan in flight, resolved
+    in both orders; and two handles of this unit's plan and the next
+    one's in flight, resolved in both orders; then, with every graph
+    dropped, two plans captured again (into a new pool) and replayed.
+    Every result must equal ``execute``'s: bit for bit (its digest), or, where it holds a float
+    column, within ``FLOAT_SUM_RTOL`` (``validate_core.frames_equal``;
+    the card's float sums may round differently from run to run, which
+    two ``execute`` calls show: ``unstable``)."""
+    from nds_tpu_torch.io.result_io import result_digest
+    t0 = time.perf_counter()
+    ex = dsess._executor_factory(dsess.tables)
+    plans = []
+    for name, stmts in units:
+        if len(stmts) == 1:
+            key = (stmts[0], dsess._views_signature())
+            plans.append((name, dsess._planned_for(key, stmts[0])))
+    exp = {name: ex.execute(p) for name, p in plans}
+    digests = {name: result_digest(r) for name, r in exp.items()}
+    floats = {name for name, r in exp.items()
+              if any(getattr(c, "dtype", None) is not None
+                     and c.dtype.kind == "f" for c in r.cols)}
+    unstable = sorted(name for name, p in plans
+                      if result_digest(ex.execute(p)) != digests[name])
+    copies, bad, float_order = {}, set(), set()
+
+    def same(name, got):
+        differ = same_result(got, exp[name])
+        if differ == "float":
+            float_order.add(name)
+        elif differ:
+            bad.add(name)
+
+    held = {}
+    sync = _host_copies([(name, functools.partial(ex.execute, p))
+                         for name, p in plans], dev)
+    dispatched = _host_copies([(name, functools.partial(
+        lambda n, p: held.__setitem__(n, ex.execute_async(p).result()),
+        name, p)) for name, p in plans], dev)
+    for name, _p in plans:
+        same(name, held[name])
+        copies[name] = (sync.get(name), dispatched.get(name))
+    for i, (name, p) in enumerate(plans):
+        for order in ((0, 1), (1, 0)):
+            hs = [ex.execute_async(p), ex.execute_async(p)]
+            for j in order:
+                same(name, hs[j].result())
+        other, q = plans[(i + 1) % len(plans)]
+        for order in ((0, 1), (1, 0)):
+            hs = [(name, ex.execute_async(p)), (other, ex.execute_async(q))]
+            for j in order:
+                same(hs[j][0], hs[j][1].result())
+    # every graph dropped, then a capture and a replay of two plans: the
+    # captures take a new pool (torch's pinned-host allocator fails a
+    # capture into a pool none of whose graphs is alive)
+    graphs, recapture = getattr(ex, "_graphs", None), None
+    if graphs is not None:
+        pool = graphs.pool
+        for key in list(graphs.graphs):
+            graphs.drop(key)
+        for name, p in plans[:2]:
+            for _ in range(2):
+                same(name, ex.execute(p))
+        recapture = {"new_pool": graphs.pool is not pool,
+                     "graphs": len(graphs.graphs)}
+        if not recapture["new_pool"] or recapture["graphs"] != 2:
+            bad.add("recapture")
+    differ = {n: c for n, c in copies.items()
+              if c[0] != c[1] or c[0] is None}
+    rec = {"plans": len(plans), "results": 7 * len(plans) + 4,
+           "recapture": recapture,
+           "copies_execute": sum(c[0] for c in copies.values()),
+           "copies_async": sum(c[1] for c in copies.values()),
+           "copies_differ": differ, "float_results": sorted(floats),
+           "unstable": unstable, "float_order": sorted(float_order),
+           "digests_differ": sorted(bad),
+           "seconds": time.perf_counter() - t0}
+    log(json.dumps({"phase": "async dispatch", **rec}))
+    if differ or bad:
+        raise SmokeError(f"execute_async: copies to the host differ "
+                         f"{differ}, results differ {sorted(bad)}")
+    return rec
+
+
+def async_step(dev, factory_of, sf: float) -> dict:
+    """``--steps async``: the NDS-H units at ``sf`` run twice on the
+    device engine (each plan's first run and capture, then a replay),
+    then ``async_check``."""
+    dsess = suite_session("nds_h", factory_of())
+    for t in make_tables("nds_h", sf).values():
+        dsess.register_table(t)
+    units = suite_units("nds_h")
+    for _ in range(2):
+        for _name, stmts in units:
+            run_query(dsess, stmts)
+    return async_check(dsess, units, dev)
 
 
 def same_table(a, b) -> bool:
@@ -4817,7 +5581,12 @@ def main() -> int:
                     "--sf-ds; with power, the port's gen_data, transcode, "
                     "power and validate CLIs at --sf and --sf-ds; with "
                     "load, the raw read, the transcode and the parquet "
-                    "read-back at --sf and --sf-ds; then exit")
+                    "read-back at --sf and --sf-ds; with throughput, the "
+                    "throughput CLIs at --sf and --sf-ds (throughput_beyond: "
+                    "the 2-stream NDS subprocess attempt alone); with "
+                    "async, execute_async on the NDS-H units at --sf; with "
+                    "overlap, the in-process streams and replays at 1 and "
+                    "2 statements in flight at --sf and --sf-ds; then exit")
     args = ap.parse_args()
 
     import torch
@@ -4848,8 +5617,9 @@ def main() -> int:
         if args.parent:
             designs = {"parent": load_parent(args.parent, dev)[0], "this": KX}
         steps = args.steps.split(",")
-        kernel_steps = [n for n in steps
-                        if n not in ("bench", "plans", "power", "load")]
+        kernel_steps = [n for n in steps if n not in (
+            "bench", "plans", "power", "load", "throughput",
+            "throughput_beyond", "async", "overlap")]
         rec = {"card": card, "phase": "steps", "cases": []}
         if kernel_steps:
             rec.update(design_steps(kernel_steps, designs, factory_of, dev,
@@ -4862,6 +5632,18 @@ def main() -> int:
                                              "nds": args.sf_ds})
         if "load" in steps:
             rec["load"] = load_phase({"nds_h": args.sf, "nds": args.sf_ds})
+        if "async" in steps:
+            rec["async"] = async_step(dev, factory_of, args.sf)
+            release(dev)
+        if "overlap" in steps:
+            rec["overlap"] = overlap_step(dev, {"nds_h": args.sf,
+                                               "nds": args.sf_ds})
+        if "throughput" in steps:
+            rec["throughput"] = throughput_step(
+                dev, {"nds_h": args.sf, "nds": args.sf_ds})
+        elif "throughput_beyond" in steps:
+            rec["throughput"] = throughput_step(dev, {"nds": args.sf_ds},
+                                                beyond_only=True)
         if "bench" in steps:
             rec["bench"] = bench_phase(card, dev, args.sf, args.sf_ds,
                                        BENCH_STEP_TIMEOUT_S)
@@ -4894,7 +5676,23 @@ def main() -> int:
                                  "read_tbl_s", "transcode_s",
                                  "load_parquet_s")}
                              for suite, l in rec["load"].items()}}]
-                            if "load" in rec else [])))
+                            if "load" in rec else [])
+                         + ([{"async": {k: rec["async"][k] for k in (
+                             "plans", "copies_execute", "copies_async")}}]
+                            if "async" in rec else [])
+                         + ([{"throughput": [
+                             [r["suite"], r["mode"], r["rc"], r["elapse_s"],
+                              {n: st["power_test_ms"]
+                               for n, st in r["streams"].items()}]
+                             for r in rec["throughput"]["runs"]]}]
+                            if "throughput" in rec else [])
+                         + ([{"overlap": {
+                             suite: {"turns": [[t["depth"], t["elapse_s"]]
+                                               for t in o["turns"]],
+                                     "replay_ms": [[r["depth"], r["ms"]]
+                                                   for r in o["replays"]]}
+                             for suite, o in rec["overlap"].items()}}]
+                            if "overlap" in rec else [])))
         return 0
 
     sf_ds_dist = min(args.sf_ds, SF_DS_DIST)
@@ -4937,6 +5735,7 @@ def main() -> int:
                                       "main_cases": {}}
         paths["nds_h"], dsess = run_leg("nds_h", KX, factory_of, dev, pool,
                                         record, parent=parent)
+        record["async"] = async_check(dsess, suite_units("nds_h"), dev)
         del dsess
         release(dev)
         run_distributed(KX, dev, pool, record, paths)
@@ -4952,9 +5751,16 @@ def main() -> int:
         record["bench"] = bench_phase(card, dev, BENCH_SMOKE_SF,
                                       BENCH_SMOKE_SF_DS,
                                       BENCH_SMOKE_TIMEOUT_S)
-        record["power"] = power_phase(dev, {"nds_h": POWER_SMOKE_SF},
-                                      warmups=(0,))
-        power_beside_bench(record["power"], record["bench"])
+        tmp = tempfile.mkdtemp(prefix="nds_power_")
+        try:
+            record["power"] = power_phase(
+                dev, {"nds_h": POWER_SMOKE_SF}, warmups=(0,), tmp=tmp,
+                streams_n=1 + THROUGHPUT_STREAMS)
+            power_beside_bench(record["power"], record["bench"])
+            record["throughput"] = throughput_phase(
+                dev, record["power"]["nds_h"], tmp)
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
         line = kernels_line(paths)
         record["kernels"] = line
         pool.close()

@@ -794,13 +794,24 @@ class DeviceExecutor:
 
     def execute(self, planned: P.PlannedQuery,
                 key: object = None) -> ResultTable:
-        """Run one planned query; on M:N join overflow, retry with
-        doubled slack (the slack is kept for the plan's later runs).
-        ``key`` names the plan's state (its id by default; staged
-        sub-plans run under ``(key, "__stage__", i)``). On the card the
-        plan's first call runs eagerly and then captures its launches
-        into a CUDA graph; later calls replay the graph (``compile_ms``
-        bills the capture). Everything runs on the executor's stream."""
+        """Run one planned query to its result on the host:
+        ``execute_async(planned, key).result()``."""
+        return self.execute_async(planned, key).result()
+
+    def execute_async(self, planned: P.PlannedQuery, key: object = None):
+        """Dispatch one planned query; returns a handle whose ``result()``
+        gives the ``ResultTable``. On M:N join overflow the plan runs again
+        at a doubled slack (kept for the plan's later runs). ``key`` names
+        the plan's state (its id by default; staged sub-plans run under
+        ``(key, "__stage__", i)``). On the card a plan's first call runs
+        eagerly and then captures its launches into a CUDA graph
+        (``compile_ms`` bills the capture); that call, every run on the
+        CPU and every eager run return a completed handle. A later call
+        replays the graph and queues its copies to the host on the
+        executor's stream at once, before any other graph can replay,
+        into pinned host buffers of this dispatch's own; ``result()``
+        waits for them, checks the overflow and materializes
+        (``_Replayed``). Everything runs on the executor's stream."""
         if not isinstance(planned, P.PlannedQuery):
             raise DeviceExecError(f"cannot execute {type(planned).__name__}")
         key = id(planned) if key is None else key
@@ -811,11 +822,14 @@ class DeviceExecutor:
             entry = {"slack": self.slack, "ref": planned}
             self._entries[key] = entry
             self._bound_entries(key)
-        with (self._graphs.on_stream() if self._graphs is not None
-              else contextlib.nullcontext()):
-            return self._execute(planned, key, entry)
+        with self._on_stream():
+            return self._dispatch(planned, key, entry)
 
-    def _execute(self, planned: P.PlannedQuery, key, entry: dict):
+    def _on_stream(self):
+        return (self._graphs.on_stream() if self._graphs is not None
+                else contextlib.nullcontext())
+
+    def _dispatch(self, planned: P.PlannedQuery, key, entry: dict):
         planned, stage_bill = self._staged_effective(planned, key)
         timings: dict = {"compile_ms": 0.0}
         t0 = time.perf_counter()
@@ -828,31 +842,34 @@ class DeviceExecutor:
             sum(t.numel() * t.element_size() for t in bufs.values()))
         self._attach_compression(timings, bufs)
         del bufs
+        run = (planned, key, entry, timings, t0, stage_bill)
         graphs = self._graphs if self.use_graphs else None
         pg = None if graphs is None else graphs.get(key)
-        host, retries, t1 = None, 0, None
         if (graphs is None and self._graphs is not None
                 and self._graphs.get(key) is not None):
             # graphs off on an executor that holds this plan's graph: run
             # it eagerly from the graphs' pool
             with self._graphs.pool_run(self._label(entry, planned)):
                 host, side, retries, t1 = self._first_run(
-                    planned, key, entry, retries, timings, None)
-        elif pg is not None:
+                    planned, key, entry, 0, timings, None)
+            return _Done(self._finish(run, host, side, retries, t1))
+        if pg is not None:
             if (pg.plan is not planned or self._uploads != uploads
                     or pg.side["bytes_scanned"] != timings["bytes_scanned"]):
                 raise DeviceExecError(
                     f"the graph of {self._label(entry, planned)} would "
                     f"read buffers other than those it was captured with")
-            host = self._to_host(*graphs.replay(pg))
-            if host is None:
-                # overflow after a replay: the reference's recompile
-                graphs.drop(key)
-                _notify_overflow(entry)
-                entry["slack"] *= 2
-                retries = 1
-            else:
-                side = pg.side
+            return _Replayed(self, run, pg.side,
+                             _HostCopies(self, *graphs.replay(pg)))
+        return _Done(self._finish(run, None, None, 0, None))
+
+    def _finish(self, run: tuple, host, side, retries: int, t1):
+        """The blocking half of a dispatch: with ``host`` None, the plan's
+        eager run (and, with graphs, its capture), once more after the
+        graphs' pool is reset where it runs out of memory; then the
+        materialized result, and the query's ``last_timings``."""
+        planned, key, entry, timings, t0, stage_bill = run
+        graphs = self._graphs if self.use_graphs else None
         if host is None:
             for attempt in (0, 1):
                 try:
@@ -1113,23 +1130,16 @@ class DeviceExecutor:
         return row, outs, None, overflow.reshape(1)
 
     def _to_host(self, row, outs, perm, counts):
-        """The host half, run eagerly after each run or replay: the counts
-        in one copy (None is returned on overflow, for the caller's
-        retry), then the result; a compacted one only as the power-of-two
-        prefix that covers its valid rows."""
+        """The host half after an eager run: the counts in one copy (None
+        is returned on overflow, for the caller's retry), then the result;
+        a compacted one only as the power-of-two prefix that covers its
+        valid rows. A replay's copies are ``_HostCopies``, the same
+        copies queued without waiting."""
         if perm is not None:
             cnt_h, over_h = counts.cpu().tolist()
             if over_h:
                 return None
-            n = row.shape[0]
-            C = 1
-            while C < max(cnt_h, 1):
-                C <<= 1
-            C = min(C, n)
-            perm = perm[:C]
-            row = row.index_select(0, perm)
-            outs = [(a.index_select(0, perm), v.index_select(0, perm))
-                    for a, v in outs]
+            row, outs = _compacted(row, outs, perm, cnt_h)
         elif int(counts.cpu()[0]):
             return None
         return (row.cpu().numpy(),
@@ -1381,6 +1391,130 @@ class DeviceExecutor:
             dtypes.append(dt)
         names = planned.column_names or [n for n, _ in planned.root.output]
         return ResultTable(names, arrs, dtypes, valids)
+
+
+def _compacted(row, outs, perm, valid: int) -> tuple:
+    """A compacted result's rows to copy: the power-of-two prefix of the
+    compactor's permutation that covers its ``valid`` rows."""
+    n = row.shape[0]
+    C = 1
+    while C < max(valid, 1):
+        C <<= 1
+    perm = perm[:min(C, n)]
+    return (row.index_select(0, perm),
+            [(a.index_select(0, perm), v.index_select(0, perm))
+             for a, v in outs])
+
+
+class _HostCopies:
+    """A replay's copies to the host, queued on the current stream as
+    soon as the graph is: on the card, the same copies as ``_to_host``'s
+    (the counts, the row mask, each column's values and validity), each
+    into a pinned host buffer of its own that this dispatch owns, never
+    the graph, so two dispatches of one plan in flight share none, then
+    an event. The graph's static outputs are read before any later replay
+    can write them, since everything runs on one stream. A compacted
+    result's prefix depends on its count of valid rows, so that count is
+    read first, as ``_to_host`` reads it. Off the card there is nothing
+    to overlap: ``_to_host`` runs at once. ``wait()`` returns the host
+    arrays, or None on overflow."""
+
+    def __init__(self, ex: "DeviceExecutor", row, outs, perm, counts):
+        self.host = self.event = self.counts = None
+        self.overflow = False
+        if row.device.type != "cuda":
+            self.host = ex._to_host(row, outs, perm, counts)
+            self.overflow = self.host is None
+            return
+        if perm is not None:
+            cnt_h, over_h = counts.cpu().tolist()
+            if over_h:
+                self.overflow = True
+                return
+            row, outs = _compacted(row, outs, perm, cnt_h)
+        else:
+            self.counts = self._copy(counts)
+        self.row = self._copy(row)
+        self.outs = [(self._copy(a), self._copy(v)) for a, v in outs]
+        self.event = torch.cuda.Event()
+        self.event.record()
+
+    @staticmethod
+    def _copy(t):
+        h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        h.copy_(t, non_blocking=True)
+        return h
+
+    def wait(self):
+        if self.overflow:
+            return None
+        if self.host is not None:
+            return self.host
+        self.event.synchronize()
+        if self.counts is not None and int(self.counts[0]):
+            return None
+        return (self.row.numpy(),
+                [(a.numpy(), v.numpy()) for a, v in self.outs])
+
+
+class _Done:
+    """A completed dispatch's handle."""
+
+    __slots__ = ("_value",)
+
+    def __init__(self, value):
+        self._value = value
+
+    def result(self):
+        return self._value
+
+
+class _Replayed:
+    """The handle of a dispatch that replayed its plan's graph:
+    ``result()`` waits for the dispatch's copies, checks the overflow
+    and materializes, setting the executor's ``last_timings``. An
+    overflow drops the graph, doubles the plan's slack and runs it again
+    (the reference's recompile), unless another handle of the plan did
+    so since this replay (the slack is no longer the one it ran at): the
+    plan then replays its new graph, or runs again where it has none.
+    Resolved once; later calls return the same result."""
+
+    def __init__(self, ex: "DeviceExecutor", run: tuple, side: dict,
+                 copies: _HostCopies):
+        self.ex = ex
+        self.run = run
+        self.side = side
+        self.copies = copies
+        self.slack = run[2]["slack"]
+        self._out = None
+        self._done = False
+
+    def result(self):
+        if self._done:
+            return self._out
+        ex = self.ex
+        with ex._on_stream():
+            host = self.copies.wait()
+            self.copies = None
+            side, retries = self.side, 0
+            if host is None:
+                _planned, key, entry = self.run[:3]
+                pg = None if ex._graphs is None else ex._graphs.get(key)
+                if entry["slack"] != self.slack and pg is not None:
+                    again = _Replayed(ex, self.run, pg.side, _HostCopies(
+                        ex, *ex._graphs.replay(pg)))
+                    self._out = again.result()
+                    self._done = True
+                    return self._out
+                if entry["slack"] == self.slack:
+                    if pg is not None:
+                        ex._graphs.drop(key)
+                    _notify_overflow(entry)
+                    entry["slack"] *= 2
+                side, retries = None, 1
+            self._out = ex._finish(self.run, host, side, retries, None)
+        self._done = True
+        return self._out
 
 
 class _Trace:

@@ -32,7 +32,10 @@ What a replay needs besides the graph (``PlanGraph``):
   it frees.
 
 Every graph of an executor allocates from one memory pool, so later
-captures reuse what earlier ones freed. A replay overwrites the memory of
+captures reuse what earlier ones freed; once no live graph was captured
+in the pool (all dropped, or the only capture failed), the next capture
+takes a new pool, since torch's allocators count a pool's graphs and the
+pinned-host allocator fails a capture into a pool whose count fell to 0. A replay overwrites the memory of
 the graphs captured after it, so each replay's outputs are read before
 another graph replays (the executor copies them to the host at once).
 ``torch.cuda.graph``'s context manager also synchronizes, collects and
@@ -47,6 +50,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 
 import torch
 
@@ -69,6 +73,8 @@ class PlanGraph:
     launches: dict
     reads: frozenset
     pins: tuple
+    # the memory pool the graph was captured in
+    pool: object = None
 
 
 class _Recording:
@@ -192,9 +198,16 @@ class PlanGraphs:
         otherwise raises ``CaptureError`` naming the plan."""
         self.graphs.pop(key, None)
         KX.lookback_reserve(_diff(KX.lookback_epochs(), since))
-        if self.pool is None:
-            self.pool = self.new_pool()
         for attempt in (0, 1):
+            if self.pool is None or not any(
+                    g.pool is self.pool for g in self.graphs.values()):
+                # a pool that no live graph was captured in takes no more
+                # captures: the allocators count a pool's graphs, and
+                # torch's pinned-host allocator fails a capture into a pool
+                # whose count fell to 0 (after every graph in it, or a
+                # failed capture's, was dropped), leaving the stream
+                # allocating to that pool; a new pool starts at 0 users
+                self.pool = self.new_pool()
             try:
                 g = self._capture_once(plan, label, side, fn)
                 break
@@ -216,10 +229,19 @@ class PlanGraphs:
         rec = _Recording(label)
         graph = self.graph_cls()
         self._rec, self.barring = rec, f"{label} is captured"
+        # no collection of reference cycles mid-capture: freeing a tensor
+        # there (a pinned host buffer of a replay's copies among them)
+        # would be recorded on, or refused by, the capturing stream
+        collecting = gc.isenabled()
+        gc.disable()
         try:
             with KX.capture_scope():
-                graph.capture_begin(pool=self._pool_id(),
-                                    capture_error_mode="thread_local")
+                try:
+                    graph.capture_begin(pool=self._pool_id(),
+                                        capture_error_mode="thread_local")
+                except BaseException:
+                    self._end_pool()
+                    raise
                 try:
                     outputs = fn()
                 except BaseException:
@@ -232,6 +254,8 @@ class PlanGraphs:
             raise CaptureError(f"{label} failed to capture: "
                                f"{type(exc).__name__}: {exc}") from exc
         finally:
+            if collecting:
+                gc.enable()
             self._rec = self.barring = None
             # the capture's calls launched nothing and drew no epoch
             drawn = _diff(KX.lookback_epochs(), e0)
@@ -239,7 +263,7 @@ class PlanGraphs:
             KX.lookback_count(drawn, -1)
             KX.count_launches(launched, -1)
         return PlanGraph(plan, graph, outputs, side, drawn, launched,
-                         frozenset(rec.reads), tuple(rec.pins))
+                         frozenset(rec.reads), tuple(rec.pins), self.pool)
 
     def _abort(self, graph) -> None:
         """End a capture that failed. Where the capture was invalidated,
@@ -249,11 +273,17 @@ class PlanGraphs:
         try:
             graph.capture_end()
         except RuntimeError:
-            if self.device.type == "cuda":
-                with contextlib.suppress(RuntimeError):
-                    torch._C._cuda_endAllocateToPool(self.device.index or 0,
-                                                     self._pool_id())
-            self.pool = None
+            self._end_pool()
+
+    def _end_pool(self) -> None:
+        """Stop the allocator serving the stream from the pool of a capture
+        that failed before its end, and let later captures take a new
+        pool."""
+        if self.device.type == "cuda":
+            with contextlib.suppress(RuntimeError):
+                torch._C._cuda_endAllocateToPool(self.device.index or 0,
+                                                 self._pool_id())
+        self.pool = None
 
     @contextlib.contextmanager
     def pool_run(self, label: str):

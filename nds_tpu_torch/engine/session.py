@@ -4,9 +4,9 @@ Port copy of ``nds_tpu/engine/session.py`` with the later slices' hooks
 trimmed: no fault points, no tracer spans, no plan verification, no DML
 (``engine.dml``) and no literal parameterization (``sql.params``).
 What stays behaves as the reference does: the
-table registry, session views (q15), the (SQL text, views) plan cache
-and the executor factory that picks the backend (CPU oracle or the
-device engine).
+table registry, session views (q15), the (SQL text, views) plan cache,
+the executor factory that picks the backend (the CPU oracle, the device
+engine, or the execution pipeline over them), and ``sql_async``.
 """
 
 from __future__ import annotations
@@ -117,3 +117,28 @@ class Session:
                 f"{action} statements are not ported yet")
         executor = self._executor_factory(self.tables)
         return executor.execute(planned)
+
+    def sql_async(self, sql_text: str):
+        """Dispatch-without-wait variant of ``sql()``: returns a handle
+        with ``.result()``. A SELECT on an executor with ``execute_async``
+        (the device engine, the execution pipeline) overlaps with the
+        caller's other work (``engine.concurrent_tasks``); everything
+        else runs synchronously and returns a completed handle."""
+        key = (sql_text, self._views_signature())
+        planned = self._planned_for(key, sql_text)
+        if not isinstance(planned, tuple):
+            executor = self._executor_factory(self.tables)
+            dispatch = getattr(executor, "execute_async", None)
+            if dispatch is not None:
+                return dispatch(planned)
+        return _Completed(self._run_planned(key, sql_text, planned))
+
+
+class _Completed:
+    """Already-finished async handle (the CPU oracle, view DDL)."""
+
+    def __init__(self, value):
+        self._value = value
+
+    def result(self):
+        return self._value

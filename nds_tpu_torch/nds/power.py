@@ -9,7 +9,8 @@ template/property-file config layers, and exit non-zero if any query
 failed. ``--floats`` reads the money columns as doubles.
 
     python -m nds_tpu_torch.nds.power <warehouse> query_0.sql time.csv \
-        [--input_format raw] [--backend gpu|cpu] [--device cuda|cpu]
+        [--input_format raw] [--backend gpu|distributed|cpu] \
+        [--device cuda|cpu] [--placement device|sharded|cpu]
 
 The CLI and what is not ported yet are the NDS-H CLI's
 (``nds_tpu_torch/nds_h/power.py``).

@@ -10,12 +10,18 @@ write the CSV time log and optional per-query JSON summaries, honor
 exit non-zero if any query failed.
 
     python -m nds_tpu_torch.nds_h.power <warehouse> stream_0.sql time.csv \
-        [--input_format raw] [--backend gpu|cpu] [--device cuda|cpu]
+        [--input_format raw] [--backend gpu|distributed|cpu] \
+        [--device cuda|cpu] [--placement device|sharded|cpu]
 
-``--backend gpu`` (the default) runs the port's device engine on
-``--device`` (default ``cuda``, the card); without a card and without
-``--device cpu`` the CLI exits non-zero before it loads or writes
-anything. ``--warmup`` runs each query that many times before the timed
+Every backend runs through the execution pipeline
+(``engine/scheduler.py``): ``--backend gpu`` (the default) places each
+query on the port's device engine, ``distributed`` on the sharded engine
+(a world of one rank without a launch environment:
+``parallel/multihost.py``), both on ``--device`` (default ``cuda``, the
+card), and a query that runs the card out of memory walks down to the
+CPU oracle, which ``--backend cpu`` runs alone; ``--placement`` pins the
+placement of every query. Without a card and without ``--device cpu``
+the CLI exits non-zero before it loads or writes anything. ``--warmup`` runs each query that many times before the timed
 run (q15's view parts are never warmed); at 0, the default, a plan's
 first run (eager, then the capture of its CUDA graph) is inside its
 timed query.
@@ -25,8 +31,8 @@ timed query.
 ``gen_data``'s text; the ``io.verify_digests`` config key verifies each
 file against its table's digest manifest before it is parsed.
 
-Not ported yet, each with its ROADMAP Queue 1 item: ``--placement``
-(item 4, the scheduler), ``--profile_dir`` and ``--trace`` (item 7,
+Not ported yet, each with its ROADMAP Queue 1 item: ``--placement
+chunked`` (item 6), ``--profile_dir`` and ``--trace`` (item 7,
 observability), ``--resume`` (the resilience layer), ``--cache_dir`` and
 ``--cache_readonly`` (no counterpart: a CUDA graph does not outlive its
 process).
@@ -52,8 +58,8 @@ SUITE = power_core.Suite(
     warmup_skip_prefixes=("query15_part",),
 )
 
-NOT_PORTED = ("not ported yet: --placement (ROADMAP Queue 1 item 4), "
-              "--profile_dir and --trace (item 7), --resume (the "
+NOT_PORTED = ("not ported yet: --placement chunked (ROADMAP Queue 1 "
+              "item 6), --profile_dir and --trace (item 7), --resume (the "
               "resilience layer), --cache_dir and --cache_readonly (no "
               "counterpart: a CUDA graph does not outlive its process)")
 
@@ -68,10 +74,17 @@ def add_power_args(p) -> None:
                    default=None,
                    help="overrides engine.backend from template/property "
                         "files (default gpu: the port's device engine; "
-                        "cpu: the CPU oracle)")
+                        "distributed: the sharded engine; cpu: the CPU "
+                        "oracle)")
     p.add_argument("--device", default=None,
-                   help="the gpu backend's torch device (engine.device; "
-                        "default cuda, the card; cpu runs it on the CPU)")
+                   help="the gpu and distributed backends' torch device "
+                        "(engine.device; default cuda, the card; cpu runs "
+                        "them on the CPU)")
+    p.add_argument("--placement", choices=["device", "sharded", "cpu"],
+                   default=None,
+                   help="pin the initial placement of every query "
+                        "(engine.placement.force); default: the "
+                        "scheduler's cost model picks per query")
     p.add_argument("--input_format",
                    choices=["parquet", "orc", "json", "avro", "raw"],
                    default="parquet")

@@ -1,7 +1,9 @@
 """Multi-process launch of the port's distributed engine.
 
 Port of ``nds_tpu/parallel/multihost.py`` (``maybe_initialize``,
-``is_primary``, ``global_mesh``). Every process runs the same program; the
+``is_primary``, ``global_mesh``, and the scheduler's small all-rank
+exchanges ``gather_votes``, ``barrier`` and ``gather_floats``). Every
+process runs the same program; the
 environment names the world, with the reference's names, so that one
 launch line drives both packages:
 
@@ -64,3 +66,60 @@ def global_mesh(shards: "int | None" = None, device=None):
         return make_mesh(world, device=device)
     return make_mesh(shards if shards and shards > 1 else None,
                      device=device)
+
+
+def _world() -> int:
+    return dist.get_world_size() if dist.is_initialized() else 1
+
+
+def _gather(value, dtype) -> list:
+    """All-gather one number from every rank, in rank order: on the
+    card's NCCL world through the current CUDA device, on gloo through
+    the CPU."""
+    dev = (torch.device("cuda", torch.cuda.current_device())
+           if dist.get_backend() == "nccl" else torch.device("cpu"))
+    mine = torch.tensor([value], dtype=dtype, device=dev)
+    parts = [torch.empty_like(mine) for _ in range(_world())]
+    dist.all_gather(parts, mine)
+    return [p.item() for p in parts]
+
+
+def gather_votes(vote: int) -> "list[int] | None":
+    """All-gather one small int from every rank: the transport under the
+    scheduler's placement consensus (``engine/scheduler.py``). Every
+    rank calls it at the same decision point, reads back every vote and
+    applies the same rule, so a placement switches on all ranks or on
+    none. None when the gather fails (a lost or lagging rank): the
+    caller keeps its placement rather than diverge."""
+    if _world() == 1:
+        return [int(vote)]
+    try:
+        return [int(v) for v in _gather(int(vote), torch.int64)]
+    except Exception:  # noqa: BLE001 - consensus must degrade, not hang
+        return None
+
+
+def barrier(tag: str) -> bool:
+    """World-wide barrier: True when every rank arrived, False when the
+    barrier failed (the process group's timeout ends a lost rank's wait;
+    the caller degrades, never hangs). Trivially True in a world of one.
+    ``tag`` names the barrier in the error a failure prints."""
+    if _world() == 1:
+        return True
+    try:
+        dist.barrier()
+        return True
+    except Exception as exc:  # noqa: BLE001 - alignment must degrade
+        print(f"[multihost] barrier {tag!r} failed: {exc}")
+        return False
+
+
+def gather_floats(value: float) -> "list[float] | None":
+    """All-gather one float (float64) from every rank, in rank order;
+    None when the gather fails."""
+    if _world() == 1:
+        return [float(value)]
+    try:
+        return [float(v) for v in _gather(float(value), torch.float64)]
+    except Exception:  # noqa: BLE001 - alignment must degrade, not hang
+        return None

@@ -7,22 +7,33 @@ reference's: template < property file < explicit CLI overrides.
 
 The engine keys the port reads:
 
-  engine.backend    gpu (the default: the port's device engine) | cpu
-                    (the CPU oracle). The reference's ``tpu`` and
-                    ``distributed`` are refused (``power_core.make_session``);
-                    the sharded placement comes with the scheduler
-                    (ROADMAP Queue 1 item 4)
-  engine.device     the torch device of the ``gpu`` backend: ``cuda`` (the
-                    default, the card) or ``cpu`` (as the tests run it)
+  engine.backend    gpu (the default: the port's device engine) |
+                    distributed (the sharded engine) | cpu (the CPU
+                    oracle): the execution pipeline's placement universe
+                    (``engine/scheduler.py``); the reference's ``tpu`` is
+                    refused
+  engine.device     the torch device of the ``gpu`` and ``distributed``
+                    backends: ``cuda`` (the default, the card) or ``cpu``
+                    (as the tests run it)
+  engine.placement.{force,ladder,floor,demote_after,promote_after},
+  engine.fallback, engine.retry.*, engine.query_deadline_s,
+  engine.mesh.shards
+                    the execution pipeline's placement, ladder, retry
+                    and mesh keys (``engine/scheduler.py``)
+  engine.concurrent_tasks
+                    statements in flight in the in-process throughput
+                    streams (default 2)
   engine.floats     true -> float64 arithmetic (the reference's --floats
                     mode); false -> scaled-int decimals
   engine.precision  f64 only (f32/bf16 are ROADMAP Queue 1 item 10)
   columnar.encode   off | auto | dict | bitpack | rle: the compressed
                     columnar store (``columnar.configure_from``)
 
-The reference's other keys (mesh, retry, placement, prefetch, serving,
-observability) are read by modules not yet ported; they may stand in a
-template and are recorded in the summaries' ``engineConf``, unread.
+The reference's other keys (the chunked rung's ``engine.stream_bytes``,
+``engine.placement.device_budget_bytes`` and ``engine.placement.governor``,
+prefetch, serving, observability) are read by modules not yet ported;
+they may stand in a template and are recorded in the summaries'
+``engineConf``, unread.
 """
 
 from __future__ import annotations

@@ -15,10 +15,10 @@ query, written as ``{prefix}-{query}-{startTime}.json``):
   failure (the executor's doubled-slack retry) is
   ``CompletedWithTaskFailures``, its reasons in ``exceptions``.
 
-Kept attachments: ``attach_kernels`` (the ``kernels`` block) and
-``attach_result_digest``. Trimmed, each with the ROADMAP Queue 1 item
-that brings it back: ``attach_retry`` and ``attach_schedule`` (item 4,
-the scheduler); ``attach_cache`` (no counterpart: a CUDA graph does not
+Kept attachments: ``attach_kernels`` (the ``kernels`` block),
+``attach_result_digest``, and since item 4 (the scheduler)
+``attach_retry`` and ``attach_schedule``. Trimmed, each with the ROADMAP
+Queue 1 item that brings it back: ``attach_cache`` (no counterpart: a CUDA graph does not
 outlive its process); ``attach_profile``, ``attach_flight``,
 ``attach_memory``, ``attach_cost``, ``attach_telemetry`` and the
 ``task_failures_total`` counter in ``notify`` (item 7, observability);
@@ -182,6 +182,37 @@ class BenchReport:
         (``io/result_io.result_digest``)."""
         if digest:
             self.summary["result_digest"] = str(digest)
+
+    def attach_retry(self, stats) -> None:
+        """Record a ``resilience.retry.RetryStats``: ``retries`` always
+        (0 says the query needed no recovery), ``retry_backoff_s`` when
+        it retried, ``gave_up_reason`` and ``deadline_exceeded`` only
+        when set."""
+        self.summary["retries"] = stats.retries
+        if stats.retries:
+            self.summary["retry_backoff_s"] = round(stats.backoff_s, 3)
+        if stats.gave_up_reason:
+            self.summary["gave_up_reason"] = stats.gave_up_reason
+        if stats.deadline_exceeded:
+            self.summary["deadline_exceeded"] = True
+
+    def attach_schedule(self, sched: dict | None) -> None:
+        """Record the pipeline's scheduling decision
+        (``engine/scheduler.py``): ``placement`` (the placement that
+        served the query) and ``reschedules`` whenever the pipeline ran
+        the query; ``ladder`` (the rungs walked) only when it was
+        rescheduled; ``promoted_back`` only on the query where a stream's
+        promotion took effect. (The reference's ``governed``, set where
+        its memory governor placed the query, comes back with that
+        governor, ROADMAP Queue 1 item 6.)"""
+        if not sched or "placement" not in sched:
+            return
+        self.summary["placement"] = sched["placement"]
+        self.summary["reschedules"] = int(sched.get("reschedules", 0))
+        if sched.get("reschedules"):
+            self.summary["ladder"] = list(sched.get("ladder", []))
+        if sched.get("promoted_back"):
+            self.summary["promoted_back"] = True
 
     def write_summary(self, prefix: str = "",
                       out_dir: str | None = None) -> str:

@@ -97,6 +97,16 @@ def test_parallel_modules_are_part_of_the_port():
         assert f"nds_tpu_torch.parallel.{m}" in mods
 
 
+def test_scheduler_and_throughput_modules_are_part_of_the_port():
+    """The modules of ROADMAP Queue 1 item 4, which the import check
+    above and the source scan cover with the rest."""
+    mods = _port_modules()
+    for m in ("analysis.plan_verify", "engine.scheduler", "obs.memwatch",
+              "resilience.faults", "resilience.retry", "resilience.journal",
+              "nds.throughput", "nds_h.throughput"):
+        assert f"nds_tpu_torch.{m}" in mods
+
+
 def test_distributed_entry_points_raise_without_a_card(monkeypatch):
     import torch.distributed as dist
 

@@ -11,17 +11,21 @@ q15's three parts and ``query21`` (K4, K3, the view lifecycle); NDS runs
   differ);
 - the summary files are named by the same pattern;
 - each summary has the reference's keys but those in ``NOT_YET_PORTED``
-  (with the ROADMAP Queue 1 item that brings each back), and no other;
+  (with the ROADMAP Queue 1 item that brings each back), and no other, and
+  the execution pipeline's ``retries``, ``retry_backoff_s``,
+  ``placement`` and ``reschedules`` equal the reference's;
 - per query the ``kernels`` blocks and the statuses are equal, and the
   port's ``engineTimings`` has compile, execute and materialize times;
 - the port's validate CLI and the reference's, over the two runs' result
   files, print MATCH for every compared query and exit 0.
 
-Beside them, on the port alone (ported from ``tests/test_nds_drivers.py``):
+``--placement cpu`` and ``--placement device`` pin every query of an
+NDS-H subset on both packages alike. Beside them, on the port alone
+(ported from ``tests/test_nds_drivers.py``):
 a failing statement never stops the stream (exit 1, 0 with
 ``--allow_failure``), ``--extra_time_log``, the config layers'
-precedence and env substitution; the refusals (``engine.backend=tpu``
-raises; without a card and without ``--device cpu`` the CLI exits
+precedence and env substitution; the refusals (a backend the port has
+not, ``engine.backend=tpu`` among them, raises; without a card and without ``--device cpu`` the CLI exits
 non-zero and writes nothing); and the slack retry: both executors start
 q4 (a ``Join.partitioned`` plan) from the same small slack and report
 ``CompletedWithTaskFailures`` with the same exception text.
@@ -77,10 +81,6 @@ NOT_YET_PORTED = {
     "memory": "item 7 (observability)",
     "cost": "item 7 (observability)",
     "telemetry": "item 7 (observability)",
-    "retries": "item 4 (the scheduler's retry policy)",
-    "retry_backoff_s": "item 4 (the scheduler's retry policy)",
-    "placement": "item 4 (the scheduler)",
-    "reschedules": "item 4 (the scheduler)",
     "cache": "none: a CUDA graph does not outlive its process",
     "incarnation": "the resilience layer (resume)",
     "degradations": "the resilience layer (resume)",
@@ -207,6 +207,57 @@ def test_kernels_status_and_timings_per_query(runs):
     assert timed and all("engineTimings" in port[q] for q in timed)
 
 
+# the execution pipeline's keys (ROADMAP Queue 1 item 4)
+SCHEDULE_KEYS = ("retries", "retry_backoff_s", "placement", "reschedules")
+
+
+def test_schedule_keys_equal_the_reference(runs):
+    """Each summary's retry and placement record equals the reference's:
+    ``device`` for every statement that reached an executor, no
+    reschedule, no retry."""
+    ref, port = _by_query(runs["ref"]), _by_query(runs["port"])
+    for q, exp in ref.items():
+        assert {k: port[q].get(k) for k in SCHEDULE_KEYS} == {
+            k: exp.get(k) for k in SCHEDULE_KEYS}, q
+    placed = [s["placement"] for s in port.values() if "placement" in s]
+    assert placed and set(placed) == {"device"}
+
+
+@pytest.mark.parametrize("placement", ["cpu", "device"])
+def test_placement_pins_every_query_as_the_reference(placement, data,
+                                                     tmp_path):
+    """``--placement`` (``engine.placement.force``) on the port's CLI and
+    on the reference's loop: the same placement, reason-free record and
+    kernel blocks per query (none on the CPU oracle)."""
+    raw, stream = data["nds_h"]
+    subset = ["query1", "query3"]
+    ref_json, port_json = str(tmp_path / "ref"), str(tmp_path / "port")
+    assert ref_core.run_query_stream(
+        ref_h_power.SUITE, raw, stream, str(tmp_path / "ref.csv"),
+        config=RefConfig(overrides={"engine.backend": "tpu",
+                                    "engine.placement.force": placement}),
+        input_format="raw", json_summary_folder=ref_json,
+        query_subset=subset) == 0
+    with pytest.raises(SystemExit) as done:
+        h_power.main([raw, stream, str(tmp_path / "port.csv"),
+                      "--input_format", "raw", "--device", "cpu",
+                      "--placement", placement, "--json_summary_folder",
+                      port_json, "--query_subset", *subset])
+    assert done.value.code == 0
+    ref = {s["query"]: s for s in _summaries(ref_json).values()}
+    port = {s["query"]: s for s in _summaries(port_json).values()}
+    assert sorted(port) == sorted(ref) == subset
+    for q, exp in ref.items():
+        got = port[q]
+        assert got["placement"] == exp["placement"] == placement, q
+        assert {k: got.get(k) for k in SCHEDULE_KEYS} == {
+            k: exp.get(k) for k in SCHEDULE_KEYS}, q
+        assert got.get("kernels") == exp.get("kernels"), q
+    # q3's joins stamp kernels on the device engine
+    assert any("kernels" in s for s in port.values()) == (
+        placement == "device")
+
+
 @pytest.mark.parametrize("package", ["port", "ref"])
 def test_validate_cli_calls_every_query_a_match(package, runs, capsys):
     _ps, _rs, port_validate, ref_validate = SUITES[runs["suite"]]
@@ -330,7 +381,7 @@ def test_make_session_floats_mode():
         "ss_list_price").dtype.name.startswith("float")
 
 
-@pytest.mark.parametrize("backend", ["tpu", "distributed", "cuda"])
+@pytest.mark.parametrize("backend", ["tpu", "chunked", "cuda"])
 def test_a_backend_the_port_has_not_raises(backend):
     with pytest.raises(ValueError, match="'gpu'"):
         power_core.make_session(
