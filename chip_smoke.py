@@ -145,9 +145,20 @@ Drives ``nds_tpu_torch`` (never ``jax``, never ``nds_tpu``) on the card:
    NDS-H leg's timed passes, ``async_check``: the copies to the host of
    ``execute`` against ``execute_async``, handles in flight resolved in
    both orders, a recapture after every graph is dropped;
+8d. maintenance phase (``maintenance_phase``): the NDS data-maintenance
+   phase at SF``MAINT_SMOKE_SF``, in a temporary directory: ``gen_data``,
+   ``transcode`` and ``gen_data --update 1``, then the maintenance CLI on
+   the card in this process, its launch counts set to 0 just before and
+   read just after (the ``maintenance`` path of the kernels line, its
+   kernels checked on their largest calls), while the same CLI runs on
+   the CPU oracle over a copy of the warehouse in a process of its own:
+   all 11 functions ``Completed``, every dispatch on ``device`` with 0
+   reschedules, no ``CaptureError``, then the 7 mutated tables' visible
+   rows, card against CPU, the same multisets, and the rollback CLI,
+   after which those tables' content digests are the base warehouse's;
 9. prints the kernels line (one entry per kernel wrapper: launches summed
-   over the timed runs, each kernel's numbers from the path that runs
-   it), the card line, and as the last line
+   over the timed runs, by path under ``paths``, each kernel's numbers
+   from the path that runs it), the card line, and as the last line
    ``{"ok": true, "device": {...}}``.
 
 ``--steps STEP[,STEP]`` instead only builds the kernels and, for each
@@ -186,7 +197,18 @@ stream 0 on the card, and one attempt at 2 NDS streams in subprocess
 mode, recorded as what it does); ``throughput_beyond`` runs that attempt
 alone; ``async`` runs ``async_check`` on the NDS-H units at ``--sf``;
 ``overlap`` times the in-process streams and the captured plans' replays
-at 1 and 2 statements in flight (``overlap_step``).
+at 1 and 2 statements in flight (``overlap_step``). The step
+``maintenance`` runs the maintenance phase at ``--sf-ds`` (SF1 by
+default) with two refresh sets and the power CLI around it: over the base
+warehouse on the card, over the maintained one on the card (validated
+against the CPU oracle's run over a copy of it) and after the rollback
+(the base run's results: integer and string columns bit for bit, float
+columns within 1e-9), then ``invalidation_scope`` on
+``make_device_factory``: an INSERT into store_sales leaves an unrelated
+statement's plan and graph in place (0 captures), a statement over
+store_sales sees the new rows, and the unrelated statement's run after a
+wholesale invalidation (what the execution pipeline does at every DML) is
+timed beside its replay.
 
 Kernel checks: integer, bool and min/max outputs must equal the plain
 version's exactly; a float sum (the segmented scan's "sum" on float
@@ -219,6 +241,7 @@ the wrappers take their plain versions and the launch check fails.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import functools
 import hashlib
 import importlib
@@ -5525,6 +5548,519 @@ def load_phase(legs: dict, timeout_s: float = POWER_CLI_TIMEOUT_S) -> dict:
     return out
 
 
+# ``--steps maintenance`` and the full smoke's maintenance phase: the NDS
+# data-maintenance phase (the 7 LF_* inserts and 4 DF_* deletes of each
+# refresh set) over the port's own warehouse, on the card through the
+# maintenance CLI, beside the same CLI on the CPU oracle
+MAINT_SMOKE_SF = 0.01
+MAINT_TIMEOUT_S = 1500
+# the kernels a maintenance round must launch on the card: the LF_*
+# views' left joins (the sorted build and its search) and ORDER BY (the
+# sort), the DF_* IN subqueries' DISTINCT (the group-id sort)
+MAINT_REQUIRED = ("pack_sort_key", "partition_sort", "sorted_search",
+                  "pack_group_key", "group_bounds")
+# the statements whose plans the invalidation-scope check runs: one that
+# reads no table an INSERT into store_sales touches, one over store_sales
+MAINT_UNRELATED = ("select cr_reason_sk, count(*) c, sum(cr_return_amount) a "
+                   "from catalog_returns where cr_return_quantity > 10 "
+                   "group by cr_reason_sk order by cr_reason_sk")
+MAINT_MUTATED = ("select ss_quantity, count(*) c, sum(ss_net_paid) p "
+                 "from store_sales group by ss_quantity "
+                 "order by ss_quantity")
+MAINT_INSERT = ("insert into store_sales (select * from store_sales "
+                "where ss_quantity = 100)")
+
+
+def visible_rows_sorted(table, dicts: dict) -> tuple:
+    """A table's visible rows (its deleted-row mask applied) as columns
+    sorted together: a multiset, whatever the physical order. Each string
+    column as ranks in ``dicts[name]`` (a dictionary holding both tables'
+    values), each nullable column with its validity beside it and 0 where
+    NULL. Returns (exact columns, float columns), in one row order."""
+    import numpy as np
+    from nds_tpu_torch.columnar import delta
+    live = delta.live_mask(table)
+    exact, floats = [], []
+    for name, col in table.columns.items():
+        v = col.values if live is None else col.values[live]
+        ok = None
+        if col.null_mask is not None:
+            ok = col.null_mask if live is None else col.null_mask[live]
+        if col.is_string:
+            remap = np.searchsorted(dicts[name],
+                                    col.dictionary.astype(str))
+            v = remap[np.clip(v, 0, len(remap) - 1)]
+        if v.dtype.kind == "f":
+            floats.append(v if ok is None else np.where(ok, v, 0.0))
+        else:
+            exact.append(v.astype(np.int64) if ok is None
+                         else np.where(ok, v, 0).astype(np.int64))
+        if ok is not None:
+            exact.append(ok.astype(np.int64))
+    order = np.lexsort(tuple(reversed(exact + floats)))
+    return [c[order] for c in exact], [c[order] for c in floats]
+
+
+def load_tables(wh: str, tables: list) -> dict:
+    """{table: HostTable} of a warehouse through the port's versioned
+    load (the snapshot manifest, delta lineages replayed)."""
+    from nds_tpu_torch.engine.session import Session
+    from nds_tpu_torch.nds.power import SUITE
+    from nds_tpu_torch.utils import power_core
+    sess = Session.for_nds()
+    power_core.load_warehouse(SUITE, sess, wh, tables=tables)
+    return sess.tables
+
+
+def same_visible_rows(a, b) -> "str | None":
+    """None when two tables' visible rows are the same multiset: integer,
+    decimal, date and string columns exactly, float columns within
+    ``FLOAT_SUM_RTOL``; else why not."""
+    import numpy as np
+    dicts = {name: np.union1d(col.dictionary.astype(str),
+                              b.columns[name].dictionary.astype(str))
+             for name, col in a.columns.items() if col.is_string}
+    (ea, fa), (eb, fb) = (visible_rows_sorted(t, dicts) for t in (a, b))
+    if len(ea[0]) != len(eb[0]):
+        return f"{len(ea[0])} rows vs {len(eb[0])}"
+    for i, (x, y) in enumerate(zip(ea, eb)):
+        if not np.array_equal(x, y):
+            return f"exact column {i} differs"
+    for i, (x, y) in enumerate(zip(fa, fb)):
+        if not np.allclose(x, y, rtol=FLOAT_SUM_RTOL, atol=FLOAT_SUM_RTOL):
+            return f"float column {i} differs"
+    return None
+
+
+def same_results(ref_out: str, out: str, q: str) -> "str | None":
+    """None when statement ``q``'s result files under two directories are
+    the same rows in the same order, float columns within
+    ``FLOAT_SUM_RTOL`` and every other column bit for bit."""
+    import numpy as np
+    from nds_tpu_torch.io.result_io import read_result
+    a = read_result(os.path.join(ref_out, q))
+    b = read_result(os.path.join(out, q))
+    if a.shape != b.shape or list(a.columns) != list(b.columns):
+        return f"shape {a.shape} vs {b.shape}"
+    for c in a.columns:
+        x, y = a[c], b[c]
+        if list(x.isna()) != list(y.isna()):
+            return f"{c}: NULLs differ"
+        x, y = x[~x.isna()], y[~y.isna()]
+        if x.dtype.kind == "f" or y.dtype.kind == "f":
+            if not np.allclose(x.to_numpy(float), y.to_numpy(float),
+                               rtol=FLOAT_SUM_RTOL, atol=FLOAT_SUM_RTOL):
+                return f"{c}: float values differ"
+        elif not x.reset_index(drop=True).equals(y.reset_index(drop=True)):
+            return f"{c}: values differ"
+    return None
+
+
+def maintenance_cli_cpu(wh: str, refresh: str, out: str,
+                        timeout_s: float):
+    """The maintenance CLI on the CPU oracle (``--backend cpu``), started
+    in a process of its own: (process, time log, summaries folder)."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    tlog, jsons = os.path.join(out, "dm.csv"), os.path.join(out, "json")
+    os.makedirs(out, exist_ok=True)
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "nds_tpu_torch.nds.maintenance", wh, refresh,
+         tlog, "--backend", "cpu", "--json_summary_folder", jsons],
+        cwd=root, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    return proc, tlog, jsons
+
+
+def maintenance_summaries(jsons: str) -> dict:
+    """{function: summary} of a maintenance run's summaries."""
+    out = {}
+    for f in os.listdir(jsons):
+        with open(os.path.join(jsons, f)) as fh:
+            summary = json.load(fh)
+        out[summary["query"]] = summary
+    return out
+
+
+def maintenance_card(KX, dev, wh: str, refresh: str, out: str,
+                     record_calls: bool) -> tuple:
+    """The maintenance CLI (``nds_tpu_torch.nds.maintenance.main``) on the
+    card in this process, its launch counts set to 0 just before and
+    read just after. Instrumented here, not in the port: every schedule
+    the execution pipeline made (each INSERT's select and DELETE's
+    subquery must be placed ``device`` with 0 reschedules), each
+    function's launches (the counts' difference around its
+    ``run_dm_query``), and the graph state of each device executor the
+    pipeline drops at a DML (``invalidate``). With ``record_calls`` a
+    ``Recorder`` keeps each kernel's largest call for the path's kernel
+    checks. Returns (record, recorder or None)."""
+    import torch
+    from nds_tpu_torch.engine import scheduler
+    from nds_tpu_torch.nds import maintenance
+    from nds_tpu_torch.utils.timelog import TimeLog
+    funcs = (maintenance.INSERT_FUNCS + maintenance.DELETE_FUNCS
+             + maintenance.INVENTORY_DELETE_FUNCS)
+    scheds, per_fn, dropped = [], {}, []
+    pipe_cls = scheduler.ExecutionPipeline
+    new_schedule, invalidate = pipe_cls._new_schedule, pipe_cls.invalidate
+    run_dm = maintenance.run_dm_query
+
+    def counting_schedule(self, placement, why):
+        stats, sched = new_schedule(self, placement, why)
+        scheds.append(sched)
+        return stats, sched
+
+    def recording_invalidate(self):
+        ex = self._executors.get("device")
+        if ex is not None:
+            g = ex._graphs
+            dropped.append({
+                "captures": g.captures if g is not None else 0,
+                "replays": g.replays if g is not None else 0,
+                "pool_gib": ((g.pool_bytes() or 0) if g is not None
+                             else 0) / 2**30})
+        invalidate(self)
+
+    def per_function(session, sql):
+        name = funcs[len(per_fn)]
+        before = KX.launch_counts()
+        t0 = len(scheds)
+        try:
+            run_dm(session, sql)
+        finally:
+            after = KX.launch_counts()
+            per_fn[name] = {
+                "launches": {k: after[k] - before.get(k, 0) for k in after
+                             if after[k] - before.get(k, 0)},
+                "dispatches": len(scheds) - t0}
+
+    tlog, jsons = os.path.join(out, "dm.csv"), os.path.join(out, "json")
+    device = [] if dev.type == "cuda" else ["--device", dev.type]
+    rec = None
+    pipe_cls._new_schedule = counting_schedule
+    pipe_cls.invalidate = recording_invalidate
+    maintenance.run_dm_query = per_function
+    try:
+        if record_calls:
+            rec = Recorder(kernel_targets(KX)).__enter__()
+        os.makedirs(out, exist_ok=True)
+        KX.reset_launches()
+        t0 = time.perf_counter()
+        with open(os.path.join(out, "stdout.txt"), "w") as fh, \
+                contextlib.redirect_stdout(fh):
+            try:
+                maintenance.main([wh, refresh, tlog, "--json_summary_folder",
+                                  jsons, *device])
+                rc = 0
+            except SystemExit as e:
+                rc = e.code
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = KX.launch_counts()
+    finally:
+        if rec is not None:
+            rec.__exit__(None, None, None)
+        pipe_cls._new_schedule = new_schedule
+        pipe_cls.invalidate = invalidate
+        maintenance.run_dm_query = run_dm
+    rows = {q: ms for _a, q, ms in TimeLog.read(tlog)}
+    summaries = maintenance_summaries(jsons)
+    statuses = {f: (summaries.get(f) or {}).get("queryStatus",
+                                                 ["absent"])[-1]
+                for f in funcs}
+    misplaced = [[s["placement"], s["reschedules"]] for s in scheds
+                 if s["placement"] != "device" or s["reschedules"]]
+    capture_errors = [f for f, s in summaries.items()
+                      if any("CaptureError" in e
+                             for e in s.get("exceptions", []))]
+    out_rec = {
+        "rc": rc, "seconds": seconds, "statuses": statuses,
+        "function_ms": {f: rows.get(f) for f in funcs},
+        "dm_ms": rows.get("Data Maintenance Time"),
+        "load_ms": sum(ms for q, ms in rows.items()
+                       if q.startswith("CreateTempView ")),
+        "dispatches": len(scheds), "misplaced": misplaced,
+        "launches": launches, "per_function": per_fn,
+        "executors_dropped": len(dropped),
+        "captures": sum(d["captures"] for d in dropped),
+        "pool_gib_max": max((d["pool_gib"] for d in dropped), default=0.0),
+        "capture_errors": capture_errors}
+    bad = [f"{f} {st}" for f, st in statuses.items() if st != "Completed"]
+    if rc or bad or misplaced or capture_errors:
+        raise SmokeError(f"maintenance on the card: exit {rc}, {bad}, "
+                         f"misplaced {misplaced[:5]}, CaptureError in "
+                         f"{capture_errors}")
+    return out_rec, rec
+
+
+def invalidation_scope(dev, factory_of, wh: str) -> dict:
+    """The table-scoped invalidation on ``make_device_factory`` directly,
+    over the warehouse: an INSERT into store_sales leaves the plan-cache
+    entry and captured graph of a statement over catalog_returns in
+    place (it replays: 0 captures, ``compile_ms`` 0, the same rows), and
+    a statement over store_sales sees the new rows. Then the cost of the
+    execution pipeline's wholesale invalidation on that statement: its
+    run after ``factory.invalidate()`` (a fresh executor: uploads, eager
+    run, capture) beside its replay."""
+    import torch
+    from nds_tpu_torch.columnar import delta
+    from nds_tpu_torch.nds.power import SUITE
+    from nds_tpu_torch.utils import power_core
+
+    def timed(sess, sql):
+        t0 = time.perf_counter()
+        res = sess.sql(sql)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        return res.to_pandas(), (time.perf_counter() - t0) * 1000
+
+    factory = factory_of()
+    sess = suite_session("nds", factory)
+    power_core.load_warehouse(SUITE, sess, wh)
+    ex = factory(sess.tables)
+    for _ in range(2):
+        unrelated, _ms = timed(sess, MAINT_UNRELATED)
+    replay_ms = timed(sess, MAINT_UNRELATED)[1]
+    for _ in range(2):
+        before, _ms = timed(sess, MAINT_MUTATED)
+    key = next(k for k in sess._plan_cache if k[0] == MAINT_UNRELATED)
+    plan = sess._plan_cache[key]
+    n0 = delta.visible_rows(sess.tables["store_sales"])
+    # the INSERT's own select runs (and captures) on the executor too
+    sess.sql(MAINT_INSERT)
+    inserted = delta.visible_rows(sess.tables["store_sales"]) - n0
+    same_ex = factory(sess.tables) is ex
+    g0 = graph_state(ex)
+    again, again_ms = timed(sess, MAINT_UNRELATED)
+    again_compile_ms = ex.last_timings.get("compile_ms")
+    g1 = graph_state(ex)
+    after, _ms = timed(sess, MAINT_MUTATED)
+    g2 = graph_state(ex)
+    factory.invalidate()
+    fresh, fresh_ms = timed(sess, MAINT_UNRELATED)
+    out = {"inserted": inserted, "same_executor": same_ex,
+           "plan_kept": sess._plan_cache.get(key) is plan,
+           "unrelated_captures": g1["captures"] - g0["captures"],
+           "unrelated_compile_ms": again_compile_ms,
+           "mutated_captures": g2["captures"] - g1["captures"],
+           "rows_before": int(before["c"].sum()),
+           "rows_after": int(after["c"].sum()),
+           "replay_ms": replay_ms, "after_insert_ms": again_ms,
+           "after_wholesale_invalidate_ms": fresh_ms}
+    del ex
+    why = []
+    if not (same_ex and out["plan_kept"]):
+        why.append("the executor or the unrelated plan was dropped")
+    if dev.type == "cuda" and (out["unrelated_captures"]
+                               or again_compile_ms):
+        why.append(f"the unrelated statement captured "
+                   f"{out['unrelated_captures']} graphs "
+                   f"(compile_ms {again_compile_ms})")
+    if not again.equals(unrelated) or not fresh.equals(unrelated):
+        why.append("the unrelated statement's rows changed")
+    if inserted <= 0 or out["rows_after"] != out["rows_before"] + inserted:
+        why.append(f"store_sales: {out['rows_before']} + {inserted} "
+                   f"inserted, the statement saw {out['rows_after']}")
+    log(json.dumps({"phase": "maintenance invalidation scope", **out}))
+    if why:
+        raise SmokeError(f"invalidation scope: {'; '.join(why)}")
+    release(dev)
+    return out
+
+
+def maintenance_phase(KX, dev, factory_of, sf: float, tmp: str,
+                      rounds=(1, 2), full: bool = True,
+                      timeout_s: float = MAINT_TIMEOUT_S) -> tuple:
+    """The NDS data-maintenance phase at ``sf`` in ``tmp`` (the caller
+    removes it): the port's ``gen_data`` and ``transcode`` (``load_chain``)
+    and ``gen_data --update`` per round; then per round the maintenance
+    CLI on the card in this process (``maintenance_card``) while the same
+    CLI runs on the CPU oracle over a copy of the warehouse: every
+    function ``Completed``, every dispatch on ``device`` with 0
+    reschedules, no ``CaptureError``; then the 7 mutated tables' visible
+    rows, card against CPU, as multisets (``same_visible_rows``); then the
+    rollback CLI. With ``full`` (``--steps maintenance``) also: the NDS
+    power CLI on the card over the base warehouse, over the maintained
+    one (validated against the CPU oracle's power run over a copy of it:
+    every compared statement a MATCH) and after the rollback (the base
+    run's results: ``same_results``), and ``invalidation_scope``; without
+    it the rollback is held to the base tables' content digests. Returns
+    (record, the path's {launches, kernel_checks, main_cases})."""
+    import threading
+    from nds_tpu_torch.columnar import delta
+    from nds_tpu_torch.nds import maintenance
+    mod = "nds_tpu_torch.nds"
+    tables = maintenance.MUTABLE_TABLES
+    t_phase = time.perf_counter()
+    load = load_chain(mod, sf, tmp, timeout_s)
+    wh = load["wh"]
+    refresh = {}
+    for u in rounds:
+        refresh[u] = os.path.join(tmp, f"refresh{u}")
+        g = _cli([f"{mod}.gen_data", f"{sf:g}", "1", refresh[u], "--update",
+                  str(u)], timeout_s)
+        if g["rc"]:
+            raise SmokeError(f"gen_data --update {u}: exit {g['rc']}; "
+                             f"{g['stderr_tail'][-2000:]}")
+    rec = {"sf": sf, "gen_data_s": load["gen_data_s"],
+           "transcode_s": load["transcode_s"], "rounds": []}
+    device = [] if dev.type == "cuda" else ["--device", dev.type]
+    base_digests = {t: delta.table_digest(tb)
+                    for t, tb in load_tables(wh, tables).items()}
+    if full:
+        streams = importlib.import_module(f"{mod}.streams")
+        stream = streams.generate_query_streams(
+            os.path.join(tmp, "streams_nds"), 1)[0]
+        units = list(streams.parse_query_stream(stream))
+        base = power_run(mod, wh, stream, units,
+                         os.path.join(tmp, "power_base"), device, timeout_s)
+        rec["power_base"] = {k: base[k] for k in (
+            "power_test_ms", "queries_ms", "load_ms", "completed",
+            "retried", "statements", "seconds")}
+    wh_cpu = os.path.join(tmp, "wh_cpu")
+    shutil.copytree(wh, wh_cpu)
+    path_rec = None
+    launches: dict = {}
+    for u in rounds:
+        proc, tlog_cpu, jsons_cpu = maintenance_cli_cpu(
+            wh_cpu, refresh[u], os.path.join(tmp, f"maint_cpu{u}"),
+            timeout_s)
+        try:
+            card, calls = maintenance_card(
+                KX, dev, wh, refresh[u], os.path.join(tmp, f"maint{u}"),
+                record_calls=path_rec is None)
+            _out, err = proc.communicate(timeout=timeout_s)
+        finally:
+            proc.kill()
+        for k, v in card["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+        missing = [n for n in MAINT_REQUIRED
+                   if not card["launches"].get(n)]
+        if dev.type == "cuda" and missing:
+            raise SmokeError(f"maintenance round {u} launched no {missing}")
+        if calls is not None:
+            main_cases = kernel_checks(KX, calls, "maintenance", dev)
+            path_rec = {"kernel_checks": list(main_cases.values()),
+                        "main_cases": main_cases}
+            del calls
+            release(dev)
+        from nds_tpu_torch.utils.timelog import TimeLog
+        rows = ({q: ms for _a, q, ms in TimeLog.read(tlog_cpu)}
+                if os.path.exists(tlog_cpu) else {})
+        cpu_status = {f: s.get("queryStatus", ["absent"])[-1]
+                      for f, s in maintenance_summaries(jsons_cpu).items()} \
+            if os.path.isdir(jsons_cpu) else {}
+        rnd = {"round": u, "card": card, "cpu": {
+            "rc": proc.returncode, "statuses": cpu_status,
+            "function_ms": {f: rows.get(f) for f in card["function_ms"]},
+            "dm_ms": rows.get("Data Maintenance Time"),
+            "load_ms": sum(ms for q, ms in rows.items()
+                           if q.startswith("CreateTempView "))}}
+        rec["rounds"].append(rnd)
+        log(json.dumps({"phase": "maintenance", "round": u, "sf": sf,
+                        "card": {k: card[k] for k in (
+                            "dm_ms", "load_ms", "seconds", "dispatches",
+                            "executors_dropped", "captures",
+                            "pool_gib_max", "function_ms")},
+                        "cpu": {k: rnd["cpu"][k] for k in (
+                            "rc", "dm_ms", "load_ms", "function_ms")}}))
+        log(json.dumps({"phase": "maintenance launches", "round": u,
+                        "per_function": {f: p["launches"] for f, p in
+                                         card["per_function"].items()}}))
+        bad = [f for f, st in cpu_status.items() if st != "Completed"]
+        if proc.returncode or bad or len(cpu_status) != len(
+                card["statuses"]):
+            raise SmokeError(f"maintenance on the CPU oracle, round {u}: "
+                             f"exit {proc.returncode}, {bad}; stderr "
+                             f"ends: {err[-2000:]}")
+    card_t, cpu_t = load_tables(wh, tables), load_tables(wh_cpu, tables)
+    rec["post_state"] = {}
+    for t in tables:
+        why = same_visible_rows(card_t[t], cpu_t[t])
+        rec["post_state"][t] = {
+            "visible_rows": delta.visible_rows(card_t[t]),
+            "delta": delta.delta_report(card_t[t]), "differs": why}
+    del card_t, cpu_t
+    log(json.dumps({"phase": "maintenance post-state",
+                    "tables": rec["post_state"]}))
+    differ = {t: r["differs"] for t, r in rec["post_state"].items()
+              if r["differs"]}
+    if differ:
+        raise SmokeError(f"maintenance post-state, card against CPU: "
+                         f"{differ}")
+    if full:
+        wh_oracle = os.path.join(tmp, "wh_oracle")
+        shutil.copytree(wh, wh_oracle)
+        oracle: dict = {}
+
+        def oracle_run():
+            try:
+                oracle["run"] = power_run(
+                    mod, wh_oracle, stream, units,
+                    os.path.join(tmp, "power_oracle"), ["--backend", "cpu"],
+                    timeout_s)
+            except Exception as exc:  # noqa: BLE001 - raised below
+                oracle["error"] = exc
+        th = threading.Thread(target=oracle_run)
+        th.start()
+        try:
+            maint = power_run(mod, wh, stream, units,
+                              os.path.join(tmp, "power_maint"), device,
+                              timeout_s)
+        finally:
+            th.join()
+        if "error" in oracle:
+            raise oracle["error"]
+        v = validate_run(mod, os.path.join(tmp, "power_oracle", "out"),
+                         os.path.join(tmp, "power_maint", "out"), stream,
+                         timeout_s)
+        rec["power_maintained"] = {k: maint[k] for k in (
+            "power_test_ms", "queries_ms", "load_ms", "completed",
+            "retried", "statements", "seconds")}
+        rec["power_oracle"] = {k: oracle["run"][k] for k in (
+            "power_test_ms", "load_ms", "completed", "seconds")}
+        rec["validate"] = {k: v[k] for k in ("rc", "match", "skipped")}
+        log(json.dumps({"phase": "maintenance power", "base": rec[
+            "power_base"], "maintained": rec["power_maintained"],
+            "oracle": rec["power_oracle"], "validate": rec["validate"]}))
+        if v["rc"] or v["match"] != len(units) - v["skipped"]:
+            raise SmokeError(f"the maintained warehouse: {v['match']} MATCH "
+                             f"of {len(units) - v['skipped']}")
+    rb = _cli([f"{mod}.rollback", wh], timeout_s)
+    if rb["rc"]:
+        raise SmokeError(f"rollback: exit {rb['rc']}; "
+                         f"{rb['stderr_tail'][-2000:]}")
+    rec["rollback_s"] = rb["seconds"]
+    back = {t: delta.table_digest(tb)
+            for t, tb in load_tables(wh, tables).items()}
+    rec["rollback_digests_equal"] = back == base_digests
+    if back != base_digests:
+        raise SmokeError("rollback: the mutable tables' content differs "
+                         "from the base warehouse's")
+    if full:
+        after = power_run(mod, wh, stream, units,
+                          os.path.join(tmp, "power_rollback"), device,
+                          timeout_s)
+        diffs = {q: why for q in units if (why := same_results(
+            os.path.join(tmp, "power_base", "out"),
+            os.path.join(tmp, "power_rollback", "out"), q))}
+        rec["power_rollback"] = {k: after[k] for k in (
+            "power_test_ms", "load_ms", "completed", "seconds")}
+        rec["rollback_results_differ"] = diffs
+        log(json.dumps({"phase": "maintenance rollback",
+                        "power": rec["power_rollback"],
+                        "differ": diffs}))
+        if diffs:
+            raise SmokeError(f"after the rollback, results differ from the "
+                             f"base run's: {dict(list(diffs.items())[:5])}")
+        rec["invalidation"] = invalidation_scope(dev, factory_of, wh)
+    rec["seconds"] = time.perf_counter() - t_phase
+    rec["launches"] = launches
+    log(json.dumps({"phase": "maintenance done", "seconds": rec["seconds"],
+                    "launches": launches}))
+    path_rec["launches"] = launches
+    return rec, path_rec
+
+
 def kernels_line(paths: dict) -> list:
     """One entry per kernel wrapper: launches summed over the timed runs
     of the paths (each read between its own reset and its end), the
@@ -5551,6 +6087,8 @@ def kernels_line(paths: dict) -> list:
             "replaces": replaces,
             "launches": sum(p["launches"].get(name, 0)
                             for p in paths.values()),
+            "paths": {key: p["launches"][name] for key, p in paths.items()
+                      if p["launches"].get(name)},
             "max_abs_err": max(errs),
             "ms": r["ms"], "device_ms": r["device_ms"],
             "plain_ms": r["plain_ms"],
@@ -5586,7 +6124,9 @@ def main() -> int:
                     "the 2-stream NDS subprocess attempt alone); with "
                     "async, execute_async on the NDS-H units at --sf; with "
                     "overlap, the in-process streams and replays at 1 and "
-                    "2 statements in flight at --sf and --sf-ds; then exit")
+                    "2 statements in flight at --sf and --sf-ds; with "
+                    "maintenance, the NDS data-maintenance phase at "
+                    "--sf-ds; then exit")
     args = ap.parse_args()
 
     import torch
@@ -5619,7 +6159,7 @@ def main() -> int:
         steps = args.steps.split(",")
         kernel_steps = [n for n in steps if n not in (
             "bench", "plans", "power", "load", "throughput",
-            "throughput_beyond", "async", "overlap")]
+            "throughput_beyond", "async", "overlap", "maintenance")]
         rec = {"card": card, "phase": "steps", "cases": []}
         if kernel_steps:
             rec.update(design_steps(kernel_steps, designs, factory_of, dev,
@@ -5644,6 +6184,14 @@ def main() -> int:
         elif "throughput_beyond" in steps:
             rec["throughput"] = throughput_step(dev, {"nds": args.sf_ds},
                                                 beyond_only=True)
+        if "maintenance" in steps:
+            tmp = tempfile.mkdtemp(prefix="nds_maint_")
+            try:
+                rec["maintenance"], _path = maintenance_phase(
+                    KX, dev, factory_of, args.sf_ds, tmp)
+            finally:
+                shutil.rmtree(tmp, ignore_errors=True)
+            release(dev)
         if "bench" in steps:
             rec["bench"] = bench_phase(card, dev, args.sf, args.sf_ds,
                                        BENCH_STEP_TIMEOUT_S)
@@ -5692,7 +6240,14 @@ def main() -> int:
                                      "replay_ms": [[r["depth"], r["ms"]]
                                                    for r in o["replays"]]}
                              for suite, o in rec["overlap"].items()}}]
-                            if "overlap" in rec else [])))
+                            if "overlap" in rec else [])
+                         + ([{"maintenance": {
+                             "rounds": [[r["round"], r["card"]["dm_ms"],
+                                         r["cpu"]["dm_ms"]]
+                                        for r in rec["maintenance"]["rounds"]],
+                             "validate": rec["maintenance"].get("validate"),
+                             "seconds": rec["maintenance"]["seconds"]}}]
+                            if "maintenance" in rec else [])))
         return 0
 
     sf_ds_dist = min(args.sf_ds, SF_DS_DIST)
@@ -5761,6 +6316,14 @@ def main() -> int:
                 dev, record["power"]["nds_h"], tmp)
         finally:
             shutil.rmtree(tmp, ignore_errors=True)
+        tmp = tempfile.mkdtemp(prefix="nds_maint_")
+        try:
+            record["maintenance"], paths["maintenance"] = maintenance_phase(
+                KX, dev, factory_of, MAINT_SMOKE_SF, tmp, rounds=(1,),
+                full=False)
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        release(dev)
         line = kernels_line(paths)
         record["kernels"] = line
         pool.close()

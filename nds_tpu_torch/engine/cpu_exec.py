@@ -1,6 +1,6 @@
 """CPU oracle executor: interprets logical plans with numpy/pandas.
 
-Port copy of ``nds_tpu/engine/cpu_exec.py``: it imports nothing of ``nds_tpu``. The fault/watchdog/memwatch hooks, the parameter inlining and the delta deleted-row mask are trimmed.
+Port copy of ``nds_tpu/engine/cpu_exec.py``: it imports nothing of ``nds_tpu``. The fault/watchdog/memwatch hooks and the parameter inlining are trimmed.
 
 Role: the differential-validation ground truth. The reference's oracle is
 the same workload run on CPU Spark, compared row-by-row with epsilon
@@ -180,6 +180,12 @@ class CpuExecutor:
             col = t.columns[name]
             arr = col.decode() if col.is_string else col.values
             ctx.put((node.binding, name), np.asarray(arr), col.null_mask)
+        from nds_tpu_torch.columnar import delta
+        live = delta.live_mask(t)
+        if live is not None:
+            # delta deleted-row bitmask: DF_*-deleted rows drop out of
+            # every scan before any predicate sees them
+            ctx = ctx.mask(live)
         for pred in node.filters:
             m, mv = self.eval(pred, ctx)
             m = m.astype(bool)

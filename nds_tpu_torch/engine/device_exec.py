@@ -841,6 +841,7 @@ class DeviceExecutor:
         timings["bytes_scanned"] = float(
             sum(t.numel() * t.element_size() for t in bufs.values()))
         self._attach_compression(timings, bufs)
+        self._attach_delta(timings, planned)
         del bufs
         run = (planned, key, entry, timings, t0, stage_bill)
         graphs = self._graphs if self.use_graphs else None
@@ -1058,6 +1059,16 @@ class DeviceExecutor:
         for k in [k for k in self._bounds if k[0] == table]:
             del self._bounds[k]
 
+    def invalidate_tables(self, names) -> None:
+        """Scoped DML invalidation (the reference's ``invalidate_tables``):
+        drop only the mutated tables' device state, that is their column
+        buffers and deleted-row masks, their bounds and ``col_is_sorted``
+        verdicts, their scan views and every graph that read any of
+        them. Every other table's buffers, and the graphs of plans that
+        read none of the mutated tables, stay."""
+        for t in set(names):
+            self._drop_table_state(t)
+
     def _drop_col_buffers(self, prefix: str) -> None:
         """Free every device buffer under a key prefix together with its
         encoding bookkeeping (a stale EncSpec outliving its buffer would
@@ -1111,6 +1122,32 @@ class DeviceExecutor:
         if timings.get("bytes_scanned") and raw:
             timings["compression_ratio"] = round(
                 raw / timings["bytes_scanned"], 4)
+
+    def _attach_delta(self, timings: dict, planned) -> None:
+        """Per-query delta accounting (``columnar/delta.py``): how many
+        append-only segments and deleted-row mask entries rode under the
+        tables this query scanned. Emitted only when a scanned table
+        carries delta state, so the summaries of queries over unmutated
+        tables stay as they were."""
+        from nds_tpu_torch.columnar import delta
+        scanned = {node.table
+                   for root in [planned.root, *planned.scalar_subplans]
+                   for node in P.walk_plan(root)
+                   if isinstance(node, P.Scan)}
+        segments = appended = masked = 0
+        hit = False
+        for t in sorted(scanned):
+            rep = delta.delta_report(self.tables.get(t))
+            if rep is None:
+                continue
+            hit = True
+            segments += rep["segments"]
+            appended += rep["appended_rows"]
+            masked += rep["masked_rows"]
+        if hit:
+            timings["delta_segments"] = float(segments)
+            timings["delta_appended_rows"] = float(appended)
+            timings["delta_masked_rows"] = float(masked)
 
     # capacity at or above which results compact on the device before
     # the copy to the host (the reference's COMPACT_MIN_ROWS)
@@ -1202,6 +1239,31 @@ class DeviceExecutor:
                 self._graphs.read(k, t)
         return key, bufs
 
+    def live_buffer(self, table: str):
+        """The table's deleted-row mask on the device (True = live, the
+        reference's ``_upload_live``) under ``{table}.__live``, uploaded
+        once and pooled beside the table's columns (so dropping the
+        table's buffers drops it, and the graphs that read it), or None
+        when every physical row is live. Uploaded raw under any columnar
+        mode: the scan ANDs it into its row gate."""
+        from nds_tpu_torch.columnar import delta
+        live = delta.live_mask(self.tables[table])
+        if live is None:
+            return None
+        key = f"{table}.__live"
+        if key not in self._buffers:
+            self._no_fill("live_buffer")
+            self._place(key, None, {"": self._live_host(table, live)}, 0)
+        buf = self._buffers[key]
+        if self._graphs is not None:
+            self._graphs.read(key, buf)
+        return buf
+
+    def _live_host(self, table: str, live: np.ndarray) -> np.ndarray:
+        """The host array a table's live mask uploads as (the
+        distributed executor's sharded layout overrides it)."""
+        return live
+
     def _encoding_on(self, table: str) -> bool:
         return columnar.enabled() and table not in self._no_encode
 
@@ -1269,6 +1331,12 @@ class DeviceExecutor:
                     for name, _dt in node.output:
                         bufs.update(self.scan_buffers(node.table, name,
                                                       rv)[1])
+                    live = None if rv is not None else self.live_buffer(
+                        node.table)
+                    if live is not None:
+                        # the deleted-row mask rides along for the scan's
+                        # row gate (a reduced view gathered it out)
+                        bufs[f"{node.table}.__live"] = live
         return bufs
 
     # survivor-reduced scans, as the reference: at first use the scan's
@@ -1325,8 +1393,13 @@ class DeviceExecutor:
             arr = col.decode() if col.is_string else col.values
             ctx.put((node.binding, name), np.asarray(arr), col.null_mask)
         helper = cx.CpuExecutor(self.tables)
-        keep = np.ones(t.nrows, dtype=bool)
-        handled = 0
+        from nds_tpu_torch.columnar import delta
+        live = delta.live_mask(t)
+        # seed from the delta deleted-row bitmask: a reduced view then
+        # physically excludes deleted rows and needs no runtime gate
+        keep = np.ones(t.nrows, dtype=bool) if live is None \
+            else live.copy()
+        handled = 1 if live is not None else 0
         for pred in node.filters:
             # a float predicate reduces on the host only when every op
             # is IEEE-exact on both sides
@@ -1353,6 +1426,24 @@ class DeviceExecutor:
                   and (len(col.values) < 2
                        or bool(np.all(np.diff(col.values) >= 0))))
             self._bounds[ck] = ok
+        return self._bounds[ck]
+
+    def cols_unique(self, table: str, names: tuple) -> bool:
+        """Host-cached: no two rows of the table share a value of the
+        columns ``names`` (rows with a NULL among them excluded; deleted
+        rows included, so it holds for every live subset)."""
+        ck = (table, names, "unique")
+        if ck not in self._bounds:
+            t = self.tables[table]
+            cols = [t.columns[n] for n in names]
+            keep = np.ones(t.nrows, dtype=bool)
+            for c in cols:
+                if c.null_mask is not None:
+                    keep &= c.null_mask
+            keys = np.stack([c.values[keep].astype(np.int64)
+                             for c in cols], axis=1)
+            self._bounds[ck] = (len(keys) < 2 or len(
+                np.unique(keys, axis=0)) == len(keys))
         return self._bounds[ck]
 
     def col_bounds(self, table: str, name: str):
@@ -1615,6 +1706,12 @@ class _Trace:
         else:
             n, nrows = max(t.nrows, 1), t.nrows
         row = self._arange(n) < nrows
+        live = self.ex.live_buffer(node.table) if rv is None else None
+        if live is not None:
+            # delta deleted-row bitmask: DF_*-deleted rows leave every
+            # scan's row population before predicates run (the column
+            # buffers stay resident: deletion is one boolean AND)
+            row = row & live
         ctx = DCtx(n, row)
         for name, _dt in node.output:
             col = t.columns[name]
@@ -1636,7 +1733,10 @@ class _Trace:
             ctx.cols[(node.binding, name)] = dv
         for pred in node.filters:
             ctx = self._apply_filter(ctx, pred)
-        ctx.pristine = not node.filters
+        # the presorted-build fast path's marker: arrays in host storage
+        # order behind a prefix row mask. A live mask breaks that prefix
+        # property (a deleted row inside the prefix is still a valid key)
+        ctx.pristine = not node.filters and live is None
         return ctx
 
     def _apply_filter(self, ctx: DCtx, pred: ir.IR) -> DCtx:
@@ -1922,8 +2022,15 @@ class _Trace:
         """Left outer with a non-unique right side (q13's customer LEFT
         JOIN orders): probe from the right against the unique left.
         Block A = matched right rows with the left columns gathered;
-        block B = left rows with no surviving match."""
+        block B = left rows with no surviving match. The reference takes
+        this path whatever the left side; the port only where the left
+        is a scan proven unique on its keys (``_left_unique``), and the
+        other left joins (``_left_multi_join``) where a left key may
+        repeat."""
         self._note("join.sortmerge")
+        if not self._left_unique(node):
+            return self._left_multi_join(node, lctx, rctx, lkey, lok,
+                                         rkey, rok)
         ks, order = self._build_lookup(lkey, lok)
         lidx, hit = self._probe(ks, order, rkey, rok)
         presentA = rctx.row & hit
@@ -1959,6 +2066,81 @@ class _Trace:
             arr = torch.cat([dv.arr, self._zeros(lctx.n, dv.arr.dtype)])
             av = dv.valid if dv.valid is not None else self._ones_bool(rctx.n)
             out.cols[k] = dv.with_arrays(arr, torch.cat([av, falses]))
+        return out
+
+    def _left_unique(self, node: P.Join) -> bool:
+        """True when the left side is a scan whose join key columns are
+        host-proven unique over the whole table (q13's customer)."""
+        left = node.left
+        if not isinstance(left, P.Scan):
+            return False
+        names = set()
+        for k in node.left_keys:
+            if not isinstance(k, ir.ColRef) or k.binding != left.binding:
+                return False
+            names.add(k.name)
+        return self.ex.cols_unique(left.table, tuple(sorted(names)))
+
+    def _left_multi_join(self, node, lctx, rctx, lkey, lok, rkey,
+                         rok) -> DCtx:
+        """Left outer where a left key may repeat and a right key too
+        (the LF_* refresh views: staging line items LEFT JOIN a dimension
+        on a business key the catalog does not know unique). Each left
+        row probes the sorted right side: its first match, or NULLs, in
+        its own slot (block A, the left's capacity), and its further
+        matches in block B, of the right's capacity times half the slack,
+        whose overflow the executor's doubled-slack retry takes. The
+        capacity grows by the right's at each join, as on the unique
+        path."""
+        if node.residual is not None:
+            raise DeviceExecError(
+                "LEFT JOIN with a residual over a left side not proven "
+                "unique on its keys")
+        nl, nr = lctx.n, rctx.n
+        ks, order = self._build_lookup(rkey, rok)
+        lo, hi = _ss(ks, lkey, side="both")
+        cnt = torch.where(lok, hi - lo, torch.zeros_like(lo)).to(
+            torch.int64)
+        has = cnt > 0
+        ridxA = order.index_select(0, lo.clamp(0, nr - 1))
+        E = max(int(self.slack * nr / 2), 1)
+        if E + 1 >= 2**31:
+            raise DeviceExecError(f"join capacity {E} exceeds int32")
+        offs = torch.cumsum((cnt - 1).clamp_min(0), 0)
+        total = offs[-1]
+        slots = self._arange(E)
+        offs32 = offs.clamp_max(E + 1).to(torch.int32)
+        lidxB = _ss(offs32, slots, side="right").clamp(0, nl - 1)
+        prev = torch.where(
+            lidxB > 0, offs32.index_select(0, (lidxB - 1).clamp_min(0)),
+            torch.zeros((), dtype=torch.int32, device=self.dev))
+        rpos = (lo.index_select(0, lidxB) + 1 + (slots - prev)).clamp(
+            0, nr - 1)
+        ridxB = order.index_select(0, rpos)
+        presentB = slots < torch.clamp_max(total, E)
+        self._overflows.append((total - E).clamp_min(0))
+        out = DCtx(nl + E, torch.cat([lctx.row, presentB]))
+        gatheredB = lctx.gather(lidxB)
+        for k, dv in lctx.cols.items():
+            gb = gatheredB.cols[k]
+            valid = None
+            if dv.valid is not None or gb.valid is not None:
+                valid = torch.cat([
+                    dv.valid if dv.valid is not None
+                    else self._ones_bool(nl),
+                    gb.valid if gb.valid is not None
+                    else self._ones_bool(E)])
+            out.cols[k] = dv.with_arrays(torch.cat([dv.arr, gb.arr]),
+                                         valid)
+        rA = rctx.gather(ridxA, clear_valid=has)
+        rB = rctx.gather(ridxB)
+        for k, dv in rctx.cols.items():
+            ga, gb = rA.cols[k], rB.cols[k]
+            out.cols[k] = dv.with_arrays(
+                torch.cat([ga.arr, gb.arr]),
+                torch.cat([ga.valid if ga.valid is not None else has,
+                           gb.valid if gb.valid is not None
+                           else self._ones_bool(E)]))
         return out
 
     def _full_join(self, node: P.Join, lctx, rctx, lkey, lok, rkey,
@@ -3104,6 +3286,16 @@ def make_device_factory(precision: str = "f64", device=None):
             holder["ex"] = ex
         return ex
 
+    # DML invalidation hooks (Session.invalidate): the wholesale one drops
+    # the executor; the scoped one keeps it and drops only the mutated
+    # tables' device state and the graphs that read it
     factory.invalidate = holder.clear
+
+    def invalidate_tables(names):
+        ex = holder.get("ex")
+        if ex is not None:
+            ex.invalidate_tables(names)
+
+    factory.invalidate_tables = invalidate_tables
     factory.device = dev
     return factory

@@ -1,12 +1,15 @@
 """Query session: the engine-side analog of a SparkSession.
 
 Port copy of ``nds_tpu/engine/session.py`` with the later slices' hooks
-trimmed: no fault points, no tracer spans, no plan verification, no DML
-(``engine.dml``) and no literal parameterization (``sql.params``).
-What stays behaves as the reference does: the
-table registry, session views (q15), the (SQL text, views) plan cache,
-the executor factory that picks the backend (the CPU oracle, the device
-engine, or the execution pipeline over them), and ``sql_async``.
+trimmed: no fault points and no tracer spans (ROADMAP Queue 1 items 15
+and 7), no plan verification and no literal parameterization
+(``sql.params``, the serving slice). What stays behaves as the
+reference does: the table registry, session views (q15), the (SQL
+text, views) plan cache, the executor factory that picks the backend
+(the CPU oracle, the device engine, or the execution pipeline over
+them), ``sql_async``, and DML (INSERT ... SELECT and DELETE through
+``engine/dml.py``, landing as deltas) with its table-scoped
+invalidation.
 """
 
 from __future__ import annotations
@@ -16,6 +19,23 @@ from nds_tpu_torch.io.host_table import HostTable
 from nds_tpu_torch.sql import plan as P
 from nds_tpu_torch.sql.parser import parse
 from nds_tpu_torch.sql.planner import CatalogInfo, Planner
+
+def scan_tables(planned) -> list:
+    """Sorted unique table names scanned anywhere in a plan (root and
+    scalar sub-plans): the port's copy of the reference's
+    ``cache/fingerprint.scan_tables`` (``cache/`` is not ported)."""
+    roots = []
+    if isinstance(planned, P.PlannedQuery):
+        roots = [planned.root, *planned.scalar_subplans]
+    elif planned is not None:
+        roots = [planned]
+    names = set()
+    for root in roots:
+        for node in P.walk_plan(root):
+            if isinstance(node, P.Scan):
+                names.add(node.table)
+    return sorted(names)
+
 
 # relative size weights for greedy join ordering (TPC-H row ratios)
 TPCH_SIZES = {
@@ -50,17 +70,30 @@ class Session:
 
     @classmethod
     def for_nds(cls, executor_factory=None,
-                use_decimal: bool = True) -> "Session":
+                use_decimal: bool = True,
+                include_maintenance: bool = False) -> "Session":
         """The NDS (TPC-DS) catalog: the 24 source tables, their primary
-        keys and the dsdgen row-count model for join ordering. The
-        reference's ``include_maintenance`` (the refresh staging tables)
-        waits for the maintenance slice, and ``parameterize`` (literal
-        parameterization) for the serving slice."""
+        keys and the dsdgen row-count model for join ordering; with
+        ``include_maintenance`` also the 12 refresh staging tables the
+        LF_*/DF_* functions read. The reference's ``parameterize``
+        (literal parameterization) waits for the serving slice."""
         from nds_tpu_torch.nds.schema import (
-            PRIMARY_KEYS, SIZES, get_schemas,
+            PRIMARY_KEYS, SIZES, get_maintenance_schemas, get_schemas,
         )
-        cat = CatalogInfo(get_schemas(use_decimal), dict(PRIMARY_KEYS),
-                          dict(SIZES))
+        schemas = get_schemas(use_decimal)
+        keys = dict(PRIMARY_KEYS)
+        sizes = dict(SIZES)
+        if include_maintenance:
+            # the 12 s_*/delete staging tables the LF_*/DF_* refresh
+            # functions read (`nds/nds_maintenance.py:270-274` registers
+            # them as temp views)
+            maint = get_maintenance_schemas(use_decimal)
+            schemas = {**schemas, **maint}
+            keys.update({"s_purchase": ("purc_purchase_id",),
+                         "s_catalog_order": ("cord_order_id",),
+                         "s_web_order": ("word_order_id",)})
+            sizes.update({t: 100.0 for t in maint})
+        cat = CatalogInfo(schemas, keys, sizes)
         return cls(cat, executor_factory)
 
     def register_table(self, table: HostTable) -> None:
@@ -75,13 +108,48 @@ class Session:
     def _views_signature(self) -> frozenset:
         return frozenset(self._view_sql.items())
 
-    def invalidate(self) -> None:
-        """Drop every content-derived cache after a wholesale table
-        swap: the plan cache and the executor the factory holds."""
-        self._plan_cache.clear()
-        inv = getattr(self._executor_factory, "invalidate", None)
-        if inv is not None:
-            inv()
+    def invalidate(self, tables=None) -> None:
+        """Drop content-derived caches after a table mutation. With
+        ``tables=None`` everything goes (a wholesale warehouse swap, such
+        as a rollback). With a table-name iterable the eviction is
+        scoped: only the plan-cache entries whose plans scan a mutated
+        table go, and the executor factory is asked for a scoped
+        invalidate (``invalidate_tables``) where it has one, else for
+        the wholesale one (the execution pipeline has only that, as the
+        reference's)."""
+        if tables is None:
+            self._plan_cache.clear()
+            inv = getattr(self._executor_factory, "invalidate", None)
+            if inv is not None:
+                inv()
+            return
+        touched = set(tables)
+        for key in [k for k, planned in self._plan_cache.items()
+                    if not isinstance(planned, tuple)
+                    and touched.intersection(scan_tables(planned))]:
+            self._plan_cache.pop(key, None)
+        inv_scoped = getattr(self._executor_factory,
+                             "invalidate_tables", None)
+        if inv_scoped is not None:
+            inv_scoped(touched)
+        else:
+            inv = getattr(self._executor_factory, "invalidate", None)
+            if inv is not None:
+                inv()
+
+    def _run_dml(self, action: str, name: str, payload) -> None:
+        from nds_tpu_torch.engine import dml
+        table = self.tables.get(name)
+        if table is None:
+            raise ValueError(f"DML target {name!r} is not registered")
+        if action == "insert":
+            executor = self._executor_factory(self.tables)
+            result = executor.execute(payload)
+            self.tables[name] = dml.append_rows(table, result)
+        else:  # delete
+            keep = dml.delete_mask(self, table, payload)
+            self.tables[name] = dml.apply_delete(table, keep)
+        self.invalidate(tables=[name])
 
     def _planned_for(self, key: tuple, sql_text: str):
         planned = self._plan_cache.get(key)
@@ -112,9 +180,11 @@ class Session:
                 self.views.pop(name, None)
                 self._view_sql.pop(name, None)
                 return None
-            self._plan_cache.pop(key, None)
-            raise NotImplementedError(
-                f"{action} statements are not ported yet")
+            if action in ("insert", "delete"):
+                # never replay a stale DML plan against mutated tables
+                self._plan_cache.pop(key, None)
+                self._run_dml(action, name, node)
+                return None
         executor = self._executor_factory(self.tables)
         return executor.execute(planned)
 
@@ -135,7 +205,7 @@ class Session:
 
 
 class _Completed:
-    """Already-finished async handle (the CPU oracle, view DDL)."""
+    """Already-finished async handle (the CPU oracle, DML, view DDL)."""
 
     def __init__(self, value):
         self._value = value

@@ -126,7 +126,10 @@ def from_reference(table, schemas: "dict | None" = None) -> HostTable:
     schema is the port's own for the table's name, from ``schemas``
     (the port's NDS-H schemas by default); column names and dtypes must
     agree with it. The numpy arrays are shared, not copied: both engines
-    then read bit-identical data."""
+    then read bit-identical data. A mutated reference table carries its
+    delta state across (``columnar/delta.py``: the segments, the
+    deleted-row bitmask and the merged statistics), so both engines read
+    the same mutated table."""
     if schemas is None:
         from nds_tpu_torch.nds_h.schema import get_schemas
         schemas = get_schemas()
@@ -149,4 +152,21 @@ def from_reference(table, schemas: "dict | None" = None) -> HostTable:
                      else np.asarray(ref.null_mask, dtype=bool))
         cols[f.name] = HostColumn(f.dtype, np.asarray(ref.values),
                                   dictionary, null_mask)
-    return HostTable(table.name, schema, cols)
+    out = HostTable(table.name, schema, cols)
+    ref_state = getattr(table, "_nds_delta", None)
+    if ref_state is not None:
+        from nds_tpu_torch.columnar import delta
+        st = delta.DeltaState(
+            base_rows=int(ref_state.base_rows),
+            base_digest=str(ref_state.base_digest),
+            segments=[delta.Segment(
+                seg.seg_id, int(seg.rows), seg.digest,
+                None if seg.table is None
+                else from_reference(seg.table, schemas),
+                bool(seg.persisted)) for seg in ref_state.segments],
+            deleted=(None if ref_state.deleted is None
+                     else np.asarray(ref_state.deleted, dtype=bool)),
+            col_stats={k: dict(v) for k, v in ref_state.col_stats.items()},
+            deleted_dirty=bool(ref_state.deleted_dirty))
+        setattr(out, delta.ATTR, st)
+    return out

@@ -10,11 +10,13 @@ and chunk range (``dbgen_version`` records the day and time it ran).
 
 ``--dsdgen_path`` runs the external TPC dsdgen binary instead
 (``datagen/toolwrap.py``: one process per chunk, the files then moved
-into per-table directories). Trimmed: ``--update N`` (the refresh data
-sets) waits for the maintenance slice (ROADMAP Queue 1 item 5,
-``datagen/tpcds_refresh.py``).
+into per-table directories). ``--update N`` generates the Nth refresh
+data set instead (``generate_refresh_data``: the 12 s_* staging tables
+and the delete-date tables from ``datagen/tpcds_refresh.py``), which
+the data-maintenance phase (``nds/maintenance.py``) reads.
 
     python -m nds_tpu_torch.nds.gen_data 1 8 /data/nds/raw
+    python -m nds_tpu_torch.nds.gen_data 1 1 /data/nds/refresh1 --update 1
 """
 
 from __future__ import annotations
@@ -27,7 +29,7 @@ from concurrent.futures import ProcessPoolExecutor
 
 from nds_tpu_torch.datagen import tpcds
 from nds_tpu_torch.io.csv_io import write_tbl
-from nds_tpu_torch.nds.schema import get_schemas
+from nds_tpu_torch.nds.schema import get_maintenance_schemas, get_schemas
 
 # dsdgen's metadata table dbgen_version has no query schema: generated
 # for layout parity, skipped by the power run
@@ -93,16 +95,38 @@ def generate_data_local(scale: float, parallel: int, data_dir: str,
         return list(pool.map(_gen_chunk_star, tasks))
 
 
+def generate_refresh_data(scale: float, update: int, data_dir: str,
+                          overwrite: bool = False,
+                          use_decimal: bool = True) -> list[str]:
+    """The ``--update`` path: the refresh (s_*) staging tables and the
+    delete/inventory_delete date-range tables, written under
+    ``data_dir`` like dsdgen update sets
+    (`nds/nds_gen_data.py:119-127,183-244` with ``--update``)."""
+    if os.path.isdir(data_dir) and os.listdir(data_dir) and not overwrite:
+        raise SystemExit(
+            f"data dir {data_dir!r} is not empty (pass --overwrite_output)")
+    os.makedirs(data_dir, exist_ok=True)
+    from nds_tpu_torch.datagen import tpcds_refresh
+    paths = []
+    for t, schema in get_maintenance_schemas(use_decimal).items():
+        arrays = tpcds_refresh.gen_refresh_table(t, scale, update)
+        path = os.path.join(data_dir, t, f"{t}.dat")
+        write_tbl(arrays, schema, path)
+        paths.append(path)
+    return paths
+
+
 def main(argv=None) -> None:
-    p = argparse.ArgumentParser(
-        description="generate NDS raw data (--update is not ported "
-                    "yet)")
+    p = argparse.ArgumentParser(description="generate NDS raw data")
     p.add_argument("scale", type=float, help="scale factor")
     p.add_argument("parallel", type=int, help="number of chunks")
     p.add_argument("data_dir", help="output directory")
     p.add_argument("--table", choices=SOURCE_TABLES)
     p.add_argument("--range", dest="chunk_range",
                    help="'first,last' 1-based chunk subrange to (re)generate")
+    p.add_argument("--update", type=int,
+                   help="generate the Nth refresh dataset instead of the "
+                        "base tables")
     p.add_argument("--overwrite_output", action="store_true")
     p.add_argument("--floats", action="store_true",
                    help="double columns instead of decimals")
@@ -115,7 +139,11 @@ def main(argv=None) -> None:
     if args.dsdgen_path:
         from nds_tpu_torch.datagen.toolwrap import run_dsdgen
         run_dsdgen(args.dsdgen_path, int(args.scale), args.parallel,
-                   args.data_dir)
+                   args.data_dir, update=args.update)
+        return
+    if args.update is not None:
+        generate_refresh_data(args.scale, args.update, args.data_dir,
+                              args.overwrite_output, not args.floats)
         return
     rng = None
     if args.chunk_range:

@@ -33,9 +33,14 @@ exchanged one reads (the reference ships every column and XLA drops the
 unread ones); the rows, and so every result and kernel block, are the
 same.
 
+A table with deleted rows (``columnar/delta.py``) uploads its live mask
+in the table's own layout (``_live_host``: sharded tables False-padded
+like their columns), and the sharded scan ANDs its slice into the row
+gate, as the reference's ``_upload_live`` does.
+
 Left for later slices: the AOT plan-cache hooks, the skew gauge and the
-metrics counters, the delta live masks (``_upload_live``) and the
-literal parameterization (``sql.params``) of the reference.
+metrics counters and the literal parameterization (``sql.params``) of
+the reference.
 """
 
 from __future__ import annotations
@@ -158,6 +163,13 @@ class DistributedExecutor(dx.DeviceExecutor):
         if col.null_mask is not None:
             host["#v"] = shard_of(col.null_mask, self.rank, self.n_dev)
         self._place(key, None, host, 0)
+
+    def _live_host(self, table: str, live: np.ndarray) -> np.ndarray:
+        # a sharded table's mask shards with its columns' pad layout
+        # (False-padded, so padded slots stay dead)
+        if not self._is_sharded(table):
+            return live
+        return shard_of(live, self.rank, self.n_dev)
 
     def scan_view(self, node):
         rv = super().scan_view(node)
@@ -326,7 +338,13 @@ class _DistTrace(dx._Trace):
         t = self.ex.tables[node.table]
         local = shard_rows(t.nrows, self.n_dev)
         gidx = self.ex.rank * local + self._arange(local, torch.int64)
-        ctx = DCtx(local, gidx < t.nrows)
+        row = gidx < t.nrows
+        live = self.ex.live_buffer(node.table)
+        if live is not None:
+            # delta deleted-row bitmask (this rank's slice, padded
+            # False): deleted rows leave the shard's row population
+            row = row & live
+        ctx = DCtx(local, row)
         ctx.sharded = True
         for name, _dt in node.output:
             col = t.columns[name]
@@ -586,6 +604,16 @@ def make_distributed_factory(mesh=None, n_devices=None, shard_tables=None,
             holder["ex"] = ex
         return ex
 
+    # DML invalidation hooks (Session.invalidate): the wholesale one drops
+    # the executor; the scoped one keeps it and drops only the mutated
+    # tables' device state and the graphs that read it
     factory.invalidate = holder.clear
+
+    def invalidate_tables(names):
+        ex = holder.get("ex")
+        if ex is not None:
+            ex.invalidate_tables(names)
+
+    factory.invalidate_tables = invalidate_tables
     factory.device = dev
     return factory

@@ -39,7 +39,6 @@ brings it back:
   fleet wiring, the flight recorder and the metrics snapshotter (item 7);
 - the query journal of the power loop, ``--resume``, the SIGTERM drain,
   the watchdog and fault injection (item 15, the resilience layer);
-- ``SnapshotLog`` and delta warehouses (item 5, maintenance);
 - the plan-cache hooks (``--cache_dir``): a CUDA graph does not outlive
   its process, so they have no counterpart.
 """
@@ -189,11 +188,17 @@ def load_warehouse(suite: Suite, session: Session, data_dir: str,
     """Register every table from a warehouse directory; returns
     {table: seconds} setup timings (the CreateTempView analog). ``fmt``
     is ``raw`` ('|'-delimited text, gen_data's output) or one of
-    transcode's formats (``csv_io.FORMAT_EXT``)."""
+    transcode's formats (``csv_io.FORMAT_EXT``). A versioned warehouse
+    (one with a snapshot manifest, ``io/snapshots.py``) reads each
+    table's live file map, and a delta lineage replays through
+    ``columnar/delta.load_versioned``."""
     from nds_tpu_torch.io import csv_io
     from nds_tpu_torch.io.integrity import MANIFEST_NAME
+    from nds_tpu_torch.io.snapshots import MANIFEST, SnapshotLog
     if schemas is None:
         schemas = suite.get_schemas()
+    log = (SnapshotLog(data_dir)
+           if os.path.exists(os.path.join(data_dir, MANIFEST)) else None)
     timings = {}
     for name, schema in schemas.items():
         if tables is not None and name not in tables:
@@ -202,6 +207,25 @@ def load_warehouse(suite: Suite, session: Session, data_dir: str,
         tdir = os.path.join(data_dir, name)
         if fmt in csv_io.FORMAT_EXT:
             ext = csv_io.FORMAT_EXT[fmt]
+            if log is not None and os.path.isdir(tdir):
+                # versioned warehouse: the snapshot manifest names the
+                # live files (maintenance commits new versions, always
+                # as parquet: formats may mix, so read per extension).
+                # Delta lineages (files under <table>/_v<N>/) replay
+                # through columnar.delta: base files load normally, then
+                # each committed version's segments and bitmask apply in
+                # order, rebuilding the writer's content digests and
+                # merged-stats encoding specs
+                paths = log.current([name]).get(name, [])
+                from nds_tpu_torch.columnar import delta
+                if delta.has_delta_paths(paths):
+                    table = delta.load_versioned(name, schema, paths, fmt)
+                else:
+                    table = csv_io.read_paths_auto(paths, name, schema,
+                                                   fmt)
+                session.register_table(table)
+                timings[name] = time.perf_counter() - t0
+                continue
             if os.path.isdir(tdir):
                 # recursive: partitioned tables nest hive-style dirs
                 paths = sorted(

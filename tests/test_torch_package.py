@@ -107,6 +107,24 @@ def test_scheduler_and_throughput_modules_are_part_of_the_port():
         assert f"nds_tpu_torch.{m}" in mods
 
 
+def test_maintenance_modules_are_part_of_the_port():
+    """The modules of ROADMAP Queue 1 item 5 (DML and the maintenance
+    phase), which the import check and the source scan cover with the
+    rest, and the refresh functions' SQL shipped beside them."""
+    mods = _port_modules()
+    for m in ("engine.dml", "columnar.delta", "io.snapshots",
+              "datagen.tpcds_refresh", "nds.maintenance", "nds.rollback"):
+        assert f"nds_tpu_torch.{m}" in mods
+    ref = REPO / "nds_tpu" / "nds" / "data_maintenance"
+    sql = sorted(p.name for p in (PORT / "nds" / "data_maintenance").glob(
+        "*.sql"))
+    assert sql == sorted(p.name for p in ref.glob("*.sql"))
+    assert len(sql) == 11
+    for name in sql:
+        assert (PORT / "nds" / "data_maintenance" / name).read_bytes() == (
+            ref / name).read_bytes(), name
+
+
 def test_distributed_entry_points_raise_without_a_card(monkeypatch):
     import torch.distributed as dist
 
