@@ -144,7 +144,12 @@ Drives ``nds_tpu_torch`` (never ``jax``, never ``nds_tpu``) on the card:
    (``throughput_phase``); and after the
    NDS-H leg's timed passes, ``async_check``: the copies to the host of
    ``execute`` against ``execute_async``, handles in flight resolved in
-   both orders, a recapture after every graph is dropped;
+   both orders, a recapture after every graph is dropped; then the NDS-H
+   orchestrator (``python -m nds_tpu_torch.nds_h.bench``, one throughput
+   stream, in process) over the power phase's warehouse and load report
+   (``orchestrate_bench``): every term positive, the metric the composite
+   of its terms, every power and throughput statement on ``device`` with
+   0 reschedules;
 8d. maintenance phase (``maintenance_phase``): the NDS data-maintenance
    phase at SF``MAINT_SMOKE_SF``, in a temporary directory: ``gen_data``,
    ``transcode`` and ``gen_data --update 1``, then the maintenance CLI on
@@ -156,6 +161,11 @@ Drives ``nds_tpu_torch`` (never ``jax``, never ``nds_tpu``) on the card:
    reschedules, no ``CaptureError``, then the 7 mutated tables' visible
    rows, card against CPU, the same multisets, and the rollback CLI,
    after which those tables' content digests are the base warehouse's;
+   then the SIGTERM drain over that warehouse (``soak_phase``): the NDS
+   power CLI on the card with query7 wedged by an injected hang, SIGTERM
+   inside it, exit 75 and query7 journaled ``aborted``, then ``--resume``:
+   each statement completed once, the results the clean run's, the merged
+   report billing each once;
 9. prints the kernels line (one entry per kernel wrapper: launches summed
    over the timed runs, by path under ``paths``, each kernel's numbers
    from the path that runs it), the card line, and as the last line
@@ -208,7 +218,22 @@ columns within 1e-9), then ``invalidation_scope`` on
 statement's plan and graph in place (0 captures), a statement over
 store_sales sees the new rows, and the unrelated statement's run after a
 wholesale invalidation (what the execution pipeline does at every DML) is
-timed beside its replay.
+timed beside its replay. The step ``orchestrate`` runs the orchestrators
+(``orchestrate_step``): the NDS-H bench at ``--sf`` (2 throughput
+streams) and the NDS bench at ``--sf-ds`` (``num_streams: 1``: 3 streams,
+two throughput and two maintenance rounds, validate over every
+statement but ``ORCH_VALIDATE_LEAVE_OUT``), each phase's time and the composite metric,
+every power and throughput statement on ``device`` with 0 reschedules,
+every validated result a MATCH, then the NDS bench's ``--resume`` after
+its last two phases are deleted from ``bench_state.json``: only those run
+again, and the other phases' metric inputs are the first run's. The step
+``soak`` runs ``tools/soak_check.py``'s smoke scenarios on the port's NDS
+power CLI over its parquet warehouse at ``--sf-ds`` (``soak_step``): a
+SIGTERM drain and a kill -9 inside a wedged statement, each then
+``--resume``d (results the clean run's, each statement completed once,
+the merged report billing each once), then a SIGKILL inside
+``dml.apply`` of a maintenance round and two ``--resume``s (every
+refresh function applied once, the second resume a no-op).
 
 Kernel checks: integer, bool and min/max outputs must equal the plain
 version's exactly; a float sum (the segmented scan's "sum" on float
@@ -250,6 +275,7 @@ import multiprocessing
 import os
 import re
 import shutil
+import signal
 import statistics
 import subprocess
 import sys
@@ -4544,6 +4570,7 @@ def power_run(mod: str, wh: str, stream: str, units: list, out: str,
     reschedules: the pipeline walks a statement that runs the card out
     of memory down to the CPU oracle, whose result would pass every
     other check."""
+    from nds_tpu_torch.utils.report import is_report_basename
     from nds_tpu_torch.utils.timelog import TimeLog
     tlog, jsons = os.path.join(out, "time.csv"), os.path.join(out, "json")
     run = _cli([f"{mod}.power", wh, stream, tlog,
@@ -4556,6 +4583,8 @@ def power_run(mod: str, wh: str, stream: str, units: list, out: str,
     rows = {q: ms for _a, q, ms in TimeLog.read(tlog)}
     summaries = {}
     for f in os.listdir(jsons):
+        if not is_report_basename(f):
+            continue  # the run's query journal
         with open(os.path.join(jsons, f)) as fh:
             summary = json.load(fh)
         summaries[summary["query"]] = summary
@@ -4818,6 +4847,7 @@ def throughput_run(mod: str, wh: str, streams: list, out: str, mode: str,
     subprocess mode, from its query journal in process), in the time
     log's order; each process's ``[memory]`` record (peak allocated and
     reserved GiB, graph pool GiB)."""
+    from nds_tpu_torch.utils.report import is_report_basename
     from nds_tpu_torch.utils.timelog import TimeLog
     streams_mod = importlib.import_module(f"{mod}.streams")
     if cmd is None:
@@ -4854,6 +4884,8 @@ def throughput_run(mod: str, wh: str, streams: list, out: str, mode: str,
         else:
             jdir = os.path.join(out, f"{name}_json")
             for f in sorted(os.listdir(jdir)) if os.path.isdir(jdir) else []:
+                if not is_report_basename(f):
+                    continue  # the stream's query journal
                 with open(os.path.join(jdir, f)) as fh:
                     summary = json.load(fh)
                 status = summary["queryStatus"][-1]
@@ -5672,8 +5704,11 @@ def maintenance_cli_cpu(wh: str, refresh: str, out: str,
 
 def maintenance_summaries(jsons: str) -> dict:
     """{function: summary} of a maintenance run's summaries."""
+    from nds_tpu_torch.utils.report import is_report_basename
     out = {}
     for f in os.listdir(jsons):
+        if not is_report_basename(f):
+            continue
         with open(os.path.join(jsons, f)) as fh:
             summary = json.load(fh)
         out[summary["query"]] = summary
@@ -6061,6 +6096,633 @@ def maintenance_phase(KX, dev, factory_of, sf: float, tmp: str,
     return rec, path_rec
 
 
+# ``--steps orchestrate`` and the full smoke's orchestrate phase: the
+# whole-benchmark orchestrators (``python -m nds_tpu_torch.<suite>.bench``)
+# as users run them, from a YAML: NDS-H (load, power, throughput) and NDS
+# (load, power, two throughput and two maintenance rounds, validate), each
+# phase's time and the composite metric, every power and throughput
+# statement on ``device`` with 0 reschedules, every validated result a
+# MATCH; then NDS ``--resume`` after the last two phases are deleted from
+# ``bench_state.json``: only those run again, and the other phases' metric
+# inputs are the first run's
+ORCH_SMOKE_SF = 0.01
+ORCH_TIMEOUT_S = 3000
+# the NDS validate phase's sweep at ``--steps orchestrate``: every
+# statement of the power stream but q59. The bench draws its parameters
+# from the load's end time, and under some of them q59's ORDER BY ...
+# LIMIT 100 cuts through rows tied on every sort key, so two engines keep
+# different rows (both packages' engines against their CPU oracles;
+# ROADMAP Queue 3). The CPU oracle's round of the sweep is the longest
+# part of the step (PERF.md §5), and the resume runs validate again
+ORCH_VALIDATE_LEAVE_OUT = ("query59",)
+# the kernels the full smoke's NDS-H orchestrator must launch in its
+# in-process throughput round (the NDS-H path's, less the compactor: SF0.01
+# results are too small to compact)
+ORCH_REQUIRED = tuple(n for n in H_REQUIRED if n != "compact_perm")
+ORCH_METRIC_TERMS = {
+    "nds_h": ["load_s", "power_s", "throughput_s"],
+    "nds": ["load_s", "power_s", "throughput1_s", "throughput2_s",
+            "maintenance1_s", "maintenance2_s"]}
+
+
+def decimal_quotient_check(dev) -> dict:
+    """The engine's decimal-to-float conversion (``_to_float``, whose
+    quotients NDS q49 ranks) on ``dev``, bit for bit against the CPU
+    oracle's (``arr / 10**scale`` in numpy) over seeded scaled integers;
+    beside it, how many of them a division by a Python number on ``dev``
+    (a multiplication by the reciprocal on the card) gets wrong."""
+    import numpy as np
+    import torch
+    from nds_tpu_torch.engine.device_exec import _to_float
+    from nds_tpu_torch.engine.types import DecimalType
+    ints = np.random.default_rng(49).integers(1, 10 ** 12, 1 << 20)
+    arr = torch.from_numpy(ints).to(dev)
+    rec = {"values": int(ints.size)}
+    for scale in (2, 4):
+        want = ints.astype(np.float64) / 10 ** scale
+        got = _to_float(arr, DecimalType(15, scale), torch.float64).cpu()
+        off = int((got.numpy() != want).sum())
+        if off:
+            raise SmokeError(f"_to_float at scale {scale} on {dev}: {off} "
+                             f"of {ints.size} quotients are not the CPU "
+                             f"oracle's")
+        scalar = (arr.to(torch.float64) / 10.0 ** scale).cpu().numpy()
+        rec[f"scalar_divisor_off_s{scale}"] = int((scalar != want).sum())
+    log(json.dumps({"phase": "decimal_quotient", **rec}))
+    return rec
+
+
+def orch_validate_subset() -> list:
+    """The statements of the NDS power stream the validate sweep runs:
+    every one but those of ``ORCH_VALIDATE_LEAVE_OUT``."""
+    from nds_tpu_torch.nds.streams import power_units
+    return [f"query{n}" for n, _stmts in power_units()
+            if f"query{n.split('_')[0]}" not in ORCH_VALIDATE_LEAVE_OUT]
+
+
+def bench_config(suite: str, sf: float, tmp: str, device: "str | None",
+                 num_streams: int, prepared: "dict | None" = None,
+                 validate_subset: "list | None" = None) -> tuple:
+    """Write a bench YAML under ``tmp``; ``prepared``: an existing raw
+    dir, warehouse and load report (data-gen and load are skipped)."""
+    import yaml
+    work = os.path.join(tmp, f"bench_{suite}")
+    os.makedirs(work, exist_ok=True)
+    reports = os.path.join(work, "reports")
+    paths = {"raw_data": os.path.join(work, "raw"),
+             "warehouse": os.path.join(work, "wh"),
+             "streams": os.path.join(work, "streams"), "reports": reports}
+    skip = {}
+    if prepared:
+        paths.update(raw_data=prepared["raw"], warehouse=prepared["wh"])
+        os.makedirs(reports, exist_ok=True)
+        shutil.copy(prepared["load_report"],
+                    os.path.join(reports, "load_report.txt"))
+        skip = {"data_gen": True, "load_test": True}
+    if suite == "nds":
+        paths["refresh_data"] = os.path.join(work, "refresh")
+    cfg = {"scale_factor": sf, "parallel": min(8, os.cpu_count() or 1),
+           "num_streams": num_streams, "backend": "gpu", "paths": paths,
+           "skip": skip}
+    if device:
+        cfg["device"] = device
+    if suite == "nds":
+        cfg["validate"] = {"epsilon": 0.00001}
+        if validate_subset:
+            cfg["validate"]["query_subset"] = list(validate_subset)
+    path = os.path.join(work, "bench.yml")
+    with open(path, "w") as f:
+        yaml.safe_dump(cfg, f)
+    return path, cfg
+
+
+def bench_in_process(suite: str, cfg_path: str, KX) -> dict:
+    """The orchestrator's CLI (``nds_tpu_torch.<suite>.bench.main``) in
+    this process, the launch counts set to 0 just before and read just
+    after: its phases run as subprocesses, its in-process throughput
+    round here, where its launches count. Its seconds, output and the
+    launch counts."""
+    mod = importlib.import_module(f"nds_tpu_torch.{suite}.bench")
+    log_path = cfg_path[:-len(".yml")] + ".log"
+    t0 = time.perf_counter()
+    KX.reset_launches()
+    sys.stdout.flush()
+    saved = os.dup(1)
+    # the phases' subprocesses write to file descriptor 1 too
+    with open(log_path, "w") as out, contextlib.redirect_stdout(out):
+        os.dup2(out.fileno(), 1)
+        try:
+            mod.main([cfg_path])
+            rc = 0
+        except SystemExit as e:
+            rc = e.code
+        except Exception as e:  # noqa: BLE001 - reported below
+            rc = f"{type(e).__name__}: {e}"
+        finally:
+            out.flush()
+            os.dup2(saved, 1)
+            os.close(saved)
+    launches = KX.launch_counts()
+    with open(log_path) as f:
+        text = f.read()
+    if rc:
+        raise SmokeError(f"{suite} bench in this process: {rc}; output "
+                         f"ends: {text[-3000:]}")
+    return {"seconds": time.perf_counter() - t0, "text": text,
+            "launches": {k: v for k, v in launches.items() if v}}
+
+
+def bench_cli(suite: str, cfg_path: str, resume: bool,
+              env_extra: "dict | None", timeout_s: float) -> dict:
+    """``python -m nds_tpu_torch.<suite>.bench`` (output to a log beside
+    the YAML); its exit code, seconds and output."""
+    from nds_tpu_torch.utils.power_core import subprocess_env
+    env = subprocess_env()
+    env.pop("NDS_TPU_FAULTS", None)
+    env.update(env_extra or {})
+    log_path = cfg_path[:-len(".yml")] + ("_resume" if resume else "") + \
+        ".log"
+    t0 = time.perf_counter()
+    with open(log_path, "w") as out:
+        try:
+            proc = subprocess.run(
+                [sys.executable, "-m", f"nds_tpu_torch.{suite}.bench",
+                 cfg_path, *(["--resume"] if resume else [])],
+                cwd=os.path.dirname(os.path.abspath(__file__)), env=env,
+                stdout=out, stderr=subprocess.STDOUT, timeout=timeout_s)
+        except subprocess.TimeoutExpired as e:
+            raise SmokeError(f"{suite} bench: no end within {timeout_s} s"
+                             ) from e
+    with open(log_path) as f:
+        text = f.read()
+    if proc.returncode:
+        raise SmokeError(f"{suite} bench{' --resume' if resume else ''}: "
+                         f"exit {proc.returncode}; output ends: "
+                         f"{text[-3000:]}")
+    return {"seconds": time.perf_counter() - t0, "text": text}
+
+
+def bench_record(suite: str, cfg: dict) -> dict:
+    """The metrics row, held to the composite of its own terms, and the
+    power and throughput statements' placements."""
+    import csv
+    mod = importlib.import_module(f"nds_tpu_torch.{suite}.bench")
+    from nds_tpu_torch.utils.report import load_summaries
+    reports = cfg["paths"]["reports"]
+    with open(os.path.join(reports, "metrics.csv")) as f:
+        header, row = list(csv.reader(f))
+    vals = dict(zip(header, row))
+    terms = {k: float(vals[k]) for k in ORCH_METRIC_TERMS[suite]}
+    if not all(v > 0 for v in terms.values()):
+        raise SmokeError(f"{suite} bench: a metric term is not positive: "
+                         f"{terms}")
+    args = list(terms.values())
+    want = (mod.get_perf_metric(float(vals["scale"]),
+                                int(vals["streams"]), *args)
+            if suite == "nds_h" else
+            mod.get_perf_metric(float(vals["scale"]),
+                                int(vals["streams"]) // 2, *args))
+    if int(vals["metric"]) != want:
+        raise SmokeError(f"{suite} bench: metric {vals['metric']} is not "
+                         f"the composite of its terms ({want})")
+    stmts = {}
+    for s in load_summaries(os.path.join(reports, "json")):
+        if s.get("result_digest"):
+            stmts[f"power:{s['query']}"] = (s.get("placement"),
+                                             s.get("reschedules"),
+                                             s["queryStatus"][-1])
+    for root, _dirs, files in os.walk(reports):
+        for f in files:
+            if f.endswith("_queries.json") and "throughput" in root:
+                for q, e in soak_journal(os.path.join(root, f)).items():
+                    if e.get("result_digest"):
+                        stmts[f"{f[:-len('_queries.json')]}:{q}"] = (
+                            e.get("placement"), e.get("reschedules"),
+                            e.get("status"))
+    bad = {k: v for k, v in stmts.items()
+           if v[:2] != ("device", 0) or v[2] not in (
+               "Completed", "CompletedWithTaskFailures")}
+    if bad or not stmts:
+        raise SmokeError(f"{suite} bench: statements off the device, "
+                         f"rescheduled or failed: {dict(list(bad.items())[:8])}")
+    return {"terms": terms, "metric": int(vals["metric"]),
+            "statements": len(stmts),
+            "recovered": sorted(k for k, v in stmts.items()
+                                if v[2] != "Completed")}
+
+
+def orchestrate_bench(suite: str, sf: float, tmp: str, device, num_streams,
+                      prepared=None, validate_subset=None, resume_check=False,
+                      env_extra=None, timeout_s=ORCH_TIMEOUT_S,
+                      KX=None) -> dict:
+    """One bench run of ``suite`` (see the block comment above); with
+    ``resume_check`` (NDS) the resume after deleting the last two
+    phases. With ``KX`` (the kernels module) the orchestrator runs in this
+    process (``bench_in_process``) and the record holds its launches."""
+    cfg_path, cfg = bench_config(suite, sf, tmp, device, num_streams,
+                                 prepared, validate_subset)
+    run = (bench_cli(suite, cfg_path, False, env_extra, timeout_s)
+           if KX is None else bench_in_process(suite, cfg_path, KX))
+    rec = {"suite": suite, "sf": sf, "num_streams": num_streams,
+           "seconds": run["seconds"], **bench_record(suite, cfg)}
+    if KX is not None:
+        rec["launches"] = run["launches"]
+        missing = [n for n in ORCH_REQUIRED if not run["launches"].get(n)]
+        if missing:
+            raise SmokeError(f"{suite} bench: its in-process round launched "
+                             f"no {missing}: {run['launches']}")
+    if suite == "nds":
+        # the bench fails where validate finds a mismatch; here every
+        # statement of the sweep the validator does not skip must have
+        # been compared
+        from nds_tpu_torch.nds.validate import SKIP_QUERIES
+        matched = run["text"].count("-> MATCH ===")
+        want = [q for q in validate_subset or []
+                if q.split("_part")[0] not in SKIP_QUERIES]
+        if matched == 0 or (validate_subset and matched != len(want)):
+            raise SmokeError(f"nds bench: {matched} validated MATCH of "
+                             f"{len(want)}")
+        rec["validate_match"] = matched
+        rec["validate_subset"] = list(validate_subset or [])
+    if resume_check:
+        jpath = os.path.join(cfg["paths"]["reports"], "bench_state.json")
+        with open(jpath) as f:
+            state = json.load(f)
+        phases = list(state["phases"])
+        tail = phases[-2:]
+        for ph in tail:
+            del state["phases"][ph]
+        # a hand-edited journal: without its CRC stamp it is trusted
+        state.pop("crc", None)
+        with open(jpath, "w") as f:
+            json.dump(state, f)
+        again = bench_cli(suite, cfg_path, True, env_extra, timeout_s)
+        skipped = re.findall(r"== skipping (\S+) \(journaled\) ==",
+                             again["text"])
+        if sorted(skipped) != sorted(phases[:-2]):
+            raise SmokeError(f"nds bench --resume skipped {skipped}, "
+                             f"expected {phases[:-2]}")
+        after = bench_record(suite, cfg)
+        kept = [k for k in ORCH_METRIC_TERMS[suite]
+                if k != "maintenance2_s"]
+        moved = {k: (rec["terms"][k], after["terms"][k]) for k in kept
+                 if rec["terms"][k] != after["terms"][k]}
+        if moved:
+            raise SmokeError(f"nds bench --resume moved the terms of phases "
+                             f"it did not run again: {moved}")
+        rec["resume"] = {"rerun": tail, "seconds": again["seconds"],
+                         "terms": after["terms"], "metric": after["metric"]}
+    log(json.dumps({"phase": "orchestrate", **rec}, default=str))
+    return rec
+
+
+def soak_step(dev, sf: float) -> dict:
+    """``--steps soak``: the port's NDS load chain at ``sf``, refresh set
+    1, both interruption scenarios over the warehouse, then the
+    maintenance kill over it, on ``dev``."""
+    device = "cuda" if dev.type == "cuda" else dev.type
+    tmp = tempfile.mkdtemp(prefix="nds_soak_")
+    try:
+        load = load_chain("nds_tpu_torch.nds", sf, tmp, SOAK_TIMEOUT_S)
+        refresh = os.path.join(tmp, "refresh1")
+        g = _cli(["nds_tpu_torch.nds.gen_data", f"{sf:g}", "1", refresh,
+                  "--update", "1"], SOAK_TIMEOUT_S)
+        if g["rc"]:
+            raise SmokeError(f"gen_data --update 1: exit {g['rc']}; "
+                             f"{g['stderr_tail'][-2000:]}")
+        rec = {"sf": sf, "power": soak_phase(load["wh"], tmp, device)}
+        rec["maintenance"] = soak_maintenance_kill(load["wh"], refresh, tmp,
+                                                   device)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return rec
+
+
+def orchestrate_line(rec: dict) -> dict:
+    """The orchestrate step's numbers for the summary line."""
+    return {suite: ({"terms": r["terms"], "metric": r["metric"],
+                     "seconds": r["seconds"],
+                     **({"resume": [r["resume"]["rerun"],
+                                    r["resume"]["seconds"],
+                                    r["resume"]["metric"]]}
+                        if "resume" in r else {})}
+                    if suite in ORCH_METRIC_TERMS else r)
+            for suite, r in rec.items()}
+
+
+def soak_line(rec: dict) -> dict:
+    """The soak step's numbers for the summary line."""
+    power = rec["power"]
+    return {"sf": rec["sf"],
+            **{k: [power[k]["interrupted_rc"], power[k]["starts"]]
+               for k in SOAK_SCENARIOS if k in power},
+            "maintenance": [rec["maintenance"]["committed_before"],
+                            rec["maintenance"]["resume_commits"]],
+            "seconds": [power["seconds"], rec["maintenance"]["seconds"]]}
+
+
+def orchestrate_step(dev, legs: dict, env_extra=None) -> dict:
+    """``--steps orchestrate``: the NDS-H bench (2 throughput streams) at
+    ``legs["nds_h"]`` and the NDS bench (``num_streams: 1``: 3 streams,
+    two maintenance rounds, validate) at ``legs["nds"]`` with its resume
+    check, on ``dev``."""
+    device = None if dev.type == "cuda" else dev.type
+    out = {"decimal_quotient": decimal_quotient_check(dev)}
+    tmp = tempfile.mkdtemp(prefix="nds_orch_")
+    try:
+        out["nds_h"] = orchestrate_bench("nds_h", legs["nds_h"], tmp, device,
+                                         2, env_extra=env_extra)
+        out["nds"] = orchestrate_bench(
+            "nds", legs["nds"], tmp, device, 1,
+            validate_subset=orch_validate_subset(), resume_check=True,
+            env_extra=env_extra)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
+# ``--steps soak`` and the full smoke's soak phase: the smoke scenarios of
+# ``tools/soak_check.py`` on the port's NDS power CLI (a 3-statement
+# stream, its own parquet warehouse): a SIGTERM drain inside a statement
+# wedged by an injected hang (exit 75, the statement journaled not done,
+# then ``--resume``) and a kill -9 inside one (then ``--resume``); each
+# resumed run's result digests must be a clean run's, each statement must
+# complete once (the journal's starts) and ``merged-power-nds.json`` must
+# bill each once. A maintenance kill: SIGKILL inside ``dml.apply`` after
+# the commit journal's START mark, then ``--resume`` twice: every refresh
+# function applied once, the second resume a no-op
+SOAK_TEMPLATES = [96, 7, 93]
+SOAK_DRAIN_S = 2           # a short deadline: the scenario must not idle
+SOAK_HANG_S = 900          # far past every timeout the scenarios use
+SOAK_SMOKE_SF = 0.01
+SOAK_TIMEOUT_S = 900       # a CLI run's limit
+SOAK_START_S = 600         # the wait for the victim's start mark
+SOAK_MAINT_VICTIM = "LF_SS"
+# each LF_* function inserts into one fact table, and the inserts run
+# before every delete: a dml.apply hang scoped to the table wedges inside
+# its function and nowhere else
+LF_TABLE = {"LF_CR": "catalog_returns", "LF_CS": "catalog_sales",
+            "LF_I": "inventory", "LF_SR": "store_returns",
+            "LF_SS": "store_sales", "LF_WR": "web_returns",
+            "LF_WS": "web_sales"}
+
+
+def soak_env(faults: "str | None" = None, extra: "dict | None" = None
+             ) -> dict:
+    """A soak run's environment: this checkout importable, the drain's
+    deadline short, ``faults`` the only fault schedule."""
+    from nds_tpu_torch.utils.power_core import subprocess_env
+    env = subprocess_env()
+    env["NDS_TPU_DRAIN_S"] = str(SOAK_DRAIN_S)
+    env.pop("NDS_TPU_FAULTS", None)
+    env.pop("NDS_TPU_STREAM", None)
+    if faults:
+        env["NDS_TPU_FAULTS"] = faults
+    env.update(extra or {})
+    return env
+
+
+def soak_power_cmd(wh: str, stream: str, out: str, device: str,
+                   resume: bool = False) -> list:
+    return [sys.executable, "-m", "nds_tpu_torch.nds.power", wh, stream,
+            os.path.join(out, "time.csv"), "--device", device,
+            "--json_summary_folder", out, "--output_prefix",
+            os.path.join(out, "results"), *(["--resume"] if resume else [])]
+
+
+def soak_journal(path: str) -> dict:
+    try:
+        with open(path) as f:
+            return json.load(f).get("queries", {})
+    except (OSError, ValueError):
+        return {}
+
+
+def _soak_run(cmd: list, env: dict) -> dict:
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.run(cmd, cwd=root, env=env, capture_output=True,
+                              text=True, timeout=SOAK_TIMEOUT_S)
+    except subprocess.TimeoutExpired as e:
+        raise SmokeError(f"soak: {cmd[2]} no end within "
+                         f"{SOAK_TIMEOUT_S} s") from e
+    return {"rc": proc.returncode, "seconds": time.perf_counter() - t0,
+            "stderr_tail": proc.stderr[-2000:]}
+
+
+def soak_interrupt(cmd: list, env: dict, jpath: str, victim: str,
+                   sig: int) -> dict:
+    """Start ``cmd``, wait (through the journal, atomic) until ``victim``
+    has a start mark and no completion, i.e. the child is inside it, then
+    send ``sig``; its exit code and seconds."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=root, env=env,
+                            stdout=subprocess.DEVNULL,
+                            stderr=subprocess.PIPE, text=True)
+    try:
+        deadline = time.monotonic() + SOAK_START_S
+        while time.monotonic() < deadline and proc.poll() is None:
+            q = soak_journal(jpath).get(victim, {})
+            if q.get("starts") and not q.get("done"):
+                break
+            time.sleep(0.1)
+        else:
+            proc.kill()
+            _out, err = proc.communicate()
+            raise SmokeError(f"soak: {victim} never journaled a start "
+                             f"(exit {proc.returncode}); {err[-2000:]}")
+        # the start mark lands just before the dispatch the fault wedges
+        time.sleep(0.5)
+        proc.send_signal(sig)
+        _out, err = proc.communicate(timeout=SOAK_TIMEOUT_S)
+    except subprocess.TimeoutExpired as e:
+        proc.kill()
+        proc.wait()
+        raise SmokeError(f"soak: the interrupted run of {victim} never "
+                         f"exited") from e
+    return {"rc": proc.returncode, "seconds": time.perf_counter() - t0,
+            "stderr_tail": err[-2000:]}
+
+
+def soak_check_run(out: str, clean: dict, clean_out: str, order: list,
+                   victims: list, scenario: str) -> dict:
+    """A resumed run against the clean one: every statement done, each
+    started once (a victim twice), its result the clean run's (digest,
+    or a float column within FLOAT_SUM_RTOL), on ``device`` with 0
+    reschedules; the merged report bills each statement once; no
+    degradation fired. Returns what was held."""
+    from nds_tpu_torch.utils.report import load_summaries
+    from nds_tpu_torch.utils.timelog import TimeLog
+    queries = soak_journal(os.path.join(out, "power-nds_queries.json"))
+    within = []
+    for q in order:
+        e = queries.get(q) or {}
+        want = 2 if q in victims else 1
+        if not e.get("done") or len(e.get("starts", [])) != want:
+            raise SmokeError(f"soak {scenario}: {q} done={e.get('done')} "
+                             f"starts={e.get('starts')}, expected {want}")
+        if e.get("result_digest") != clean[q]:
+            if not float_equal(clean_out, os.path.join(out, "results"), q):
+                raise SmokeError(f"soak {scenario}: {q}'s result is not "
+                                 f"the clean run's")
+            within.append(q)
+    with open(os.path.join(out, "merged-power-nds.json")) as f:
+        merged = json.load(f)
+    if (sorted(merged.get("queries", [])) != sorted(order)
+            or set(merged.get("queryStatus", [])) != {"Completed"}
+            or merged.get("incarnations") != 2):
+        raise SmokeError(f"soak {scenario}: merged report {merged}")
+    summaries = [s for s in load_summaries(out) if s["query"] in order]
+    for s in summaries:
+        if s.get("degradations"):
+            raise SmokeError(f"soak {scenario}: {s['query']} "
+                             f"degradations {s['degradations']}")
+        if s.get("result_digest") and (s.get("placement"),
+                                       s.get("reschedules")) != ("device",
+                                                                 0):
+            raise SmokeError(f"soak {scenario}: {s['query']} placed "
+                             f"{s.get('placement')}, "
+                             f"{s.get('reschedules')} reschedules")
+    rows = {q: ms for _a, q, ms in TimeLog.read(os.path.join(out,
+                                                             "time.csv"))}
+    if rows.get("Power Test Time", 0) <= 0:
+        raise SmokeError(f"soak {scenario}: no Power Test Time: {rows}")
+    return {"starts": {q: queries[q]["starts"] for q in order},
+            "float_within": within, "merged_wall_ms":
+            merged["wall_ms_total"], "power_test_ms":
+            rows["Power Test Time"]}
+
+
+SOAK_SCENARIOS = {"sigterm-drain": signal.SIGTERM, "kill9": signal.SIGKILL}
+
+
+def soak_phase(wh: str, tmp: str, device: str,
+               env_extra: "dict | None" = None,
+               scenarios=tuple(SOAK_SCENARIOS)) -> dict:
+    """The interruption scenarios (``SOAK_SCENARIOS``: the drain's victim
+    the stream's second statement, the kill's its third) on a
+    3-statement NDS stream over the parquet warehouse ``wh``, the power
+    CLI on ``device``."""
+    from nds_tpu_torch.nds import streams
+    from nds_tpu_torch.resilience.drain import EXIT_RESUMABLE
+    t_start = time.perf_counter()
+    sdir = os.path.join(tmp, "soak_streams")
+    streams.generate_query_streams(sdir, 1, templates=SOAK_TEMPLATES)
+    stream = os.path.join(sdir, "query_0.sql")
+    order = list(streams.parse_query_stream(stream))
+    rec = {"order": order, "device": device}
+    clean_dir = os.path.join(tmp, "soak_clean")
+    run = _soak_run(soak_power_cmd(wh, stream, clean_dir, device),
+                    soak_env(extra=env_extra))
+    if run["rc"]:
+        raise SmokeError(f"soak: the clean run exited {run['rc']}; "
+                         f"{run['stderr_tail']}")
+    clean = {q: e.get("result_digest") for q, e in soak_journal(
+        os.path.join(clean_dir, "power-nds_queries.json")).items()
+        if e.get("done")}
+    if sorted(clean) != sorted(order) or not all(clean.values()):
+        raise SmokeError(f"soak: the clean run journaled {clean}")
+    rec["clean_s"] = run["seconds"]
+    clean_out = os.path.join(clean_dir, "results")
+    for scenario in scenarios:
+        sig = SOAK_SCENARIOS[scenario]
+        victim = order[1] if sig == signal.SIGTERM else order[2]
+        out = os.path.join(tmp, f"soak_{scenario}")
+        jpath = os.path.join(out, "power-nds_queries.json")
+        hang = f"stream.query:hang={SOAK_HANG_S}@{victim}"
+        hit = soak_interrupt(soak_power_cmd(wh, stream, out, device),
+                             soak_env(hang, env_extra), jpath, victim, sig)
+        want_rc = EXIT_RESUMABLE if sig == signal.SIGTERM else -sig
+        if hit["rc"] != want_rc:
+            raise SmokeError(f"soak {scenario}: exit {hit['rc']}, expected "
+                             f"{want_rc}; {hit['stderr_tail']}")
+        v = soak_journal(jpath).get(victim, {})
+        if v.get("done") or (sig == signal.SIGTERM and not v.get("aborted")):
+            raise SmokeError(f"soak {scenario}: {victim} journaled {v}")
+        if not soak_journal(jpath).get(order[0], {}).get("done"):
+            raise SmokeError(f"soak {scenario}: {order[0]} lost")
+        res = _soak_run(soak_power_cmd(wh, stream, out, device, resume=True),
+                        soak_env(extra=env_extra))
+        if res["rc"]:
+            raise SmokeError(f"soak {scenario}: the resume exited "
+                             f"{res['rc']}; {res['stderr_tail']}")
+        rec[scenario] = {"victim": victim, "interrupted_rc": hit["rc"],
+                         "interrupted_s": hit["seconds"],
+                         "resume_s": res["seconds"],
+                         **soak_check_run(out, clean, clean_out, order,
+                                          [victim], scenario)}
+    rec["seconds"] = time.perf_counter() - t_start
+    log(json.dumps({"phase": "soak", **{k: v for k, v in rec.items()}},
+                   default=str))
+    return rec
+
+
+def soak_maintenance_kill(wh: str, refresh: str, tmp: str, device: str,
+                          env_extra: "dict | None" = None) -> dict:
+    """The maintenance CLI over the warehouse ``wh`` (mutated) with the
+    refresh set ``refresh``, killed inside ``dml.apply`` of
+    ``SOAK_MAINT_VICTIM`` after its START mark, then ``--resume`` twice:
+    every function done with one start (the victim two), the functions
+    committed before the kill never dispatched again, each function's
+    snapshot note committed at most once, the second resume a no-op."""
+    from nds_tpu_torch.io.snapshots import SnapshotLog
+    from nds_tpu_torch.nds.maintenance import (
+        DELETE_FUNCS, INSERT_FUNCS, INVENTORY_DELETE_FUNCS, journal_path,
+    )
+    t_start = time.perf_counter()
+    victim = SOAK_MAINT_VICTIM
+    mdir = os.path.join(tmp, "soak_maint")
+    cmd = [sys.executable, "-m", "nds_tpu_torch.nds.maintenance", wh,
+           refresh, os.path.join(mdir, "dm.csv"), "--device", device,
+           "--json_summary_folder", mdir]
+    jpath = journal_path(wh, refresh)
+    hit = soak_interrupt(
+        cmd, soak_env(f"dml.apply:hang={SOAK_HANG_S}@{LF_TABLE[victim]}",
+                      env_extra), jpath, victim, signal.SIGKILL)
+    if hit["rc"] != -signal.SIGKILL:
+        raise SmokeError(f"soak maintenance: exit {hit['rc']}, expected "
+                         f"{-signal.SIGKILL}; {hit['stderr_tail']}")
+    before = soak_journal(jpath)
+    committed = sorted(q for q, e in before.items() if e.get("done"))
+    if before.get(victim, {}).get("done"):
+        raise SmokeError(f"soak maintenance: {victim} done after the kill")
+    funcs = INSERT_FUNCS + DELETE_FUNCS + INVENTORY_DELETE_FUNCS
+    rec = {"victim": victim, "committed_before": committed,
+           "killed_s": hit["seconds"]}
+    for attempt in ("resume", "second_resume"):
+        run = _soak_run(cmd + ["--resume"], soak_env(extra=env_extra))
+        if run["rc"]:
+            raise SmokeError(f"soak maintenance {attempt}: exit "
+                             f"{run['rc']}; {run['stderr_tail']}")
+        after = soak_journal(jpath)
+        for f in funcs:
+            e = after.get(f, {})
+            want = 2 if f == victim else 1
+            if not e.get("done") or len(e.get("starts", [])) != want:
+                raise SmokeError(f"soak maintenance {attempt}: {f} "
+                                 f"done={e.get('done')} starts="
+                                 f"{e.get('starts')}, expected {want}")
+        for f in committed:
+            if after[f].get("starts") != before[f].get("starts"):
+                raise SmokeError(f"soak maintenance {attempt}: {f} was "
+                                 f"committed before the kill and ran again")
+        notes = Counter(str(e.get("note", "")).rsplit(":", 1)[-1]
+                        for e in SnapshotLog(wh).entries)
+        twice = sorted(f for f in funcs if notes.get(f, 0) > 1)
+        if twice:
+            raise SmokeError(f"soak maintenance {attempt}: {twice} "
+                             f"committed twice")
+        rec[f"{attempt}_s"] = run["seconds"]
+        rec[f"{attempt}_commits"] = sum(notes.get(f, 0) for f in funcs)
+    if rec["resume_commits"] != rec["second_resume_commits"]:
+        raise SmokeError("soak maintenance: the second resume committed")
+    rec["seconds"] = time.perf_counter() - t_start
+    log(json.dumps({"phase": "soak maintenance", **rec}, default=str))
+    return rec
+
+
 def kernels_line(paths: dict) -> list:
     """One entry per kernel wrapper: launches summed over the timed runs
     of the paths (each read between its own reset and its end), the
@@ -6159,7 +6821,8 @@ def main() -> int:
         steps = args.steps.split(",")
         kernel_steps = [n for n in steps if n not in (
             "bench", "plans", "power", "load", "throughput",
-            "throughput_beyond", "async", "overlap", "maintenance")]
+            "throughput_beyond", "async", "overlap", "maintenance",
+            "orchestrate", "soak")]
         rec = {"card": card, "phase": "steps", "cases": []}
         if kernel_steps:
             rec.update(design_steps(kernel_steps, designs, factory_of, dev,
@@ -6192,6 +6855,12 @@ def main() -> int:
             finally:
                 shutil.rmtree(tmp, ignore_errors=True)
             release(dev)
+        if "orchestrate" in steps:
+            rec["orchestrate"] = orchestrate_step(
+                dev, {"nds_h": args.sf, "nds": args.sf_ds})
+            release(dev)
+        if "soak" in steps:
+            rec["soak"] = soak_step(dev, args.sf_ds)
         if "bench" in steps:
             rec["bench"] = bench_phase(card, dev, args.sf, args.sf_ds,
                                        BENCH_STEP_TIMEOUT_S)
@@ -6247,7 +6916,13 @@ def main() -> int:
                                         for r in rec["maintenance"]["rounds"]],
                              "validate": rec["maintenance"].get("validate"),
                              "seconds": rec["maintenance"]["seconds"]}}]
-                            if "maintenance" in rec else [])))
+                            if "maintenance" in rec else [])
+                         + ([{"orchestrate": orchestrate_line(
+                             rec["orchestrate"])}]
+                            if "orchestrate" in rec else [])
+                         + ([{"soak": soak_line(rec["soak"])}]
+                            if "soak" in rec else [])))
+        print(card)
         return 0
 
     sf_ds_dist = min(args.sf_ds, SF_DS_DIST)
@@ -6314,6 +6989,19 @@ def main() -> int:
             power_beside_bench(record["power"], record["bench"])
             record["throughput"] = throughput_phase(
                 dev, record["power"]["nds_h"], tmp)
+            record["decimal_quotient"] = decimal_quotient_check(dev)
+            # the orchestrator over the power phase's warehouse, in this
+            # process: its throughput round's launches are its path's
+            record["orchestrate"] = orchestrate_bench(
+                "nds_h", POWER_SMOKE_SF, tmp,
+                None if dev.type == "cuda" else dev.type, 1, prepared={
+                    "raw": os.path.join(tmp, "raw_nds_h"),
+                    "wh": record["power"]["nds_h"]["wh"],
+                    "load_report": os.path.join(tmp, "load_nds_h.txt")},
+                KX=KX)
+            paths["orchestrate"] = {
+                "launches": record["orchestrate"]["launches"],
+                "kernel_checks": [], "main_cases": {}}
         finally:
             shutil.rmtree(tmp, ignore_errors=True)
         tmp = tempfile.mkdtemp(prefix="nds_maint_")
@@ -6321,6 +7009,11 @@ def main() -> int:
             record["maintenance"], paths["maintenance"] = maintenance_phase(
                 KX, dev, factory_of, MAINT_SMOKE_SF, tmp, rounds=(1,),
                 full=False)
+            # the drain scenario over that phase's (rolled back) warehouse
+            record["soak"] = soak_phase(
+                os.path.join(tmp, "wh_nds"), tmp,
+                "cuda" if dev.type == "cuda" else dev.type,
+                scenarios=("sigterm-drain",))
         finally:
             shutil.rmtree(tmp, ignore_errors=True)
         release(dev)

@@ -30,9 +30,10 @@ the in-memory effective table is byte-identical to what a later process
 reconstructs from the persisted parquet segments: digests and
 merged-stats specs agree across processes by construction.
 
-Trimmed from the reference: the ``obs.metrics`` counters (ROADMAP
-Queue 1 item 7) and the ``store.commit`` fault point in
-``persist_pending`` (item 15, the resilience layer).
+``persist_pending`` fires the ``store.commit`` fault point
+(``resilience/faults.py``) after its files are written, before the
+caller's snapshot commit: the torn-commit window. Trimmed from the
+reference: the ``obs.metrics`` counters (ROADMAP Queue 1 item 7).
 """
 
 from __future__ import annotations
@@ -480,6 +481,11 @@ def persist_pending(table: HostTable, version_dir: str,
     # per-segment digest manifest: delta files get the same re-hash-on-
     # load verification as transcode output (io.verify_digests)
     integrity.write_manifest(version_dir)
+    # a fault here models the torn commit: files written, the snapshot
+    # manifest never updated, the reader serves the prior version
+    from nds_tpu_torch.resilience import faults
+    faults.fault_point("store.commit", table=table.name,
+                       version_dir=version_dir, note=note)
     return [ops_path] + files
 
 

@@ -1,6 +1,9 @@
 """CPU oracle executor: interprets logical plans with numpy/pandas.
 
-Port copy of ``nds_tpu/engine/cpu_exec.py``: it imports nothing of ``nds_tpu``. The fault/watchdog/memwatch hooks and the parameter inlining are trimmed.
+Port copy of ``nds_tpu/engine/cpu_exec.py``: it imports nothing of
+``nds_tpu``. The memwatch hook and the parameter inlining are trimmed;
+``execute`` fires the ``device.execute`` fault point and beats the
+watchdog, as the reference's does.
 
 Role: the differential-validation ground truth. The reference's oracle is
 the same workload run on CPU Spark, compared row-by-row with epsilon
@@ -24,6 +27,7 @@ from nds_tpu_torch.engine.types import (
     DateType, DecimalType, DType, FloatType, IntType, StringType,
 )
 from nds_tpu_torch.io.host_table import HostTable
+from nds_tpu_torch.resilience import faults, watchdog
 from nds_tpu_torch.sql import ir
 from nds_tpu_torch.sql import plan as P
 
@@ -133,6 +137,11 @@ class CpuExecutor:
     # ----------------------------------------------------------------- API
 
     def execute(self, planned: P.PlannedQuery):
+        # chaos site shared with the device executors: CPU-backend runs
+        # exercise the retry and ladder machinery without a card
+        faults.fault_point("device.execute", executor="CpuExecutor")
+        watchdog.beat("engine", phase="device.execute",
+                      executor="CpuExecutor")
         return self._execute_inner(planned)
 
     def _execute_inner(self, planned: P.PlannedQuery):

@@ -83,6 +83,7 @@ from nds_tpu_torch.engine.types import (
     DateType, DecimalType, DType, FloatType, IntType, StringType,
 )
 from nds_tpu_torch.io.host_table import HostTable
+from nds_tpu_torch.resilience import faults, watchdog
 from nds_tpu_torch.sql import ir
 from nds_tpu_torch.sql import plan as P
 
@@ -313,7 +314,13 @@ def _scale_of(t: DType) -> int:
 
 def _to_float(arr, t: DType, fdt):
     if isinstance(t, DecimalType):
-        return arr.to(fdt) / (10.0 ** t.scale)
+        # the divisor is a tensor on the array's device: on the card torch
+        # turns a division by a Python number into a multiplication by its
+        # reciprocal, whose result can differ from the CPU oracle's
+        # quotient in the last bit, and so break a tie that a rank or an
+        # ORDER BY over a decimal ratio sees (NDS q49)
+        return arr.to(fdt) / torch.full((), 10.0 ** t.scale, dtype=fdt,
+                                        device=arr.device)
     return arr.to(fdt)
 
 
@@ -814,6 +821,11 @@ class DeviceExecutor:
         (``_Replayed``). Everything runs on the executor's stream."""
         if not isinstance(planned, P.PlannedQuery):
             raise DeviceExecError(f"cannot execute {type(planned).__name__}")
+        # on the host before any dispatch, eager run or replay alike
+        # (never inside a capture: fault_point checks)
+        faults.fault_point("device.execute", executor=type(self).__name__)
+        watchdog.beat("engine", phase="device.execute",
+                      executor=type(self).__name__)
         key = id(planned) if key is None else key
         entry = self._entries.get(key)
         if entry is None or entry["ref"] is not planned:

@@ -18,10 +18,8 @@ DML is:
 
 Mutations land as DELTAS (``columnar/delta.py``), not rewrites: inserts
 append a segment, deletes flip bits in a deleted-row bitmask the scans
-consult. The session scopes invalidation to the mutated table.
-
-Trimmed: the ``dml.apply`` fault point, which waits for ROADMAP Queue 1
-item 15 (the port's ``resilience/faults.py`` has no ``fault_point``).
+consult. The session scopes invalidation to the mutated table. Both
+fire the ``dml.apply`` fault point (``resilience/faults.py``) first.
 """
 
 from __future__ import annotations
@@ -33,6 +31,7 @@ from nds_tpu_torch.engine.types import (
     DateType, DecimalType, FloatType, IntType, StringType,
 )
 from nds_tpu_torch.io.host_table import HostTable, from_arrays
+from nds_tpu_torch.resilience import faults
 from nds_tpu_torch.sql import ast
 
 
@@ -100,6 +99,8 @@ def append_rows(table: HostTable, result,
     in-place-free, string dictionaries merge at dictionary size, and
     encoding specs re-derive from exact merged statistics — no
     full-table re-encode."""
+    faults.fault_point("dml.apply", table=table.name, action="insert",
+                       rows=result.nrows)
     return delta.append_segment(table, segment_from_result(table, result),
                                 seg_id=seg_id)
 
@@ -110,6 +111,8 @@ def apply_delete(table: HostTable, keep: np.ndarray) -> HostTable:
     """New effective HostTable with non-kept rows marked deleted in the
     delta bitmask — column arrays (and their memoized encoding specs)
     are shared untouched; scans consult the mask."""
+    faults.fault_point("dml.apply", table=table.name, action="delete",
+                       rows=int((~np.asarray(keep, bool)).sum()))
     return delta.apply_delete(table, keep)
 
 

@@ -34,9 +34,9 @@ governor``) and the per-query chunk tweaks (``chunk_rows`` halving, the
 stream threshold, the prefetch depth). In a universe without the chunked
 rung the reference's cost model returns the fast placement, as the
 pipeline here does; ``CostModel`` stays beside it, the reference's
-chooser, which nothing in the pipeline calls until item 6. Also left
-for later, each with its item: the watchdog's beat and the
-``stream.query`` fault point of each dispatch (item 15), and the
+chooser, which nothing in the pipeline calls until item 6. Each
+dispatch beats the watchdog and fires the ``stream.query`` fault point
+(``_predispatch``). Also left for later, with its item: the
 ``obs_metrics`` counters (``query_reschedules_total``,
 ``placement_consensus_total``, ``placement_demotions_total``,
 ``placement_promotions_total``; item 7).
@@ -50,9 +50,11 @@ Config keys: ``engine.placement.force`` pins the initial placement;
 
 from __future__ import annotations
 
+import os
+
 import torch
 
-from nds_tpu_torch.resilience import faults
+from nds_tpu_torch.resilience import faults, watchdog
 from nds_tpu_torch.resilience.retry import (
     DETERMINISTIC, QueryDeadlineExceeded, RetryPolicy, RetryStats,
     classify, deadline_scope, is_oom,
@@ -473,6 +475,7 @@ class ExecutionPipeline:
                                    stats=stats, sched=sched)
             return _CompletedHandle(out, self, stats, sched)
         try:
+            self._predispatch(placement, self._current_query(), stats)
             inner = (dispatch(planned, key) if key is not None
                      else dispatch(planned))
         except Exception as exc:  # noqa: BLE001 - classified in rerun
@@ -491,6 +494,16 @@ class ExecutionPipeline:
 
     def _current_query(self) -> "str | None":
         return faults.current_context().get("query")
+
+    def _predispatch(self, placement: str, qname=None,
+                     stats: "RetryStats | None" = None) -> None:
+        """The per-dispatch wiring: the liveness heartbeat and the
+        per-attempt ``stream.query`` chaos site, once a dispatch."""
+        unit = os.environ.get(watchdog.STREAM_ENV) or "engine"
+        watchdog.beat(unit, query=qname, phase="pipeline.dispatch",
+                      placement=placement,
+                      attempt=stats.attempts if stats else 0)
+        faults.fault_point("stream.query")
 
     def _new_schedule(self, placement: str, why: str) -> tuple:
         stats = RetryStats()
@@ -550,6 +563,7 @@ class ExecutionPipeline:
                     exc, pending = pending, None
                 else:
                     try:
+                        self._predispatch(rung, qname, stats)
                         ex = self._executor(rung)
                         out = (ex.execute(planned) if key is None
                                else ex.execute(planned, key))

@@ -1,15 +1,15 @@
 """Query session: the engine-side analog of a SparkSession.
 
 Port copy of ``nds_tpu/engine/session.py`` with the later slices' hooks
-trimmed: no fault points and no tracer spans (ROADMAP Queue 1 items 15
-and 7), no plan verification and no literal parameterization
+trimmed: no tracer spans (ROADMAP Queue 1 item 7), no plan verification and no literal parameterization
 (``sql.params``, the serving slice). What stays behaves as the
 reference does: the table registry, session views (q15), the (SQL
 text, views) plan cache, the executor factory that picks the backend
 (the CPU oracle, the device engine, or the execution pipeline over
 them), ``sql_async``, and DML (INSERT ... SELECT and DELETE through
 ``engine/dml.py``, landing as deltas) with its table-scoped
-invalidation.
+invalidation. ``plan`` fires the ``plan`` fault point
+(``resilience/faults.py``), and so does a plan the cache serves.
 """
 
 from __future__ import annotations
@@ -100,6 +100,10 @@ class Session:
         self.tables[table.name] = table
 
     def plan(self, sql_text: str):
+        from nds_tpu_torch.resilience import faults
+        # chaos site: deterministic plan-time faults must fail fast (the
+        # retry classifier never retries that class)
+        faults.fault_point("plan")
         return self.plan_ast(parse(sql_text))
 
     def plan_ast(self, stmt):
@@ -158,6 +162,9 @@ class Session:
             self._plan_cache[key] = planned
             while len(self._plan_cache) > self.PLAN_CACHE_MAX:
                 self._plan_cache.pop(next(iter(self._plan_cache)))
+        else:
+            from nds_tpu_torch.resilience import faults
+            faults.fault_point("plan")
         return planned
 
     def sql(self, sql_text: str) -> ResultTable | None:

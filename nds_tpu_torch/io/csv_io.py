@@ -24,10 +24,9 @@ repeat an arrow dictionary whole in every row group and in every
 partition band's file. Either package reads either file into the same
 table.
 
-Reads verify digests first (``io/integrity.py``, gated by
-``NDS_TPU_VERIFY_DIGESTS`` or ``io.verify_digests``). Trimmed from the
-reference: the ``faults`` point and the watchdog heartbeat of the reads
-(ROADMAP Queue 1 item 15).
+Reads fire the ``io.read`` fault point (``resilience/faults.py``) with
+the call's paths, then verify digests (``io/integrity.py``, gated by
+``NDS_TPU_VERIFY_DIGESTS`` or ``io.verify_digests``).
 """
 
 from __future__ import annotations
@@ -46,6 +45,7 @@ from nds_tpu_torch.engine.types import (
 )
 from nds_tpu_torch.io import integrity
 from nds_tpu_torch.io.host_table import HostColumn, HostTable, from_arrays
+from nds_tpu_torch.resilience import faults, watchdog
 
 _EPOCH = np.datetime64("1970-01-01", "D")
 # threads of the chunk reads, the column conversions and the sorts
@@ -71,6 +71,7 @@ def read_tbl(paths: list[str] | str, name: str, schema: Schema,
     """Read one table from one or more '|'-delimited files."""
     if isinstance(paths, str):
         paths = [paths]
+    faults.fault_point("io.read", table=name, paths=paths)
     # a flipped bit in a raw chunk fails here with CorruptArtifact,
     # instead of loading wrong rows
     integrity.verify_paths(paths, name)
@@ -80,6 +81,9 @@ def read_tbl(paths: list[str] | str, name: str, schema: Schema,
         types["_trailing"] = pa.string()
 
     def read(p):
+        # a heartbeat a file: a many-chunk fact read must not look like a
+        # hang to the watchdog
+        watchdog.beat("engine", phase="io.read", table=name)
         t = pacsv.read_csv(
             p,
             read_options=pacsv.ReadOptions(column_names=names),
@@ -362,6 +366,7 @@ def read_table_fmt(paths: list[str] | str, name: str, schema: Schema,
     digests, never as silently wrong query output."""
     if isinstance(paths, str):
         paths = [paths]
+    faults.fault_point("io.read", table=name, fmt=fmt, paths=paths)
     integrity.verify_paths(paths, name)
     if fmt == "parquet":
         return read_parquet(paths, name, schema)

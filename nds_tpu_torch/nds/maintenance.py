@@ -13,14 +13,23 @@ DML mutates the host warehouse through the engine (``engine/dml.py``)
 as DELTAS (``columnar/delta.py``): segments and deleted-row bitmasks
 over the immutable base, never a rewrite. Every refresh function
 commits its deltas as one snapshot version (``io/snapshots.py``), which
-``nds_tpu_torch.nds.rollback`` undoes by truncating the manifest. A
-write-ahead journal (``resilience/journal.py``'s write side) START-marks
-each function before its DML dispatches and records it after its
-snapshot commit.
+``nds_tpu_torch.nds.rollback`` undoes by truncating the manifest.
+
+Crash safety is the power loop's contract applied to writes: a
+write-ahead commit journal (``resilience/journal.py``) START-marks each
+function before its DML dispatches and records it only after its
+snapshot commit lands, so ``--resume`` replays completed functions from
+the journal, recognizes the crash-after-commit window by the committed
+version's note, and never applies a refresh function twice. A SIGTERM
+drains the in-flight function and exits 75, so the orchestrator
+(``nds/bench.py``) runs the phase again with ``--resume``. The fault
+points ``dml.apply`` (between the START mark and the commit) and
+``store.commit`` (the torn-commit window) inject there.
 
     python -m nds_tpu_torch.nds.maintenance <warehouse> <refresh_dir> \\
         dm.csv [--backend gpu|distributed|cpu] [--device cuda|cpu] \\
-        [--placement device|sharded|cpu] [--json_summary_folder DIR]
+        [--placement device|sharded|cpu] [--json_summary_folder DIR] \\
+        [--resume]
 
 Every backend runs through the execution pipeline
 (``engine/scheduler.py``), as in the power CLIs: ``--backend gpu`` (the
@@ -31,10 +40,9 @@ card and without ``--device cpu`` the CLI exits 2 before it loads or
 writes anything. A statement that fails fails its function
 (``Failed``).
 
-Not ported yet, each with its ROADMAP Queue 1 item: ``--resume``, the
-journal's read side and the SIGTERM drain (item 15, the resilience
-layer); ``--compact``, whose admission the ``MemoryGovernor`` decides
-(item 6). ``compact_warehouse`` itself runs without a governor.
+Not ported yet: ``--compact``, whose admission the ``MemoryGovernor``
+decides (ROADMAP Queue 1 item 6). ``compact_warehouse`` itself runs
+without a governor.
 """
 
 from __future__ import annotations
@@ -64,9 +72,8 @@ MUTABLE_TABLES = ["store_sales", "store_returns", "catalog_sales",
                   "catalog_returns", "web_sales", "web_returns",
                   "inventory"]
 
-NOT_PORTED = ("not ported yet: --resume and the SIGTERM drain (ROADMAP "
-              "Queue 1 item 15, the resilience layer), --compact (item 6, "
-              "the MemoryGovernor)")
+NOT_PORTED = ("not ported yet: --compact (ROADMAP Queue 1 item 6, the "
+              "MemoryGovernor)")
 
 
 def get_maintenance_queries(funcs: list[str]) -> dict[str, str]:
@@ -160,13 +167,19 @@ def run_maintenance(data_dir: str, refresh_dir: str, time_log_path: str,
                     config=None,
                     json_summary_folder: str | None = None,
                     refresh_format: str = "raw",
-                    commit: bool = True) -> int:
+                    commit: bool = True,
+                    resume: bool = False) -> int:
     """Run all 11 maintenance functions under the write-ahead commit
-    journal; returns the failure count. The session is made first, so a
-    run asked of a card that is not there raises (``NoCudaDevice``)
-    before it loads or writes anything."""
+    journal; returns the failure count. ``resume=True`` replays
+    journaled-complete functions (and functions whose snapshot commit
+    landed but whose journal record did not: the crash-after-commit
+    window, recognized by the committed version's note) and runs only
+    the unfinished ones, so no DML is applied twice. The session is made
+    first, so a run asked of a card that is not there raises
+    (``NoCudaDevice``) before it loads or writes anything."""
     from nds_tpu_torch.io.snapshots import SnapshotLog
     from nds_tpu_torch.nds.schema import get_maintenance_schemas
+    from nds_tpu_torch.resilience import drain
     from nds_tpu_torch.resilience.journal import QueryJournal, config_digest
     from nds_tpu_torch.utils.config import EngineConfig
     config = config or EngineConfig()
@@ -177,13 +190,31 @@ def run_maintenance(data_dir: str, refresh_dir: str, time_log_path: str,
     app_id = (f"nds-tpu-maintenance-{int(time.time())}-"
               f"{uuid.uuid4().hex[:8]}")
     tlog = TimeLog(app_id)
+    run_dir = (json_summary_folder
+               or os.path.dirname(time_log_path) or ".")
 
     journal = QueryJournal(
         journal_path(data_dir, refresh_dir), phase=app_id,
         digest=config_digest({"data_dir": data_dir,
                               "refresh_dir": refresh_dir,
                               "commit": commit}))
-    journal.reset()
+    if resume and journal.load():
+        inc = journal.begin_incarnation()
+        # the run id binds this journal's records to their snapshot
+        # notes; a resumed incarnation inherits the original's
+        run_id = journal.state.get("phase") or app_id
+        print(f"== resuming maintenance (incarnation {inc}): "
+              f"{len(journal.completed())} function(s) journaled ==")
+    else:
+        journal.reset()
+        run_id = app_id
+
+    # graceful preemption: SIGTERM/SIGINT drains the in-flight refresh
+    # function and exits 75 (resumable); installed only where no outer
+    # caller already owns the signal chain
+    own_drain = drain.manager() is None
+    if own_drain:
+        drain.install(drain.drain_seconds(config), run_dir)
 
     # base warehouse (versioned: committed deltas replay through
     # columnar.delta) + refresh staging tables
@@ -206,37 +237,65 @@ def run_maintenance(data_dir: str, refresh_dir: str, time_log_path: str,
         os.makedirs(json_summary_folder, exist_ok=True)
     failures = 0
     dm_ms = 0
-    for fname, sql in queries.items():
-        note = f"maint:{app_id}:{fname}"
-        if fname in INVENTORY_DELETE_FUNCS:
-            fsql = replace_date(sql, inv_date1, inv_date2)
-        elif fname in DELETE_FUNCS:
-            fsql = replace_date(sql, date1, date2)
-        else:
-            fsql = sql
-        # START-mark before dispatch: a kill one instruction later still
-        # leaves the attempt on disk
-        journal.start(fname)
-        report = BenchReport(fname, config.as_dict())
-        summary = report.report_on(run_dm_query, session, fsql)
-        elapsed_ms = summary["queryTimes"][-1]
-        tlog.add(fname, elapsed_ms)
-        dm_ms += elapsed_ms
-        print(f"====== Run {fname} ======")
-        print(f"Time taken: {elapsed_ms} millis for {fname}")
-        ok = report.is_success()
-        if not ok:
-            failures += 1
-        if ok and log is not None:
-            v = _commit_function_deltas(data_dir, log, session, note)
-            if v is not None:
-                print(f"committed {fname} deltas as snapshot v{v}")
-        # journal record AFTER the commit: completion implies the
-        # mutation is durable
-        journal.record(fname, elapsed_ms, "Completed" if ok else "Failed")
-        if json_summary_folder:
-            report.write_summary(prefix=f"maintenance-{app_id}",
-                                 out_dir=json_summary_folder)
+    try:
+        for fname, sql in queries.items():
+            # function-boundary drain point: a requested drain exits 75
+            # here, with every finished function journaled and committed
+            drain.check_boundary()
+            note = f"maint:{run_id}:{fname}"
+            if journal.done(fname):
+                entry = journal.entry(fname)
+                elapsed_ms = int(entry.get("wall_ms", 0))
+                tlog.add(fname, elapsed_ms)
+                dm_ms += elapsed_ms
+                if not str(entry.get("status", "")).startswith(
+                        "Completed"):
+                    failures += 1
+                print(f"====== {fname} replayed from journal ======")
+                continue
+            if log is not None and log.has_note(note):
+                # the crash came between this function's snapshot commit
+                # and its journal record: the mutation is durable (and
+                # already loaded from the committed version); record it
+                # now, never apply it again
+                journal.record(fname, 0.0,
+                               "Completed(replayed-from-snapshot)")
+                print(f"====== {fname} already committed "
+                      f"(v-note {note}) ======")
+                continue
+            if fname in INVENTORY_DELETE_FUNCS:
+                fsql = replace_date(sql, inv_date1, inv_date2)
+            elif fname in DELETE_FUNCS:
+                fsql = replace_date(sql, date1, date2)
+            else:
+                fsql = sql
+            # START-mark before dispatch: a kill one instruction later
+            # still leaves the attempt on disk
+            journal.start(fname)
+            report = BenchReport(fname, config.as_dict())
+            summary = report.report_on(run_dm_query, session, fsql)
+            elapsed_ms = summary["queryTimes"][-1]
+            tlog.add(fname, elapsed_ms)
+            dm_ms += elapsed_ms
+            print(f"====== Run {fname} ======")
+            print(f"Time taken: {elapsed_ms} millis for {fname}")
+            ok = report.is_success()
+            if not ok:
+                failures += 1
+            if ok and log is not None:
+                v = _commit_function_deltas(data_dir, log, session, note)
+                if v is not None:
+                    print(f"committed {fname} deltas as snapshot v{v}")
+            # journal record after the commit: completion implies the
+            # mutation is durable, so resume can safely skip it
+            journal.record(fname, elapsed_ms,
+                           "Completed" if ok else "Failed")
+            if json_summary_folder:
+                report.write_summary(prefix=f"maintenance-{app_id}",
+                                     out_dir=json_summary_folder)
+    finally:
+        if own_drain:
+            drain.uninstall()
     tlog.add("Data Maintenance Time", dm_ms)
     tlog.write(time_log_path)
     print(f"Data Maintenance Time: {dm_ms} millis")
@@ -325,15 +384,12 @@ def main(argv=None) -> None:
     p.add_argument("--allow_failure", action="store_true",
                    help="exit 0 even when functions failed")
     p.add_argument("--resume", action="store_true",
-                   help="not ported yet (ROADMAP Queue 1 item 15)")
+                   help="replay the commit journal: skip functions "
+                        "whose mutations are already durable")
     p.add_argument("--compact", action="store_true",
                    help="not ported yet (ROADMAP Queue 1 item 6)")
     power_core.add_config_args(p)
     args = p.parse_args(argv)
-    if args.resume:
-        p.error("--resume is not ported yet: the journal's read side and "
-                "the drain come with the resilience layer (ROADMAP Queue "
-                "1 item 15)")
     if args.compact:
         p.error("--compact is not ported yet: the MemoryGovernor that "
                 "admits it comes with ROADMAP Queue 1 item 6")
@@ -342,7 +398,8 @@ def main(argv=None) -> None:
         failures = run_maintenance(
             args.data_dir, args.refresh_dir, args.time_log, config=config,
             json_summary_folder=args.json_summary_folder,
-            refresh_format=args.refresh_format, commit=not args.no_commit)
+            refresh_format=args.refresh_format, commit=not args.no_commit,
+            resume=args.resume)
     except NoCudaDevice as e:
         print(f"[maintenance] {e}", file=sys.stderr)
         sys.exit(2)

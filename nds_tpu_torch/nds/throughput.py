@@ -2,15 +2,21 @@
 
 Port of ``nds_tpu/nds/throughput.py``. Two modes:
 
-- **Subprocess streams** (``run_streams``, the default): one plain
-  subprocess of the port's power CLI (``python -m
-  nds_tpu_torch.nds.power``) per stream, all started together, each with
-  its own CUDA context, graph pool and warehouse load (the analog of one
-  Spark application a stream). Each writes its time log
-  (``<stream>_time.csv``), its per-query summaries (``<stream>_json/``)
-  and its output (``<stream>.log``) into the run directory. The
-  throughput elapse is max(end) - min(start), rounded up to 0.1 s (the
-  reference's Ttt granularity).
+- **Subprocess streams** (``run_streams``, the default): one subprocess
+  of the port's power CLI (``python -m nds_tpu_torch.nds.power``) per
+  stream, all started together, each with its own CUDA context, graph
+  pool and warehouse load (the analog of one Spark application a
+  stream). Each writes its time log (``<stream>_time.csv``), its
+  per-query summaries and query journal (``<stream>_json/``) and its
+  output (``<stream>.log``) into the run directory. The streams run
+  supervised (``resilience/supervise.py``): with ``--stall_s`` a hung
+  stream is killed (its own watchdog exits, the parent's SIGTERM and
+  SIGKILL are the backstop) and restarted from its last completed query
+  up to ``--max_restarts`` times (default once with ``--stall_s``); a
+  stream that drained (exit 75) resumes without charging that budget.
+  Exit codes, signals, stalls, restarts and resumes land in
+  ``throughput_summary.json``. The throughput elapse is max(end) -
+  min(start), rounded up to 0.1 s (the reference's Ttt granularity).
 - **In-process streams** (``run_streams_inprocess``, ``--in_process``):
   the one-card mode. The warehouse loads once, one Session and one
   execution pipeline serve every stream (one executor, one graph pool),
@@ -27,17 +33,15 @@ On the card each process prints its peak memory and graph pool
 
     python -m nds_tpu_torch.nds.throughput <warehouse> query_1.sql \\
         query_2.sql [--in_process] [--backend gpu|distributed|cpu] \\
-        [--device cuda|cpu] [--out_dir DIR] [--output_prefix DIR]
+        [--device cuda|cpu] [--out_dir DIR] [--output_prefix DIR] \\
+        [--stall_s S] [--max_restarts N]
 
 ``--output_prefix`` (the port's addition, as the power CLI's) saves each
 stream's results under ``<output_prefix>/<stream>``, for the validate
-CLI.
-
-Not ported yet: the reference's ``StreamSupervisor`` (heartbeats, a hung
-stream killed and restarted from its last completed query,
-``throughput_summary.json``), so ``--stall_s`` and ``--max_restarts``,
-which the CLI keeps and refuses (ROADMAP Queue 1 item 15), and the
-in-process metrics snapshotter (item 7).
+CLI. ``--stall_s`` and ``--max_restarts`` supervise subprocess streams;
+with ``--in_process`` (one process, nothing to supervise) the CLI
+refuses them. Not ported yet: the in-process metrics snapshotter
+(ROADMAP Queue 1 item 7).
 """
 
 from __future__ import annotations
@@ -46,80 +50,78 @@ import argparse
 import json
 import math
 import os
-import subprocess
 import sys
-import threading
 import time
 
-NOT_PORTED = ("not ported yet: supervised streams, --stall_s and "
-              "--max_restarts (ROADMAP Queue 1 item 15)")
+IN_PROCESS_UNSUPERVISED = ("--stall_s and --max_restarts supervise "
+                           "subprocess streams: --in_process runs one "
+                           "process, with nothing to supervise")
 
 
 def _stream_specs(data_dir: str, stream_paths: list[str], out_dir: str,
                   backend: str, input_format: str, allow_failure: bool,
                   module: str, parse_stream, device: "str | None" = None,
                   output_prefix: "str | None" = None) -> list:
-    """One spec a stream (shared with NDS-H, which passes its own power
-    module and stream parser): its name, the power CLI's command line,
-    the stream's statements and its environment. With ``output_prefix``
-    each stream saves its results under ``<output_prefix>/<stream>``."""
+    """Supervised-stream specs for a power-CLI fleet (shared with NDS-H,
+    which passes its own power module and stream parser). With
+    ``output_prefix`` each stream saves its results under
+    ``<output_prefix>/<stream>``. A restarted incarnation N writes its
+    time log to ``<stream>_rN_time.csv`` and runs the statements left
+    (``--query_subset``); every incarnation shares the stream's summary
+    folder and query journal."""
+    from nds_tpu_torch.resilience.supervise import StreamSpec
     from nds_tpu_torch.utils.power_core import subprocess_env
     specs = []
     for sp in stream_paths:
         name = os.path.splitext(os.path.basename(sp))[0]
-        cmd = [sys.executable, "-m", module, data_dir, sp,
-               os.path.join(out_dir, f"{name}_time.csv"),
-               "--backend", backend, "--input_format", input_format,
-               "--json_summary_folder",
-               os.path.join(out_dir, f"{name}_json")]
-        if device is not None:
-            cmd += ["--device", device]
-        if output_prefix:
-            cmd += ["--output_prefix", os.path.join(output_prefix, name)]
-        if allow_failure:
-            cmd.append("--allow_failure")
-        specs.append({"name": name, "cmd": cmd,
-                      "queries": list(parse_stream(sp)),
-                      "env": subprocess_env()})
+
+        def make_cmd(incarnation, remaining, _sp=sp, _name=name):
+            suffix = "" if incarnation == 0 else f"_r{incarnation}"
+            cmd = [sys.executable, "-m", module, data_dir, _sp,
+                   os.path.join(out_dir, f"{_name}{suffix}_time.csv"),
+                   "--backend", backend, "--input_format", input_format,
+                   "--json_summary_folder",
+                   os.path.join(out_dir, f"{_name}_json")]
+            if device is not None:
+                cmd += ["--device", device]
+            if output_prefix:
+                cmd += ["--output_prefix",
+                        os.path.join(output_prefix, _name)]
+            if allow_failure:
+                cmd.append("--allow_failure")
+            if remaining:
+                cmd += ["--query_subset", *remaining]
+            return cmd
+
+        specs.append(StreamSpec(
+            name=name, make_cmd=make_cmd,
+            hb_path=os.path.join(out_dir, f"{name}_hb.json"),
+            queries=list(parse_stream(sp)), env=subprocess_env(),
+            log_path=os.path.join(out_dir, f"{name}.log")))
     return specs
 
 
-def launch(specs: list, out_dir: str) -> tuple[float, list[int]]:
-    """Start every stream's subprocess at once (output to
-    ``<stream>.log``) and wait for all; returns (the elapse, max(end) -
-    min(start) in seconds rounded up to 0.1 s, and the exit codes)."""
+def supervise(specs: list, out_dir: str, stall_s: "float | None" = None,
+              max_restarts: "int | None" = None
+              ) -> tuple[float, list[int]]:
+    """Start every stream at once under a ``StreamSupervisor`` and wait
+    for all; returns (the elapse, max(end) - min(start) in seconds
+    rounded up to 0.1 s, and the final exit codes). Restarts need the
+    heartbeats ``stall_s`` arms: without them a stream that finished
+    with failures (exit 1) looks like a crash, so ``max_restarts``
+    defaults to 1 with ``stall_s`` and 0 without."""
+    from nds_tpu_torch.resilience.supervise import (
+        StreamSupervisor, describe_summary,
+    )
     os.makedirs(out_dir, exist_ok=True)
-    procs, starts, ends, logs = [], [], [None] * len(specs), []
-    try:
-        for spec in specs:
-            log = open(os.path.join(out_dir, f"{spec['name']}.log"), "w")
-            logs.append(log)
-            starts.append(time.time())
-            procs.append(subprocess.Popen(spec["cmd"], env=spec["env"],
-                                          stdout=log,
-                                          stderr=subprocess.STDOUT))
-
-        def wait(i):
-            procs[i].wait()
-            ends[i] = time.time()
-
-        waiters = [threading.Thread(target=wait, args=(i,))
-                   for i in range(len(procs))]
-        for w in waiters:
-            w.start()
-        for w in waiters:
-            w.join()
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-        for log in logs:
-            log.close()
-    codes = [p.returncode for p in procs]
+    if max_restarts is None:
+        max_restarts = 1 if stall_s else 0
+    sup = StreamSupervisor(specs, out_dir, stall_s=stall_s,
+                           max_restarts=max_restarts)
+    elapse, codes, summary = sup.run()
     for spec, rc in zip(specs, codes):
-        print(f"stream {spec['name']}: exit {rc}")
-    elapse = max(ends) - min(starts)
+        print(f"stream {spec.name}: exit {rc}")
+    print(describe_summary(summary))
     # round up to 0.1 s, the reference's Ttt granularity
     return math.ceil(elapse * 10) / 10.0, codes
 
@@ -127,16 +129,19 @@ def launch(specs: list, out_dir: str) -> tuple[float, list[int]]:
 def run_streams(data_dir: str, stream_paths: list[str], out_dir: str,
                 backend: str = "gpu", input_format: str = "parquet",
                 allow_failure: bool = False, device: "str | None" = None,
-                output_prefix: "str | None" = None
+                output_prefix: "str | None" = None,
+                stall_s: "float | None" = None,
+                max_restarts: "int | None" = None
                 ) -> tuple[float, list[int]]:
-    """One power-run subprocess per stream, started together; returns
-    (throughput elapse in seconds, per-stream exit codes)."""
+    """One supervised power-run subprocess per stream, started together;
+    returns (throughput elapse in seconds, per-stream final exit
+    codes)."""
     from nds_tpu_torch.nds.streams import parse_query_stream
     specs = _stream_specs(data_dir, stream_paths, out_dir, backend,
                           input_format, allow_failure,
                           "nds_tpu_torch.nds.power", parse_query_stream,
                           device, output_prefix)
-    return launch(specs, out_dir)
+    return supervise(specs, out_dir, stall_s, max_restarts)
 
 
 def run_streams_inprocess(data_dir: str, stream_paths: list[str],
@@ -350,17 +355,22 @@ def add_throughput_args(p, backend_help: str) -> None:
                         "(one CUDA context, one graph pool: the mode for "
                         "several streams on one card)")
     p.add_argument("--stall_s", type=float, default=None,
-                   help="refused: " + NOT_PORTED)
+                   help="supervise subprocess streams: kill a stream "
+                        "whose heartbeats stall past this budget and "
+                        "restart it from its last completed query")
     p.add_argument("--max_restarts", type=int, default=None,
-                   help="refused: " + NOT_PORTED)
+                   help="restart budget per supervised stream (default "
+                        "1 when --stall_s is set; drain exits 75 resume "
+                        "without charging it)")
 
 
 def run_cli(p, args, run_sub, suite) -> None:
     """Run the streams the parsed ``args`` name, print the elapse and
-    exit: 1 where a stream failed (unless ``--allow_failure``), 2 for a
-    flag that is not ported."""
-    if args.stall_s is not None or args.max_restarts is not None:
-        p.error(NOT_PORTED)
+    exit: 1 where a stream failed (unless ``--allow_failure``), 2 for the
+    supervisor's flags with ``--in_process``."""
+    supervised = args.stall_s is not None or args.max_restarts is not None
+    if args.in_process and supervised:
+        p.error(IN_PROCESS_UNSUPERVISED)
     if args.in_process:
         elapse, codes = run_streams_inprocess(
             args.data_dir, args.streams, args.out_dir, args.backend,
@@ -370,7 +380,9 @@ def run_cli(p, args, run_sub, suite) -> None:
         elapse, codes = run_sub(args.data_dir, args.streams, args.out_dir,
                                 args.backend, args.input_format,
                                 args.allow_failure, device=args.device,
-                                output_prefix=args.output_prefix)
+                                output_prefix=args.output_prefix,
+                                stall_s=args.stall_s,
+                                max_restarts=args.max_restarts)
     print(f"Throughput Time: {elapse} s over {len(args.streams)} streams")
     sys.exit(1 if any(codes) and not args.allow_failure else 0)
 
@@ -378,7 +390,7 @@ def run_cli(p, args, run_sub, suite) -> None:
 def main(argv=None) -> None:
     from nds_tpu_torch.nds.power import SUITE
     p = argparse.ArgumentParser(description="NDS throughput run on the "
-                                "port's engine; " + NOT_PORTED)
+                                "port's engine")
     add_throughput_args(p, "engine.backend of every stream (default gpu: "
                         "the port's device engine)")
     args = p.parse_args(argv)

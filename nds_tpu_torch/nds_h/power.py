@@ -6,7 +6,8 @@ Port of ``nds_tpu/nds_h/power.py`` over the port's power core
 select, drop view), register the 8 tables, run every query in stream
 order recording per-query wall-clock ms (device->host result included),
 write the CSV time log and optional per-query JSON summaries, honor
-``--allow_failure`` and the template/property-file config layers, and
+``--allow_failure`` (and the port's ``--allow_recovered``) and the
+template/property-file config layers, and
 exit non-zero if any query failed.
 
     python -m nds_tpu_torch.nds_h.power <warehouse> stream_0.sql time.csv \
@@ -31,11 +32,17 @@ timed query.
 ``gen_data``'s text; the ``io.verify_digests`` config key verifies each
 file against its table's digest manifest before it is parsed.
 
+``--resume`` replays the run dir's query journal
+(``<unit>_queries.json`` in ``--json_summary_folder``, else beside the
+time log): statements journaled done are not run again, the rest run,
+and the resumed run writes ``merged-<unit>.json``. A SIGTERM or SIGINT
+drains (the in-flight query finishes, then the CLI exits 75, resumable;
+``NDS_TPU_DRAIN_S`` bounds the wait). See ``utils/power_core.py``.
+
 Not ported yet, each with its ROADMAP Queue 1 item: ``--placement
 chunked`` (item 6), ``--profile_dir`` and ``--trace`` (item 7,
-observability), ``--resume`` (the resilience layer), ``--cache_dir`` and
-``--cache_readonly`` (no counterpart: a CUDA graph does not outlive its
-process).
+observability), ``--cache_dir`` and ``--cache_readonly`` (no
+counterpart: a CUDA graph does not outlive its process).
 """
 
 from __future__ import annotations
@@ -59,9 +66,9 @@ SUITE = power_core.Suite(
 )
 
 NOT_PORTED = ("not ported yet: --placement chunked (ROADMAP Queue 1 "
-              "item 6), --profile_dir and --trace (item 7), --resume (the "
-              "resilience layer), --cache_dir and --cache_readonly (no "
-              "counterpart: a CUDA graph does not outlive its process)")
+              "item 6), --profile_dir and --trace (item 7), --cache_dir "
+              "and --cache_readonly (no counterpart: a CUDA graph does not "
+              "outlive its process)")
 
 
 def add_power_args(p) -> None:
@@ -99,15 +106,24 @@ def add_power_args(p) -> None:
                    help="untimed runs per query before the timed one")
     p.add_argument("--allow_failure", action="store_true",
                    help="exit 0 even when queries failed")
+    p.add_argument("--allow_recovered", action="store_true",
+                   help="exit 0 where every query completed, some only "
+                        "after the engine recovered from a task failure "
+                        "(CompletedWithTaskFailures); a failed query "
+                        "still exits 1")
     p.add_argument("--query_subset", nargs="+",
                    help="run only these query names")
+    p.add_argument("--resume", action="store_true",
+                   help="replay the run dir's query journal: statements "
+                        "it holds as done are not run again")
     power_core.add_config_args(p)
 
 
 def run(suite: power_core.Suite, args, config) -> None:
-    """Run the stream and exit: 0 if no query failed or with
-    ``--allow_failure``, 1 if one did, 2 without the card asked for
-    (before anything is loaded or written)."""
+    """Run the stream and exit: 0 if every query completed cleanly (with
+    ``--allow_recovered``, completed), or with ``--allow_failure``; 1
+    otherwise, and on an uncaught error; 2 without the card asked for
+    (before anything is loaded or written); 75 after a drain."""
     try:
         failures = power_core.run_query_stream(
             suite, args.data_dir, args.query_stream, args.time_log,
@@ -115,7 +131,8 @@ def run(suite: power_core.Suite, args, config) -> None:
             json_summary_folder=args.json_summary_folder,
             output_prefix=args.output_prefix, warmup=args.warmup,
             query_subset=args.query_subset,
-            extra_time_log=args.extra_time_log)
+            extra_time_log=args.extra_time_log, resume=args.resume,
+            recovered_ok=args.allow_recovered)
     except NoCudaDevice as e:
         print(f"[power] {e}", file=sys.stderr)
         sys.exit(2)

@@ -13,9 +13,8 @@ process on one card holds a CUDA context and a graph pool of its own.
         stream_2.sql [--in_process] [--backend gpu|distributed|cpu] \\
         [--device cuda|cpu] [--out_dir DIR] [--output_prefix DIR]
 
-Not ported yet, as in ``nds/throughput.py``: supervised streams,
-``--stall_s`` and ``--max_restarts`` (ROADMAP Queue 1 item 15), which the
-CLI keeps and refuses.
+Subprocess streams run supervised, as in ``nds/throughput.py``
+(``--stall_s``, ``--max_restarts``, ``throughput_summary.json``).
 """
 
 from __future__ import annotations
@@ -23,29 +22,32 @@ from __future__ import annotations
 import argparse
 
 from nds_tpu_torch.nds.throughput import (
-    NOT_PORTED, _stream_specs, add_throughput_args, launch, run_cli,
+    _stream_specs, add_throughput_args, run_cli, supervise,
 )
 
 
 def run_streams(data_dir: str, stream_paths: list[str], out_dir: str,
                 backend: str = "gpu", input_format: str = "parquet",
                 allow_failure: bool = False, device: "str | None" = None,
-                output_prefix: "str | None" = None
+                output_prefix: "str | None" = None,
+                stall_s: "float | None" = None,
+                max_restarts: "int | None" = None
                 ) -> tuple[float, list[int]]:
-    """One power-run subprocess per stream, started together; returns
-    (throughput elapse in seconds, per-stream exit codes)."""
+    """One supervised power-run subprocess per stream, started together;
+    returns (throughput elapse in seconds, per-stream final exit
+    codes)."""
     from nds_tpu_torch.nds_h.streams import parse_query_stream
     specs = _stream_specs(data_dir, stream_paths, out_dir, backend,
                           input_format, allow_failure,
                           "nds_tpu_torch.nds_h.power", parse_query_stream,
                           device, output_prefix)
-    return launch(specs, out_dir)
+    return supervise(specs, out_dir, stall_s, max_restarts)
 
 
 def main(argv=None) -> None:
     from nds_tpu_torch.nds_h.power import SUITE
     p = argparse.ArgumentParser(description="NDS-H throughput run on the "
-                                "port's engine; " + NOT_PORTED)
+                                "port's engine")
     add_throughput_args(p, "engine.backend of every stream (default gpu: "
                         "the port's device engine)")
     args = p.parse_args(argv)

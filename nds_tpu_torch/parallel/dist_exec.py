@@ -89,7 +89,10 @@ def shard_of(values: np.ndarray, rank: int, world: int) -> np.ndarray:
 
 class DistributedExecutor(dx.DeviceExecutor):
     """Session-compatible executor that runs plans SPMD over the ranks of
-    a mesh, on ``device`` (the card unless the CPU is asked for)."""
+    a mesh, on ``device`` (the card unless the CPU is asked for). Its
+    ``execute`` is the device executor's, so it fires the
+    ``device.execute`` fault point with ``executor="DistributedExecutor"``
+    as the reference's does."""
 
     # the sharded path scans raw even under an active columnar mode:
     # packed words and run starts do not follow the shard layout

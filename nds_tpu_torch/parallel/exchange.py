@@ -12,8 +12,10 @@ and the scatter of every payload column. The all-to-all is one
 Static-shape contract, as the reference's: each rank sends a bucket of
 ``ceil(local_rows * slack / n_dev)`` rows to every peer; rows past a
 full bucket are dropped and counted, and the executor retries with a
-doubled slack. The reference's skew gauge, trace-time counter, fault
-point and watchdog beat belong to later slices.
+doubled slack. Each exchange fires the ``exchange`` fault point and
+beats the watchdog (``resilience/``) first. The reference's skew gauge
+and trace-time counter belong to observability (ROADMAP Queue 1 item
+7).
 
 ``axis`` is an axis name of ``mesh`` (of the initialized world's 1-D
 mesh when no mesh is given) or an object with the ``AxisGroup``
@@ -25,6 +27,7 @@ from __future__ import annotations
 import torch.distributed as dist
 
 from nds_tpu_torch.engine import kernels as KX
+from nds_tpu_torch.resilience import faults, watchdog
 from nds_tpu_torch.parallel.mesh import DATA_AXIS, HOST_AXIS, make_mesh
 
 
@@ -47,6 +50,10 @@ def _exchange(arrays, ok, n_dev: int, bucket: int, axis, **route):
     if axis.size != n_dev:
         raise ValueError(f"exchange over {n_dev} ranks on an axis of "
                          f"{axis.size}")
+    # chaos site: an injected fault surfaces where a real capacity
+    # failure would, and the executor's retry classifies it
+    faults.fault_point("exchange", n_dev=n_dev)
+    watchdog.beat("engine", phase="exchange")
     payload = [a.contiguous() for a in arrays]
     bufs, send_ok, n_over = KX.exchange_pack(
         payload, ok.contiguous(), n_dev, bucket, **route)

@@ -1,6 +1,17 @@
-"""The port's resilience layer, as far as the scheduler needs it: the
-retry policy and failure classes (``retry.py``), the injected-fault
-classes and the query context (``faults.py``) and the query journal's
-write side (``journal.py``). Port of a part of ``nds_tpu/resilience/``;
-the rest (fault points, the drain, the watchdog, supervised streams,
-``--resume``) waits for ROADMAP Queue 1 item 15."""
+"""The port's resilience layer (port of ``nds_tpu/resilience/``):
+
+- ``faults``     seeded, deterministic fault injection at named sites
+                 (``NDS_TPU_FAULTS``; a no-op when unset, and never
+                 inside a CUDA graph capture)
+- ``retry``      transient-vs-deterministic classification and
+                 ``RetryPolicy``
+- ``journal``    the phase journal of the orchestrators
+                 (``bench_state.json``) and the query journals of the
+                 power loop, the maintenance CLI and the in-process
+                 streams; ``--resume`` reads them
+- ``drain``      SIGTERM/SIGINT as a drain: exit 75, resumable
+- ``watchdog``   heartbeats, the hang watchdog and the heartbeat file
+- ``supervise``  supervised subprocess streams (``StreamSupervisor``;
+                 the serve fleet's ``ReplicaSupervisor`` comes with
+                 ROADMAP Queue 1 item 9)
+"""

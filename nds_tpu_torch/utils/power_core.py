@@ -31,14 +31,29 @@ The loop is synchronous: one ``BenchReport.report_on`` bracket a query,
 which ends when the result is on the host and, with ``output_prefix``,
 its file is written, as in the reference.
 
+Preemption safety (ROADMAP Queue 1 item 15, the resilience layer): every
+statement is start-marked in a per-unit query journal
+(``<unit>_queries.json`` in the run dir, ``resilience/journal.py``)
+before its dispatch and recorded after its summary lands; a
+SIGTERM/SIGINT drains (``resilience/drain.py``: the in-flight query
+finishes under ``engine.drain_s``, then the process exits 75); and
+``resume=True`` replays journaled statements and restarts at the next
+unfinished one, then writes ``merged-<unit>.json``, which bills each
+statement once. A supervised stream's later incarnation (unit
+``<name>#rN``) resumes implicitly. The loop beats the watchdog
+(``resilience/watchdog.py``) at the load, at each dispatch, on each
+retry and when each query is done; ``engine.watchdog.stall_s`` or
+``NDS_TPU_WATCHDOG`` arm it, and ``NDS_TPU_HEARTBEAT_FILE`` publishes
+the beats for a supervisor. Fault points fire in the context
+``stream=<NDS_TPU_STREAM>`` where a supervisor named the stream, and
+warmups suppress them.
+
 Trimmed from the reference, each with the ROADMAP Queue 1 item that
 brings it back:
 
 - ``pipeline_io``'s query-boundary overlap (item 6);
 - spans, metrics, costs, telemetry, the ``memory`` block, profiles, the
   fleet wiring, the flight recorder and the metrics snapshotter (item 7);
-- the query journal of the power loop, ``--resume``, the SIGTERM drain,
-  the watchdog and fault injection (item 15, the resilience layer);
 - the plan-cache hooks (``--cache_dir``): a CUDA graph does not outlive
   its process, so they have no counterpart.
 """
@@ -49,12 +64,14 @@ import json
 import os
 import sys
 import time
+from contextlib import nullcontext
 from dataclasses import dataclass
 
 from nds_tpu_torch import obs
 from nds_tpu_torch.engine.session import Session
 from nds_tpu_torch.obs import memwatch
-from nds_tpu_torch.resilience import faults
+from nds_tpu_torch.resilience import drain, faults, watchdog
+from nds_tpu_torch.resilience.journal import QueryJournal, config_digest
 from nds_tpu_torch.resilience.retry import (
     DETERMINISTIC, TRANSIENT, RetryPolicy, RetryStats, classify,
 )
@@ -67,7 +84,7 @@ from nds_tpu_torch.utils.timelog import TimeLog
 BACKENDS = ("gpu", "cpu", "distributed")
 
 
-def _front_door_retry(policy, pipeline, body):
+def _front_door_retry(policy, pipeline, unit, qname, body):
     """Retry the TRANSIENT failures that never reached the pipeline (the
     parse and plan window; the executors' retries and the ladder live in
     ``engine/scheduler.py``) under the same backoff policy; a
@@ -117,6 +134,8 @@ def _front_door_retry(policy, pipeline, body):
                 raise
             front_retries += 1
             front_backoff += d
+            watchdog.beat(unit, query=qname, phase="retry",
+                          attempt=attempts)
             if d > 0:
                 time.sleep(d)
             continue
@@ -268,19 +287,64 @@ def run_query_stream(suite: Suite, data_dir: str, stream_path: str,
                      output_prefix: str | None = None,
                      warmup: int = 0,
                      query_subset: list[str] | None = None,
-                     extra_time_log: str | None = None) -> int:
+                     extra_time_log: str | None = None,
+                     resume: bool = False,
+                     recovered_ok: bool = False) -> int:
     """The power loop: every query runs regardless of earlier failures
-    (``--allow_failure`` only changes the CLI's exit code). Returns
-    the number of queries that did not complete cleanly. The session is
-    made first, so a run asked of a card that is not there raises
-    before it loads or writes anything."""
+    (``--allow_failure`` only changes the CLI's exit code). Returns the
+    number of queries that did not complete cleanly; with
+    ``recovered_ok``, only of those that failed (a statement that
+    completed after a recovered task failure, ``CompletedWithTaskFailures``,
+    then counts as none). The session is made first, so a run asked of a
+    card that is not there raises before it loads or writes anything.
+    ``resume=True`` replays the unit's query journal and runs only the
+    statements it does not hold as done."""
+    config = config or EngineConfig()
+    progress = {"suite": suite.name, "stream": stream_path,
+                "queries_completed": 0, "current_query": None}
+    hb = watchdog.HeartbeatFile.from_env(progress)
+    if hb:
+        hb.start()
+    run_dir = json_summary_folder or os.path.dirname(time_log_path) or "."
+    wd = (watchdog.Watchdog.from_config(config, run_dir)
+          or watchdog.Watchdog.from_env(run_dir))
+    if wd:
+        wd.start()
+    dm = drain.install(drain.drain_seconds(config), run_dir)
+    if hb:
+        # the force exit skips every finally: flush the beats explicitly
+        dm.add_flush_hook(hb.write_once)
+    stream_name = os.environ.get(watchdog.STREAM_ENV)
+    ctx = (faults.context(stream=stream_name) if stream_name
+           else nullcontext())
+    try:
+        with ctx:
+            return _run_query_stream(
+                suite, data_dir, stream_path, time_log_path, config,
+                input_format, json_summary_folder, output_prefix, warmup,
+                query_subset, extra_time_log, progress, resume,
+                recovered_ok)
+    finally:
+        drain.uninstall()
+        if wd:
+            wd.stop()
+        watchdog.clear_unit(stream_name or f"power-{suite.name}")
+        if hb:
+            progress["current_query"] = None
+            hb.stop()
+
+
+def _run_query_stream(suite, data_dir, stream_path, time_log_path, config,
+                      input_format, json_summary_folder, output_prefix,
+                      warmup, query_subset, extra_time_log, progress,
+                      resume, recovered_ok) -> int:
     from nds_tpu_torch.engine.scheduler import load_policy
     from nds_tpu_torch.io.result_io import result_digest
-    config = config or EngineConfig()
     if config.get_bool("io.verify_digests"):
         # sticky per process, like the env-var gate it mirrors
         from nds_tpu_torch.io import integrity
         integrity.set_verify(True)
+    unit = os.environ.get(watchdog.STREAM_ENV) or f"power-{suite.name}"
     session = make_session(suite, config)
     backend = config.get("engine.backend", "gpu")
     # on a world of several ranks every rank computes every query and
@@ -289,8 +353,37 @@ def run_query_stream(suite: Suite, data_dir: str, stream_path: str,
     if backend == "distributed":
         from nds_tpu_torch.parallel.multihost import is_primary
         primary = is_primary()
+    run_dir = json_summary_folder or os.path.dirname(time_log_path) or "."
     if not primary:
         json_summary_folder = output_prefix = extra_time_log = None
+    # one query journal a unit, named without the restart suffix (every
+    # incarnation of one stream shares it). Other ranks load it (their
+    # replay decisions must match the primary's) and never write it. A
+    # supervisor's later incarnation ('<name>#rN') resumes implicitly:
+    # its --query_subset scopes what runs again, and a reset would wipe
+    # the first incarnation's records
+    jname = unit.split("#")[0]
+    if primary:
+        os.makedirs(run_dir, exist_ok=True)
+    journal = QueryJournal(os.path.join(run_dir, f"{jname}_queries.json"),
+                           phase=jname,
+                           digest=config_digest(config.as_dict()))
+    journal.readonly = not primary
+    if resume or "#r" in unit:
+        if journal.load():
+            inc = journal.begin_incarnation()
+            done = sorted(journal.completed())
+            print(f"== resuming {jname} (incarnation {inc}): "
+                  f"{len(done)} journaled quer"
+                  f"{'y' if len(done) == 1 else 'ies'} replayed ==")
+    else:
+        journal.reset()
+    dm = drain.manager()
+    if dm is not None:
+        # the drain deadline's force exit journals the abandoned
+        # in-flight query as not done before the process dies
+        dm.add_flush_hook(
+            lambda: journal.mark_aborted(progress.get("current_query")))
     app_id = (f"{suite.name}-{platform_of(session)}-{backend}-"
               f"{int(time.time())}")
     tlog = TimeLog(app_id)
@@ -300,6 +393,7 @@ def run_query_stream(suite: Suite, data_dir: str, stream_path: str,
     # shape, without its per-query deadline; a corrupt file
     # (io/integrity.CorruptArtifact) is deterministic and fails at once
     front_policy = RetryPolicy.from_config(config)
+    watchdog.beat(unit, phase="load_warehouse")
     lstats = RetryStats()
     load_hold: dict = {}
 
@@ -317,6 +411,7 @@ def run_query_stream(suite: Suite, data_dir: str, stream_path: str,
     load_report = BenchReport("load_warehouse", config.as_dict())
     load_report.report_on(_load_bracket)
     load_report.attach_retry(lstats)
+    load_report.attach_degradations()
     if "error" in load_hold:
         if json_summary_folder:
             os.makedirs(json_summary_folder, exist_ok=True)
@@ -330,18 +425,48 @@ def run_query_stream(suite: Suite, data_dir: str, stream_path: str,
     if query_subset:
         queries = type(queries)(
             (q, s) for q, s in queries.items() if q in query_subset)
+    progress["app_id"] = app_id
+    progress["queries_total"] = len(queries)
     if json_summary_folder:
         os.makedirs(json_summary_folder, exist_ok=True)
     pipeline = session._executor_factory(session.tables)
     failures = 0
+    recovered = []
+    replayed_ms = 0.0
     power_start = time.perf_counter()
     for qname, sql in queries.items():
+        watchdog.beat(unit, query=qname, phase="dispatch")
+        # the drain's checkpoint: once a SIGTERM/SIGINT was seen, stop
+        # here with every finished query journaled; --resume starts at
+        # this statement
+        drain.check_boundary()
+        if journal.done(qname):
+            # a resumed incarnation replays the journaled outcome (its
+            # time log row and failure count) and never runs it again
+            e = journal.entry(qname)
+            wall = float(e.get("wall_ms") or 0)
+            replayed_ms += wall
+            tlog.add(qname, int(wall))
+            if e.get("status") == "Failed":
+                failures += 1
+            progress["queries_completed"] += 1
+            print(f"====== Replay {qname} (journaled "
+                  f"{e.get('status')}, incarnation "
+                  f"{e.get('incarnation', 0)}) ======")
+            continue
         if warmup and not qname.startswith(suite.warmup_skip_prefixes):
-            for _ in range(warmup):
-                try:
-                    run_one_query(session, sql)
-                except Exception:  # noqa: BLE001 - the timed run reports it
-                    break
+            # warmups must not consume the timed query's fault budget
+            with faults.suppress():
+                for _ in range(warmup):
+                    try:
+                        run_one_query(session, sql)
+                    except Exception:  # noqa: BLE001 - the timed run reports it
+                        break
+        progress["current_query"] = qname
+        # the start mark before dispatch: a kill -9 mid-query leaves a
+        # start with no completion, the evidence that exactly this query
+        # was lost
+        journal.start(qname)
         report = BenchReport(qname, config.as_dict())
         # a statement that reaches no executor (a view's CREATE/DROP, a
         # parse error) must not inherit the previous query's timings,
@@ -352,7 +477,7 @@ def run_query_stream(suite: Suite, data_dir: str, stream_path: str,
         def _query(_sql=sql, _qname=qname):
             with faults.context(query=_qname):
                 hold["result"] = _front_door_retry(
-                    front_policy, pipeline,
+                    front_policy, pipeline, unit, _qname,
                     lambda: run_one_query(session, _sql, _qname,
                                           output_prefix))
 
@@ -368,17 +493,33 @@ def run_query_stream(suite: Suite, data_dir: str, stream_path: str,
                             or RetryStats())
         report.attach_schedule(getattr(pipeline, "last_schedule", None))
         report.attach_kernels(timings)
-        report.attach_result_digest(result_digest(hold.pop("result", None)))
+        report.attach_incarnation(journal.incarnation)
+        rdigest = result_digest(hold.pop("result", None))
+        report.attach_result_digest(rdigest)
+        report.attach_degradations()
         elapsed_ms = summary["queryTimes"][-1]
-        if not report.is_success():
+        status = summary["queryStatus"][-1]
+        if status == "CompletedWithTaskFailures":
+            recovered.append(qname)
+        if not (report.is_success() or (recovered_ok and status != "Failed")):
             failures += 1
         tlog.add(qname, elapsed_ms)
+        progress["queries_completed"] += 1
+        watchdog.beat(unit, query=qname, phase="done")
         print(f"====== Run {qname} ======")
         print(f"Time taken: {elapsed_ms} millis for {qname}")
         if json_summary_folder:
             report.write_summary(prefix=f"power-{app_id}",
                                  out_dir=json_summary_folder)
-    power_ms = int((time.perf_counter() - power_start) * 1000)
+        # journal after the summary landed: resume must never skip a
+        # statement whose summary is missing
+        journal.record(qname, elapsed_ms, status, result_digest=rdigest)
+    progress["current_query"] = None
+    # a resumed incarnation bills the replayed queries' journaled walls
+    # into the phase total, which then approximates the uninterrupted
+    # loop (per-query walls, less the overhead between queries)
+    power_ms = int((time.perf_counter() - power_start) * 1000
+                   + replayed_ms)
     tlog.add("Power Test Time", power_ms)
     total_ms = int((time.perf_counter() - total_start) * 1000)
     tlog.add("Total Time", total_ms)
@@ -387,6 +528,23 @@ def run_query_stream(suite: Suite, data_dir: str, stream_path: str,
     if extra_time_log:
         # a second copy of the time log, e.g. on shared storage
         tlog.write(extra_time_log)
+    if journal.incarnation > 0 and primary and json_summary_folder:
+        # one merged phase report over every incarnation's summaries:
+        # each statement billed once, the latest incarnation winning
+        from nds_tpu_torch.io.integrity import write_json_atomic
+        from nds_tpu_torch.utils.report import (
+            load_summaries, merge_incarnations,
+        )
+        known = set(queries)
+        merged = merge_incarnations(
+            [s for s in load_summaries(json_summary_folder)
+             if s.get("query") in known], phase=jname)
+        write_json_atomic(
+            os.path.join(json_summary_folder, f"merged-{jname}.json"),
+            merged)
+    if recovered:
+        print(f"{len(recovered)} statement(s) completed after a recovered "
+              f"task failure: {', '.join(recovered)}")
     print(f"Power Test Time: {power_ms} millis")
     mem = memwatch.process_record(pipeline)
     if mem is not None:
@@ -396,10 +554,11 @@ def run_query_stream(suite: Suite, data_dir: str, stream_path: str,
 
 
 def subprocess_env() -> dict:
-    """Environment for phase subprocesses (the throughput streams): this
-    checkout importable whatever the caller's working directory, ahead
-    of the ambient ``PYTHONPATH``. The reference's platform pin has no
-    counterpart: a port CLI runs where its ``--device`` says."""
+    """Environment for phase subprocesses (the orchestrators' phases, the
+    throughput streams): this checkout importable whatever the caller's
+    working directory, ahead of the ambient ``PYTHONPATH``. The
+    reference's platform pin has no counterpart: a port CLI runs where
+    its ``--device`` says."""
     root = os.path.dirname(os.path.dirname(
         os.path.dirname(os.path.abspath(__file__))))
     env = dict(os.environ)

@@ -16,16 +16,18 @@ query, written as ``{prefix}-{query}-{startTime}.json``):
   ``CompletedWithTaskFailures``, its reasons in ``exceptions``.
 
 Kept attachments: ``attach_kernels`` (the ``kernels`` block),
-``attach_result_digest``, and since item 4 (the scheduler)
-``attach_retry`` and ``attach_schedule``. Trimmed, each with the ROADMAP
+``attach_result_digest``, since item 4 (the scheduler) ``attach_retry``
+and ``attach_schedule``, and since item 15 (the resilience layer)
+``attach_incarnation`` and ``attach_degradations``, with
+``merge_incarnations`` (the merged phase report of a resumed run) and
+``load_summaries``. Trimmed, each with the ROADMAP
 Queue 1 item that brings it back: ``attach_cache`` (no counterpart: a CUDA graph does not
 outlive its process); ``attach_profile``, ``attach_flight``,
 ``attach_memory``, ``attach_cost``, ``attach_telemetry`` and the
 ``task_failures_total`` counter in ``notify`` (item 7, observability);
-``attach_tenant`` and ``attach_replica`` (item 9, serving);
-``attach_incarnation``, ``attach_degradations``, ``merge_incarnations``
-and the split bracket ``begin_async``/``end_async`` with
-``focus_failures`` (the resilience layer and item 6's boundary overlap).
+``attach_tenant`` and ``attach_replica`` (item 9, serving); the split
+bracket ``begin_async``/``end_async`` with ``focus_failures`` (item 6's
+boundary overlap).
 """
 
 from __future__ import annotations
@@ -183,6 +185,27 @@ class BenchReport:
         if digest:
             self.summary["result_digest"] = str(digest)
 
+    def attach_incarnation(self, incarnation: int | None) -> None:
+        """Record which resume incarnation produced this summary
+        (``resilience/journal.QueryJournal``): 0 the original process, a
+        resumed one 1, 2, ...; ``merge_incarnations`` keys on it."""
+        if incarnation is not None:
+            self.summary["incarnation"] = int(incarnation)
+
+    def attach_degradations(self) -> None:
+        """Surface torn-state degradations: nonzero journal or snapshot
+        resets mean prior on-disk state was thrown away in this process,
+        and every summary it could have affected says so."""
+        from nds_tpu_torch.io import snapshots
+        from nds_tpu_torch.resilience import journal
+        block = {}
+        for key, n in (("journal_resets", journal.resets_total),
+                       ("snapshot_resets", snapshots.resets_total)):
+            if n:
+                block[key] = int(n)
+        if block:
+            self.summary["degradations"] = block
+
     def attach_retry(self, stats) -> None:
         """Record a ``resilience.retry.RetryStats``: ``retries`` always
         (0 says the query needed no recovery), ``retry_backoff_s`` when
@@ -229,3 +252,73 @@ class BenchReport:
 
     def is_success(self) -> bool:
         return self.summary["queryStatus"] == ["Completed"]
+
+
+def is_report_basename(name: str) -> bool:
+    """Whether a run-dir file name can be a BenchReport summary:
+    ``merged-*`` phase reports derive from the per-query summaries, and
+    ``*_queries.json`` files and ``bench_state.json`` are journals."""
+    return (name.endswith(".json")
+            and name not in ("analysis.json", "bench_state.json")
+            and not name.startswith("merged-")
+            and not name.endswith("_queries.json"))
+
+
+def load_summaries(run_dir: str) -> list:
+    """Every BenchReport JSON under ``run_dir`` (recursive), in
+    startTime order; other JSONs are skipped."""
+    out = []
+    for root, _dirs, files in os.walk(run_dir):
+        for fname in sorted(files):
+            if not is_report_basename(fname):
+                continue
+            try:
+                with open(os.path.join(root, fname)) as f:
+                    obj = json.load(f)
+            except (OSError, ValueError):
+                continue
+            if (isinstance(obj, dict) and "queryStatus" in obj
+                    and "query" in obj):
+                out.append(obj)
+    out.sort(key=lambda s: (s.get("startTime") or 0))
+    return out
+
+
+def merge_incarnations(summaries: list, phase: str = "") -> dict:
+    """Merge the per-query BenchReports of every incarnation of a resumed
+    phase into one phase report: one entry a statement, where a
+    statement reported by more than one incarnation (the window between
+    its summary and its journal record) is billed once, by its latest
+    (incarnation, startTime) report. The merged wall clock is the sum of
+    per-query walls, the one phase total that does not depend on where
+    the interruptions fell."""
+    best: dict = {}
+    for s in summaries:
+        if not isinstance(s, dict) or "query" not in s \
+                or "queryStatus" not in s:
+            continue
+        q = str(s["query"])
+        key = (int(s.get("incarnation") or 0), s.get("startTime") or 0)
+        if q not in best or key > best[q][0]:
+            best[q] = (key, s)
+    ordered = sorted(best.values(), key=lambda kv: kv[1].get(
+        "startTime") or 0)
+    merged: dict = {
+        "phase": phase,
+        "merged": True,
+        "incarnations": max((k[0] for k, _s in ordered),
+                            default=0) + 1,
+        "queries": [s["query"] for _k, s in ordered],
+        "queryStatus": [s["queryStatus"][-1] if s.get("queryStatus")
+                        else "Failed" for _k, s in ordered],
+        "queryTimes": [(s.get("queryTimes") or [0])[-1]
+                       for _k, s in ordered],
+        "startTime": min((s.get("startTime") or 0
+                          for _k, s in ordered), default=0),
+    }
+    merged["wall_ms_total"] = sum(merged["queryTimes"])
+    digests = {s["query"]: s["result_digest"] for _k, s in ordered
+               if s.get("result_digest")}
+    if digests:
+        merged["result_digests"] = digests
+    return merged

@@ -13,6 +13,8 @@ the combined line and exits 0, no card where ``cuda`` is asked exits 5
 not the root bench's.
 """
 
+import tests.torch_threads  # noqa: F401  (first: sizes torch's threads)
+
 import json
 import os
 import pathlib
@@ -85,6 +87,7 @@ def test_root_bench_imports_no_jax():
             "or m.startswith(('jax.', 'jaxlib'))]; "
             "print(bad); sys.exit(1 if bad else 0)")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          env=tests.torch_threads.subprocess_env(),
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
@@ -223,7 +226,8 @@ def test_sigterm_prints_the_combined_line_and_exits_0(seeded, monkeypatch,
 
 def _run_bench(env_extra: dict, data: pathlib.Path, timeout: int = 240):
     env = {k: v for k, v in os.environ.items() if not k.startswith("BENCH_")}
-    env.update({"BENCH_DATA": str(data), **env_extra})
+    env.update({"BENCH_DATA": str(data), "OMP_NUM_THREADS": "1",
+                **env_extra})
     proc = subprocess.run([sys.executable, "-m", "nds_tpu_torch.bench"],
                           cwd=REPO, env=env, capture_output=True, text=True,
                           timeout=timeout)
@@ -284,6 +288,7 @@ def test_data_roots_are_apart():
             "print(bench.DATA_ROOT); print(p.DATA_ROOT); "
             "print(bench._dev_bank_path('nds_h')); "
             "print(p._dev_bank_path('nds_h'))")
+    env["OMP_NUM_THREADS"] = "1"
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr

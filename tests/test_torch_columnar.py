@@ -27,6 +27,8 @@ the same mode and resets them.
   equal its own rows with the mode off exactly.
 """
 
+import tests.torch_threads  # noqa: F401  (first: sizes torch's threads)
+
 import contextlib
 
 import jax.numpy as jnp

@@ -13,6 +13,8 @@ the digest checks on load, ``SnapshotLog`` rollback, and
 ``host_table.from_reference`` carrying delta state.
 """
 
+import tests.torch_threads  # noqa: F401  (first: sizes torch's threads)
+
 import json
 import os
 

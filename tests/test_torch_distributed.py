@@ -35,6 +35,8 @@ point (``make_distributed_factory(n_devices=1, device="cpu")``, no
 launch environment). The ranks run the port's plain versions.
 """
 
+import tests.torch_threads  # noqa: F401  (first: sizes torch's threads)
+
 import os
 import pathlib
 import pickle

@@ -23,6 +23,8 @@ executor's other buffers stay), DML through the execution pipeline
 the distributed engine, whose sharded live mask gates the sharded scan.
 """
 
+import tests.torch_threads  # noqa: F401  (first: sizes torch's threads)
+
 import os
 import pathlib
 import pickle

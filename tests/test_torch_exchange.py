@@ -18,6 +18,8 @@ bool payloads.
 rows) that the reference ``DistributedExecutor`` places on that device.
 """
 
+import tests.torch_threads  # noqa: F401  (first: sizes torch's threads)
+
 import threading
 
 import jax

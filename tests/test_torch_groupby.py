@@ -16,6 +16,8 @@ use of them; the CUDA kernels are held to the plain versions on the card
 by ``chip_smoke.py``.
 """
 
+import tests.torch_threads  # noqa: F401  (first: sizes torch's threads)
+
 import zlib
 
 import jax.numpy as jnp

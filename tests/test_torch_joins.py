@@ -13,6 +13,8 @@ overlap where K1's launches are dependent. The kernels themselves are
 held to the plain versions on the card by ``chip_smoke.py``.
 """
 
+import tests.torch_threads  # noqa: F401  (first: sizes torch's threads)
+
 import jax
 import numpy as np
 import pytest

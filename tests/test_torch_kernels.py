@@ -16,6 +16,8 @@ function's behaviour on duplicates is defined by its arithmetic
 cases too.
 """
 
+import tests.torch_threads  # noqa: F401  (first: sizes torch's threads)
+
 import jax
 import numpy as np
 import pytest

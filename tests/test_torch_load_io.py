@@ -23,6 +23,8 @@ the reference's own tests:
   entries.
 """
 
+import tests.torch_threads  # noqa: F401  (first: sizes torch's threads)
+
 import io
 import json
 import os

@@ -20,9 +20,11 @@ set 1 (``gen_data --update 1``):
   give, on the port's device engine, the JAX ``DeviceExecutor``'s rows
   and ``__kernels`` blocks over the same warehouse;
 - after the port's rollback the pre-maintenance results come back bit
-  for bit, and the CLI's refusals (``--resume``, ``--compact``, no card)
-  write nothing.
+  for bit, and the CLI's refusals (``--compact``, alone or beside
+  ``--resume``; no card) write nothing.
 """
+
+import tests.torch_threads  # noqa: F401  (first: sizes torch's threads)
 
 import os
 import shutil
@@ -229,11 +231,14 @@ def test_rollback_restores_the_pre_maintenance_results(data, tmp_path):
 
 @pytest.mark.parametrize("flag", ["--resume", "--compact"])
 def test_cli_refuses_what_is_not_ported(flag, data, tmp_path, capsys):
+    """``--compact`` is refused, naming its item, alone and beside
+    ``--resume`` (which is ported: the refusal is the compaction's)."""
+    flags = sorted({flag, "--compact"})
     with pytest.raises(SystemExit) as e:
         maintenance.main([str(tmp_path / "wh"), data["refresh"],
-                          str(tmp_path / "dm.csv"), flag])
+                          str(tmp_path / "dm.csv"), *flags])
     assert e.value.code == 2
-    assert "ROADMAP Queue 1 item" in capsys.readouterr().err
+    assert "ROADMAP Queue 1 item 6" in capsys.readouterr().err
     assert not os.path.exists(tmp_path / "dm.csv")
 
 

@@ -12,6 +12,8 @@ themselves are held to the plain versions on the card by
 ``chip_smoke.py``.
 """
 
+import tests.torch_threads  # noqa: F401  (first: sizes torch's threads)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

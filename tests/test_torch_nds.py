@@ -16,6 +16,8 @@ ratio, at rel tol 0.01001. A second run on the port, from its pooled
 buffers, memoized dictionary tables and staged splits, must agree too.
 """
 
+import tests.torch_threads  # noqa: F401  (first: sizes torch's threads)
+
 import numpy as np
 import pytest
 
@@ -136,3 +138,21 @@ def test_lazy_gathers_equal_eager_gathers():
     b = lazy.cols[("t", "b")]
     assert torch.equal(b.arr, (arr * 2)[idx1.long()][idx2])
     assert torch.equal(b.valid, clear[idx2])
+
+
+@pytest.mark.parametrize("scale", [0, 2, 4])
+def test_decimal_quotients_are_the_oracles_bit_for_bit(scale):
+    """The device engine's decimal-to-float conversion (a tensor divisor,
+    which the card divides by as the CPU does) gives the CPU oracle's
+    quotients bit for bit: NDS q49 ranks ratios of such quotients, and a
+    last-bit difference breaks a tie one engine sees."""
+    import torch
+
+    from nds_tpu_torch.engine import cpu_exec, device_exec
+    from nds_tpu_torch.engine.types import DecimalType
+    ints = np.random.default_rng(scale).integers(-10 ** 12, 10 ** 12, 4096)
+    t = DecimalType(15, scale)
+    got = device_exec._to_float(torch.from_numpy(ints), t, torch.float64)
+    want = cpu_exec._to_float(ints, t)
+    assert got.dtype == torch.float64
+    assert np.array_equal(got.numpy(), want)

@@ -11,6 +11,8 @@ package's.
   walk order, as the reference planner.
 """
 
+import tests.torch_threads  # noqa: F401  (first: sizes torch's threads)
+
 import random
 
 import numpy as np

@@ -14,6 +14,8 @@ served from its pooled buffers and memoized dictionary tables, must
 agree too.
 """
 
+import tests.torch_threads  # noqa: F401  (first: sizes torch's threads)
+
 import pytest
 
 from nds_tpu.datagen import tpch

@@ -28,6 +28,8 @@ All 103 statements against the ``DeviceExecutor`` take minutes of XLA
 compiles on the CPU and are marked ``slow``.
 """
 
+import tests.torch_threads  # noqa: F401  (first: sizes torch's threads)
+
 import contextlib
 
 import numpy as np

@@ -25,6 +25,8 @@ the plain PyTorch version there.
   additions in another order than ``lax.associative_scan``.
 """
 
+import tests.torch_threads  # noqa: F401  (first: sizes torch's threads)
+
 import zlib
 
 import jax

@@ -13,7 +13,12 @@
   mesh of more than one rank needs a world that was initialized.
 - Integer arithmetic on scaled decimals floors like the reference's on
   negative values (``//`` in rescales and casts, ``%``).
+- The modules of each slice are part of the port (the resilience layer
+  and the orchestrators since ROADMAP Queue 1 items 15 and 17, with the
+  bench YAMLs).
 """
+
+import tests.torch_threads  # noqa: F401  (first: sizes torch's threads)
 
 import ast
 import pathlib
@@ -51,6 +56,7 @@ def test_importing_the_port_loads_no_jax():
         "print(len(mods), bad)\n"
         "sys.exit(1 if bad else 0)\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          env=tests.torch_threads.subprocess_env(),
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert int(proc.stdout.split()[0]) >= 20
@@ -123,6 +129,27 @@ def test_maintenance_modules_are_part_of_the_port():
     for name in sql:
         assert (PORT / "nds" / "data_maintenance" / name).read_bytes() == (
             ref / name).read_bytes(), name
+
+
+def test_resilience_and_orchestrator_modules_are_part_of_the_port():
+    """The modules of ROADMAP Queue 1 items 15 (the resilience layer) and
+    17 (the orchestrators), which the import check and the source scan
+    cover with the rest, and the bench YAMLs shipped beside them, which
+    name none of the keys the port refuses."""
+    import yaml
+
+    from nds_tpu_torch.nds_h.bench import NOT_PORTED
+    mods = _port_modules()
+    for m in ("resilience.faults", "resilience.journal", "resilience.drain",
+              "resilience.watchdog", "resilience.supervise", "nds.bench",
+              "nds_h.bench"):
+        assert f"nds_tpu_torch.{m}" in mods
+    for name in ("bench_nds.yml", "bench_nds_h.yml"):
+        cfg = yaml.safe_load((PORT / "configs" / name).read_text())
+        assert cfg["backend"] == "gpu" and "device" not in cfg, name
+        assert not set(cfg) & set(NOT_PORTED), name
+    assert "recursive-include nds_tpu_torch/configs *.yml" in (
+        REPO / "MANIFEST.in").read_text()
 
 
 def test_distributed_entry_points_raise_without_a_card(monkeypatch):

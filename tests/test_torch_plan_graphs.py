@@ -18,6 +18,8 @@ tables changed under the graphs, to the port's CPU oracle) under
 blocks must be equal.
 """
 
+import tests.torch_threads  # noqa: F401  (first: sizes torch's threads)
+
 import numpy as np
 import pytest
 import torch

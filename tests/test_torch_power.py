@@ -31,6 +31,8 @@ q4 (a ``Join.partitioned`` plan) from the same small slack and report
 ``CompletedWithTaskFailures`` with the same exception text.
 """
 
+import tests.torch_threads  # noqa: F401  (first: sizes torch's threads)
+
 import json
 import os
 import pathlib
@@ -82,8 +84,6 @@ NOT_YET_PORTED = {
     "cost": "item 7 (observability)",
     "telemetry": "item 7 (observability)",
     "cache": "none: a CUDA graph does not outlive its process",
-    "incarnation": "the resilience layer (resume)",
-    "degradations": "the resilience layer (resume)",
 }
 NAME_RE = re.compile(r"^power-(?P<suite>nds_h|nds)-(?P<platform>[a-z]+)-"
                      r"(?P<backend>[a-z]+)-\d+-(?P<query>query\d+(_part\d)?)"
@@ -312,6 +312,36 @@ def test_exit_code_counts_failures_unless_allowed(allow, data, tmp_path):
     assert done.value.code == (0 if allow else 1)
 
 
+@pytest.mark.parametrize("case,flag,want", [
+    ("recovered", False, 1), ("recovered", True, 0), ("failed", True, 1)])
+def test_allow_recovered_passes_only_completed_statements(
+        case, flag, want, data, tmp_path, monkeypatch):
+    """``--allow_recovered``: q4 at slack 0.0002 completes after one
+    slack retry (``CompletedWithTaskFailures``) and exits 0 with the
+    flag, 1 without, as the reference's CLI does; a statement that
+    failed still exits 1."""
+    if case == "recovered":
+        monkeypatch.setattr(DeviceExecutor, "DEFAULT_SLACK", 0.0002)
+        raw, stream = data["nds"]
+        cli = nds_power
+        argv = [raw, stream, str(tmp_path / "t.csv"), "--query_subset",
+                "query4"]
+    else:
+        raw, _stream = data["nds_h"]
+        cli = h_power
+        argv = [raw, _bad_stream(str(tmp_path / "bad.sql")),
+                str(tmp_path / "t.csv")]
+    argv += ["--input_format", "raw", "--device", "cpu",
+             "--json_summary_folder", str(tmp_path / "json")]
+    with pytest.raises(SystemExit) as done:
+        cli.main(argv + (["--allow_recovered"] if flag else []))
+    assert done.value.code == want
+    statuses = [s["queryStatus"][-1]
+                for s in _summaries(str(tmp_path / "json")).values()]
+    assert ("CompletedWithTaskFailures" if case == "recovered"
+            else "Failed") in statuses
+
+
 def test_extra_time_log(data, tmp_path):
     raw, stream = data["nds_h"]
     tlog = str(tmp_path / "t.csv")
@@ -392,7 +422,7 @@ def test_cli_without_a_card_exits_before_writing(data, tmp_path):
     raw, stream = data["nds_h"]
     tlog = tmp_path / "t.csv"
     jsons = tmp_path / "json"
-    env = {**os.environ, "CUDA_VISIBLE_DEVICES": ""}
+    env = tests.torch_threads.subprocess_env(CUDA_VISIBLE_DEVICES="")
     proc = subprocess.run(
         [sys.executable, "-m", "nds_tpu_torch.nds_h.power", raw, stream,
          str(tlog), "--input_format", "raw", "--json_summary_folder",

@@ -17,6 +17,8 @@
   the port's ``transcode`` CLI wrote from it into the same results.
 """
 
+import tests.torch_threads  # noqa: F401  (first: sizes torch's threads)
+
 import os
 import pathlib
 import re
@@ -49,6 +51,7 @@ from nds_tpu_torch.nds_h import gen_data as h_gen
 from nds_tpu_torch.nds_h import power as h_power
 from nds_tpu_torch.nds_h.schema import get_schemas as h_schemas
 from nds_tpu_torch.utils import power_core
+from nds_tpu_torch.utils.report import is_report_basename
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 SF = 0.01
@@ -284,7 +287,8 @@ def test_power_cli_runs_a_raw_warehouse_without_pyarrow(raw, tmp_path):
     proc = subprocess.run(
         [sys.executable, "-m", "nds_tpu_torch.nds_h.transcode",
          raw["nds_h"][0], wh, str(tmp_path / "load.txt")],
-        cwd=REPO, capture_output=True, text=True, timeout=300)
+        cwd=REPO, env=tests.torch_threads.subprocess_env(),
+        capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     outs = {}
     for fmt, data in (("raw", raw["nds_h"][0]), ("parquet", wh)):
@@ -296,13 +300,16 @@ def test_power_cli_runs_a_raw_warehouse_without_pyarrow(raw, tmp_path):
              "--json_summary_folder", str(jsons),
              "--output_prefix", str(outs[fmt]),
              "--query_subset", "query1", "query6"],
-            cwd=REPO, capture_output=True, text=True, timeout=300)
+            cwd=REPO, env=tests.torch_threads.subprocess_env(),
+            capture_output=True, text=True, timeout=300)
         assert proc.returncode == 0, proc.stdout + proc.stderr
         rows = open(tlog).read().splitlines()
         assert [r.split(",")[1] for r in rows[-4:]] == [
             "query1", "query6", "Power Test Time", "Total Time"]
         assert sum(",CreateTempView " in r for r in rows) == 8
-        assert len(os.listdir(jsons)) == 2
+        # two summaries (beside the run's query journal)
+        assert len([f for f in os.listdir(jsons)
+                    if is_report_basename(f)]) == 2
     for q in ("query1", "query6"):
         pd.testing.assert_frame_equal(
             result_io.read_result(str(outs["parquet"] / q)),

@@ -22,6 +22,8 @@ against the JAX package's (``nds_tpu/engine/scheduler.py``), on the CPU.
   pipeline's ``MultihostChannel`` on a world of three gloo ranks.
 """
 
+import tests.torch_threads  # noqa: F401  (first: sizes torch's threads)
+
 import json
 import os
 import pathlib

@@ -13,6 +13,8 @@ mask, and the smoke's K3 yardstick (``torch.isin``) and data shares. The CUDA ke
 the plain versions on the card by ``chip_smoke.py``.
 """
 
+import tests.torch_threads  # noqa: F401  (first: sizes torch's threads)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

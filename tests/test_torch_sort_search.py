@@ -21,6 +21,8 @@ blocks to the reference ``DeviceExecutor``'s. The CUDA kernels are held
 to the plain versions on the card by ``chip_smoke.py``.
 """
 
+import tests.torch_threads  # noqa: F401  (first: sizes torch's threads)
+
 import zlib
 
 import jax.numpy as jnp

@@ -14,6 +14,8 @@ and the sort given the counts to the sort without them. The CUDA kernels
 are held to the plain versions on the card by ``chip_smoke.py``.
 """
 
+import tests.torch_threads  # noqa: F401  (first: sizes torch's threads)
+
 import itertools
 import zlib
 

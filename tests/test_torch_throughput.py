@@ -22,11 +22,14 @@
   subprocess): every statement placed ``sharded``, its rows equal to
   ``--backend cpu``'s under ``utils/validate_core.py``'s rules (epsilon
   1e-5).
-- The throughput CLIs refuse the supervisor's flags.
+- The throughput CLIs refuse the supervisor's flags with
+  ``--in_process``.
 
 Stream subprocesses run with ``OMP_NUM_THREADS=1``: two torch processes
 each taking every core slow each other down several times over.
 """
+
+import tests.torch_threads  # noqa: F401  (first: sizes torch's threads)
 
 import json
 import math
@@ -55,6 +58,7 @@ from nds_tpu_torch.nds_h import validate as h_validate
 from nds_tpu_torch.nds_h.schema import get_schemas
 from nds_tpu_torch.utils import power_core
 from nds_tpu_torch.utils.config import EngineConfig
+from nds_tpu_torch.utils.report import is_report_basename
 from nds_tpu_torch.utils.timelog import TimeLog
 
 from tests.test_torch_plan_graphs import StandInGraph
@@ -260,6 +264,8 @@ def _statements(run: dict, name: str) -> dict:
                 for q, e in entries.items()}
     out = {}
     for f in os.listdir(d / f"{name}_json"):
+        if not is_report_basename(f):
+            continue  # the stream's query journal
         s = json.load(open(d / f"{name}_json" / f))
         out[s["query"]] = (s["queryStatus"][-1], s.get("placement"),
                            s.get("reschedules"))
@@ -354,6 +360,8 @@ def test_power_cli_with_the_distributed_backend_on_one_gloo_rank(
     assert out.count("-> MATCH ===") == 22, out
     placed = set()
     for f in os.listdir(jsons):
+        if not is_report_basename(f):
+            continue  # the run's query journal
         assert "-cpu-distributed-" in f, f
         s = json.load(open(jsons / f))
         assert s["queryStatus"] == ["Completed"], f
@@ -366,7 +374,9 @@ def test_power_cli_with_the_distributed_backend_on_one_gloo_rank(
 @pytest.mark.parametrize("cli", [throughput, h_throughput],
                          ids=["nds", "nds_h"])
 def test_the_supervisor_flags_are_refused(cli, flag, capsys):
+    """The supervisor's flags supervise subprocess streams: beside
+    ``--in_process`` (one process) the CLIs refuse them."""
     with pytest.raises(SystemExit) as done:
-        cli.main(["wh", "s.sql", flag, "5"])
+        cli.main(["wh", "s.sql", "--in_process", flag, "5"])
     assert done.value.code == 2
-    assert "ROADMAP Queue 1 item 15" in capsys.readouterr().err
+    assert "nothing to supervise" in capsys.readouterr().err

@@ -26,6 +26,8 @@ SF0.01 (about 2 million rows of ``customer_demographics``, ``date_dim``,
 two formats; ``store_sales`` and ``web_sales`` keep their partitions in.
 """
 
+import tests.torch_threads  # noqa: F401  (first: sizes torch's threads)
+
 import os
 import re
 

@@ -14,6 +14,8 @@ CUDA kernel itself is held to the plain version on the card by
 ``chip_smoke.py``.
 """
 
+import tests.torch_threads  # noqa: F401  (first: sizes torch's threads)
+
 import re
 
 import jax.numpy as jnp
